@@ -1,0 +1,137 @@
+"""Cubemap sampling (skybox, IBL prefiltered/irradiance) on channel planes.
+
+Port of awsm_renderer_tpu/ops/cubemap.py. Faces follow the WebGPU/GL
+order +X,-X,+Y,-Y,+Z,-Z; bilinear filtering with edge clamp. Each packed
+texel row carries its edge-clamped right/down/diagonal neighbours (16
+channels), so one bilinear tap is one row. For an image environment the
+renderer appends the [skybox | irradiance | prefiltered] rows to the bf16
+texel pool at ``env_base``, and every tap of a pass goes through one K6
+gather (ops/relayout.py gather_split_channels).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from .relayout import gather_split_channels
+
+
+def pack_cubemap(faces: np.ndarray) -> np.ndarray:
+    """(..., 6, S, S, 4) f32 -> (..., 6*S*S, 16) quad-packed, clamp wrap
+    (host side, at scene flush)."""
+    from ..core.textures import WRAP_CLAMP, _pack_quads
+
+    faces = np.asarray(faces, dtype=np.float32)
+    lead = faces.shape[:-4]
+    S = faces.shape[-2]
+    flat_faces = faces.reshape(-1, S, S, 4)
+    packed = np.stack([_pack_quads(f, WRAP_CLAMP, WRAP_CLAMP)
+                       for f in flat_faces])
+    return packed.reshape(*lead, 6 * S * S, 16)
+
+
+def cubemap_face_uv_c(d3):
+    """(x, y, z) (P,) -> (face (P,) int32, u (P,), v (P,))."""
+    x, y, z = d3
+    ax, ay, az = torch.abs(x), torch.abs(y), torch.abs(z)
+    is_x = (ax >= ay) & (ax >= az)
+    is_y = (~is_x) & (ay >= az)
+    i32 = torch.int32
+
+    def pick(c, a, b):
+        return torch.where(c, torch.tensor(a, dtype=i32, device=x.device),
+                           torch.tensor(b, dtype=i32, device=x.device))
+
+    face = torch.where(is_x, pick(x > 0, 0, 1),
+                       torch.where(is_y, pick(y > 0, 2, 3), pick(z > 0, 4, 5)))
+    ma = torch.where(is_x, ax, torch.where(is_y, ay, az))
+    ma = torch.clamp(ma, min=1e-12)
+    sc = torch.where(is_x, torch.where(x > 0, -z, z),
+                     torch.where(is_y, x, torch.where(z > 0, x, -x)))
+    tc = torch.where(is_y, torch.where(y > 0, z, -z), -y)
+    u = (sc / ma + 1.0) * 0.5
+    v = (tc / ma + 1.0) * 0.5
+    return face, u, v
+
+
+def _bilinear_setup_c(d3, S: int):
+    """Flat base index within one cubemap + (P,) fractional weights."""
+    face, u, v = cubemap_face_uv_c(d3)
+    x = torch.clamp(u * S - 0.5, 0.0, S - 1.0)
+    y = torch.clamp(v * S - 0.5, 0.0, S - 1.0)
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    idx = face * (S * S) + y0.to(torch.int32) * S + x0.to(torch.int32)
+    return idx, x - x0, y - y0
+
+
+def _blend_quads_c(cols, fx, fy):
+    """16 (P,) texel columns + (P,) weights -> [r, g, b, a]."""
+    w00 = (1 - fx) * (1 - fy)
+    w10 = fx * (1 - fy)
+    w01 = (1 - fx) * fy
+    w11 = fx * fy
+    return [cols[c] * w00 + cols[4 + c] * w10 + cols[8 + c] * w01
+            + cols[12 + c] * w11 for c in range(4)]
+
+
+def sample_env_batch_c(sky_rows: int, irr_rows: int, pref_shape,
+                       irr_dirs, pref_reqs, sky_dirs, texq: torch.Tensor,
+                       env_base: int):
+    """All of a pass's environment taps through ONE K6 gather from the
+    texel pool.
+
+    sky_rows / irr_rows: 6*S*S row counts of the packed skybox and
+    irradiance maps; pref_shape: (n_levels, rows per level) of the
+    prefiltered map; irr_dirs: (x, y, z) planes; pref_reqs: list of
+    (direction triple, roughness (P,)); sky_dirs: view-ray triple for the
+    miss-path skybox colour, or None; texq: (N, 64) bf16 texel pool with
+    the env rows appended at env_base. Returns (irr [r,g,b,a],
+    [pref_i ...], sky or None) as channel lists."""
+    A, B = sky_rows, irr_rows
+    n, C = pref_shape
+    S_sky = math.isqrt(A // 6)
+    S_irr = math.isqrt(B // 6)
+    S_pref = math.isqrt(C // 6)
+
+    parts = []      # index arrays
+    plans = []      # per output: (kind, part0, fx, fy, part1, frac)
+    idx, fx, fy = _bilinear_setup_c(irr_dirs, S_irr)
+    plans.append(("irr", len(parts), fx, fy, None, None))
+    parts.append(env_base + idx + A)
+    if sky_dirs is not None:
+        idx, fx, fy = _bilinear_setup_c(sky_dirs, S_sky)
+        plans.append(("sky", len(parts), fx, fy, None, None))
+        parts.append(env_base + idx)
+    for dirs, roughness in pref_reqs:
+        level = torch.clamp(roughness, 0.0, 1.0) * (n - 1)
+        l0 = torch.floor(level).to(torch.int32)
+        l1 = torch.clamp(l0 + 1, max=n - 1)
+        frac = level - l0.float()
+        idx, fx, fy = _bilinear_setup_c(dirs, S_pref)
+        plans.append(("pref", len(parts), fx, fy, len(parts) + 1, frac))
+        parts.append(env_base + A + B + l0 * C + idx)
+        parts.append(env_base + A + B + l1 * C + idx)
+
+    P = irr_dirs[0].shape[0]
+    cols_all = gather_split_channels(texq, torch.cat(parts).to(torch.int32),
+                                     16)
+
+    def cols(i):
+        return cols_all[:, i * P:(i + 1) * P]
+
+    irr_out, sky_out, pref_outs = None, None, []
+    for kind, p0, fx, fy, p1, frac in plans:
+        s0 = _blend_quads_c(cols(p0), fx, fy)
+        if kind == "pref":
+            s1 = _blend_quads_c(cols(p1), fx, fy)
+            pref_outs.append([a * (1 - frac) + b * frac
+                              for a, b in zip(s0, s1)])
+        elif kind == "sky":
+            sky_out = s0
+        else:
+            irr_out = s0
+    return irr_out, pref_outs, sky_out

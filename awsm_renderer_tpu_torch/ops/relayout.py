@@ -1,0 +1,74 @@
+"""Gather-and-split kernels of the opaque shade: K3 (material fetch) and
+K6 (environment taps).
+
+Port of the two awsm_renderer_tpu/ops/relayout.py kernels the slice runs.
+On the TPU these exist to give every channel its own rank-1 array (a
+layout concern there); on the card they are plain gathers written by hand
+(csrc/relayout.cu) that emit channel-major (C, N) f32 planes. Each has a
+public plain twin (*_reference) for any device; a CPU tensor takes the
+twin, a CUDA tensor the kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import kernels
+
+
+def onehot_split_rows_reference(rows: torch.Tensor,
+                                table: torch.Tensor) -> torch.Tensor:
+    """table[rows] as (C, P) f32; rows outside [0, cap) give zeros."""
+    cap = table.shape[0]
+    ok = (rows >= 0) & (rows < cap)
+    g = table.float().index_select(0, rows.clamp(0, cap - 1).long())
+    return torch.where(ok[:, None], g, torch.zeros((), device=g.device)).T
+
+
+def onehot_split_rows(rows: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """K3: rows (P,) int32, table (cap, C) f32 -> (C, P) f32 planes, zero
+    where a row is outside [0, cap) (the reference's one-hot matmul)."""
+    if rows.device.type == "cpu":
+        return onehot_split_rows_reference(rows, table)
+    if rows.dtype != torch.int32 or rows.dim() != 1:
+        raise ValueError("rows must be (P,) int32")
+    if table.dtype != torch.float32 or table.dim() != 2:
+        raise ValueError("table must be (cap, C) f32")
+    kernels.check_cuda(rows, table)
+    cap, C = table.shape
+    P = rows.shape[0]
+    out = torch.empty((C, P), dtype=torch.float32, device=rows.device)
+    kernels.launch("onehot_split_rows", "awsm_onehot_split_rows",
+                   rows.data_ptr(), table.data_ptr(), cap, C, P,
+                   out.data_ptr())
+    return out
+
+
+def gather_split_channels_reference(texels: torch.Tensor, idx: torch.Tensor,
+                                    ncols: int = 16) -> torch.Tensor:
+    """texels[clip(idx)][:, :ncols] widened to f32, as (ncols, M) planes."""
+    safe = idx.clamp(0, texels.shape[0] - 1).long()
+    return texels.index_select(0, safe)[:, :ncols].float().T.contiguous()
+
+
+def gather_split_channels(texels: torch.Tensor, idx: torch.Tensor,
+                          ncols: int = 16) -> torch.Tensor:
+    """K6: texels (N, R) bf16 rows, idx (M,) int32 -> (ncols, M) f32 planes
+    of texels[clip(idx, 0, N-1), :ncols] — the reference's env-tap gather
+    followed by split_channels, in one pass."""
+    if texels.device.type == "cpu":
+        return gather_split_channels_reference(texels, idx, ncols)
+    if texels.dtype != torch.bfloat16 or texels.dim() != 2:
+        raise ValueError("texels must be (N, R) bf16")
+    if idx.dtype != torch.int32 or idx.dim() != 1:
+        raise ValueError("idx must be (M,) int32")
+    N, R = texels.shape
+    if not 0 < ncols <= R:
+        raise ValueError(f"ncols {ncols} outside (0, {R}]")
+    kernels.check_cuda(texels, idx)
+    M = idx.shape[0]
+    out = torch.empty((ncols, M), dtype=torch.float32, device=idx.device)
+    kernels.launch("gather_split_channels", "awsm_gather_split_channels",
+                   texels.data_ptr(), N, R, idx.data_ptr(), M, ncols,
+                   out.data_ptr())
+    return out

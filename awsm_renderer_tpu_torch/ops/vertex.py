@@ -1,0 +1,269 @@
+"""Vertex stage: world -> clip -> near-plane clip -> plane-equation setup.
+
+Port of awsm_renderer_tpu/ops/vertex.py for static geometry (no morph
+targets, no skins): per-triangle mesh/transform fetches, corner transform,
+2-slot near-plane clipping and the v4 plane-equation setup rows. All math
+runs on flat (T,) component tensors; the camera matrix enters as Python
+floats (a uniform), the per-mesh tables through index_select.
+
+Output: row-major (T, NSETUP) f32 setup — (2T, NSETUP) with clipping,
+where row t is triangle t's primary piece and row T+t its secondary clip
+piece. Row j carries S_ORIG_ID == j, the invariant the resolve relies on.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.meshes import (
+    MESH_FLAG_DOUBLE_SIDED, MI_FLAGS, MI_MATERIAL_ROW, MI_TRANSFORM_ROW,
+)
+
+# ---- setup row indices (row-major (T, NSETUP)) — see the JAX module's
+# comment for the plane-equation layout and its watertightness argument
+S_E0A, S_E0B, S_E0C = 0, 1, 2
+S_E1A, S_E1B, S_E1C = 3, 4, 5
+S_E2A, S_E2B, S_E2C = 6, 7, 8
+S_ZA, S_ZB, S_ZC = 9, 10, 11
+S_IW0, S_IW1, S_IW2 = 12, 13, 14
+S_BB_MINX, S_BB_MINY, S_BB_MAXX, S_BB_MAXY = 15, 16, 17, 18
+S_MAT_ROW = 19
+S_TANGENT_W = 20
+S_UV0 = 21
+S_UV1 = 27
+S_COLOR = 33
+S_NORMAL = 45
+S_TANGENT = 54
+S_ORIG_ID = 63
+NSETUP = 64
+
+# per-corner attribute channels: uv0.uv, uv1.uv, color.rgba, normal.xyz,
+# tangent.xyz, tangent.w
+NA = 15
+
+_Z_EPS = 1e-6
+_BIG = 3.0e38
+
+
+def onehot_gather(rows: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """table[rows] with zero rows where `rows` is outside [0, cap) — what
+    the reference's one-hot matmul returns. rows (N,) int, table (cap, K)."""
+    cap = table.shape[0]
+    ok = (rows >= 0) & (rows < cap)
+    g = table.index_select(0, rows.clamp(0, cap - 1).long())
+    return torch.where(ok[:, None], g, torch.zeros((), dtype=g.dtype,
+                                                   device=g.device))
+
+
+def _corner_comps(arr, C):
+    """(3C, T) component-major array -> [corner][component] lists of (T,)."""
+    return [[arr[c * C + k] for k in range(C)] for c in range(3)]
+
+
+def _mat4_point(m, p):
+    """(T, 16) row-major matrices times points (x, y, z, 1)."""
+    x, y, z = p
+    return [m[:, 4 * j] * x + m[:, 4 * j + 1] * y + m[:, 4 * j + 2] * z
+            + m[:, 4 * j + 3] for j in range(4)]
+
+
+def _mat3_vec(m, v):
+    """(T, 9) row-major 3x3 matrices times vectors (x, y, z)."""
+    x, y, z = v
+    return [m[:, 3 * j] * x + m[:, 3 * j + 1] * y + m[:, 3 * j + 2] * z
+            for j in range(3)]
+
+
+def _const_mat4(vp, p):
+    """Constant 4x4 matrix (nested Python floats) times [x, y, z, w]."""
+    return [vp[j][0] * p[0] + vp[j][1] * p[1] + vp[j][2] * p[2]
+            + vp[j][3] * p[3] for j in range(4)]
+
+
+def finish_setup(corners, attrs, act, mat_row, flags, width: int,
+                 height: int, id_offset: int = 0) -> torch.Tensor:
+    """Screen-map one output triangle set -> (T, NSETUP) setup rows.
+
+    corners: [c][x,y,z,w] clip-space (T,); attrs: [c][ch] of NA (T,)
+    channels; act: (T,) bool; flags: (T,) int mesh flags."""
+    double_sided = (flags & MESH_FLAG_DOUBLE_SIDED) != 0
+    w = [corners[c][3] for c in range(3)]
+    iw = [1.0 / torch.where(torch.abs(wc) > 1e-20, wc,
+                            torch.full_like(wc, 1e-20)) for wc in w]
+    sx = [(corners[c][0] * iw[c] * 0.5 + 0.5) * width for c in range(3)]
+    sy = [(0.5 - corners[c][1] * iw[c] * 0.5) * height for c in range(3)]
+    z = [corners[c][2] * iw[c] for c in range(3)]
+
+    # front faces are CW in y-down screen space (negative area): swap
+    # corners 1<->2 so the rasterizer always sees positive orientation
+    area2 = ((sx[1] - sx[0]) * (sy[2] - sy[0])
+             - (sx[2] - sx[0]) * (sy[1] - sy[0]))
+    front = area2 < 0.0
+    keep = (front | double_sided) & act & (torch.abs(area2) > 1e-12)
+
+    def swp(a1, a2):
+        return torch.where(front, a2, a1), torch.where(front, a1, a2)
+
+    sx[1], sx[2] = swp(sx[1], sx[2])
+    sy[1], sy[2] = swp(sy[1], sy[2])
+    z[1], z[2] = swp(z[1], z[2])
+    iw[1], iw[2] = swp(iw[1], iw[2])
+    a1, a2 = [], []
+    for ch in range(NA):
+        v1, v2 = swp(attrs[1][ch], attrs[2][ch])
+        a1.append(v1)
+        a2.append(v2)
+    attrs = [attrs[0], a1, a2]
+
+    W, H = float(width), float(height)
+
+    def lo3(a):
+        return torch.minimum(torch.minimum(a[0], a[1]), a[2])
+
+    def hi3(a):
+        return torch.maximum(torch.maximum(a[0], a[1]), a[2])
+
+    bb_minx = torch.clamp(lo3(sx), 0.0, W)
+    bb_maxx = torch.clamp(hi3(sx), 0.0, W)
+    bb_miny = torch.clamp(lo3(sy), 0.0, H)
+    bb_maxy = torch.clamp(hi3(sy), 0.0, H)
+    on_screen = (bb_maxx > bb_minx) & (bb_maxy > bb_miny)
+    zmin = lo3(z)
+    zmax = hi3(z)
+    w_ok = (w[0] > 0.0) & (w[1] > 0.0) & (w[2] > 0.0)
+    valid = keep & on_screen & w_ok & (zmax >= 0.0) & (zmin <= 1.0)
+    big = torch.full_like(bb_minx, _BIG)
+    bb_minx = torch.where(valid, bb_minx, big)
+    bb_miny = torch.where(valid, bb_miny, big)
+    bb_maxx = torch.where(valid, bb_maxx, -big)
+    bb_maxy = torch.where(valid, bb_maxy, -big)
+
+    T = area2.shape[0]
+    orig_id = (torch.arange(T, dtype=torch.float32, device=area2.device)
+               + float(id_offset))
+
+    # edge i is opposite corner i; A, B exact-negation-symmetric with the
+    # neighbour sharing the edge, C anchored at the edge's canonical
+    # endpoint (smaller (y, x)) so it negates exactly too
+    ea = [sy[1] - sy[2], sy[2] - sy[0], sy[0] - sy[1]]
+    eb = [sx[2] - sx[1], sx[0] - sx[2], sx[1] - sx[0]]
+
+    def _edge_c(k, i, j):
+        lt = (sy[i] < sy[j]) | ((sy[i] == sy[j]) & (sx[i] <= sx[j]))
+        ax = torch.where(lt, sx[i], sx[j])
+        ay = torch.where(lt, sy[i], sy[j])
+        return -(ea[k] * ax + eb[k] * ay)
+
+    ec = [_edge_c(0, 1, 2), _edge_c(1, 2, 0), _edge_c(2, 0, 1)]
+    ec[0] = torch.where(valid, ec[0], -big)      # invalid -> never covers
+
+    # affine NDC z-plane: z(px, py) = ZA*px + ZB*py + ZC
+    area_pos = torch.where(front, -area2, area2)
+    inv_area = 1.0 / torch.where(torch.abs(area_pos) > 1e-30, area_pos,
+                                 torch.ones_like(area_pos))
+    za = (z[0] * ea[0] + z[1] * ea[1] + z[2] * ea[2]) * inv_area
+    zb = (z[0] * eb[0] + z[1] * eb[1] + z[2] * eb[2]) * inv_area
+    zc = (z[0] * ec[0] + z[1] * ec[1] + z[2] * ec[2]) * inv_area
+
+    rows = [ea[0], eb[0], ec[0], ea[1], eb[1], ec[1], ea[2], eb[2], ec[2],
+            za, zb, zc, iw[0], iw[1], iw[2],
+            bb_minx, bb_miny, bb_maxx, bb_maxy,
+            mat_row, attrs[0][14]]
+    for ch in range(14):
+        rows += [attrs[0][ch], attrs[1][ch], attrs[2][ch]]
+    rows.append(orig_id)
+    return torch.stack(rows, dim=-1)                       # (T, NSETUP)
+
+
+def vertex_stage(c_pos, c_norm, c_tang, c_uv0, c_uv1, c_color, tri_mesh,
+                 mesh_info, world, normal_mat, view_proj, mesh_mask, *,
+                 width: int, height: int,
+                 needs_clip: bool = True) -> torch.Tensor:
+    """Static-geometry vertex stage -> (2T or T, NSETUP) setup rows.
+
+    c_*: (3C, T) component-major corner pools; tri_mesh (T,) mesh row
+    (-1 = dead); mesh_info (M, K) int; world (TC, 4, 4); normal_mat
+    (TC, 3, 3); view_proj: 4x4 host matrix; mesh_mask (M,) bool — this
+    pass's meshes. needs_clip=False when the host proved every visible
+    AABB lies in front of the near plane (no secondary rows)."""
+    T = tri_mesh.shape[0]
+    mesh = tri_mesh.clamp(0, mesh_info.shape[0] - 1)
+    minfo = onehot_gather(mesh, torch.cat(
+        [mesh_info.float(), mesh_mask.float()[:, None]], dim=1))
+    tf_row = minfo[:, MI_TRANSFORM_ROW].int()
+    mat_row = minfo[:, MI_MATERIAL_ROW]
+    flags = minfo[:, MI_FLAGS].int()
+    active = (minfo[:, -1] > 0.5) & (tri_mesh >= 0)
+
+    pos = _corner_comps(c_pos, 3)
+    nrm = _corner_comps(c_norm, 3)
+    tan = _corner_comps(c_tang, 4)
+    uv0 = _corner_comps(c_uv0, 2)
+    uv1 = _corner_comps(c_uv1, 2)
+    vcol = _corner_comps(c_color, 4)
+
+    model = onehot_gather(tf_row, world.reshape(-1, 16))          # (T, 16)
+    nmat = onehot_gather(tf_row, normal_mat.reshape(-1, 9))       # (T, 9)
+    m3 = torch.cat([model[:, 0:3], model[:, 4:7], model[:, 8:11]], dim=1)
+    vp = [[float(v) for v in row] for row in view_proj]
+
+    clip_c, attrs = [], []
+    for c in range(3):
+        clip_c.append(_const_mat4(vp, _mat4_point(model, pos[c])))
+        wn = _mat3_vec(nmat, nrm[c])
+        wt = _mat3_vec(m3, tan[c][:3])
+        attrs.append([uv0[c][0], uv0[c][1], uv1[c][0], uv1[c][1],
+                      vcol[c][0], vcol[c][1], vcol[c][2], vcol[c][3],
+                      wn[0], wn[1], wn[2], wt[0], wt[1], wt[2], tan[c][3]])
+
+    if not needs_clip:
+        return finish_setup(clip_c, attrs, active, mat_row, flags,
+                            width, height)
+
+    # ---- near-plane clipping (z_clip >= eps; [0,1] depth convention) -----
+    inside = [clip_c[c][2] > _Z_EPS for c in range(3)]
+    n_in = inside[0].int() + inside[1].int() + inside[2].int()
+    first_in = torch.where(inside[0], 0, torch.where(inside[1], 1, 2))
+    first_out = torch.where(~inside[0], 0, torch.where(~inside[1], 1, 2))
+    rot = torch.where(n_in == 1, first_in,
+                      torch.where(n_in == 2, first_out + 1, 0)) % 3
+
+    def rotate3(per_corner):
+        cond1 = rot == 1
+        cond2 = rot == 2
+        return [[torch.where(cond2, per_corner[(c + 2) % 3][k],
+                             torch.where(cond1, per_corner[(c + 1) % 3][k],
+                                         per_corner[c][k]))
+                 for k in range(len(per_corner[0]))] for c in range(3)]
+
+    a, b, c_ = rotate3(clip_c)
+    aa_, ab_, ac_ = rotate3(attrs)
+
+    def lerp_at(p, q, ap, aq, zp, zq):
+        dz = zq - zp
+        t = torch.clamp((_Z_EPS - zp) / torch.where(
+            torch.abs(dz) > 1e-20, dz, torch.ones_like(dz)), 0.0, 1.0)
+        pi = [pp + t * (qq - pp) for pp, qq in zip(p, q)]
+        ai = [pp + t * (qq - pp) for pp, qq in zip(ap, aq)]
+        return pi, ai
+
+    i_ab, t_ab = lerp_at(a, b, aa_, ab_, a[2], b[2])
+    i_ac, t_ac = lerp_at(a, c_, aa_, ac_, a[2], c_[2])
+    i_bc, t_bc = lerp_at(b, c_, ab_, ac_, b[2], c_[2])
+
+    one_in = n_in == 1
+    two_in = n_in == 2
+
+    def sel(cond, xs, ys):
+        return [torch.where(cond, x, y) for x, y in zip(xs, ys)]
+
+    p1 = sel(one_in, i_ab, b)
+    pa1 = sel(one_in, t_ab, ab_)
+    p2 = sel(one_in, i_ac, sel(two_in, i_bc, c_))
+    pa2 = sel(one_in, t_ac, sel(two_in, t_bc, ac_))
+    rows_p = finish_setup([a, p1, p2], [aa_, pa1, pa2], active & (n_in > 0),
+                          mat_row, flags, width, height)
+    rows_s = finish_setup([a, i_bc, i_ac], [aa_, t_bc, t_ac],
+                          active & two_in, mat_row, flags, width, height,
+                          id_offset=T)
+    return torch.cat([rows_p, rows_s], dim=0)               # (2T, NSETUP)

@@ -1,0 +1,430 @@
+"""AwsmRendererTorch — the port's renderer facade.
+
+Port of awsm_renderer_tpu/renderer.py (AwsmRendererTpu) for the slice
+ported so far: opaque, untextured glTF PBR / unlit materials under a
+solid or image environment, at most 8 punctual lights, no AA, no effects.
+The key-based stores, the per-frame dirty flush to device tensors and the
+host-side cull + pass bucketing mirror the reference; the frame runs
+eagerly on `device` (passes/frame.py).
+
+Content or configuration outside the slice raises NotImplementedError
+naming its ROADMAP.md milestone instead of rendering it wrongly.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from .config import RendererConfig
+from .core.animation import Animations
+from .core.camera import CameraState
+from .core.environment import Environment
+from .core.frustum import Frustum
+from .core.lights import Lights
+from .core.materials import MI_DEBUG_MASK, Materials
+from .core.meshes import (
+    MESH_FLAG_HIDDEN, MESH_FLAG_HUD, MESH_FLAG_TRANSPARENT, Meshes,
+    MeshGeometry,
+)
+from .core.skins import Skins
+from .core.textures import TEXEL_COLS, Textures, f32_to_bf16_bits
+from .core.transforms import Transform, Transforms
+from .passes.frame import render_frame
+
+MAX_DENSE_LIGHTS = 8
+# component-major corner pools the static vertex stage reads: name -> comps
+_CORNERS = (("c_pos", 3), ("c_norm", 3), ("c_tang", 4), ("c_uv0", 2),
+            ("c_uv1", 2), ("c_color", 4))
+
+
+def _unsupported(what: str, milestone: str):
+    return NotImplementedError(
+        f"{what} is not ported to the PyTorch renderer yet "
+        f"(ROADMAP.md queue 1, {milestone})")
+
+
+def _bf16_tensor(u16: np.ndarray, device) -> torch.Tensor:
+    """uint16 bf16 bit patterns -> torch.bfloat16 tensor on `device`."""
+    t = torch.from_numpy(np.array(u16, dtype=np.uint16).view(np.int16))
+    return t.view(torch.bfloat16).to(device)
+
+
+class AwsmRendererTorch:
+    def __init__(self, config: Optional[RendererConfig] = None,
+                 device="cuda"):
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("device='cuda' but no CUDA device is visible")
+        self.device = device
+        self.config = config or RendererConfig()
+        self.transforms = Transforms()
+        self.meshes = Meshes()
+        self.materials = Materials()
+        self.lights = Lights()
+        self.textures = Textures()
+        self.skins = Skins()
+        self.animations = Animations()
+        self.camera = CameraState()
+        self.environment = Environment()
+        self._device: Dict[str, object] = {}
+        self._env_rows64 = None        # image-env quad rows appended to texels
+        self._prep = None              # (scene signature, (masks, mask))
+        self._last_tri_id = None       # device plane kept for picking
+        self._mesh_row_to_key: Dict[int, int] = {}
+        self._tri_mesh_device_order = None
+        self.last_bins = None          # raster bins of the last frame
+
+    # ---- content helpers (host stores, as the reference) -----------------
+
+    def add_mesh(self, geometry: MeshGeometry, material_key: int,
+                 transform: Optional[Transform] = None,
+                 parent: Optional[int] = None,
+                 transform_key: Optional[int] = None, *, hud: bool = False,
+                 hidden: bool = False, skin_key: Optional[int] = None,
+                 initial_morph_weights=None) -> int:
+        """Insert geometry + mesh record; routes transparency from the
+        material (reference: renderer.py add_mesh)."""
+        if transform_key is None:
+            transform_key = self.transforms.insert(transform, parent)
+            self.transforms.update_world()
+        mat = self.materials.get(material_key)
+        skin_rows = (self.skins.joint_rows(skin_key)
+                     if skin_key is not None else None)
+        key = self.meshes.insert_geometry(
+            geometry,
+            self.transforms.row_of(transform_key),
+            self.materials.row_of(material_key),
+            transform_key,
+            material_key,
+            double_sided=getattr(mat, "double_sided", False),
+            transparent=self.materials.is_transparency_pass(material_key),
+            hud=hud,
+            hidden=hidden,
+            skin_key=skin_key,
+            skin_joint_rows=skin_rows,
+            initial_morph_weights=initial_morph_weights,
+        )
+        self.meshes.update_world(self.transforms, {transform_key})
+        return key
+
+    def add_instanced_mesh(self, geometry: MeshGeometry, material_key: int,
+                           transforms) -> list:
+        """Insert one geometry resource under many transforms (host store
+        only: rendering instanced groups is milestone M2b)."""
+        rk = self.meshes.insert_resource(geometry)
+        mat = self.materials.get(material_key)
+        tks = [self.transforms.insert(tr) for tr in transforms]
+        self.transforms.update_world()
+        keys = self.meshes.insert_instanced(
+            rk, [(self.transforms.row_of(t), t) for t in tks],
+            self.materials.row_of(material_key), material_key,
+            double_sided=getattr(mat, "double_sided", False),
+            transparent=self.materials.is_transparency_pass(material_key))
+        self.meshes.update_world(self.transforms)
+        return keys
+
+    def remove_all(self) -> None:
+        self.__init__(self.config, self.device)
+
+    def update_all(self, dt: float, view=None, projection=None) -> None:
+        self.animations.update(dt, self.transforms, self.meshes)
+        changed = self.transforms.update_world()
+        if changed:
+            self.meshes.update_world(self.transforms, changed)
+            self.skins.update_transforms(self.transforms, changed)
+        if view is not None and projection is not None:
+            self.camera.update(view, projection)
+
+    # ---- device flush (reference: renderer.py _flush) --------------------
+
+    def _tensor(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+
+    def _flush(self) -> Dict[str, object]:
+        d = self._device
+        self.skins.flush_pending(self.transforms)
+        t = self.transforms
+        if t.gpu_dirty:
+            d["world"] = self._tensor(t.world)
+            d["normal_mat"] = self._tensor(t.normal)
+            t.gpu_dirty = False
+
+        m = self.meshes
+        if m.gpu_dirty:
+            def _slice_cm(name, c, rows):
+                """(cnt,) host rows -> component-major (3c, cnt) block."""
+                arr = getattr(m, name)
+                return (arr.reshape(-1, 3, c)[rows].transpose(1, 2, 0)
+                        .reshape(3 * c, rows.size))
+
+            plan = m.device_updates()
+            if plan[0] == "full":
+                _, idx, dead = plan
+                for name, c in _CORNERS:
+                    d[name] = self._tensor(_slice_cm(name, c, idx))
+                tri_mesh_c = m.tri_mesh[idx].copy()
+                tri_mesh_c[dead] = -1
+                self._tri_mesh_device_order = tri_mesh_c
+                d["tri_mesh"] = self._tensor(tri_mesh_c)
+            else:
+                # dirty-range updates in place (buffer/helpers.rs semantics)
+                for s, rows, dead in plan[1]:
+                    if rows is None:       # tombstone: mask the stale rows
+                        self._tri_mesh_device_order[s:s + dead] = -1
+                        d["tri_mesh"][s:s + dead] = -1
+                        continue
+                    for name, c in _CORNERS:
+                        d[name][:, s:s + rows.size] = self._tensor(
+                            _slice_cm(name, c, rows))
+                    tri_mesh_c = m.tri_mesh[rows].copy()
+                    tri_mesh_c[dead] = -1
+                    self._tri_mesh_device_order[s:s + rows.size] = tri_mesh_c
+                    d["tri_mesh"][s:s + rows.size] = self._tensor(tri_mesh_c)
+            d["mesh_info"] = self._tensor(m.mesh_info)
+            m.gpu_dirty = False
+            self._mesh_row_to_key = {row: key
+                                     for key, row in m._mesh_alloc.items()}
+
+        mats = self.materials
+        if mats.gpu_dirty:
+            d["mat_float"] = self._tensor(mats.float_data)
+            d["mat_tex"] = self._tensor(mats.tex_slots)
+            d["mat_flags"] = self._tensor(mats.flags)
+            mats.gpu_dirty = False
+
+        if self.lights.gpu_dirty or "lights" not in d:
+            cap = max(8, 1 << (max(self.lights.count, 1) - 1).bit_length())
+            packed = self.lights.packed(cap)
+            d["lights"] = self._tensor(packed)
+            d["lights_host"] = packed        # uniforms: read as Python floats
+            d["n_lights"] = self.lights.count
+            self.lights.gpu_dirty = False
+
+        tx = self.textures
+        e = self.environment
+        if tx.gpu_dirty or e.gpu_dirty or "texels" not in d:
+            if e.gpu_dirty or "skybox" not in d:
+                from .ops.cubemap import pack_cubemap
+
+                # host copies: a solid env shades from their constants, an
+                # image env only needs their row counts (its taps read the
+                # same rows appended to the texel pool below)
+                d["skybox"] = pack_cubemap(e.skybox)
+                d["irradiance"] = pack_cubemap(e.irradiance)
+                d["prefiltered"] = pack_cubemap(e.prefiltered)
+                if e.is_solid:
+                    self._env_rows64 = None
+                else:
+                    env16 = np.concatenate(
+                        [d["skybox"], d["irradiance"],
+                         d["prefiltered"].reshape(-1, 16)], axis=0)
+                    blk = np.zeros((env16.shape[0], TEXEL_COLS), np.uint16)
+                    blk[:, :16] = f32_to_bf16_bits(env16)
+                    self._env_rows64 = blk
+                e.gpu_dirty = False
+            if tx.gpu_dirty:
+                d["tex_desc"] = self._tensor(tx.descriptors)
+                d["tex_transforms"] = self._tensor(tx.tex_transforms)
+                tx.gpu_dirty = False
+            if self._env_rows64 is None:
+                d.pop("env_pool_base", None)
+                d["texels"] = _bf16_tensor(tx.texels_packed, self.device)
+            else:
+                d["env_pool_base"] = int(tx.texels_packed.shape[0])
+                d["texels"] = _bf16_tensor(np.concatenate(
+                    [tx.texels_packed, self._env_rows64], axis=0),
+                    self.device)
+
+        if self.camera.gpu_dirty or "camera" not in d:
+            # the camera is a uniform: kept on the host, read as floats
+            d["camera"] = self.camera.packed(
+                viewport=(self.config.width, self.config.height))
+            self.camera.gpu_dirty = False
+        return d
+
+    # ---- pass bucketing (reference: renderer.py _mesh_masks) -------------
+
+    def _mesh_masks(self) -> Dict[str, np.ndarray]:
+        """Frustum cull + pass bucketing over the cached world bounds."""
+        cap = self.meshes.mesh_capacity
+        opaque = np.zeros(cap, dtype=bool)
+        transparent = np.zeros(cap, dtype=bool)
+        hud = np.zeros(cap, dtype=bool)
+        needs_clip = False
+        mins, maxs, keys = self.meshes.world_bounds()
+        if keys:
+            rows = self.meshes.world_rows()
+            info = self.meshes.mesh_info
+            frustum = Frustum(self.camera.view_projection)
+            visible = frustum.intersects_aabbs(mins, maxs)
+            in_front = frustum.fully_in_front_of_near(mins, maxs)
+            needs_clip = bool((~in_front).any())
+            finite = (np.isfinite(mins).all(axis=1)
+                      & np.isfinite(maxs).all(axis=1))
+            mat_ok = ((info[rows, 1] >= 0)
+                      & (info[rows, 1] < max(self.materials.capacity, 1)))
+            tf_ok = ((info[rows, 0] >= 0)
+                     & (info[rows, 0] < max(self.transforms.capacity, 1)))
+            ok = finite & mat_ok & tf_ok
+            if not ok.all():
+                import warnings
+
+                for i in np.nonzero(~ok)[0]:
+                    warnings.warn(f"skipping mesh {keys[i]}: bad bounds or "
+                                  f"store row (frame continues without it)",
+                                  RuntimeWarning, stacklevel=3)
+            flags = info[rows, 2]
+            hidden = (flags & MESH_FLAG_HIDDEN) != 0
+            hud_f = (flags & MESH_FLAG_HUD) != 0
+            transp = (flags & MESH_FLAG_TRANSPARENT) != 0
+            live = ok & ~hidden
+            hud[rows[live & hud_f]] = True
+            vis_live = live & ~hud_f & visible
+            transparent[rows[vis_live & transp]] = True
+            opaque[rows[vis_live & ~transp]] = True
+        return {"opaque": opaque, "transparent": transparent, "hud": hud,
+                "needs_clip": needs_clip}
+
+    def _bucket_mat_rows(self, mesh_mask: np.ndarray) -> np.ndarray:
+        info = self.meshes.mesh_info
+        rows = np.unique(info[mesh_mask[: info.shape[0]], 1])
+        return rows[(rows >= 0) & (rows < max(self.materials.capacity, 1))]
+
+    def _ext_mask(self, mat_rows: np.ndarray) -> tuple:
+        """Which material extensions the bucket's materials use."""
+        from .core import materials as M
+
+        if mat_rows.size == 0:
+            return (False,) * 6
+        f = self.materials.float_data[mat_rows]
+        slots = self.materials.tex_slots[mat_rows][:, :, 0]
+        return (
+            bool((f[:, M.MF_CLEARCOAT] > 0).any()
+                 or (slots[:, M.TS_CLEARCOAT] >= 0).any()),
+            bool((f[:, M.MF_SHEEN_COLOR:M.MF_SHEEN_COLOR + 3] > 0).any()),
+            bool((f[:, M.MF_IRIDESCENCE] > 0).any()),
+            bool((np.abs(f[:, M.MF_ANISOTROPY_STRENGTH]) > 0).any()),
+            bool((f[:, M.MF_TRANSMISSION] > 0).any()
+                 or (slots[:, M.TS_TRANSMISSION] >= 0).any()),
+            bool((f[:, M.MF_THICKNESS] > 0).any()),
+        )
+
+    def _slot_mask(self, mat_rows: np.ndarray) -> tuple:
+        """Which texture slots the bucket's materials bind."""
+        slots = self.materials.tex_slots[:, :, 0]
+        if mat_rows.size == 0:
+            return (False,) * slots.shape[1]
+        return tuple(bool(b) for b in (slots[mat_rows] >= 0).any(axis=0))
+
+    def _check_config(self, cfg: RendererConfig) -> None:
+        aa, pp = cfg.anti_aliasing, cfg.post_processing
+        if aa.msaa or aa.supersample or aa.smaa:
+            raise _unsupported("anti-aliasing (msaa/supersample/smaa)",
+                               "M10 AA modes")
+        if aa.temporal:
+            raise _unsupported("temporal anti-aliasing", "M11 temporal reuse")
+        if pp.bloom or pp.dof:
+            raise _unsupported("bloom / depth of field", "M9 effects")
+        if cfg.light_tiles:
+            raise _unsupported("tiled light lists", "M12 passes and hooks")
+
+    def _prepare(self):
+        """Cull + bucket, and refuse content outside the slice."""
+        masks = self._mesh_masks()
+        if masks["transparent"].any() or masks["hud"].any():
+            raise _unsupported("transparent / HUD meshes", "M8 overlay")
+        if (self.materials.flags[:, MI_DEBUG_MASK] != 0).any():
+            raise _unsupported("per-material debug views",
+                               "M5c material extensions and debug views")
+        info = self.meshes.mesh_info
+        if (info[:, 3] > 0).any() or (info[:, 5] > 0).any():
+            raise _unsupported("morph targets / skins",
+                               "M2b animated vertex stage")
+        if any(True for _ in self.meshes.inst_group_items()):
+            raise _unsupported("instanced groups",
+                               "M2b animated vertex stage and instancing")
+        if self.lights.count > MAX_DENSE_LIGHTS:
+            raise _unsupported(f"more than {MAX_DENSE_LIGHTS} lights "
+                               "(tiled light lists)", "M12 passes and hooks")
+        op_rows = self._bucket_mat_rows(masks["opaque"])
+        if any(self._slot_mask(op_rows)):
+            raise _unsupported("bound texture slots",
+                               "M5b textured path, K4 + K5")
+        if any(self._ext_mask(op_rows)):
+            raise _unsupported("material extensions",
+                               "M5c material extensions and debug views")
+        return masks
+
+    def _scene_signature(self, cfg=None):
+        """Content signature of everything a frame depends on (the
+        pick-staleness epoch and the per-frame prep memo key)."""
+        return (
+            getattr(self.meshes, "mutation_count", 0),
+            getattr(self.materials, "mutation_count", 0),
+            getattr(self.transforms, "mutation_count", 0),
+            self.skins.gpu_dirty, self.environment.gpu_dirty,
+            self.textures.gpu_dirty, self.lights.gpu_dirty,
+            self.camera.view.tobytes(), self.camera.projection.tobytes(),
+            cfg if cfg is not None else self.config,
+        )
+
+    # ---- render (reference: renderer.py render_device / render / pick) ---
+
+    def render_device(self, debug_mode: str = "none", hooks=None):
+        """Render one frame; returns the (H, W, 4) f32 sRGB display image as
+        a tensor on the renderer's device (no host readback)."""
+        if hooks is not None:
+            raise _unsupported("render hooks", "M12 passes and hooks")
+        if debug_mode != "none":
+            raise _unsupported(f"debug mode {debug_mode!r}",
+                               "M5c material extensions and debug views")
+        cfg = self.config
+        self._check_config(cfg)
+        self.camera.next_frame()
+        ds = self._flush()
+        prep_key = self._scene_signature(cfg)
+        if self._prep is not None and self._prep[0] == prep_key:
+            masks, opaque_dev = self._prep[1]
+        else:
+            masks = self._prepare()
+            opaque_dev = self._tensor(masks["opaque"])
+            self._prep = (prep_key, (masks, opaque_dev))
+        ldr, tri_id, _depth, bins = render_frame(
+            ds, opaque_dev, width=cfg.width, height=cfg.height,
+            tonemap=cfg.post_processing.tonemapping,
+            needs_clip=masks["needs_clip"],
+            solid_env=self.environment.is_solid,
+            has_color=self.meshes.uses_vertex_colors)
+        self._last_tri_id = tri_id
+        self._rendered_sig = prep_key
+        self.last_bins = bins
+        return ldr
+
+    def render(self, debug_mode: str = "none", hooks=None) -> np.ndarray:
+        """Render one frame and read it back: (H, W, 4) f32 sRGB."""
+        return self.render_device(debug_mode, hooks).cpu().numpy()
+
+    def render_u8(self) -> np.ndarray:
+        return (np.clip(self.render(), 0.0, 1.0) * 255.0
+                + 0.5).astype(np.uint8)
+
+    def pick(self, x: int, y: int) -> Optional[int]:
+        """Mesh key under pixel (x, y), or None. Re-renders first when the
+        scene, camera or config changed since the cached tri_id plane."""
+        if (self._last_tri_id is None
+                or getattr(self, "_rendered_sig", None)
+                != self._scene_signature()):
+            if self.meshes.count == 0:
+                return None
+            self.render_device()
+        h, w = self._last_tri_id.shape
+        if not (0 <= x < w and 0 <= y < h):
+            return None
+        tid = int(self._last_tri_id[y, x])
+        tm = self._tri_mesh_device_order
+        if tid < 0 or tm is None or tid >= tm.size:
+            return None
+        return self._mesh_row_to_key.get(int(tm[tid]))

@@ -1,0 +1,94 @@
+#!/usr/bin/env python3
+"""Where the PyTorch port's frame spends its time, on one CUDA card.
+
+Builds chip_smoke.py's stress scene (bench.py geometry and lights, image
+environment) at --width x --height, warms up, then:
+  1. renders --frames orbit frames with the profiler off: median ms/frame
+     from CUDA events around each frame, and host wall ms/frame;
+  2. renders --frames more under torch.profiler (CPU + CUDA activities)
+     and prints the top device kernels by CUDA time, the device busy
+     share (summed kernel time / wall time of the window) and the device
+     kernels launched per frame.
+
+Usage (repo root, one card):
+    python3 scripts/profile_torch_frame.py [--width 1920 --height 1080]
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import statistics
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--width", type=int, default=1920)
+    ap.add_argument("--height", type=int, default=1080)
+    ap.add_argument("--frames", type=int, default=20)
+    ap.add_argument("--top", type=int, default=15)
+    args = ap.parse_args()
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("profile_torch_frame: needs a CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    import awsm_renderer_tpu_torch as P
+    import chip_smoke as CS
+
+    CS.W, CS.H = args.width, args.height
+    r, _ = CS.build_stress_scene(P, np, "cuda")
+    for i in range(3):
+        CS.orbit_camera(r, np, i)
+        r.render_device()
+    torch.cuda.synchronize()
+
+    ev = []
+    t0 = time.perf_counter()
+    for i in range(args.frames):
+        CS.orbit_camera(r, np, 3 + i)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        r.render_device()
+        b.record()
+        ev.append((a, b))
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / args.frames
+    ms = sorted(a.elapsed_time(b) for a, b in ev)
+    q1, med, q3 = statistics.quantiles(ms, n=4)
+    print(f"{args.width}x{args.height}, {args.frames} frames, profiler off: "
+          f"median {med:.3f} ms/frame (CUDA events; quartiles {q1:.3f} / "
+          f"{q3:.3f}, min {ms[0]:.3f}, max {ms[-1]:.3f}); host wall "
+          f"{wall:.3f} ms/frame")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(args.frames):
+            CS.orbit_camera(r, np, 3 + args.frames + i)
+            r.render_device()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    n_kern = sum(e.count for e in kern)
+    print(prof.key_averages().table(sort_by="self_device_time_total",
+                                    row_limit=args.top))
+    print(f"profiled window: wall {wall_ms / args.frames:.3f} ms/frame; "
+          f"device kernels {dev_ms / args.frames:.3f} ms/frame; busy share "
+          f"{dev_ms / wall_ms:.3f}; {n_kern / args.frames:.0f} kernels/frame")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

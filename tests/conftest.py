@@ -46,6 +46,10 @@ def pytest_configure(config):
         "markers",
         "slow: heavy interpret-mode equality test; deselected by default, "
         "run with --runslow (CI / round verification)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the port's hand-written kernels); skips "
+        "on a host without one")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,146 @@
+"""PyTorch port on the card: each hand-written CUDA kernel against its
+plain PyTorch twin on the same CUDA tensors, and the whole frame on the
+card against the same frame on the CPU.
+
+Every test here is marked `cuda` and skips (inside the fixture) on a host
+without a CUDA device. Run on the card with:
+
+    python -m pytest tests/test_torch_cuda.py -q
+
+K1, K3 and K6 are bit-equal to their twins; K2's ints are equal and its
+floats within rtol 1e-5, atol 1e-6 (both round every product and sum
+separately, so they agree exactly in practice). The card frame's tri_id
+plane equals the CPU frame's, and its LDR image is within 1e-5 (torch's
+CUDA pow/exp2 may differ from the CPU's by an ulp)."""
+
+import numpy as np
+import pytest
+import torch
+
+import _torch_port as T
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from awsm_renderer_tpu_torch.ops import kernels
+
+    kernels.lib()          # builds the kernels from csrc/ at first use
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def scene_rows(dev):
+    """Setup rows of the clipped test scene and of the metal-rough
+    spheres (tiles with hundreds of groups) on the card."""
+    from awsm_renderer_tpu_torch.passes.frame import (
+        _run_vertex, prep_setup_rows,
+    )
+    from test_torch_vertex import _renderers
+
+    out = {}
+    for name, r in (("clip", _renderers("clip")[1]),
+                    ("spheres", T.torch_renderer("metal-rough-spheres"))):
+        ds = r._flush()
+        m = r._mesh_masks()
+        rows = prep_setup_rows(_run_vertex(
+            ds, torch.as_tensor(m["opaque"]), rw=T.W, rh_full=T.H,
+            needs_clip=m["needs_clip"]))
+        out[name] = rows.to(dev)
+    return out
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.parametrize("name", ["clip", "spheres"])
+def test_k1_kernel_bit_equal_to_twin(dev, scene_rows, name):
+    from awsm_renderer_tpu_torch.ops import kernels
+    from awsm_renderer_tpu_torch.ops.raster import (
+        rasterize16_slim, rasterize16_slim_reference,
+    )
+
+    rows = scene_rows[name]
+    n0 = kernels.launch_counts["rasterize16_slim"]
+    col, depth, bins = rasterize16_slim(rows, width=T.W, height=T.H)
+    assert kernels.launch_counts["rasterize16_slim"] == n0 + 1
+    rcol, rdepth = rasterize16_slim_reference(rows, bins, width=T.W,
+                                              height=T.H)
+    torch.cuda.synchronize()
+    assert torch.equal(col, rcol)
+    assert torch.equal(_bits(depth), _bits(rdepth))
+    assert int((col >= 0).sum()) > 100
+
+
+def test_k2_kernel_matches_twin(dev, scene_rows):
+    from awsm_renderer_tpu_torch.ops.raster import rasterize16_slim
+    from awsm_renderer_tpu_torch.ops.shade import (
+        RESOLVE_NAMES, resolve_planes_fused, resolve_planes_reference,
+    )
+
+    rows = scene_rows["clip"]
+    col, _, _ = rasterize16_slim(rows, width=T.W, height=T.H)
+    a = resolve_planes_fused(col, rows, width=T.W, row_offset=3)
+    b = resolve_planes_reference(col, rows, width=T.W, row_offset=3)
+    torch.cuda.synchronize()
+    assert torch.equal(a["tri_id"], b["tri_id"])
+    for k in RESOLVE_NAMES[1:]:
+        torch.testing.assert_close(a[k], b[k], rtol=1e-5, atol=1e-6,
+                                   msg=k)
+
+
+def test_k3_k6_kernels_bit_equal_to_twins(dev):
+    from awsm_renderer_tpu_torch.ops.relayout import (
+        gather_split_channels, gather_split_channels_reference,
+        onehot_split_rows, onehot_split_rows_reference,
+    )
+
+    g = torch.Generator().manual_seed(0)
+    table = torch.randn(32, 50, generator=g).to(dev)
+    rows = torch.randint(-4, 36, (70001,), generator=g,
+                         dtype=torch.int32).to(dev)
+    assert torch.equal(_bits(onehot_split_rows(rows, table)),
+                       _bits(onehot_split_rows_reference(rows, table)))
+    texels = torch.randn(5000, 64, generator=g).to(torch.bfloat16).to(dev)
+    idx = torch.randint(-10, 5010, (90001,), generator=g,
+                        dtype=torch.int32).to(dev)
+    assert torch.equal(
+        _bits(gather_split_channels(texels, idx, 16)),
+        _bits(gather_split_channels_reference(texels, idx, 16)))
+
+
+def test_wrappers_reject_bad_inputs(dev):
+    from awsm_renderer_tpu_torch.ops.relayout import onehot_split_rows
+
+    table = torch.zeros(4, 3, device=dev)
+    with pytest.raises(ValueError):
+        onehot_split_rows(torch.zeros(8, dtype=torch.int64, device=dev),
+                          table)
+    with pytest.raises(ValueError):
+        onehot_split_rows(torch.zeros(8, dtype=torch.int32, device=dev),
+                          table.double())
+
+
+@pytest.mark.parametrize("scene", ["box", "env-ibl"])
+def test_card_frame_matches_cpu_frame(dev, scene):
+    import awsm_renderer_tpu_torch as P
+    from awsm_renderer_tpu_torch.ops import kernels
+
+    cpu = T.torch_renderer(scene)
+    card = T.build(P.AwsmRendererTorch(
+        P.RendererConfig(width=T.W, height=T.H), device="cuda"), scene)
+    kernels.reset_launch_counts()
+    img_card = card.render()
+    # K6 serves the image environment's taps; a solid env has none
+    want = dict.fromkeys(kernels.launch_counts, 1)
+    want["gather_split_channels"] = int(not card.environment.is_solid)
+    assert kernels.launch_counts == want
+    img_cpu = cpu.render()
+    np.testing.assert_array_equal(card._last_tri_id.cpu().numpy(),
+                                  cpu._last_tri_id.numpy())
+    np.testing.assert_allclose(img_card, img_cpu, rtol=0, atol=1e-5)
+    assert card.pick(T.W // 2, T.H // 2) == cpu.pick(T.W // 2, T.H // 2)

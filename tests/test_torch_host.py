@@ -1,0 +1,245 @@
+"""PyTorch port, host tier: the copied stores, the ml_dtypes-free bf16
+texel pool, the device flush, the no-JAX import rule and the refusal of
+content outside the ported slice.
+
+The flushed scene must equal the JAX renderer's `_device` arrays bit for
+bit (the port flushes the same host mirrors with the same packers)."""
+
+import os
+import subprocess
+import sys
+
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+import _torch_port as T
+
+SCENES = ("triangle", "box", "metal-rough-spheres", "env-ibl",
+          "box-textured")
+# device-dict entries both renderers upload for the static, untextured
+# slice (the JAX side also carries skin/morph pools and the BRDF LUT)
+COMPARED = ("world", "normal_mat", "c_pos", "c_norm", "c_tang", "c_uv0",
+            "c_uv1", "c_color", "tri_mesh", "mesh_info", "mat_float",
+            "mat_tex", "mat_flags", "lights", "n_lights", "tex_desc",
+            "tex_transforms", "texels", "skybox", "irradiance",
+            "prefiltered")
+
+
+@pytest.fixture(scope="module")
+def flushed():
+    """{scene: (JAX _device as numpy, port _flush() as numpy)}"""
+    out = {}
+    for scene in SCENES:
+        dj = T.to_numpy(dict(T.jax_renderer(scene)._flush()))
+        dt = T.to_numpy(dict(T.torch_renderer(scene)._flush()))
+        out[scene] = (dj, dt)
+    return out
+
+
+def test_bf16_bits_match_ml_dtypes():
+    from awsm_renderer_tpu_torch.core.textures import f32_to_bf16_bits
+
+    rng = np.random.default_rng(3)
+    x = np.concatenate([
+        rng.standard_normal(4096).astype(np.float32) * 1e3,
+        rng.uniform(0, 1, 4096).astype(np.float32),
+        # round-to-nearest-even ties, denormals, limits, specials
+        np.array([1.00390625, 1.01171875, -1.00390625, 1e-40, -1e-45,
+                  3.0e38, 3.4028235e38, -3.4028235e38, 0.0, -0.0,
+                  np.inf, -np.inf, np.nan, -np.nan], np.float32),
+    ])
+    want = x.astype(ml_dtypes.bfloat16).view(np.uint16)
+    got = f32_to_bf16_bits(x)
+    nan = np.isnan(x)
+    np.testing.assert_array_equal(got[~nan], want[~nan])
+    # NaN payloads may differ; both must stay quiet NaNs of the same sign
+    back = got[nan].astype(np.uint32) << 16
+    assert np.isnan(back.view(np.float32)).all()
+
+
+@pytest.mark.parametrize("scene", SCENES)
+def test_flushed_scene_bit_equal(flushed, scene):
+    dj, dt = flushed[scene]
+    for name in COMPARED:
+        a, b = np.asarray(dj[name]), np.asarray(dt[name])
+        assert a.shape == b.shape, name
+        np.testing.assert_array_equal(a.view(np.uint8) if a.ndim else a,
+                                      b.view(np.uint8) if b.ndim else b,
+                                      err_msg=name)
+    assert ("env_pool_base" in dj) == ("env_pool_base" in dt)
+    if "env_pool_base" in dj:
+        assert int(dj["env_pool_base"]) == int(dt["env_pool_base"])
+    for k, v in dj["camera"].items():
+        np.testing.assert_array_equal(v, dt["camera"][k], err_msg=k)
+
+
+@pytest.mark.parametrize("scene", ("box", "env-ibl"))
+def test_device_scene_from_jax_matches_port_flush(flushed, scene):
+    from awsm_renderer_tpu_torch import device_scene_from_jax
+
+    dj, dt = flushed[scene]
+    ds = T.to_numpy(device_scene_from_jax(dj, "cpu"))
+    for name in COMPARED:
+        np.testing.assert_array_equal(
+            np.asarray(ds[name]).view(np.uint8)
+            if np.ndim(ds[name]) else ds[name],
+            np.asarray(dt[name]).view(np.uint8)
+            if np.ndim(dt[name]) else dt[name], err_msg=name)
+    np.testing.assert_array_equal(ds["lights_host"], dt["lights_host"])
+
+
+def _edit_and_flush(r, uv_sphere):
+    """Flush, append a mesh (a dirty-range append), flush, remove the
+    first mesh (a tombstone), flush; returns the last device dict."""
+    r._flush()
+    key2 = r.add_mesh(uv_sphere(0.3), next(iter(r.materials._materials)))
+    r._flush()
+    first = min(k for k, _ in r.meshes.items())
+    assert first != key2
+    r.meshes.remove(first)
+    return r._flush()
+
+
+def test_flush_range_updates_bit_equal():
+    """The port's in-place dirty-range path (append + tombstone) leaves
+    the same device pools as the JAX renderer's dynamic_update_slice."""
+    from awsm_renderer_tpu.geometry import uv_sphere as jax_sphere
+    from awsm_renderer_tpu_torch.geometry import uv_sphere
+
+    dj = T.to_numpy(dict(_edit_and_flush(T.jax_renderer("box"),
+                                         jax_sphere)))
+    rt = T.torch_renderer("box")
+    dt = T.to_numpy(dict(_edit_and_flush(rt, uv_sphere)))
+    for name in ("c_pos", "c_norm", "c_uv0", "c_color", "tri_mesh",
+                 "mesh_info"):
+        np.testing.assert_array_equal(dj[name], dt[name], err_msg=name)
+    assert (dt["tri_mesh"] == -1).any()
+    np.testing.assert_array_equal(rt._tri_mesh_device_order, dt["tri_mesh"])
+
+
+def test_native_host_library_path():
+    from awsm_renderer_tpu_torch.utils import native
+
+    # the shared host library loads by file path (no JAX package import);
+    # where it is absent the stores fall back to numpy
+    assert os.path.normpath(native._LIB_PATH).endswith(
+        os.path.join("awsm_renderer_tpu", "native", "libawsm_host.so"))
+    if os.path.exists(native._LIB_PATH):
+        assert native._load() is not None
+
+
+def test_import_without_jax_and_cuda_refused():
+    """The port imports with jax and ml_dtypes blocked, renders the
+    triangle probe on the CPU, and refuses device='cuda' on a host
+    without a card."""
+    code = r"""
+import sys
+sys.modules['jax'] = None
+sys.modules['ml_dtypes'] = None
+import numpy as np
+import awsm_renderer_tpu_torch as P
+from awsm_renderer_tpu_torch.geometry import triangle
+from awsm_renderer_tpu_torch.utils import math3d as m3
+assert not any(m.startswith('awsm_renderer_tpu.') or m == 'awsm_renderer_tpu'
+               for m in sys.modules if sys.modules[m] is not None)
+r = P.AwsmRendererTorch(P.RendererConfig(width=128, height=64), device='cpu')
+mat = r.materials.insert(P.UnlitMaterial(
+    base_color_factor=np.array([1, 0.4, 0.1, 1], np.float32)))
+r.add_mesh(triangle(), mat, transform=P.Transform(
+    translation=np.array([-0.5, -0.5, 0], np.float32)))
+r.camera.update(m3.look_at([0, 0, 2.2], [0, 0, 0], [0, 1, 0]),
+                m3.perspective(np.pi / 3, 2.0, 0.05, 500.0))
+img = r.render_u8()
+assert img.shape == (64, 128, 4) and (img[..., 3] == 255).sum() > 100
+import torch
+if not torch.cuda.is_available():
+    try:
+        P.AwsmRendererTorch(device='cuda')
+    except RuntimeError:
+        pass
+    else:
+        raise SystemExit('cuda renderer constructed without a card')
+print('ok')
+"""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=repo, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
+
+
+def _msaa(r):
+    from dataclasses import replace
+
+    r.config = replace(r.config, anti_aliasing=replace(
+        r.config.anti_aliasing, msaa=True))
+
+
+def _bloom(r):
+    from dataclasses import replace
+
+    r.config = replace(r.config, post_processing=replace(
+        r.config.post_processing, bloom=True))
+
+
+def _many_lights(r):
+    import awsm_renderer_tpu_torch as P
+
+    for i in range(9):
+        r.lights.insert(P.Light.point([i, 1, 0], intensity=1.0))
+
+
+def _transparent(r):
+    import awsm_renderer_tpu_torch as P
+    from awsm_renderer_tpu_torch.geometry import box
+
+    mat = r.materials.insert(P.PbrMaterial(alpha_mode=P.AlphaMode.BLEND))
+    r.add_mesh(box(0.3), mat)
+
+
+def _clearcoat(r):
+    import awsm_renderer_tpu_torch as P
+    from awsm_renderer_tpu_torch.geometry import box
+
+    r.add_mesh(box(0.3), r.materials.insert(P.PbrMaterial(
+        clearcoat_factor=1.0)))
+
+
+@pytest.mark.parametrize("scene, edit, milestone", [
+    ("box", _msaa, "M10"),
+    ("box", _bloom, "M9"),
+    ("box", _many_lights, "M12"),
+    ("box", _transparent, "M8"),
+    ("box", _clearcoat, "M5c"),
+    ("box-textured", None, "M5b"),
+    ("morph-cube", None, "M2b"),
+    ("instanced", None, "M2b"),
+])
+def test_out_of_slice_content_raises(scene, edit, milestone):
+    r = T.torch_renderer(scene)
+    if edit is not None:
+        edit(r)
+    with pytest.raises(NotImplementedError, match=milestone):
+        r.render_device()
+
+
+def test_debug_modes_and_hooks_raise():
+    r = T.torch_renderer("box")
+    with pytest.raises(NotImplementedError, match="M5c"):
+        r.render_device(debug_mode="normals")
+    with pytest.raises(NotImplementedError, match="M12"):
+        r.render_device(hooks=object())
+
+
+def test_cpu_tensors_take_the_plain_twins():
+    """Kernel wrappers on CPU tensors run the twin and count no launch."""
+    from awsm_renderer_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    T.torch_renderer("box").render_device()
+    assert all(n == 0 for n in kernels.launch_counts.values())
+    assert torch.cuda.is_available() or kernels._lib is None
