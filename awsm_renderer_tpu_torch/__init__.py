@@ -14,6 +14,8 @@ from .core.materials import (
 from .core.meshes import MeshGeometry
 from .core.textures import MipmapKind, Sampler
 from .core.transforms import Transform
+from .gltf.loader import load_gltf
+from .gltf.populate import populate_gltf
 from .interop import device_scene_from_jax
 from .renderer import AwsmRendererTorch
 from . import errors
@@ -24,7 +26,7 @@ __all__ = [
     "ToneMapping", "Transform", "MeshGeometry", "PbrMaterial",
     "UnlitMaterial", "AlphaMode", "PbrDebug", "TextureRef", "Light",
     "LightKind", "Sampler", "MipmapKind", "device_scene_from_jax",
-    "errors", "AwsmError",
+    "errors", "AwsmError", "load_gltf", "populate_gltf",
 ]
 
 __version__ = "0.1.0"

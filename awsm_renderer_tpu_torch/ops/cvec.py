@@ -31,6 +31,10 @@ def scale(a, s):
     return [x * s for x in a]
 
 
+def lerp(a, b, t):
+    return [x + (y - x) * t for x, y in zip(a, b)]
+
+
 def where(c, a, b):
     """Per-channel select; c is a (P,) bool tensor."""
     return [torch.where(c, x, y) for x, y in zip(a, b)]

@@ -8,7 +8,8 @@ flags, so an edit rebuilds and an unchanged tree reuses the last build.
 Nothing here runs at import time: the CPU tests import every module, and
 a host without CUDA may have no ``nvcc`` at all.
 
-Each kernel wrapper (ops/raster.py, ops/shade.py, ops/relayout.py) calls
+Each kernel wrapper (ops/raster.py, ops/shade.py, ops/relayout.py,
+ops/texsample.py) calls
 ``launch`` exactly where it launches its kernel; ``launch`` raises on a
 non-zero ``cudaError_t`` and adds one to ``launch_counts[name]``, which is
 how a run shows that the main path went through the kernels.
@@ -28,7 +29,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("raster16.cu", "resolve.cu", "relayout.cu")
+SOURCES = ("raster16.cu", "resolve.cu", "relayout.cu", "texsample.cu")
 # -fmad=false: no FMA contraction anywhere. The edge functions and the
 # resolve ALU must round exactly like their plain PyTorch twins (separate
 # mul and add kernels); a contracted edge function opens pinholes along
@@ -45,6 +46,9 @@ _SIGNATURES = {
     "awsm_resolve": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     "awsm_onehot_split_rows": [_P, _P, _I, _I, _I, _P, _P],
     "awsm_gather_split_channels": [_P, _I, _I, _P, _I, _I, _P, _P],
+    "awsm_tap_plan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I,
+                      _I, _I, _I, _P, _P, _P],
+    "awsm_filter_taps": [_P, _I, _I, _P, _P, _I, _I, _P, _P],
 }
 
 launch_counts: Dict[str, int] = {
@@ -52,6 +56,8 @@ launch_counts: Dict[str, int] = {
     "resolve_planes_fused": 0,
     "onehot_split_rows": 0,
     "gather_split_channels": 0,
+    "tap_plan_fused": 0,
+    "filter_taps_fused": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,11 +1,14 @@
 """Deferred opaque shading: attribute resolve (K2), material fetch (K3),
-punctual + IBL lighting, skybox on miss.
+texture taps (K4 + K5), punctual + IBL lighting (K6 env taps), skybox on
+miss.
 
-Port of the opaque path of awsm_renderer_tpu/ops/shade.py for the slice
-the port covers: no bound texture slots, no material extensions, a solid
-or image environment, the dense punctual-light loop, debug mode "none".
-All shading math runs on flat (P,) channel planes (ops/cvec.py lists);
-camera and light parameters enter as Python floats.
+Port of the opaque path of awsm_renderer_tpu/ops/shade.py: every texture
+slot, KHR_texture_transform, normal mapping, the opaque material
+extensions (clearcoat, sheen, iridescence, anisotropy, specular), the
+debug views, a solid or image environment, the dense punctual-light
+loop. Transmission and volume act only in the transparent pass, which is
+not ported. All shading math runs on flat (P,) channel planes
+(ops/cvec.py lists); camera and light parameters enter as Python floats.
 """
 
 from __future__ import annotations
@@ -21,14 +24,35 @@ from ..core.lights import (
 )
 from . import brdf, kernels
 from .cubemap import sample_env_batch_c
-from .cvec import add as v_add, dot3, norm3, scale as v_scale, where as v_where
+from .cvec import (
+    add as v_add, cross3, dot3, lerp as v_lerp, mul as v_mul, norm3,
+    scale as v_scale, where as v_where,
+)
 from .relayout import onehot_split_rows
+from .texsample import sample_texture_batch_c
 from .vertex import (
     NSETUP, S_COLOR, S_E0A, S_E0B, S_E0C, S_E1A, S_E1B, S_E1C, S_E2A, S_E2B,
     S_E2C, S_IW0, S_MAT_ROW, S_NORMAL, S_TANGENT, S_TANGENT_W, S_UV0, S_UV1,
 )
 
 _EPS = 1e-6
+NO_SLOTS = (False,) * M.NUM_TEX_SLOTS
+# extension flags: (clearcoat, sheen, iridescence, anisotropy,
+# transmission, volume), static per bucket like the reference's template
+# variables
+(EXT_CLEARCOAT, EXT_SHEEN, EXT_IRIDESCENCE, EXT_ANISOTROPY,
+ EXT_TRANSMISSION, EXT_VOLUME) = range(6)
+NO_EXT = (False,) * 6
+# global channel-isolation debug views ("channel:<name>"); indices match
+# the per-material debug bitmask's bit order
+DEBUG_CHANNELS = {
+    "basecolor": 0,
+    "metallicroughness": 1,
+    "normals": 2,
+    "occlusion": 3,
+    "emissive": 4,
+    "specular": 5,
+}
 
 #: resolved-plane names the resolve emits, in output order
 RESOLVE_NAMES = (
@@ -109,11 +133,35 @@ def _punctual_lights(lights_host, n_lights: int, n_pos, n, v, base_diffuse,
 
 
 def _material_table(ds) -> torch.Tensor:
-    """(cap, NUM_F32 + 2) f32: the float params plus the kind and
-    alpha-mode flag columns — the columns the untextured, extension-free
-    shade reads."""
-    flags = ds["mat_flags"][:, [M.MI_KIND, M.MI_ALPHA_MODE]].float()
-    return torch.cat([ds["mat_float"], flags], dim=1).contiguous()
+    """Fused material table (cap, NUM_F32 + slots*3 + NUM_I32) f32: float
+    params, the (tex id, uv set, transform id) of every slot, the flags."""
+    cap = ds["mat_float"].shape[0]
+    return torch.cat([ds["mat_float"],
+                      ds["mat_tex"].reshape(cap, -1).float(),
+                      ds["mat_flags"].float()], dim=1)
+
+
+def _screen_gradient(ch, W: int, H: int, vertical: bool = False):
+    """Min-magnitude forward/backward screen difference of one (P,) plane
+    (the GPU quad-derivative model; the smaller difference stays on the
+    surface at silhouettes)."""
+    g = ch.reshape(H, W)
+    ax = 0 if vertical else 1
+    d = torch.diff(g, dim=ax)
+    if vertical:
+        fwd = torch.cat([d, d[-1:]], 0)
+        bwd = torch.cat([d[:1], d], 0)
+    else:
+        fwd = torch.cat([d, d[:, -1:]], 1)
+        bwd = torch.cat([d[:, :1], d], 1)
+    return torch.where(torch.abs(fwd) <= torch.abs(bwd), fwd,
+                       bwd).reshape(-1)
+
+
+def _tm(x, t):
+    """x times a texture channel; an unbound slot's constant 1.0 costs no
+    op (x * 1.0 == x exactly)."""
+    return x if isinstance(t, float) and t == 1.0 else x * t
 
 
 def _resolve_math(ch, px, py):
@@ -217,18 +265,25 @@ def resolve_planes_fused(tid: torch.Tensor, setup_rows: torch.Tensor, *,
     return out
 
 
-def shade_surface(planes, ds, *, width: int, height: int, solid_env: bool):
-    """Opaque fragment shading of the slice -> (rgb [3 planes], valid,
-    sky [3 planes]).
+def shade_surface(planes, ds, *, width: int, height: int, solid_env: bool,
+                  use_mips: bool = True, slot_mask=NO_SLOTS,
+                  has_nearest: bool = True, ext=NO_EXT,
+                  debug_mode: str = "none"):
+    """Opaque fragment shading -> (rgb [3 planes], valid, n_final
+    [3 planes], sky [3 planes or floats]).
 
-    planes: {name: (P,)} G-buffer (tri_id, depth, mat_row, normal,
-    optional colour). Untextured and extension-free by construction: the
-    facade raises before a frame that binds a texture slot or uses a
-    material extension reaches here."""
+    planes: {name: (P,)} G-buffer (tri_id, depth, mat_row, uv0, optional
+    uv1 and colour, normal, tangent) over the padded (height, width)
+    grid. slot_mask / ext: the texture slots and extensions the bucket's
+    materials use (everything else compiles to constants, as the
+    reference's shader-template variables do). debug_mode: none | ibl |
+    punctual | material | channel:<name>."""
     P = width * height
     dev = planes["tri_id"].device
     miss = planes["tri_id"] < 0
     depth = planes["depth"]
+    uv0 = (planes["uv0_u"], planes["uv0_v"])
+    uv1 = (planes["uv1_u"], planes["uv1_v"]) if "uv1_u" in planes else uv0
     if "color_r" in planes:
         vcolor = [planes["color_r"], planes["color_g"], planes["color_b"],
                   planes["color_a"]]
@@ -251,73 +306,259 @@ def shade_surface(planes, ds, *, width: int, height: int, solid_env: bool):
     cam_pos = [float(x) for x in cam["position"]]
     v = norm3([cam_pos[k] - world_pos[k] for k in range(3)])
 
-    # ---- material fetch (K3): one gather, channel-major ------------------
-    table = _material_table(ds)
+    # ---- material fetch (K3): only the columns this bucket reads ----------
+    # float params, the 3 columns of each active slot, the kind and
+    # alpha-mode flags (+ the debug bitmask for the per-material view)
+    flag0 = M.NUM_F32 + M.NUM_TEX_SLOTS * 3
+    needed = list(range(M.NUM_F32))
+    needed += [M.NUM_F32 + s * 3 + c for s in range(M.NUM_TEX_SLOTS)
+               if slot_mask[s] for c in range(3)]
+    needed += [flag0 + M.MI_KIND, flag0 + M.MI_ALPHA_MODE]
+    if debug_mode == "material":
+        needed.append(flag0 + M.MI_DEBUG_MASK)
+    table = _material_table(ds)[:, needed].contiguous()
     mat_row = planes["mat_row"].to(torch.int32).clamp(0, table.shape[0] - 1)
     cols = onehot_split_rows(mat_row, table)                  # (C, P)
+    fused = dict(zip(needed, cols))
 
     def mf(idx, k=1):
-        return cols[idx] if k == 1 else [cols[idx + c] for c in range(k)]
+        return fused[idx] if k == 1 else [fused[idx + c] for c in range(k)]
 
-    kind = cols[M.NUM_F32]
-    is_unlit = kind == float(M.KIND_UNLIT)
+    def slot_col(slot, c):
+        return fused[M.NUM_F32 + slot * 3 + c]
 
+    def mflag(idx):
+        return fused[flag0 + idx]
+
+    is_unlit = mflag(M.MI_KIND) == float(M.KIND_UNLIT)
+
+    # ---- texture taps: every active slot through one K4 plan + one K5 ----
+    active = [s for s in range(M.NUM_TEX_SLOTS) if slot_mask[s]]
+    duv = None
+    if active and use_mips:
+        if "du0_dx" in planes:
+            duv = (planes["du0_dx"], planes["dv0_dx"], planes["du0_dy"],
+                   planes["dv0_dy"])
+        else:
+            # screen-space gradients of uv0, also for uv1 taps (as the
+            # reference does)
+            duv = (_screen_gradient(uv0[0], width, height),
+                   _screen_gradient(uv0[1], width, height),
+                   _screen_gradient(uv0[0], width, height, vertical=True),
+                   _screen_gradient(uv0[1], width, height, vertical=True))
+    taps = []
+    for slot in active:
+        tex_id = slot_col(slot, 0).to(torch.int32)
+        tform = slot_col(slot, 2).to(torch.int32)
+        if uv1 is uv0:
+            u, vv = uv0
+        else:
+            use1 = slot_col(slot, 1) == 1.0
+            u = torch.where(use1, uv1[0], uv0[0])
+            vv = torch.where(use1, uv1[1], uv0[1])
+        taps.append((tex_id, (u, vv), duv, tform))
+    tex_cache = dict(zip(active, sample_texture_batch_c(
+        ds["texels"], ds["tex_desc"], taps, has_nearest=has_nearest,
+        tex_transforms=ds["tex_transforms"])))
+
+    def tex(slot):
+        """A slot's sampled [r, g, b, a], or constant white when no
+        material of the bucket binds it."""
+        return tex_cache.get(slot, [1.0, 1.0, 1.0, 1.0])
+
+    base_tex = tex(M.TS_BASE_COLOR)
     base_f = mf(M.MF_BASE_COLOR, 4)
-    base = [base_f[c] * vcolor[c] for c in range(4)]
-    metallic = torch.clamp(mf(M.MF_METALLIC), 0.0, 1.0)
-    roughness = torch.clamp(mf(M.MF_ROUGHNESS), 0.04, 1.0)
+    base = [_tm(_tm(base_f[c], base_tex[c]), vcolor[c]) for c in range(4)]
+
+    mr = tex(M.TS_METALLIC_ROUGHNESS)
+    metallic = torch.clamp(_tm(mf(M.MF_METALLIC), mr[2]), 0.0, 1.0)
+    roughness = torch.clamp(_tm(mf(M.MF_ROUGHNESS), mr[1]), 0.04, 1.0)
     alpha_rough = roughness * roughness
+    occlusion = 1.0 + mf(M.MF_OCCLUSION_STRENGTH) * (
+        tex(M.TS_OCCLUSION)[0] - 1.0)
+
+    emis_tex = tex(M.TS_EMISSIVE)
     emis_f = mf(M.MF_EMISSIVE, 3)
     emis_s = mf(M.MF_EMISSIVE_STRENGTH)
-    emissive = [emis_f[c] * emis_s for c in range(3)]
+    emissive = [_tm(emis_f[c], emis_tex[c]) * emis_s for c in range(3)]
 
-    facing = dot3(n, v) < 0.0
-    n_final = v_where(facing, [-c for c in n], n)
+    # ---- normal mapping ---------------------------------------------------
+    if slot_mask[M.TS_NORMAL] or ext[EXT_ANISOTROPY]:
+        tang = [planes["tangent_x"], planes["tangent_y"], planes["tangent_z"]]
+        n_dot_t = dot3(n, tang)
+        t_w = norm3([tang[k] - n[k] * n_dot_t for k in range(3)])
+        b_w = v_scale(cross3(n, t_w), planes["tangent_w"])
+    if slot_mask[M.TS_NORMAL]:
+        nrm_tex = tex(M.TS_NORMAL)
+        has_nrm_tex = slot_col(M.TS_NORMAL, 0) >= 0
+        nscale = mf(M.MF_NORMAL_SCALE)
+        tsx = (nrm_tex[0] * 2.0 - 1.0) * nscale
+        tsy = (nrm_tex[1] * 2.0 - 1.0) * nscale
+        tsz = nrm_tex[2] * 2.0 - 1.0
+        n_mapped = norm3([tsx * t_w[k] + tsy * b_w[k] + tsz * n[k]
+                          for k in range(3)])
+        n_final = v_where(has_nrm_tex, n_mapped, n)
+    else:
+        n_final = n
+    facing = dot3(n_final, v) < 0.0
+    n_final = v_where(facing, [-c for c in n_final], n_final)
 
-    # ---- BRDF inputs (glTF spec) -----------------------------------------
+    # ---- BRDF inputs (glTF spec) -------------------------------------------
     ior = mf(M.MF_IOR)
     f0_scalar = ((ior - 1.0) / torch.clamp(ior + 1.0, min=_EPS)) ** 2
     spec_color = mf(M.MF_SPECULAR_COLOR, 3)
-    spec_amt = mf(M.MF_SPECULAR)
-    f0 = [torch.clamp(f0_scalar * spec_color[c], max=1.0) * spec_amt
-          * (1.0 - metallic) + base[c] * metallic for c in range(3)]
+    spec_tex = tex(M.TS_SPECULAR)
+    spec_color_tex = tex(M.TS_SPECULAR_COLOR)
+    spec_amt = _tm(mf(M.MF_SPECULAR), spec_tex[3])
+    f0 = [torch.clamp(_tm(f0_scalar * spec_color[c], spec_color_tex[c]),
+                      max=1.0) * spec_amt * (1.0 - metallic)
+          + base[c] * metallic for c in range(3)]
+
+    # KHR_materials_iridescence: the thin-film Fresnel replaces F0,
+    # weighted by the iridescence factor
+    if ext[EXT_IRIDESCENCE]:
+        irid = _tm(mf(M.MF_IRIDESCENCE), tex(M.TS_IRIDESCENCE)[0])
+        t_min = mf(M.MF_IRIDESCENCE_THICKNESS_MIN)
+        irid_thick = t_min + _tm(mf(M.MF_IRIDESCENCE_THICKNESS_MAX) - t_min,
+                                 tex(M.TS_IRIDESCENCE_THICKNESS)[1])
+        n_dot_v_pre = torch.clamp(dot3(n_final, v), min=_EPS)
+        f_irid = brdf.iridescent_fresnel_c(
+            torch.ones_like(irid), mf(M.MF_IRIDESCENCE_IOR), f0, irid_thick,
+            n_dot_v_pre)
+        f0 = v_lerp(f0, f_irid, irid)
+
     c_diff = v_scale(base[:3], 1.0 - metallic)
 
-    # ---- punctual + IBL ---------------------------------------------------
+    # ---- punctual + IBL -----------------------------------------------------
     direct = _punctual_lights(ds["lights_host"], ds["n_lights"], world_pos,
                               n_final, v, c_diff, f0, alpha_rough)
     n_dot_v = torch.clamp(dot3(n_final, v), min=_EPS)
-    r = norm3([2.0 * n_dot_v * n_final[k] - v[k] for k in range(3)])
+
+    # KHR_materials_anisotropy: bend the IBL lobe along the tangent or
+    # bitangent (bent-normal approximation)
+    n_ibl = n_final
+    if ext[EXT_ANISOTROPY]:
+        aniso = mf(M.MF_ANISOTROPY_STRENGTH)
+        if slot_mask[M.TS_ANISOTROPY]:
+            aniso = aniso * (2.0 * tex(M.TS_ANISOTROPY)[2] - 1.0)
+        rot = mf(M.MF_ANISOTROPY_ROTATION)
+        cr, sr = torch.cos(rot), torch.sin(rot)
+        t_dir = [t_w[k] * cr + b_w[k] * sr for k in range(3)]
+        b_dir = [-t_w[k] * sr + b_w[k] * cr for k in range(3)]
+        a_dir = v_where(aniso >= 0, b_dir, t_dir)
+        bent = norm3(cross3(cross3(a_dir, v), a_dir))
+        mixw = torch.clamp(torch.abs(aniso), 0.0, 1.0)
+        n_ibl = norm3(v_lerp(n_final, bent, mixw))
+        n_dot_v_ibl = torch.clamp(dot3(n_ibl, v), min=_EPS)
+    else:
+        n_dot_v_ibl = n_dot_v
+    r = norm3([2.0 * n_dot_v_ibl * n_ibl[k] - v[k] for k in range(3)])
+
+    # sheen / clearcoat parameters first, so every env tap rides one K6
+    if ext[EXT_SHEEN]:
+        sheen_tex = tex(M.TS_SHEEN_COLOR)
+        sheen_color = [_tm(c, t) for c, t in zip(mf(M.MF_SHEEN_COLOR, 3),
+                                                 sheen_tex)]
+        sheen_rough = torch.clamp(_tm(mf(M.MF_SHEEN_ROUGHNESS),
+                                      tex(M.TS_SHEEN_ROUGHNESS)[3]),
+                                  0.04, 1.0)
+    if ext[EXT_CLEARCOAT]:
+        cc = _tm(mf(M.MF_CLEARCOAT), tex(M.TS_CLEARCOAT)[0])
+        cc_rough = torch.clamp(_tm(mf(M.MF_CLEARCOAT_ROUGHNESS),
+                                   tex(M.TS_CLEARCOAT_ROUGHNESS)[1]),
+                               0.04, 1.0)
 
     if solid_env:
         irr = [float(ds["irradiance"][0, c]) for c in range(3)]
         pref = [float(ds["prefiltered"][0, 0, c]) for c in range(3)]
         sky = [float(ds["skybox"][0, c]) for c in range(3)]
+        sheen_pref = cc_pref = pref
     else:
+        reqs = [(r, roughness)]
+        if ext[EXT_SHEEN]:
+            reqs.append((r, sheen_rough))
+        if ext[EXT_CLEARCOAT]:
+            reqs.append((r, cc_rough))
         irr4, prefs, sky4 = sample_env_batch_c(
             ds["skybox"].shape[0], ds["irradiance"].shape[0],
-            ds["prefiltered"].shape[:2], n_final, [(r, roughness)],
+            ds["prefiltered"].shape[:2], n_final, reqs,
             sky_dirs=[-c for c in v], texq=ds["texels"],
             env_base=ds["env_pool_base"])
         irr = irr4[:3]
         pref = prefs[0][:3]
         sky = sky4[:3]
+        if ext[EXT_SHEEN]:
+            sheen_pref = prefs[1][:3]
+        if ext[EXT_CLEARCOAT]:
+            cc_pref = prefs[1 + ext[EXT_SHEEN]][:3]
 
     lut_a, lut_b = env_brdf_approx(n_dot_v, roughness)
-    ambient = [irr[c] * c_diff[c] + pref[c] * (f0[c] * lut_a + lut_b)
-               for c in range(3)]
-    pbr_color = [direct[c] + ambient[c] + emissive[c] for c in range(3)]
+    ambient = [_tm(irr[c] * c_diff[c] + pref[c] * (f0[c] * lut_a + lut_b),
+                   occlusion) for c in range(3)]
+    pbr_color = [direct[c] + ambient[c] for c in range(3)]
+
+    if ext[EXT_SHEEN]:       # KHR_materials_sheen
+        sheen_scale = brdf.sheen_albedo_scaling_c(n_dot_v, sheen_color,
+                                                  sheen_rough)
+        sheen_ibl = v_mul(sheen_pref, sheen_color)
+        pbr_color = [pbr_color[c] * sheen_scale + sheen_ibl[c]
+                     for c in range(3)]
+    if ext[EXT_CLEARCOAT]:   # KHR_materials_clearcoat
+        cc_a, cc_b = env_brdf_approx(n_dot_v, cc_rough)
+        cc_amt = cc * (0.04 * cc_a + cc_b)
+        cc_fresnel = 0.04 + 0.96 * torch.pow(1.0 - n_dot_v, 5.0)
+        cc_scale = 1.0 - cc * cc_fresnel
+        pbr_color = [pbr_color[c] * cc_scale + cc_pref[c] * cc_amt
+                     for c in range(3)]
+    pbr_color = [pbr_color[c] + emissive[c] for c in range(3)]
+
+    # lighting- and channel-isolation debug views
+    if debug_mode == "ibl":
+        pbr_color = ambient
+    elif debug_mode == "punctual":
+        pbr_color = direct
+    elif debug_mode == "material" or debug_mode.startswith("channel:"):
+        spec_vis = [_tm(spec_color[c], spec_color_tex[c]) * spec_amt
+                    for c in range(3)]
+        views = (
+            base[:3],                                          # base colour
+            [metallic, roughness, torch.zeros_like(metallic)],  # metal/rough
+            [n_final[c] * 0.5 + 0.5 for c in range(3)],        # normals
+            [occlusion] * 3,                                   # occlusion
+            emissive,                                          # emissive
+            spec_vis,                                          # specular
+        )
+        if debug_mode == "material":
+            # per-material bitmask: the lowest set bit wins (selects
+            # applied high -> low so bit 0 lands last)
+            dbg = mflag(M.MI_DEBUG_MASK).to(torch.int32)
+            for b in range(5, -1, -1):
+                hit = ((dbg >> b) & 1) == 1
+                pbr_color = v_where(hit, views[b], pbr_color)
+        else:
+            pbr_color = views[DEBUG_CHANNELS[debug_mode.split(":", 1)[1]]]
+
     color = v_where(is_unlit, base[:3], pbr_color)
-    return color, ~miss, sky
+    return color, ~miss, n_final, sky
 
 
 def shade_deferred_c(vis, ds, *, width: int, height: int,
-                     solid_env: bool = False):
+                     solid_env: bool = False, use_mips: bool = True,
+                     slot_mask=NO_SLOTS, has_nearest: bool = True,
+                     ext=NO_EXT, debug_mode: str = "none"):
     """Deferred opaque shade -> HDR linear [r, g, b, a] (P,) planes: the
-    shaded surface where covered, the skybox on a miss, alpha = coverage."""
+    shaded surface where covered, the skybox on a miss, alpha = coverage.
+    debug_mode "normals" shows the shading normal; ibl | punctual |
+    material | channel:<name> go to shade_surface."""
     P = width * height
     planes = {k: vis[k].reshape(P) for k in vis if k != "bins"}
-    color, valid, sky = shade_surface(planes, ds, width=width,
-                                      height=height, solid_env=solid_env)
+    surf_mode = (debug_mode if debug_mode in ("ibl", "punctual", "material")
+                 or debug_mode.startswith("channel:") else "none")
+    color, valid, n_final, sky = shade_surface(
+        planes, ds, width=width, height=height, solid_env=solid_env,
+        use_mips=use_mips, slot_mask=slot_mask, has_nearest=has_nearest,
+        ext=ext, debug_mode=surf_mode)
+    if debug_mode == "normals":
+        color = [n_final[c] * 0.5 + 0.5 for c in range(3)]
     out = [torch.where(valid, color[c], sky[c]) for c in range(3)]
     return out + [valid.float()]

@@ -1,5 +1,6 @@
 """Frame pipeline of the port's slice: vertex -> raster (K1) -> resolve
-(K2) -> deferred shade (K3, K6) -> display.
+(K2) -> deferred shade (K3 material fetch, K4 + K5 texture taps, K6 env
+taps) -> display.
 
 Port of the non-AA, effect-free, opaque-only path of
 awsm_renderer_tpu/passes/frame.py: render_frame -> _opaque_band ->
@@ -13,7 +14,7 @@ import torch
 
 from ..config import ToneMapping
 from ..ops.raster import TILE_H, TILE_W, pad_setup_rows, rasterize16
-from ..ops.shade import shade_deferred_c
+from ..ops.shade import NO_EXT, NO_SLOTS, shade_deferred_c
 from ..ops.tonemap import display_pass_c
 from ..ops.vertex import vertex_stage
 
@@ -46,18 +47,23 @@ def prep_setup_rows(rows: torch.Tensor) -> torch.Tensor:
 
 
 def _opaque_band(ds, opaque_mask, *, rw: int, rh: int, needs_clip: bool,
-                 solid_env: bool, has_color: bool):
+                 solid_env: bool, has_color: bool, has_uv1: bool,
+                 use_mips: bool, slot_mask, has_nearest: bool, ext,
+                 debug_mode: str):
     """Opaque geometry + deferred shade over the whole (rh, rw) padded
     framebuffer -> (hdr [r,g,b,a] (rh*rw,) planes, tri_id, depth
     (rh, rw), raster bins)."""
     srows = prep_setup_rows(_run_vertex(ds, opaque_mask, rw=rw, rh_full=rh,
                                         needs_clip=needs_clip))
-    # the untextured shade reads no uv planes; vertex colours only when a
-    # mesh carries them (the reference's has_color specialization)
-    vis = rasterize16(srows, width=rw, height=rh, has_uv1=False,
+    # uv1 / vertex-colour planes only when a material samples uv1 or a
+    # mesh carries colours; no analytic derivatives: the mip gradients
+    # are screen differences of the padded uv0 planes, as in the reference
+    vis = rasterize16(srows, width=rw, height=rh, has_uv1=has_uv1,
                       has_color=has_color, analytic_derivs=False)
     hdr_ch = shade_deferred_c(vis, ds, width=rw, height=rh,
-                              solid_env=solid_env)
+                              solid_env=solid_env, use_mips=use_mips,
+                              slot_mask=slot_mask, has_nearest=has_nearest,
+                              ext=ext, debug_mode=debug_mode)
     return hdr_ch, vis["tri_id"], vis["depth"], vis["bins"]
 
 
@@ -72,14 +78,19 @@ def _finish_frame(hdr_ch, tri_id, depth, *, rw: int, rh: int, width: int,
 
 def render_frame(ds, opaque_mask, *, width: int, height: int,
                  tonemap: ToneMapping, needs_clip: bool = True,
-                 solid_env: bool = False, has_color: bool = True):
+                 solid_env: bool = False, has_color: bool = True,
+                 has_uv1: bool = False, use_mips: bool = True,
+                 slot_mask=NO_SLOTS, has_nearest: bool = True, ext=NO_EXT,
+                 debug_mode: str = "none"):
     """Returns (display rgba (H, W, 4) f32 in [0, 1], tri_id (H, W) int32
     in triangle-pool space (-1 = miss), depth (H, W) f32, raster bins)."""
     rw = _pad_to(width, TILE_W)
     rh = _pad_to(height, TILE_H)
     hdr_ch, tri_id, depth, bins = _opaque_band(
         ds, opaque_mask, rw=rw, rh=rh, needs_clip=needs_clip,
-        solid_env=solid_env, has_color=has_color)
+        solid_env=solid_env, has_color=has_color, has_uv1=has_uv1,
+        use_mips=use_mips, slot_mask=slot_mask, has_nearest=has_nearest,
+        ext=ext, debug_mode=debug_mode)
     ldr, tri_id, depth = _finish_frame(hdr_ch, tri_id, depth, rw=rw, rh=rh,
                                        width=width, height=height,
                                        tonemap=tonemap)

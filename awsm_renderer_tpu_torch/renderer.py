@@ -1,7 +1,9 @@
 """AwsmRendererTorch — the port's renderer facade.
 
 Port of awsm_renderer_tpu/renderer.py (AwsmRendererTpu) for the slice
-ported so far: opaque, untextured glTF PBR / unlit materials under a
+ported so far: opaque glTF PBR / unlit materials with every texture slot
+and KHR_texture_transform, the opaque material extensions (clearcoat,
+sheen, iridescence, anisotropy, specular) and the debug views, under a
 solid or image environment, at most 8 punctual lights, no AA, no effects.
 The key-based stores, the per-frame dirty flush to device tensors and the
 host-side cull + pass bucketing mirror the reference; the frame runs
@@ -32,6 +34,8 @@ from .core.meshes import (
 from .core.skins import Skins
 from .core.textures import TEXEL_COLS, Textures, f32_to_bf16_bits
 from .core.transforms import Transform, Transforms
+from .errors import ConfigError
+from .ops.shade import EXT_TRANSMISSION, EXT_VOLUME
 from .passes.frame import render_frame
 
 MAX_DENSE_LIGHTS = 8
@@ -332,13 +336,11 @@ class AwsmRendererTorch:
             raise _unsupported("tiled light lists", "M12 passes and hooks")
 
     def _prepare(self):
-        """Cull + bucket, and refuse content outside the slice."""
+        """Cull + bucket, the opaque bucket's shading specialization
+        (slot_mask, ext), and refuse content outside the slice."""
         masks = self._mesh_masks()
         if masks["transparent"].any() or masks["hud"].any():
             raise _unsupported("transparent / HUD meshes", "M8 overlay")
-        if (self.materials.flags[:, MI_DEBUG_MASK] != 0).any():
-            raise _unsupported("per-material debug views",
-                               "M5c material extensions and debug views")
         info = self.meshes.mesh_info
         if (info[:, 3] > 0).any() or (info[:, 5] > 0).any():
             raise _unsupported("morph targets / skins",
@@ -350,13 +352,11 @@ class AwsmRendererTorch:
             raise _unsupported(f"more than {MAX_DENSE_LIGHTS} lights "
                                "(tiled light lists)", "M12 passes and hooks")
         op_rows = self._bucket_mat_rows(masks["opaque"])
-        if any(self._slot_mask(op_rows)):
-            raise _unsupported("bound texture slots",
-                               "M5b textured path, K4 + K5")
-        if any(self._ext_mask(op_rows)):
-            raise _unsupported("material extensions",
-                               "M5c material extensions and debug views")
-        return masks
+        ext = self._ext_mask(op_rows)
+        if ext[EXT_TRANSMISSION] or ext[EXT_VOLUME]:
+            raise _unsupported("transmission / volume materials",
+                               "M8 overlay")
+        return masks, self._slot_mask(op_rows), ext
 
     def _scene_signature(self, cfg=None):
         """Content signature of everything a frame depends on (the
@@ -378,33 +378,47 @@ class AwsmRendererTorch:
         a tensor on the renderer's device (no host readback)."""
         if hooks is not None:
             raise _unsupported("render hooks", "M12 passes and hooks")
-        if debug_mode != "none":
-            raise _unsupported(f"debug mode {debug_mode!r}",
-                               "M5c material extensions and debug views")
         cfg = self.config
+        if debug_mode == "edges" and not cfg.anti_aliasing.msaa:
+            raise ConfigError(
+                "debug_mode 'edges' visualizes MSAA per-sample coverage "
+                "and requires AntiAliasing(msaa=True)")
         self._check_config(cfg)
         self.camera.next_frame()
+        if debug_mode == "none" and (
+                self.materials.flags[:, MI_DEBUG_MASK] != 0).any():
+            # a material's debug bitmask switches to the per-material view
+            debug_mode = "material"
         ds = self._flush()
         prep_key = self._scene_signature(cfg)
         if self._prep is not None and self._prep[0] == prep_key:
-            masks, opaque_dev = self._prep[1]
+            masks, slot_mask, ext, opaque_dev = self._prep[1]
         else:
-            masks = self._prepare()
+            masks, slot_mask, ext = self._prepare()
             opaque_dev = self._tensor(masks["opaque"])
-            self._prep = (prep_key, (masks, opaque_dev))
+            self._prep = (prep_key, (masks, slot_mask, ext, opaque_dev))
+        tx = self.textures
         ldr, tri_id, _depth, bins = render_frame(
             ds, opaque_dev, width=cfg.width, height=cfg.height,
             tonemap=cfg.post_processing.tonemapping,
             needs_clip=masks["needs_clip"],
             solid_env=self.environment.is_solid,
-            has_color=self.meshes.uses_vertex_colors)
+            has_color=self.meshes.uses_vertex_colors,
+            has_uv1=bool((self.materials.tex_slots[:, :, 1] == 1).any()),
+            use_mips=cfg.anti_aliasing.mipmap, slot_mask=slot_mask,
+            has_nearest=bool((tx.descriptors[:, 5] == 0).any()
+                             and tx.descriptor_capacity > 0),
+            ext=ext, debug_mode=debug_mode)
         self._last_tri_id = tri_id
         self._rendered_sig = prep_key
         self.last_bins = bins
         return ldr
 
     def render(self, debug_mode: str = "none", hooks=None) -> np.ndarray:
-        """Render one frame and read it back: (H, W, 4) f32 sRGB."""
+        """Render one frame and read it back: (H, W, 4) f32 sRGB.
+
+        debug_mode: "none" | "normals" | "ibl" | "punctual" |
+        "channel:<name>" (ops/shade.py DEBUG_CHANNELS)."""
         return self.render_device(debug_mode, hooks).cpu().numpy()
 
     def render_u8(self) -> np.ndarray:

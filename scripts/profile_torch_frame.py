@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's frame spends its time, on one CUDA card.
 
-Builds chip_smoke.py's stress scene (bench.py geometry and lights, image
-environment) at --width x --height, warms up, then:
+Builds one of chip_smoke.py's scenes at --width x --height (--scene
+stress: Stress-1080p-ibl-tex, bench.py's geometry, textures and lights
+under an image environment; --scene stress-untextured: the same without
+its textures; --scene helmet: the glTF catalog's helmet),
+warms up, then:
   1. renders --frames orbit frames with the profiler off: median ms/frame
      from CUDA events around each frame, and host wall ms/frame;
   2. renders --frames more under torch.profiler (CPU + CUDA activities)
@@ -11,7 +14,8 @@ environment) at --width x --height, warms up, then:
      kernels launched per frame.
 
 Usage (repo root, one card):
-    python3 scripts/profile_torch_frame.py [--width 1920 --height 1080]
+    python3 scripts/profile_torch_frame.py [--scene stress|helmet]
+        [--width 1920 --height 1080]
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ def main() -> int:
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--frames", type=int, default=20)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--scene", choices=("stress", "stress-untextured",
+                                        "helmet"), default="stress")
     args = ap.parse_args()
 
     import numpy as np
@@ -45,16 +51,23 @@ def main() -> int:
     import chip_smoke as CS
 
     CS.W, CS.H = args.width, args.height
-    r, _ = CS.build_stress_scene(P, np, "cuda")
+    if args.scene.startswith("stress"):
+        r, _ = CS.build_stress_scene(P, np, "cuda",
+                                     textured=args.scene == "stress")
+
+        def camera(i):
+            CS.orbit_camera(r, np, i)
+    else:
+        r, camera, _ = CS.build_helmet_scene(P, np, "cuda")
     for i in range(3):
-        CS.orbit_camera(r, np, i)
+        camera(i)
         r.render_device()
     torch.cuda.synchronize()
 
     ev = []
     t0 = time.perf_counter()
     for i in range(args.frames):
-        CS.orbit_camera(r, np, 3 + i)
+        camera(3 + i)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -65,7 +78,8 @@ def main() -> int:
     wall = (time.perf_counter() - t0) * 1e3 / args.frames
     ms = sorted(a.elapsed_time(b) for a, b in ev)
     q1, med, q3 = statistics.quantiles(ms, n=4)
-    print(f"{args.width}x{args.height}, {args.frames} frames, profiler off: "
+    print(f"{args.scene} {args.width}x{args.height}, {args.frames} frames, "
+          f"profiler off: "
           f"median {med:.3f} ms/frame (CUDA events; quartiles {q1:.3f} / "
           f"{q3:.3f}, min {ms[0]:.3f}, max {ms[-1]:.3f}); host wall "
           f"{wall:.3f} ms/frame")
@@ -74,7 +88,7 @@ def main() -> int:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(args.frames):
-            CS.orbit_camera(r, np, 3 + args.frames + i)
+            camera(3 + args.frames + i)
             r.render_device()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3

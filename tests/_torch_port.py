@@ -58,3 +58,41 @@ def to_numpy(x):
     if a.dtype.name == "bfloat16":
         return a.view(np.uint16)
     return a
+
+
+def gltf_scene(renderer, name: str, image_env: bool = False):
+    """Populate `renderer` (either package's) with glTF catalog entry
+    `name` through its own load_gltf + populate_gltf, with the catalog's
+    camera; image_env adds demo/scenes.py's env-ibl equirect."""
+    import importlib
+    import os
+    import tempfile
+
+    pkg = type(renderer).__module__.split(".")[0]
+    samples = importlib.import_module(f"{pkg}.gltf.samples")
+    loader = importlib.import_module(f"{pkg}.gltf.loader")
+    populate = importlib.import_module(f"{pkg}.gltf.populate")
+    m3 = importlib.import_module(f"{pkg}.utils.math3d")
+    glb, (eye, center) = samples.SAMPLES[name]()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, f"{name}.glb")
+        with open(path, "wb") as f:
+            f.write(glb)
+        populate.populate_gltf(renderer, loader.load_gltf(path))
+    if image_env:
+        renderer.environment.set_environment_from_equirect(env_equirect(),
+                                                           size=32)
+    w, h = renderer.config.width, renderer.config.height
+    renderer.update_all(0.35, m3.look_at(eye, center, (0, 1, 0)),
+                        m3.perspective(np.pi / 3, w / h, 0.05, 100.0))
+    return renderer
+
+
+def env_equirect():
+    """demo/scenes.py scene_env_ibl's procedural equirect."""
+    eq = np.zeros((32, 64, 3), np.float32)
+    v = np.linspace(0, 1, 32)[:, None]
+    eq[..., 0] = 0.2 + 0.8 * v
+    eq[..., 1] = 0.3 + 0.25 * v
+    eq[..., 2] = 1.0 - 0.8 * v
+    return eq

@@ -7,11 +7,14 @@ without a CUDA device. Run on the card with:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-K1, K3 and K6 are bit-equal to their twins; K2's ints are equal and its
-floats within rtol 1e-5, atol 1e-6 (both round every product and sum
-separately, so they agree exactly in practice). The card frame's tri_id
-plane equals the CPU frame's, and its LDR image is within 1e-5 (torch's
-CUDA pow/exp2 may differ from the CPU's by an ulp)."""
+K1, K3, K5 and K6 are bit-equal to their twins; K2's ints are equal and
+its floats within rtol 1e-5, atol 1e-6 (both round every product and sum
+separately, so they agree exactly in practice). K4's row indices equal
+the twin's and its weights are within 1e-6, except at taps whose LOD lies
+within 1e-5 of an integer (log2f vs torch.log2 may floor to the other
+mip). The card frame's tri_id plane equals the CPU frame's, and its LDR
+image is within 1e-5 (torch's CUDA pow/exp2 may differ from the CPU's by
+an ulp; a textured frame within 1e-4, for the same reason in its LOD)."""
 
 import numpy as np
 import pytest
@@ -113,6 +116,37 @@ def test_k3_k6_kernels_bit_equal_to_twins(dev):
         _bits(gather_split_channels_reference(texels, idx, 16)))
 
 
+@pytest.mark.parametrize("mips, tform, nearest", [
+    (False, False, True), (True, True, True), (True, False, False)])
+def test_k4_k5_kernels_match_twins(dev, mips, tform, nearest):
+    from awsm_renderer_tpu_torch.ops import texsample as TS
+    from test_torch_texsample import _near_integer_lod, _taps, make_store
+
+    st = make_store()
+    tex_id, u, v, duv, tf = _taps(3)
+    t = lambda a: torch.as_tensor(a).to(dev)  # noqa: E731
+    args = (t(tex_id), t(u), t(v),
+            tuple(t(c) for c in duv) if mips else None, t(st.descriptors))
+    kw = dict(has_nearest=nearest, tform_id=t(tf) if tform else None,
+              tex_transforms=t(st.tex_transforms) if tform else None)
+    idx, w = TS.tap_plan_fused(*args, **kw)
+    ridx, rw = TS.tap_plan_reference(*args, **kw)
+    torch.cuda.synchronize()
+    ok = np.ones(len(tex_id), bool)
+    if mips:
+        ok = ~_near_integer_lod(st, tex_id, u, v, duv,
+                                tf if tform else np.full_like(tf, -1))
+    ok = torch.as_tensor(ok, device=dev)
+    assert torch.equal(idx[ok], ridx[ok])
+    torch.testing.assert_close(w[:, ok], rw[:, ok], rtol=0, atol=1e-6)
+    pool = torch.from_numpy(st.texels_packed.view(np.int16).copy()).view(
+        torch.bfloat16).to(dev)
+    a = TS.filter_taps_fused(pool, idx, w, mips=mips)
+    b = TS.filter_taps_reference(pool, idx, w, mips=mips)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(a), _bits(b))
+
+
 def test_wrappers_reject_bad_inputs(dev):
     from awsm_renderer_tpu_torch.ops.relayout import onehot_split_rows
 
@@ -125,7 +159,7 @@ def test_wrappers_reject_bad_inputs(dev):
                           table.double())
 
 
-@pytest.mark.parametrize("scene", ["box", "env-ibl"])
+@pytest.mark.parametrize("scene", ["box", "env-ibl", "box-textured"])
 def test_card_frame_matches_cpu_frame(dev, scene):
     import awsm_renderer_tpu_torch as P
     from awsm_renderer_tpu_torch.ops import kernels
@@ -136,11 +170,15 @@ def test_card_frame_matches_cpu_frame(dev, scene):
     kernels.reset_launch_counts()
     img_card = card.render()
     # K6 serves the image environment's taps; a solid env has none
+    # and K4 + K5 the texture taps; an untextured frame has none
     want = dict.fromkeys(kernels.launch_counts, 1)
     want["gather_split_channels"] = int(not card.environment.is_solid)
+    textured = scene == "box-textured"
+    want["tap_plan_fused"] = want["filter_taps_fused"] = int(textured)
     assert kernels.launch_counts == want
     img_cpu = cpu.render()
     np.testing.assert_array_equal(card._last_tri_id.cpu().numpy(),
                                   cpu._last_tri_id.numpy())
-    np.testing.assert_allclose(img_card, img_cpu, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(img_card, img_cpu, rtol=0,
+                               atol=1e-4 if textured else 1e-5)
     assert card.pick(T.W // 2, T.H // 2) == cpu.pick(T.W // 2, T.H // 2)

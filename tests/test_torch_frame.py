@@ -1,5 +1,6 @@
 """PyTorch port, whole slice: render_u8() against the checked-in goldens,
-one full frame against the JAX renderer's render(), and pick().
+one full frame against the JAX renderer's render() (textured, and under
+debug views), and pick().
 
 The goldens are held at tests/test_golden.py's tolerance (< 0.5% of
 channel values off by more than 4/255). Against the JAX frame, the LDR
@@ -17,8 +18,9 @@ import pytest
 
 import _torch_port as T
 
-GOLDENS = ("triangle", "box", "metal-rough-spheres", "env-ibl")
-FRAMES = ("box", "metal-rough-spheres", "env-ibl")
+GOLDENS = ("triangle", "box", "metal-rough-spheres", "env-ibl",
+           "box-textured")
+FRAMES = ("box", "metal-rough-spheres", "env-ibl", "box-textured")
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 
 
@@ -91,3 +93,14 @@ def test_pick_rerenders_after_a_camera_move():
     r.camera.update(m3.look_at([0, 0, 3], [0, 0, 10], [0, 1, 0]),
                     r.camera.projection)
     assert r.pick(T.W // 2, T.H // 2) is None
+
+
+@pytest.mark.parametrize("mode", ["normals", "punctual",
+                                  "channel:basecolor"])
+def test_debug_view_matches_jax_render(mode):
+    rj, rt = T.jax_renderer("box-textured"), T.torch_renderer("box-textured")
+    lj = rj.render(debug_mode=mode)
+    lt = rt.render(debug_mode=mode)
+    diff = np.abs(np.round(lt * 255) - np.round(lj * 255))
+    assert (diff > 4).mean() < 0.005
+    assert np.abs(lt - rt.render()).max() > 0.05      # the view differs

@@ -1,6 +1,6 @@
 """PyTorch port, host tier: the copied stores, the ml_dtypes-free bf16
-texel pool, the device flush, the no-JAX import rule and the refusal of
-content outside the ported slice.
+texel pool, the device flush (textured scenes included), the no-JAX
+import rule and the refusal of content outside the ported slice.
 
 The flushed scene must equal the JAX renderer's `_device` arrays bit for
 bit (the port flushes the same host mirrors with the same packers)."""
@@ -29,12 +29,23 @@ COMPARED = ("world", "normal_mat", "c_pos", "c_norm", "c_tang", "c_uv0",
 
 @pytest.fixture(scope="module")
 def flushed():
-    """{scene: (JAX _device as numpy, port _flush() as numpy)}"""
+    """{scene: (JAX _device as numpy, port _flush() as numpy)}; the demo
+    scenes, and the glTF helmet (five 1024-texel maps with mip chains)
+    under an image environment."""
+    from awsm_renderer_tpu import AwsmRendererTpu, RendererConfig
+    import awsm_renderer_tpu_torch as P
+
     out = {}
     for scene in SCENES:
         dj = T.to_numpy(dict(T.jax_renderer(scene)._flush()))
         dt = T.to_numpy(dict(T.torch_renderer(scene)._flush()))
         out[scene] = (dj, dt)
+    rj = T.gltf_scene(AwsmRendererTpu(RendererConfig(width=T.W, height=T.H)),
+                      "glb-helmet", image_env=True)
+    rt = T.gltf_scene(P.AwsmRendererTorch(P.RendererConfig(
+        width=T.W, height=T.H), device="cpu"), "glb-helmet", image_env=True)
+    out["glb-helmet"] = (T.to_numpy(dict(rj._flush())),
+                         T.to_numpy(dict(rt._flush())))
     return out
 
 
@@ -59,7 +70,7 @@ def test_bf16_bits_match_ml_dtypes():
     assert np.isnan(back.view(np.float32)).all()
 
 
-@pytest.mark.parametrize("scene", SCENES)
+@pytest.mark.parametrize("scene", SCENES + ("glb-helmet",))
 def test_flushed_scene_bit_equal(flushed, scene):
     dj, dt = flushed[scene]
     for name in COMPARED:
@@ -75,7 +86,8 @@ def test_flushed_scene_bit_equal(flushed, scene):
         np.testing.assert_array_equal(v, dt["camera"][k], err_msg=k)
 
 
-@pytest.mark.parametrize("scene", ("box", "env-ibl"))
+@pytest.mark.parametrize("scene", ("box", "env-ibl", "box-textured",
+                                   "glb-helmet"))
 def test_device_scene_from_jax_matches_port_flush(flushed, scene):
     from awsm_renderer_tpu_torch import device_scene_from_jax
 
@@ -132,8 +144,8 @@ def test_native_host_library_path():
 
 def test_import_without_jax_and_cuda_refused():
     """The port imports with jax and ml_dtypes blocked, renders the
-    triangle probe on the CPU, and refuses device='cuda' on a host
-    without a card."""
+    triangle probe and a textured glTF sample on the CPU, and refuses
+    device='cuda' on a host without a card."""
     code = r"""
 import sys
 sys.modules['jax'] = None
@@ -153,6 +165,18 @@ r.camera.update(m3.look_at([0, 0, 2.2], [0, 0, 0], [0, 1, 0]),
                 m3.perspective(np.pi / 3, 2.0, 0.05, 500.0))
 img = r.render_u8()
 assert img.shape == (64, 128, 4) and (img[..., 3] == 255).sum() > 100
+import os, tempfile
+from awsm_renderer_tpu_torch.gltf.samples import glb_texture_transform
+glb, (eye, center) = glb_texture_transform()
+path = os.path.join(tempfile.mkdtemp(), 't.glb')
+open(path, 'wb').write(glb)
+r = P.AwsmRendererTorch(P.RendererConfig(width=128, height=64), device='cpu')
+P.populate_gltf(r, P.load_gltf(path))
+r.camera.update(m3.look_at(eye, center, [0, 1, 0]),
+                m3.perspective(np.pi / 3, 2.0, 0.05, 100.0))
+assert (r.render_u8()[..., 3] == 255).sum() > 100
+assert not any(m.startswith('awsm_renderer_tpu.') or m == 'awsm_renderer_tpu'
+               for m in sys.modules if sys.modules[m] is not None)
 import torch
 if not torch.cuda.is_available():
     try:
@@ -201,12 +225,16 @@ def _transparent(r):
     r.add_mesh(box(0.3), mat)
 
 
-def _clearcoat(r):
+def _transmission(r):
     import awsm_renderer_tpu_torch as P
     from awsm_renderer_tpu_torch.geometry import box
 
     r.add_mesh(box(0.3), r.materials.insert(P.PbrMaterial(
-        clearcoat_factor=1.0)))
+        transmission_factor=1.0)))
+
+
+def _skinned_gltf(r):
+    T.gltf_scene(r, "glb-skinned")
 
 
 @pytest.mark.parametrize("scene, edit, milestone", [
@@ -214,8 +242,8 @@ def _clearcoat(r):
     ("box", _bloom, "M9"),
     ("box", _many_lights, "M12"),
     ("box", _transparent, "M8"),
-    ("box", _clearcoat, "M5c"),
-    ("box-textured", None, "M5b"),
+    ("box", _transmission, "M8"),
+    ("box", _skinned_gltf, "M2b"),
     ("morph-cube", None, "M2b"),
     ("instanced", None, "M2b"),
 ])
@@ -228,9 +256,14 @@ def test_out_of_slice_content_raises(scene, edit, milestone):
 
 
 def test_debug_modes_and_hooks_raise():
+    """The MSAA edge view needs MSAA (a ConfigError, as in the JAX
+    renderer); hooks are milestone M12. Every other debug view renders
+    (tests/test_torch_frame.py)."""
+    from awsm_renderer_tpu_torch.errors import ConfigError
+
     r = T.torch_renderer("box")
-    with pytest.raises(NotImplementedError, match="M5c"):
-        r.render_device(debug_mode="normals")
+    with pytest.raises(ConfigError, match="msaa"):
+        r.render_device(debug_mode="edges")
     with pytest.raises(NotImplementedError, match="M12"):
         r.render_device(hooks=object())
 
