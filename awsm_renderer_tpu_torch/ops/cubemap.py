@@ -39,14 +39,11 @@ def cubemap_face_uv_c(d3):
     ax, ay, az = torch.abs(x), torch.abs(y), torch.abs(z)
     is_x = (ax >= ay) & (ax >= az)
     is_y = (~is_x) & (ay >= az)
-    i32 = torch.int32
-
-    def pick(c, a, b):
-        return torch.where(c, torch.tensor(a, dtype=i32, device=x.device),
-                           torch.tensor(b, dtype=i32, device=x.device))
-
-    face = torch.where(is_x, pick(x > 0, 0, 1),
-                       torch.where(is_y, pick(y > 0, 2, 3), pick(z > 0, 4, 5)))
+    # Python-scalar branches: a scalar tensor made on the card per call is
+    # a pageable host-to-device copy, which waits for the stream
+    face = torch.where(is_x, torch.where(x > 0, 0, 1),
+                       torch.where(is_y, torch.where(y > 0, 2, 3),
+                                   torch.where(z > 0, 4, 5))).to(torch.int32)
     ma = torch.where(is_x, ax, torch.where(is_y, ay, az))
     ma = torch.clamp(ma, min=1e-12)
     sc = torch.where(is_x, torch.where(x > 0, -z, z),

@@ -1,8 +1,9 @@
 """Build, load and launch the package's hand-written CUDA kernels.
 
 The sources under ``awsm_renderer_tpu_torch/csrc/`` are compiled at first
-use with ``nvcc`` for Hopper (``sm_90a``) into one shared library with a
-plain C interface, bound through ctypes. The library lands in
+use with ``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` per source, all
+started together, then linked into one shared library with a plain C
+interface, bound through ctypes. The library lands in
 ``<repo>/build/kernels/`` under a name keyed by a hash of the sources and
 flags, so an edit rebuilds and an unchanged tree reuses the last build.
 Nothing here runs at import time: the CPU tests import every module, and
@@ -29,14 +30,14 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("raster16.cu", "resolve.cu", "relayout.cu", "texsample.cu")
+SOURCES = ("raster16.cu", "resolve.cu", "relayout.cu", "texsample.cu",
+           "binned.cu")
 # -fmad=false: no FMA contraction anywhere. The edge functions and the
 # resolve ALU must round exactly like their plain PyTorch twins (separate
 # mul and add kernels); a contracted edge function opens pinholes along
 # shared edges. Denormals stay on (no --use_fast_math, no ftz).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,9 +47,12 @@ _SIGNATURES = {
     "awsm_resolve": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     "awsm_onehot_split_rows": [_P, _P, _I, _I, _I, _P, _P],
     "awsm_gather_split_channels": [_P, _I, _I, _P, _I, _I, _P, _P],
+    "awsm_gather_split_channels_f32": [_P, _I, _I, _P, _I, _I, _P, _P],
     "awsm_tap_plan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I,
                       _I, _I, _I, _P, _P, _P],
     "awsm_filter_taps": [_P, _I, _I, _P, _P, _I, _I, _P, _P],
+    "awsm_binned": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _I, _I,
+                    _P, _P, _P],
 }
 
 launch_counts: Dict[str, int] = {
@@ -58,6 +62,9 @@ launch_counts: Dict[str, int] = {
     "gather_split_channels": 0,
     "tap_plan_fused": 0,
     "filter_taps_fused": 0,
+    "gather_split_channels_f32": 0,
+    "rasterize_binned": 0,
+    "rasterize_binned_compact": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -89,21 +96,40 @@ def library_path() -> str:
 
 
 def build() -> str:
-    """Compile the kernels unless this exact source set is already built.
-    Returns the library path; raises with nvcc's output on failure."""
+    """Compile the kernels unless this exact source set is already built:
+    one nvcc per source in parallel, then one link. Returns the library
+    path; raises with nvcc's output on failure."""
     global build_log
     out = library_path()
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[os.path.join(CSRC, s) for s in SOURCES]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, out)
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.splitext(s)[0]}.{tag}.o")
+            for s in SOURCES]
+    procs = [subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC, src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(SOURCES, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    build_log = "".join(logs)
+    try:
+        failed = [s for s, p in zip(SOURCES, procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+        tmp = f"{out}.{tag}"
+        proc = subprocess.run([nvcc, NVCC_FLAGS[0], NVCC_FLAGS[1], "-shared",
+                               "-o", tmp, *objs], capture_output=True,
+                              text=True)
+        build_log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{build_log}")
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     return out
 
 

@@ -1,11 +1,16 @@
-"""Binned tile rasterizer -> (winner setup column, depth) per pixel.
+"""Binned tile rasterizers.
 
-Port of the production (v5) path of awsm_renderer_tpu/ops/raster.py:
-pad_setup_rows, _group_zmin, build_bins16 (sort-based (tile, group) pair
-binning, plain PyTorch here as it is XLA code there), K1
+Port of two paths of awsm_renderer_tpu/ops/raster.py. The opaque (v5)
+path: pad_setup_rows, _group_zmin, build_bins16 (sort-based (tile,
+group) pair binning, plain PyTorch here as it is XLA code there), K1
 rasterize16_slim (hand-written CUDA, csrc/raster16.cu) with its plain
 twin rasterize16_slim_reference, and rasterize16 (K1 then the K2
-attribute resolve).
+attribute resolve). The overlay's (v4) fat path: _chunk_bboxes,
+_chunk_zmin, build_bins, K7 rasterize_binned and K8
+_rasterize_binned_compact (csrc/binned.cu, twins *_reference), the
+K-layer peels rasterize_layers_rows and rasterize_layers_compact. The
+port's setup is row-major (T, NSETUP) everywhere, so the reference's
+column-major pad_setup is pad_setup_rows here.
 
 Fill convention: top-left rule with pixel centers at +0.5; depth is NDC z
 in [0, 1], cleared to 1.0, LESS compare.
@@ -18,7 +23,7 @@ import torch
 from . import kernels
 from .vertex import (
     NSETUP, S_BB_MAXX, S_BB_MAXY, S_BB_MINX, S_BB_MINY,
-    S_E0A, S_E1A, S_E2A, S_ZA, S_ZB, S_ZC,
+    S_E0A, S_E1A, S_E2A, S_ORIG_ID, S_ZA, S_ZB, S_ZC,
 )
 
 # smallest normal f32: E >= _FMIN <=> E > 0 for any non-degenerate edge
@@ -74,15 +79,22 @@ def _ceil_log2(n: int) -> int:
     return b
 
 
-def _group_zmin(setup_rows: torch.Tensor, n_groups: int) -> torch.Tensor:
-    """Conservative per-group min NDC z (n_groups,) from row-major setup."""
+def _zmin_blocks(setup_rows: torch.Tensor, n: int, size: int) -> torch.Tensor:
+    """Conservative min NDC z of each of `n` blocks of `size` rows: the
+    affine z-plane's minimum over a triangle's screen bbox sits at a bbox
+    corner, and the bbox holds the triangle."""
     za, zb, zc = setup_rows[:, S_ZA], setup_rows[:, S_ZB], setup_rows[:, S_ZC]
     minx, maxx = setup_rows[:, S_BB_MINX], setup_rows[:, S_BB_MAXX]
     miny, maxy = setup_rows[:, S_BB_MINY], setup_rows[:, S_BB_MAXY]
     zx = torch.minimum(za * minx, za * maxx)
     zy = torch.minimum(zb * miny, zb * maxy)
     z = torch.where(minx <= maxx, zc + zx + zy, torch.full_like(zc, _BIG))
-    return z.reshape(n_groups, GROUP).amin(dim=1)
+    return z.reshape(n, size).amin(dim=1)
+
+
+def _group_zmin(setup_rows: torch.Tensor, n_groups: int) -> torch.Tensor:
+    """Conservative per-group min NDC z (n_groups,) from row-major setup."""
+    return _zmin_blocks(setup_rows, n_groups, GROUP)
 
 
 def _f2i(x: torch.Tensor) -> torch.Tensor:
@@ -183,14 +195,17 @@ def build_bins16(setup_rows: torch.Tensor, *, width: int, height: int,
             n_clipped)
 
 
-def _merge_groups(P16, col_base, px, py, best_z, best_col, live):
-    """Merge one 16-triangle group per tile into the per-pixel state, in
-    triangle order, strict z < best (the kernel's rule).
+def _merge_groups(P16, col_base, px, py, best_z, best_col, live,
+                  zbounds=None):
+    """Merge one block of triangles per tile into the per-pixel state, in
+    triangle order, strict z < best (the kernels' rule).
 
-    P16 (n, GROUP, NSETUP) the tiles' group setup; col_base (n,) int;
-    px/py (1, 1024); best_z/best_col (n, 1024); live (n,) bool — tiles
-    whose walk reached this group."""
-    for k in range(GROUP):
+    P16 (n, G, NSETUP) the tiles' block setup (a 16-triangle group for
+    K1, a 128-triangle chunk for K7/K8); col_base (n,) int; px/py (n or
+    1, 1024); best_z/best_col (n, 1024); live (n,) bool — tiles whose
+    walk reached this block; zbounds: optional (zlo, zhi) (n, 1024)
+    peel planes, a fragment must satisfy zlo < z < zhi."""
+    for k in range(P16.shape[1]):
         r = P16[:, k, :]
         cover = live[:, None]
         for ra in (S_E0A, S_E1A, S_E2A):
@@ -202,6 +217,8 @@ def _merge_groups(P16, col_base, px, py, best_z, best_col, live):
         z = r[:, S_ZA:S_ZA + 1] * px + (r[:, S_ZB:S_ZB + 1] * py
                                         + r[:, S_ZC:S_ZC + 1])
         take = cover & (z >= 0.0) & (z <= 1.0) & (z < best_z)
+        if zbounds is not None:
+            take = take & (z > zbounds[0]) & (z < zbounds[1])
         best_z = torch.where(take, z, best_z)
         best_col = torch.where(take, (col_base + k)[:, None], best_col)
     return best_z, best_col
@@ -326,3 +343,404 @@ def rasterize16(setup_rows, *, width: int, height: int,
     out = {k: resolved[k].reshape(height, width) for k in names}
     out["bins"] = bins
     return out
+
+
+# ---- v4 binned fat raster: K7 rasterize_binned, K8 the compacted peel ----
+#
+# 128-triangle chunks binned to 32x32 tiles near-first; each tile keeps
+# the nearest fragment per pixel (optionally only zlo < z < zhi: a depth
+# peel) and interpolates its winner's attributes once at the end. The
+# overlay's passes run it: the transparent K-layer peel (band-wide, or
+# over the covered tiles only) and the HUD over a compacted pool.
+
+
+def _chunk_bboxes(setup_rows: torch.Tensor, n_chunks: int):
+    """Conservative per-chunk screen bboxes (minx, miny, maxx, maxy), each
+    (n_chunks,); invalid triangles carry empty boxes and drop out."""
+    def col(c):
+        return setup_rows[:, c].reshape(n_chunks, CHUNK)
+
+    return (col(S_BB_MINX).amin(dim=1), col(S_BB_MINY).amin(dim=1),
+            col(S_BB_MAXX).amax(dim=1), col(S_BB_MAXY).amax(dim=1))
+
+
+def _chunk_zmin(setup_rows: torch.Tensor, n_chunks: int) -> torch.Tensor:
+    """Conservative per-chunk min NDC z (n_chunks,), for the hi-Z skip."""
+    return _zmin_blocks(setup_rows, n_chunks, CHUNK)
+
+
+# the reference sizes its per-tile chunk list for the TPU's scalar memory
+# (a ~0.85 MiB budget of int32 entries, raster.py build_bins)
+_SMEM_BIN_ENTRIES = 850_000 // 4
+
+
+def build_bins(setup_rows: torch.Tensor, *, width: int, height: int,
+               max_bins: int | None = None):
+    """Per-tile chunk lists for K7/K8 (reference: raster.py build_bins).
+
+    setup_rows (T, NSETUP), T a CHUNK multiple; 32x32 tiles over (height,
+    width), both 32-multiples. Each tile lists the chunks whose bbox
+    overlaps it, ordered by the rank of their z-min (a stable sort, so an
+    exact z-min tie keeps chunk order): near first, for the hi-Z skip.
+    Returns (bins (n_tiles*B,) int32, counts (n_tiles,) int32, B, zmin
+    (n_chunks,) f32); pad slots repeat a tile's last chunk, an empty
+    tile's slots hold 0.
+
+    max_bins None lists every overlapping chunk (B = n_chunks). The
+    reference caps B at min(max_bins, its scalar-memory budget / n_tiles,
+    n_chunks) and silently drops each tile's farthest chunks beyond it (a
+    TPU sizing fault; 104 chunks at 1080p); pass its max_bins to
+    reproduce its bins exactly."""
+    dev = setup_rows.device
+    T = setup_rows.shape[0]
+    if T % CHUNK:
+        raise ValueError(f"setup rows {T} not a multiple of {CHUNK}")
+    n_chunks = T // CHUNK
+    n_ty, n_tx = height // BT_H, width // BT_W
+    n_tiles = n_ty * n_tx
+    if max_bins is None:
+        B = n_chunks
+    else:
+        B = min(max_bins, max(8, _SMEM_BIN_ENTRIES // n_tiles), n_chunks)
+    minx, miny, maxx, maxy = _chunk_bboxes(setup_rows, n_chunks)
+    zmin = _chunk_zmin(setup_rows, n_chunks)
+
+    tx0 = torch.arange(n_tx, dtype=torch.float32, device=dev) * BT_W
+    ty0 = torch.arange(n_ty, dtype=torch.float32, device=dev) * BT_H
+    ox = (minx[None, :] < (tx0 + BT_W)[:, None]) & (maxx[None, :] > tx0[:, None])
+    oy = (miny[None, :] < (ty0 + BT_H)[:, None]) & (maxy[None, :] > ty0[:, None])
+    overlap = (oy[:, None, :] & ox[None, :, :]).reshape(n_tiles, n_chunks)
+
+    counts = overlap.sum(dim=1).clamp(max=B).to(torch.int32)
+    order = torch.argsort(zmin, stable=True)              # rank -> chunk id
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(n_chunks, device=dev)
+    key = torch.where(overlap, rank[None, :],
+                      torch.full_like(rank, n_chunks)[None, :])
+    ranks_sel = torch.sort(key, dim=1).values[:, :B]     # B nearest ranks
+    bins = order[ranks_sel.clamp(0, n_chunks - 1)].to(torch.int32)
+    last = bins.gather(1, (counts.long() - 1).clamp(min=0)[:, None])
+    bins = torch.where(ranks_sel < n_chunks, bins, last)
+    bins = torch.where(counts[:, None] == 0, torch.zeros_like(bins), bins)
+    return bins.reshape(-1), counts, B, zmin
+
+
+def _tile_pixels(tiles: torch.Tensor, n_tx: int):
+    """Pixel centres px, py (n, 1024) of 32x32 logical tiles `tiles`."""
+    flat = torch.arange(BT_H * BT_W, device=tiles.device)
+    lx = (flat % BT_W).float()[None, :]
+    ly = torch.div(flat, BT_W, rounding_mode="floor").float()[None, :]
+    tx = tiles % n_tx
+    ty = torch.div(tiles, n_tx, rounding_mode="floor")
+    return ((tx * BT_W).float()[:, None] + lx + 0.5,
+            (ty * BT_H).float()[:, None] + ly + 0.5)
+
+
+def _pad_swizzle32(img: torch.Tensor, H32: int, W32: int) -> torch.Tensor:
+    """(h, w) plane -> (n_tiles, 1024) row-major 32x32 tile blocks, padded
+    with 0.0 to (H32, W32) (a peel bound of 0 admits no fragment)."""
+    h, w = img.shape
+    full = torch.zeros((H32, W32), dtype=img.dtype, device=img.device)
+    full[:h, :w] = img
+    return (full.reshape(H32 // BT_H, BT_H, W32 // BT_W, BT_W)
+            .transpose(1, 2).reshape(-1, BT_H * BT_W))
+
+
+def _deswizzle32(tiles: torch.Tensor, H32: int, W32: int) -> torch.Tensor:
+    """(n_tiles, 1024) tile blocks -> (H32, W32)."""
+    return (tiles.reshape(H32 // BT_H, W32 // BT_W, BT_H, BT_W)
+            .transpose(1, 2).reshape(H32, W32))
+
+
+def _binned_walk(setup_rows, bins, tiles, n_tx: int, zbounds=None):
+    """The K7/K8 merge, for the logical tiles `tiles` (n,) all at once:
+    each tile walks its chunk list in order, skips a chunk whose z-min
+    cannot beat the tile's worst depth (hi-Z; exact under the strict <),
+    and merges the chunk's triangles in index order. zbounds: optional
+    (zlo, zhi) (n, 1024) peel planes. Returns (best_z, best_col (n,
+    1024), px, py, merged chunk visits (0-d tensor))."""
+    bin_idx, counts, B, zmin = bins
+    dev = setup_rows.device
+    chunks = setup_rows.reshape(-1, CHUNK, NSETUP)
+    px, py = _tile_pixels(tiles, n_tx)
+    n = tiles.shape[0]
+    best_z = torch.ones((n, BT_H * BT_W), device=dev)
+    best_col = torch.full((n, BT_H * BT_W), -1, dtype=torch.int32,
+                          device=dev)
+    cnt = counts.index_select(0, tiles).long()
+    base = tiles.long() * B
+    visits = torch.zeros((), dtype=torch.int64, device=dev)
+    for b in range(int(cnt.max().item()) if n else 0):
+        live = b < cnt
+        c = bin_idx[(base + b).clamp(max=bin_idx.numel() - 1)].long()
+        c = torch.where(live, c, torch.zeros_like(c))
+        live = live & (zmin[c] < best_z.amax(dim=1))
+        visits = visits + live.sum()
+        best_z, best_col = _merge_groups(chunks[c], (c * CHUNK).int(), px, py,
+                                         best_z, best_col, live, zbounds)
+    return best_z, best_col, px, py, visits
+
+
+def _flush_planes(setup_rows, best_z, best_col, px, py, names):
+    """Winner state -> the named planes, shaped like best_z (reference
+    _flush_planes: K2's _resolve_math on the winner's setup row at the
+    pixel centre; tri_id is the winner row's S_ORIG_ID). A miss gives
+    tri_id -1, depth 1.0 and zero attribute planes."""
+    from .shade import _resolve_math
+
+    shape = best_z.shape
+    miss = (best_col < 0).reshape(-1)
+    S = setup_rows.index_select(0, best_col.reshape(-1).clamp(min=0).long())
+    S = torch.where(miss[:, None], torch.zeros((), device=S.device), S)
+    ch = S.T
+    res = _resolve_math(ch, px.expand(shape).reshape(-1),
+                        py.expand(shape).reshape(-1))
+    tid = torch.where(miss, torch.full_like(miss, -1, dtype=torch.int32),
+                      ch[S_ORIG_ID].to(torch.int32))
+    out = {"tri_id": tid.reshape(shape), "depth": best_z}
+    for name in names[2:]:
+        out[name] = res[name].reshape(shape)
+    return out
+
+
+def _binned_kernel(name: str, setup_rows, bins, *, tile_idx, n_tx: int,
+                   width: int, height: int, zlo, zhi, names, out_shape):
+    """Launch csrc/binned.cu (K7 with tile_idx None, K8 otherwise)."""
+    bin_idx, counts, B, zmin = bins
+    if setup_rows.dtype != torch.float32 or setup_rows.dim() != 2 \
+            or setup_rows.shape[1] != NSETUP:
+        raise ValueError(f"setup rows must be (T, {NSETUP}) f32")
+    if setup_rows.shape[0] % CHUNK:
+        raise ValueError(f"setup rows {setup_rows.shape[0]} not a multiple "
+                         f"of {CHUNK}")
+    for b in (bin_idx, counts) + (() if tile_idx is None else (tile_idx,)):
+        if b.dtype != torch.int32:
+            raise ValueError("bins, counts and tile_idx must be int32")
+    if zmin.dtype != torch.float32:
+        raise ValueError("zmin must be f32")
+    P_out = 1
+    for s in out_shape:
+        P_out *= s
+    peel = zlo is not None
+    if peel:
+        zlo, zhi = zlo.contiguous(), zhi.contiguous()
+        if zlo.dtype != torch.float32 or zhi.dtype != torch.float32 \
+                or zlo.numel() != P_out or zhi.numel() != P_out:
+            raise ValueError(f"zlo/zhi must be f32 of {P_out} values")
+    extra = (() if tile_idx is None else (tile_idx,)) + \
+        ((zlo, zhi) if peel else ())
+    kernels.check_cuda(setup_rows, bin_idx, counts, zmin, *extra)
+    n_blocks = (tile_idx.numel() if tile_idx is not None
+                else -(-height // BT_H) * n_tx)
+    dev = setup_rows.device
+    tid = torch.empty(P_out, dtype=torch.int32, device=dev)
+    planes = torch.empty((len(names) - 1, P_out), dtype=torch.float32,
+                         device=dev)
+    flags = ((1 if "uv1_u" in names else 0) | (2 if "color_r" in names else 0)
+             | (4 if "du0_dx" in names else 0))
+    kernels.launch(
+        name, "awsm_binned", setup_rows.data_ptr(), bin_idx.data_ptr(),
+        counts.data_ptr(), zmin.data_ptr(), B,
+        None if tile_idx is None else tile_idx.data_ptr(), n_blocks, n_tx,
+        width, height, zlo.data_ptr() if peel else None,
+        zhi.data_ptr() if peel else None, flags, P_out, tid.data_ptr(),
+        planes.data_ptr())
+    out = {"tri_id": tid.reshape(out_shape)}
+    out.update((k, p.reshape(out_shape)) for k, p in zip(names[1:], planes))
+    return out
+
+
+def rasterize_binned(setup_rows, zlo=None, zhi=None, *, width: int,
+                     height: int, has_uv1: bool = True, has_color: bool = True,
+                     analytic_derivs: bool = True, max_bins: int | None = None,
+                     bins=None):
+    """K7: binned fat raster of row-major setup (T, NSETUP) f32, T a CHUNK
+    multiple -> {name: (height, width)} planes (plane_layout names; tri_id
+    int32 from the winners' S_ORIG_ID, -1 = miss). zlo/zhi (height, width)
+    f32 make it one depth peel: a fragment must satisfy zlo < z < zhi.
+    bins: a prebuilt build_bins result (the K-layer peel bins once).
+
+    The reference's rasterize() dispatches here on hardware (and to the
+    dense K11 kernel in interpret mode); the port's HUD pass calls this
+    directly. A CUDA tensor launches csrc/binned.cu; a CPU tensor takes
+    the plain twin (rasterize_binned_reference)."""
+    W32 = -(-width // BT_W) * BT_W
+    H32 = -(-height // BT_H) * BT_H
+    if bins is None:
+        bins = build_bins(setup_rows, width=W32, height=H32,
+                          max_bins=max_bins)
+    names = plane_layout(has_uv1, has_color, analytic_derivs)
+    if setup_rows.device.type == "cpu":
+        return rasterize_binned_reference(setup_rows, zlo, zhi, bins=bins,
+                                          width=width, height=height,
+                                          names=names)
+    return _binned_kernel("rasterize_binned", setup_rows, bins,
+                          tile_idx=None, n_tx=W32 // BT_W, width=width,
+                          height=height, zlo=zlo, zhi=zhi, names=names,
+                          out_shape=(height, width))
+
+
+def rasterize_binned_reference(setup_rows, zlo, zhi, *, bins, width: int,
+                               height: int, names):
+    """Plain PyTorch twin of K7: walks the same bins in the same order for
+    all tiles at once, so tri_id and every plane are bit-equal to the
+    kernel. Works on any device."""
+    W32 = -(-width // BT_W) * BT_W
+    H32 = -(-height // BT_H) * BT_H
+    n_tx = W32 // BT_W
+    tiles = torch.arange((H32 // BT_H) * n_tx, device=setup_rows.device)
+    zb = None
+    if zlo is not None:
+        zb = (_pad_swizzle32(zlo, H32, W32), _pad_swizzle32(zhi, H32, W32))
+    best_z, best_col, px, py, _ = _binned_walk(setup_rows, bins, tiles, n_tx,
+                                               zb)
+    planes = _flush_planes(setup_rows, best_z, best_col, px, py, names)
+    return {k: _deswizzle32(v, H32, W32)[:height, :width]
+            for k, v in planes.items()}
+
+
+def _rasterize_binned_compact(setup_rows, zlo_c, zhi_c, *, bins, tile_idx,
+                              n_tx: int, has_uv1: bool, has_color: bool,
+                              analytic_derivs: bool = True):
+    """K8: one peel of the covered-tile-compacted K-layer raster. Block i
+    of every (C, 1024) input and output plane is logical tile
+    tile_idx[i] (32x32 row-major); zlo_c/zhi_c (C, 1024) f32. Returns
+    {name: (C, 1024)}. A CUDA tensor launches csrc/binned.cu; a CPU
+    tensor takes the plain twin."""
+    names = plane_layout(has_uv1, has_color, analytic_derivs)
+    if setup_rows.device.type == "cpu":
+        return rasterize_binned_compact_reference(
+            setup_rows, zlo_c, zhi_c, bins=bins, tile_idx=tile_idx,
+            n_tx=n_tx, names=names)
+    return _binned_kernel("rasterize_binned_compact", setup_rows, bins,
+                          tile_idx=tile_idx, n_tx=n_tx, width=0, height=0,
+                          zlo=zlo_c, zhi=zhi_c, names=names,
+                          out_shape=tuple(zlo_c.shape))
+
+
+def rasterize_binned_compact_reference(setup_rows, zlo_c, zhi_c, *, bins,
+                                       tile_idx, n_tx: int, names):
+    """Plain PyTorch twin of K8 (bit-equal). Works on any device."""
+    best_z, best_col, px, py, _ = _binned_walk(
+        setup_rows, bins, tile_idx.long(), n_tx, (zlo_c, zhi_c))
+    return _flush_planes(setup_rows, best_z, best_col, px, py, names)
+
+
+def _empty_layer(layer):
+    """A peel the runtime skip proved empty: tri_id -1, zero planes (the
+    reference's skip fills zeros, depth included)."""
+    return {k: (torch.full_like(v, -1) if k == "tri_id"
+                else torch.zeros_like(v)) for k, v in layer.items()}
+
+
+def _peel_layers(peel, zlo, n_layers: int):
+    """Run `peel(zlo)` front to back, chaining zlo to each layer's depth
+    (2.0 where it missed). Runtime peel skip: once layer k-1 holds no
+    fragment every deeper peel is empty, so the kernel is not launched
+    (one host sync per layer after the first). Returns {name: (K, N)}."""
+    per_layer = []
+    for k in range(n_layers):
+        if k and not bool((per_layer[-1]["tri_id"] >= 0).any()):
+            per_layer += [_empty_layer(per_layer[-1])] * (n_layers - k)
+            break
+        layer = peel(zlo)
+        zlo = torch.where(layer["tri_id"] >= 0, layer["depth"],
+                          torch.full_like(layer["depth"], 2.0))
+        per_layer.append({n: v.reshape(-1) for n, v in layer.items()})
+    return {n: torch.stack([lay[n] for lay in per_layer])
+            for n in per_layer[0]}
+
+
+def rasterize(setup_rows, *, width: int, height: int, has_uv1: bool = True,
+              has_color: bool = True, analytic_derivs: bool = True):
+    """One fat raster of row-major setup without a peel -> {name: (height,
+    width)} (reference: rasterize, whose hardware route is K7). The HUD
+    pass takes it over a compacted overlay pool, where tri_id must come
+    from S_ORIG_ID."""
+    return rasterize_binned(setup_rows, width=width, height=height,
+                            has_uv1=has_uv1, has_color=has_color,
+                            analytic_derivs=analytic_derivs)
+
+
+def rasterize_layers(rows, opaque_depth, *, width: int, height: int,
+                     n_layers: int, has_uv1: bool = True,
+                     has_color: bool = True, analytic_derivs: bool = True):
+    """Depth-peel K transparent layers front to back over the band
+    (reference: rasterize_layers, binned route): bins built once, K K7
+    peels with zlo chained to the previous layer's depth and zhi the
+    opaque depth (shared, read-only), with the runtime peel skip. Returns
+    {name: (K, height*width)}."""
+    W32 = -(-width // BT_W) * BT_W
+    H32 = -(-height // BT_H) * BT_H
+    bins = build_bins(rows, width=W32, height=H32)
+    zhi = opaque_depth.contiguous()
+
+    def peel(zlo):
+        return rasterize_binned(rows, zlo, zhi, width=width, height=height,
+                                has_uv1=has_uv1, has_color=has_color,
+                                analytic_derivs=analytic_derivs, bins=bins)
+
+    zlo = torch.full((height, width), -1.0, device=rows.device)
+    return _peel_layers(peel, zlo, n_layers)
+
+
+# the reference's row-major entry transposes to its column-major setup;
+# the port's setup is row-major throughout, so the two are one function
+rasterize_layers_rows = rasterize_layers
+
+
+def rasterize_layers_compact(rows, opaque_depth, *, width: int, height: int,
+                             n_layers: int, tile_cap32: int,
+                             has_uv1: bool = True, has_color: bool = True):
+    """Covered-tile-compacted depth peel: K K8 peels over only the 32x32
+    tiles the transparent triangles' bboxes touch (reference:
+    rasterize_layers_compact). Per-triangle coverage comes from a
+    difference grid (each live bbox's tile rectangle, +1/-1 at its
+    corners, 2-D prefix sum); the tile list is covered first (a stable
+    sort), cut to C = min(tile_cap32, n_tiles) (a host bound,
+    renderer._bucket_tile_cap). The opaque depth compacts once; padding
+    pixels get depth 0.0, so no fragment lands past the viewport.
+    Analytic uv-derivative planes ride along.
+
+    Returns (layers {name: (K, C*1024)} in compact 32x32 order, tile_idx
+    (C,) int32 logical tile ids, n_tx)."""
+    dev = rows.device
+    W32 = -(-width // BT_W) * BT_W
+    H32 = -(-height // BT_H) * BT_H
+    n_ty, n_tx = H32 // BT_H, W32 // BT_W
+    n_tiles = n_ty * n_tx
+    C = min(tile_cap32, n_tiles)
+    bins = build_bins(rows, width=W32, height=H32)
+
+    minx, maxx = rows[:, S_BB_MINX], rows[:, S_BB_MAXX]
+    miny, maxy = rows[:, S_BB_MINY], rows[:, S_BB_MAXY]
+    live = ((minx <= maxx) & (maxx > 0.0) & (minx < W32)
+            & (maxy > 0.0) & (miny < H32))
+    w1 = live.to(torch.int32)
+
+    def tile_of(v, lo_edge: bool, n: int, size: int):
+        t = torch.floor(v / size) if lo_edge else torch.ceil(v / size) - 1
+        return torch.nan_to_num(t).clamp(0, n - 1).long()
+
+    txa, txb = tile_of(minx, True, n_tx, BT_W), tile_of(maxx, False, n_tx, BT_W)
+    tya, tyb = tile_of(miny, True, n_ty, BT_H), tile_of(maxy, False, n_ty, BT_H)
+    acc = torch.zeros((n_ty + 1) * (n_tx + 1), dtype=torch.int32, device=dev)
+    stride = n_tx + 1
+    for yi, xi, w in ((tya, txa, w1), (tya, txb + 1, -w1),
+                      (tyb + 1, txa, -w1), (tyb + 1, txb + 1, w1)):
+        acc.index_add_(0, yi * stride + xi, w)
+    cov = (acc.reshape(n_ty + 1, n_tx + 1).cumsum(0).cumsum(1)[:-1, :-1]
+           > 0).reshape(n_tiles)
+    tile_idx = torch.argsort((~cov).to(torch.int32), stable=True)[:C]
+    tile_idx = tile_idx.to(torch.int32)
+
+    zhi_c = _pad_swizzle32(opaque_depth, H32, W32).index_select(
+        0, tile_idx.long()).contiguous()
+
+    def peel(zlo):
+        return _rasterize_binned_compact(
+            rows, zlo, zhi_c, bins=bins, tile_idx=tile_idx, n_tx=n_tx,
+            has_uv1=has_uv1, has_color=has_color)
+
+    zlo = torch.full((C, BT_H * BT_W), -1.0, device=dev)
+    return _peel_layers(peel, zlo, n_layers), tile_idx, n_tx

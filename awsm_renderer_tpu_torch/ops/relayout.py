@@ -1,5 +1,5 @@
-"""Gather-and-split kernels of the opaque shade: K3 (material fetch) and
-K6 (environment taps).
+"""Gather-and-split kernels of the shade: K3 (material fetch) and K6
+(environment taps in bf16; the volume-refraction background in f32).
 
 Port of the two awsm_renderer_tpu/ops/relayout.py kernels the slice runs.
 On the TPU these exist to give every channel its own rank-1 array (a
@@ -71,4 +71,35 @@ def gather_split_channels(texels: torch.Tensor, idx: torch.Tensor,
     kernels.launch("gather_split_channels", "awsm_gather_split_channels",
                    texels.data_ptr(), N, R, idx.data_ptr(), M, ncols,
                    out.data_ptr())
+    return out
+
+
+def gather_split_channels_f32_reference(table: torch.Tensor, idx: torch.Tensor,
+                                        ncols: int) -> torch.Tensor:
+    """table[clip(idx)][:, :ncols] as (ncols, M) f32 planes."""
+    safe = idx.clamp(0, table.shape[0] - 1).long()
+    return table.index_select(0, safe)[:, :ncols].T.contiguous()
+
+
+def gather_split_channels_f32(table: torch.Tensor, idx: torch.Tensor,
+                              ncols: int) -> torch.Tensor:
+    """K6, f32 entry: table (N, C) f32 rows, idx (M,) int32 -> (ncols, M)
+    f32 planes of table[clip(idx, 0, N-1), :ncols] — the reference's
+    split_channels of the gathered opaque rows on the volume-refraction
+    path (shade.py:1577)."""
+    if table.device.type == "cpu":
+        return gather_split_channels_f32_reference(table, idx, ncols)
+    if table.dtype != torch.float32 or table.dim() != 2:
+        raise ValueError("table must be (N, C) f32")
+    if idx.dtype != torch.int32 or idx.dim() != 1:
+        raise ValueError("idx must be (M,) int32")
+    N, C = table.shape
+    if not 0 < ncols <= C:
+        raise ValueError(f"ncols {ncols} outside (0, {C}]")
+    kernels.check_cuda(table, idx)
+    M = idx.shape[0]
+    out = torch.empty((ncols, M), dtype=torch.float32, device=idx.device)
+    kernels.launch("gather_split_channels_f32",
+                   "awsm_gather_split_channels_f32", table.data_ptr(), N, C,
+                   idx.data_ptr(), M, ncols, out.data_ptr())
     return out

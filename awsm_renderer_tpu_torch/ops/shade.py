@@ -141,19 +141,19 @@ def _material_table(ds) -> torch.Tensor:
                       ds["mat_flags"].float()], dim=1)
 
 
-def _screen_gradient(ch, W: int, H: int, vertical: bool = False):
+def _screen_gradient(ch, W: int, H: int, vertical: bool = False,
+                     layers: int = 1):
     """Min-magnitude forward/backward screen difference of one (P,) plane
     (the GPU quad-derivative model; the smaller difference stays on the
-    surface at silhouettes)."""
-    g = ch.reshape(H, W)
-    ax = 0 if vertical else 1
+    surface at silhouettes). layers > 1: `ch` holds that many stacked
+    images of H // layers rows; differences never cross a layer
+    boundary."""
+    g = ch.reshape(layers, H // layers, W)
+    ax = 1 if vertical else 2
     d = torch.diff(g, dim=ax)
-    if vertical:
-        fwd = torch.cat([d, d[-1:]], 0)
-        bwd = torch.cat([d[:1], d], 0)
-    else:
-        fwd = torch.cat([d, d[:, -1:]], 1)
-        bwd = torch.cat([d[:, :1], d], 1)
+    first, last = d.narrow(ax, 0, 1), d.narrow(ax, d.shape[ax] - 1, 1)
+    fwd = torch.cat([d, last], ax)        # edge-replicated
+    bwd = torch.cat([first, d], ax)
     return torch.where(torch.abs(fwd) <= torch.abs(bwd), fwd,
                        bwd).reshape(-1)
 
@@ -268,17 +268,29 @@ def resolve_planes_fused(tid: torch.Tensor, setup_rows: torch.Tensor, *,
 def shade_surface(planes, ds, *, width: int, height: int, solid_env: bool,
                   use_mips: bool = True, slot_mask=NO_SLOTS,
                   has_nearest: bool = True, ext=NO_EXT,
-                  debug_mode: str = "none"):
-    """Opaque fragment shading -> (rgb [3 planes], valid, n_final
-    [3 planes], sky [3 planes or floats]).
+                  debug_mode: str = "none", height_full: int | None = None,
+                  row_offset: int = 0, transparent_pass: bool = False,
+                  want_sky: bool = False, n_layer_tiles: int = 1):
+    """Fragment shading shared by the opaque, transparent and HUD passes
+    -> (rgb [3 planes], alpha, valid, n_final [3 planes]), plus the miss
+    path's sky colour [3 planes or floats] with want_sky, or the
+    transmission factor [3 planes] and the refraction info (refracted
+    background index (P,) int32, IBL-fallback mask, fallback colour) —
+    None without KHR_materials_volume — with transparent_pass.
 
     planes: {name: (P,)} G-buffer (tri_id, depth, mat_row, uv0, optional
-    uv1 and colour, normal, tangent) over the padded (height, width)
-    grid. slot_mask / ext: the texture slots and extensions the bucket's
-    materials use (everything else compiles to constants, as the
-    reference's shader-template variables do). debug_mode: none | ibl |
-    punctual | material | channel:<name>."""
+    uv1 and colour, normal, tangent, optional analytic uv derivatives;
+    tile-compacted planes carry their pixels' ndc_x/ndc_y) over a
+    (height, width) grid of band rows starting at row_offset in a
+    height_full-row frame; n_layer_tiles > 1 marks that many stacked layer
+    images (screen rows wrap per layer). slot_mask / ext: the texture
+    slots and extensions the bucket's materials use (everything else
+    compiles to constants, as the reference's shader-template variables
+    do). alpha is 1 / the mask cutoff test / base alpha per alpha mode (the
+    editor grid's line alpha in the transparent pass). debug_mode: none |
+    ibl | punctual | material | channel:<name>."""
     P = width * height
+    H_full = height if height_full is None else height_full
     dev = planes["tri_id"].device
     miss = planes["tri_id"] < 0
     depth = planes["depth"]
@@ -293,10 +305,17 @@ def shade_surface(planes, ds, *, width: int, height: int, solid_env: bool,
 
     # ---- world position + view ray ---------------------------------------
     cam = ds["camera"]
-    i = torch.arange(P, device=dev)
-    xs = ((i % width).float() + 0.5) / width * 2.0 - 1.0
-    rows = torch.div(i, width, rounding_mode="floor").float()
-    ys = 1.0 - (rows + 0.5) / height * 2.0
+    if "ndc_x" in planes:
+        # tile-compacted planes: the flat index no longer encodes the
+        # screen position, so the pixels' NDC coordinates ride as planes
+        xs, ys = planes["ndc_x"], planes["ndc_y"]
+    else:
+        i = torch.arange(P, device=dev)
+        xs = ((i % width).float() + 0.5) / width * 2.0 - 1.0
+        rows = torch.div(i, width, rounding_mode="floor")
+        if n_layer_tiles > 1:      # stacked layers: rows wrap per layer
+            rows = rows % (height // n_layer_tiles)
+        ys = 1.0 - ((rows + row_offset).float() + 0.5) / H_full * 2.0
     ivp = [[float(x) for x in r] for r in cam["inv_view_proj"]]
     wp = [xs * ivp[j][0] + ys * ivp[j][1] + depth * ivp[j][2] + ivp[j][3]
           for j in range(4)]
@@ -331,6 +350,7 @@ def shade_surface(planes, ds, *, width: int, height: int, solid_env: bool,
         return fused[flag0 + idx]
 
     is_unlit = mflag(M.MI_KIND) == float(M.KIND_UNLIT)
+    is_grid = mflag(M.MI_KIND) == float(M.KIND_GRID)
 
     # ---- texture taps: every active slot through one K4 plan + one K5 ----
     active = [s for s in range(M.NUM_TEX_SLOTS) if slot_mask[s]]
@@ -342,10 +362,13 @@ def shade_surface(planes, ds, *, width: int, height: int, solid_env: bool,
         else:
             # screen-space gradients of uv0, also for uv1 taps (as the
             # reference does)
-            duv = (_screen_gradient(uv0[0], width, height),
-                   _screen_gradient(uv0[1], width, height),
-                   _screen_gradient(uv0[0], width, height, vertical=True),
-                   _screen_gradient(uv0[1], width, height, vertical=True))
+            L = n_layer_tiles
+            duv = (_screen_gradient(uv0[0], width, height, layers=L),
+                   _screen_gradient(uv0[1], width, height, layers=L),
+                   _screen_gradient(uv0[0], width, height, vertical=True,
+                                    layers=L),
+                   _screen_gradient(uv0[1], width, height, vertical=True,
+                                    layers=L))
     taps = []
     for slot in active:
         tex_id = slot_col(slot, 0).to(torch.int32)
@@ -428,6 +451,12 @@ def shade_surface(planes, ds, *, width: int, height: int, solid_env: bool,
         f0 = v_lerp(f0, f_irid, irid)
 
     c_diff = v_scale(base[:3], 1.0 - metallic)
+    if ext[EXT_TRANSMISSION]:
+        transmission = _tm(mf(M.MF_TRANSMISSION), tex(M.TS_TRANSMISSION)[0])
+        if transparent_pass:
+            c_diff = v_scale(c_diff, 1.0 - transmission)
+    else:
+        transmission = torch.zeros_like(metallic)
 
     # ---- punctual + IBL -----------------------------------------------------
     direct = _punctual_lights(ds["lights_host"], ds["n_lights"], world_pos,
@@ -454,6 +483,23 @@ def shade_surface(planes, ds, *, width: int, height: int, solid_env: bool,
         n_dot_v_ibl = n_dot_v
     r = norm3([2.0 * n_dot_v_ibl * n_ibl[k] - v[k] for k in range(3)])
 
+    # ---- screen-space refraction direction (KHR_materials_volume): Snell
+    # refraction of the view ray at the shaded normal (TIR -> inactive);
+    # the exit point is projected below, and the offscreen IBL fallback tap
+    # rides the same env gather. Only the volume composite reads it.
+    want_refr = (transparent_pass and ext[EXT_TRANSMISSION]
+                 and ext[EXT_VOLUME])
+    if want_refr:
+        eta = 1.0 / torch.where(ior > _EPS, ior, torch.ones_like(ior))
+        cos_i = torch.clamp(dot3(n_final, v), min=0.0)
+        sin_t2 = eta * eta * (1.0 - cos_i * cos_i)
+        cos_t = torch.sqrt(torch.clamp(1.0 - sin_t2, 0.0, 1.0))
+        refr = [eta * (-v[k]) + (eta * cos_i - cos_t) * n_final[k]
+                for k in range(3)]
+        refr_ok = ((sin_t2 <= 1.0) & (torch.abs(eta - 1.0) > 1e-3)
+                   & (mf(M.MF_THICKNESS) > 0.0))
+        refr_dir = v_where(refr_ok, norm3(refr), [-v[k] for k in range(3)])
+
     # sheen / clearcoat parameters first, so every env tap rides one K6
     if ext[EXT_SHEEN]:
         sheen_tex = tex(M.TS_SHEEN_COLOR)
@@ -472,28 +518,35 @@ def shade_surface(planes, ds, *, width: int, height: int, solid_env: bool,
         irr = [float(ds["irradiance"][0, c]) for c in range(3)]
         pref = [float(ds["prefiltered"][0, 0, c]) for c in range(3)]
         sky = [float(ds["skybox"][0, c]) for c in range(3)]
-        sheen_pref = cc_pref = pref
+        sheen_pref = cc_pref = refr_pref = pref
     else:
         reqs = [(r, roughness)]
         if ext[EXT_SHEEN]:
             reqs.append((r, sheen_rough))
         if ext[EXT_CLEARCOAT]:
             reqs.append((r, cc_rough))
+        if want_refr:
+            reqs.append((refr_dir, roughness))
+        # miss pixels reconstruct world_pos at the far plane, so -v is the
+        # view ray: the opaque pass's sky rides the same gather
         irr4, prefs, sky4 = sample_env_batch_c(
             ds["skybox"].shape[0], ds["irradiance"].shape[0],
             ds["prefiltered"].shape[:2], n_final, reqs,
-            sky_dirs=[-c for c in v], texq=ds["texels"],
-            env_base=ds["env_pool_base"])
+            sky_dirs=[-c for c in v] if want_sky else None,
+            texq=ds["texels"], env_base=ds["env_pool_base"])
         irr = irr4[:3]
         pref = prefs[0][:3]
-        sky = sky4[:3]
+        sky = sky4[:3] if want_sky else None
         if ext[EXT_SHEEN]:
             sheen_pref = prefs[1][:3]
         if ext[EXT_CLEARCOAT]:
             cc_pref = prefs[1 + ext[EXT_SHEEN]][:3]
+        if want_refr:
+            refr_pref = prefs[1 + ext[EXT_SHEEN] + ext[EXT_CLEARCOAT]][:3]
 
     lut_a, lut_b = env_brdf_approx(n_dot_v, roughness)
-    ambient = [_tm(irr[c] * c_diff[c] + pref[c] * (f0[c] * lut_a + lut_b),
+    fresnel_scale = [f0[c] * lut_a + lut_b for c in range(3)]
+    ambient = [_tm(irr[c] * c_diff[c] + pref[c] * fresnel_scale[c],
                    occlusion) for c in range(3)]
     pbr_color = [direct[c] + ambient[c] for c in range(3)]
 
@@ -538,8 +591,93 @@ def shade_surface(planes, ds, *, width: int, height: int, solid_env: bool,
         else:
             pbr_color = views[DEBUG_CHANNELS[debug_mode.split(":", 1)[1]]]
 
+    # ---- alpha per mode (OPAQUE = 1, MASK = cutoff test, BLEND = base a) --
+    alpha_mode = mflag(M.MI_ALPHA_MODE)
+    alpha = torch.where(
+        alpha_mode == 0.0, torch.ones_like(alpha_mode),
+        torch.where(alpha_mode == 1.0,
+                    (base[3] >= mf(M.MF_ALPHA_CUTOFF)).float(), base[3]))
+
+    trans_factor = refr_info = None
+    if transparent_pass:
+        # ---- editor grid (KIND_GRID: procedural world-space lines) -------
+        spacing = torch.clamp(mf(M.MF_GRID_SPACING), min=1e-3)
+        major_every = torch.clamp(mf(M.MF_GRID_MAJOR_EVERY), min=1.0)
+        fade_dist = torch.clamp(mf(M.MF_GRID_FADE_DISTANCE), min=1e-3)
+        cam_delta = [world_pos[k] - cam_pos[k] for k in range(3)]
+        cam_dist = torch.sqrt(dot3(cam_delta, cam_delta))
+        aa = torch.clamp(cam_dist * 2e-3, min=1e-4)
+
+        def line_alpha(p, sp, wdt):
+            # floor-mod, as jnp.mod: torch.remainder, not torch.fmod
+            d = torch.abs(torch.remainder(p / sp + 0.5, 1.0) - 0.5) * sp
+            return torch.clamp(1.0 - (d - wdt) / torch.clamp(wdt, min=1e-6),
+                               0.0, 1.0)
+
+        gx, gz = world_pos[0], world_pos[2]
+        minor = torch.maximum(line_alpha(gx, spacing, aa),
+                              line_alpha(gz, spacing, aa))
+        major = torch.maximum(
+            line_alpha(gx, spacing * major_every, aa * 1.5),
+            line_alpha(gz, spacing * major_every, aa * 1.5))
+        grid_a = torch.maximum(minor * 0.5, major) * torch.clamp(
+            1.0 - cam_dist / fade_dist, 0.0, 1.0)
+        alpha = torch.where(is_grid, grid_a * base[3], alpha)
+
+        # ---- transmission factor: what the compositor multiplies into the
+        # background behind this fragment (PBR only; attenuation by
+        # KHR_materials_volume's colour over its thickness) ---------------
+        att_dist = mf(M.MF_ATTENUATION_DISTANCE)
+        att_color = mf(M.MF_ATTENUATION_COLOR, 3)
+        thickness = mf(M.MF_THICKNESS)
+        has_att = att_dist > 0.0
+        inv_att = thickness / torch.clamp(att_dist, min=1e-4)
+        att = [torch.where(has_att, torch.exp(torch.log(torch.clamp(
+            att_color[c], min=1e-4)) * inv_att), torch.ones_like(inv_att))
+            for c in range(3)]
+        t_gate = torch.where(is_unlit | is_grid, torch.zeros_like(transmission),
+                             transmission)
+        trans_factor = [base[c] * att[c] * (1.0 - fresnel_scale[c]) * t_gate
+                        for c in range(3)]
+
+        # ---- refracted exit point: march `thickness` along the refracted
+        # ray, project through view_proj, and hand the compositor a pixel
+        # index into the band's opaque image plus the offscreen fallback --
+        if want_refr:
+            H_band = height // n_layer_tiles
+            vp = [[float(x) for x in row] for row in cam["view_proj"]]
+            ex = [world_pos[k] + refr_dir[k] * thickness for k in range(3)]
+
+            def clip_row(j):
+                return (ex[0] * vp[j][0] + ex[1] * vp[j][1]
+                        + ex[2] * vp[j][2] + vp[j][3])
+
+            cxw, cyw, cw = clip_row(0), clip_row(1), clip_row(3)
+            inv_cw = 1.0 / torch.where(torch.abs(cw) > _EPS, cw,
+                                       torch.full_like(cw, _EPS))
+            gxp = (cxw * inv_cw + 1.0) * 0.5 * width - 0.5    # frame pixel x
+            gyp = (1.0 - cyw * inv_cw) * 0.5 * H_full - 0.5   # frame pixel y
+            ly = gyp - row_offset                             # band-local y
+            on_screen = ((cw > 0.0) & (gxp >= 0.0) & (gxp <= width - 1.0)
+                         & (gyp >= 0.0) & (gyp <= H_full - 1.0)
+                         & (ly >= 0.0) & (ly <= H_band - 1.0))
+            own_idx = (torch.arange(P, dtype=torch.int32, device=dev)
+                       % (H_band * width))                    # same pixel
+            do_refr = refr_ok & (t_gate > 0.0)
+            # both roundings are half-to-even, as jnp.round
+            refr_idx = torch.where(
+                do_refr & on_screen,
+                torch.round(ly).to(torch.int32) * width
+                + torch.round(gxp).to(torch.int32), own_idx)
+            refr_info = (refr_idx, do_refr & ~on_screen, refr_pref)
+
     color = v_where(is_unlit, base[:3], pbr_color)
-    return color, ~miss, n_final, sky
+    if transparent_pass:
+        color = v_where(is_grid, base[:3], color)
+        return color, alpha, ~miss, n_final, trans_factor, refr_info
+    if want_sky:
+        return color, alpha, ~miss, n_final, sky
+    return color, alpha, ~miss, n_final
 
 
 def shade_deferred_c(vis, ds, *, width: int, height: int,
@@ -554,11 +692,156 @@ def shade_deferred_c(vis, ds, *, width: int, height: int,
     planes = {k: vis[k].reshape(P) for k in vis if k != "bins"}
     surf_mode = (debug_mode if debug_mode in ("ibl", "punctual", "material")
                  or debug_mode.startswith("channel:") else "none")
-    color, valid, n_final, sky = shade_surface(
+    color, _alpha, valid, n_final, sky = shade_surface(
         planes, ds, width=width, height=height, solid_env=solid_env,
         use_mips=use_mips, slot_mask=slot_mask, has_nearest=has_nearest,
-        ext=ext, debug_mode=surf_mode)
+        ext=ext, debug_mode=surf_mode, want_sky=True)
     if debug_mode == "normals":
         color = [n_final[c] * 0.5 + 0.5 for c in range(3)]
     out = [torch.where(valid, color[c], sky[c]) for c in range(3)]
     return out + [valid.float()]
+
+
+def _composite(color, alpha, valid, trans, bg, out_rgb):
+    """Back to front over out_rgb (3 planes): the last of the Kg stacked
+    layers is the farthest peel. Each layer adds the background it
+    transmits (bg, the pre-transparent opaque image, [3] x (Kg, N)) times
+    its transmission factor, then blends by its alpha (0 where it
+    missed)."""
+    Kg = bg[0].shape[0]
+    a = torch.where(valid, alpha, torch.zeros_like(alpha)).reshape(Kg, -1)
+    color = [c.reshape(Kg, -1) for c in color]
+    trans = [t.reshape(Kg, -1) for t in trans]
+    out_rgb = list(out_rgb)
+    for k in range(Kg - 1, -1, -1):
+        for c in range(3):
+            cc = color[c][k] + bg[c][k] * trans[c][k]
+            out_rgb[c] = cc * a[k] + out_rgb[c] * (1.0 - a[k])
+    return out_rgb
+
+
+def _shade_deep_then_front(layers, K: int, shade_group, out):
+    """Layers 2..K-1 shade only if peel 2 holds a fragment (a host sync:
+    typical scenes have at most two overlapping transparent surfaces, and
+    shading an empty peel could put NaN into the composite), then layers
+    0-1 on top."""
+    if K > 2:
+        if bool((layers["tri_id"][2:] >= 0).any()):
+            out = shade_group(2, K - 2, out)
+        return shade_group(0, 2, out)
+    return shade_group(0, K, out)
+
+
+def shade_transparent_layers_c(layers, opaque_ch, ds, *, width: int,
+                               height: int, height_full: int | None = None,
+                               row_offset: int = 0, use_mips: bool = True,
+                               slot_mask=NO_SLOTS, solid_env: bool = False,
+                               has_nearest: bool = True, ext=NO_EXT,
+                               n_layers: int = 4):
+    """Forward-shade K depth-peeled transparent layers and composite them
+    back to front over the opaque band (reference: shade.py
+    shade_transparent_layers_c without a tile cap, which the frame never
+    passes).
+
+    layers: {name: (K, P)} from rasterize_layers_rows; opaque_ch [r, g, b,
+    a] (P,) planes. Layers shade in batched calls on stacked (Kg*P,)
+    planes (one texture-tap plan and one env gather per group) and return
+    a transmission factor, so the composite applies each layer's tint to
+    what lies behind it. The background transmission sees is the
+    pre-transparent opaque image: at the fragment's own pixel, or with
+    KHR_materials_volume at the refracted exit pixel, gathered by K6's
+    f32 entry (offscreen exits take the prefiltered IBL colour).
+    Returns [r, g, b, a] (P,) planes."""
+    from .relayout import gather_split_channels_f32
+
+    H, W, K = height, width, n_layers
+    H_full = height if height_full is None else height_full
+    P = H * W
+
+    def shade_group(k0, Kg, out_rgb):
+        flat = {k: v[k0:k0 + Kg].reshape(Kg * P) for k, v in layers.items()}
+        color, alpha, valid, _n, trans, refr = shade_surface(
+            flat, ds, width=W, height=Kg * H, height_full=H_full,
+            row_offset=row_offset, use_mips=use_mips, slot_mask=slot_mask,
+            solid_env=solid_env, has_nearest=has_nearest, ext=ext,
+            transparent_pass=True, n_layer_tiles=Kg)
+        if refr is not None:
+            idx, use_fb, fb = refr
+            got = gather_split_channels_f32(torch.stack(opaque_ch, dim=-1),
+                                            idx, 4)
+            bg = [torch.where(use_fb, fb[c], got[c]).reshape(Kg, P)
+                  for c in range(3)]
+        else:
+            bg = [opaque_ch[c].expand(Kg, P) for c in range(3)]
+        return _composite(color, alpha, valid, trans, bg, out_rgb)
+
+    out = _shade_deep_then_front(layers, K, shade_group, list(opaque_ch[:3]))
+    return out + [opaque_ch[3]]
+
+
+def shade_transparent_compact32(layers, tile_idx, opaque_ch, ds, *,
+                                width: int, height: int, height_full: int,
+                                row_offset: int, n_tx: int,
+                                use_mips: bool = True, slot_mask=NO_SLOTS,
+                                solid_env: bool = False,
+                                has_nearest: bool = True, ext=NO_EXT,
+                                n_layers: int = 4):
+    """Shade + composite K peels rasterized in covered-tile-compacted
+    space (rasterize_layers_compact; reference: shade.py
+    shade_transparent_compact32).
+
+    layers: {name: (K, C*1024)}, block i = logical 32x32 tile
+    tile_idx[i], with analytic uv-derivative planes; the pixels' NDC
+    coordinates ride as planes. Only the opaque background compacts
+    (index_select of its 32x32 blocks) and only the composited rgb
+    scatters back; pixels outside the covered tiles keep the opaque
+    result, as the reference's forward pass has no fragments there. Not
+    valid with KHR_materials_volume (refraction gathers the opaque image
+    at arbitrary pixels). Returns [r, g, b, a] (height*width,) planes."""
+    from .raster import BT_H, BT_W, _deswizzle32, _pad_swizzle32
+
+    if ext[EXT_VOLUME]:
+        raise ValueError("refraction needs band-space planes")
+    if "du0_dx" not in layers:
+        raise ValueError("compact peel planes carry analytic derivatives")
+    H, W, K = height, width, n_layers
+    npx = BT_H * BT_W
+    C = int(tile_idx.shape[0])
+    Pc = C * npx
+    H32 = -(-H // BT_H) * BT_H
+    if W % BT_W or n_tx != W // BT_W:
+        raise ValueError(f"width {W} is not {n_tx} 32-pixel tiles")
+    comp = {k: v.reshape(K, C, npx) for k, v in layers.items()}
+
+    tidx = tile_idx.long()
+    tx = (tidx % n_tx).float()
+    ty = torch.div(tidx, n_tx, rounding_mode="floor").float()
+    q = torch.arange(npx, device=tile_idx.device)
+    gx = tx[:, None] * float(BT_W) + (q % BT_W).float()[None, :]
+    gy = (ty[:, None] * float(BT_H)
+          + torch.div(q, BT_W, rounding_mode="floor").float()[None, :]
+          + float(row_offset))
+    ndc_x = ((gx + 0.5) / W * 2.0 - 1.0).reshape(Pc)
+    ndc_y = (1.0 - (gy + 0.5) / height_full * 2.0).reshape(Pc)
+
+    ob_full = [_pad_swizzle32(opaque_ch[c].reshape(H, W), H32, W)
+               for c in range(3)]
+    ob = [f.index_select(0, tidx).reshape(Pc) for f in ob_full]
+
+    def shade_group(k0, Kg, out_rgb):
+        flat = {k: v[k0:k0 + Kg].reshape(Kg * Pc) for k, v in comp.items()}
+        flat["ndc_x"] = ndc_x.repeat(Kg)
+        flat["ndc_y"] = ndc_y.repeat(Kg)
+        color, alpha, valid, _n, trans, _refr = shade_surface(
+            flat, ds, width=128, height=Kg * C * 8, height_full=height_full,
+            use_mips=use_mips, slot_mask=slot_mask, solid_env=solid_env,
+            has_nearest=has_nearest, ext=ext, transparent_pass=True)
+        bg = [o.expand(Kg, Pc) for o in ob]
+        return _composite(color, alpha, valid, trans, bg, out_rgb)
+
+    out = _shade_deep_then_front(comp, K, shade_group, ob)
+    out_full = []
+    for c in range(3):
+        scat = ob_full[c].index_copy(0, tidx, out[c].reshape(C, npx))
+        out_full.append(_deswizzle32(scat, H32, W)[:H].reshape(H * W))
+    return out_full + [opaque_ch[3]]

@@ -81,11 +81,14 @@ def _const_mat4(vp, p):
 
 
 def finish_setup(corners, attrs, act, mat_row, flags, width: int,
-                 height: int, id_offset: int = 0) -> torch.Tensor:
+                 height: int, id_offset: int = 0,
+                 orig_ids=None) -> torch.Tensor:
     """Screen-map one output triangle set -> (T, NSETUP) setup rows.
 
     corners: [c][x,y,z,w] clip-space (T,); attrs: [c][ch] of NA (T,)
-    channels; act: (T,) bool; flags: (T,) int mesh flags."""
+    channels; act: (T,) bool; flags: (T,) int mesh flags; orig_ids:
+    (T,) int pool ids of a compacted pool, written to S_ORIG_ID in place
+    of the row index."""
     double_sided = (flags & MESH_FLAG_DOUBLE_SIDED) != 0
     w = [corners[c][3] for c in range(3)]
     iw = [1.0 / torch.where(torch.abs(wc) > 1e-20, wc,
@@ -139,8 +142,13 @@ def finish_setup(corners, attrs, act, mat_row, flags, width: int,
     bb_maxy = torch.where(valid, bb_maxy, -big)
 
     T = area2.shape[0]
-    orig_id = (torch.arange(T, dtype=torch.float32, device=area2.device)
-               + float(id_offset))
+    if orig_ids is None:
+        orig_id = (torch.arange(T, dtype=torch.float32, device=area2.device)
+                   + float(id_offset))
+    else:
+        # compacted pools (the overlay buckets) carry their pool ids, clip
+        # copies included: the fat kernels read ids from S_ORIG_ID
+        orig_id = orig_ids.to(torch.float32)
 
     # edge i is opposite corner i; A, B exact-negation-symmetric with the
     # neighbour sharing the edge, C anchored at the edge's canonical
@@ -176,16 +184,18 @@ def finish_setup(corners, attrs, act, mat_row, flags, width: int,
 
 
 def vertex_stage(c_pos, c_norm, c_tang, c_uv0, c_uv1, c_color, tri_mesh,
-                 mesh_info, world, normal_mat, view_proj, mesh_mask, *,
-                 width: int, height: int,
+                 mesh_info, world, normal_mat, view_proj, mesh_mask,
+                 orig_ids=None, *, width: int, height: int,
                  needs_clip: bool = True) -> torch.Tensor:
     """Static-geometry vertex stage -> (2T or T, NSETUP) setup rows.
 
     c_*: (3C, T) component-major corner pools; tri_mesh (T,) mesh row
     (-1 = dead); mesh_info (M, K) int; world (TC, 4, 4); normal_mat
     (TC, 3, 3); view_proj: 4x4 host matrix; mesh_mask (M,) bool — this
-    pass's meshes. needs_clip=False when the host proved every visible
-    AABB lies in front of the near plane (no secondary rows)."""
+    pass's meshes; orig_ids: (T,) int pool ids when the corner pools are a
+    compacted gather (frame.py _run_vertex_compact), or None. needs_clip
+    =False when the host proved every visible AABB lies in front of the
+    near plane (no secondary rows)."""
     T = tri_mesh.shape[0]
     mesh = tri_mesh.clamp(0, mesh_info.shape[0] - 1)
     minfo = onehot_gather(mesh, torch.cat(
@@ -218,7 +228,7 @@ def vertex_stage(c_pos, c_norm, c_tang, c_uv0, c_uv1, c_color, tri_mesh,
 
     if not needs_clip:
         return finish_setup(clip_c, attrs, active, mat_row, flags,
-                            width, height)
+                            width, height, orig_ids=orig_ids)
 
     # ---- near-plane clipping (z_clip >= eps; [0,1] depth convention) -----
     inside = [clip_c[c][2] > _Z_EPS for c in range(3)]
@@ -262,8 +272,8 @@ def vertex_stage(c_pos, c_norm, c_tang, c_uv0, c_uv1, c_color, tri_mesh,
     p2 = sel(one_in, i_ac, sel(two_in, i_bc, c_))
     pa2 = sel(one_in, t_ac, sel(two_in, t_bc, ac_))
     rows_p = finish_setup([a, p1, p2], [aa_, pa1, pa2], active & (n_in > 0),
-                          mat_row, flags, width, height)
+                          mat_row, flags, width, height, orig_ids=orig_ids)
     rows_s = finish_setup([a, i_bc, i_ac], [aa_, t_bc, t_ac],
                           active & two_in, mat_row, flags, width, height,
-                          id_offset=T)
+                          id_offset=T, orig_ids=orig_ids)
     return torch.cat([rows_p, rows_s], dim=0)               # (2T, NSETUP)

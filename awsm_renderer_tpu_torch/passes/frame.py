@@ -1,11 +1,11 @@
 """Frame pipeline of the port's slice: vertex -> raster (K1) -> resolve
 (K2) -> deferred shade (K3 material fetch, K4 + K5 texture taps, K6 env
-taps) -> display.
+taps) -> transparent peel (K7 or K8) + forward shade + composite -> HUD
+(K7) -> display.
 
-Port of the non-AA, effect-free, opaque-only path of
-awsm_renderer_tpu/passes/frame.py: render_frame -> _opaque_band ->
-_finish_frame. PyTorch runs it eagerly, op by op, on the scene tensors'
-device.
+Port of the non-AA, effect-free path of awsm_renderer_tpu/passes/frame.py:
+render_frame -> _opaque_band -> _overlay_band -> _finish_frame. PyTorch
+runs it eagerly, op by op, on the scene tensors' device.
 """
 
 from __future__ import annotations
@@ -13,10 +13,19 @@ from __future__ import annotations
 import torch
 
 from ..config import ToneMapping
-from ..ops.raster import TILE_H, TILE_W, pad_setup_rows, rasterize16
-from ..ops.shade import NO_EXT, NO_SLOTS, shade_deferred_c
+from ..ops.raster import (
+    BT_H, BT_W, TILE_H, TILE_W, pad_setup_rows, rasterize, rasterize16,
+    rasterize_layers_compact, rasterize_layers_rows,
+)
+from ..ops.shade import (
+    EXT_VOLUME, NO_EXT, NO_SLOTS, shade_deferred_c, shade_surface,
+    shade_transparent_compact32, shade_transparent_layers_c,
+)
 from ..ops.tonemap import display_pass_c
-from ..ops.vertex import vertex_stage
+from ..ops.vertex import (
+    S_BB_MAXY, S_BB_MINY, S_E0B, S_E0C, S_E1B, S_E1C, S_E2B, S_E2C, S_ZB,
+    S_ZC, vertex_stage,
+)
 
 _CORNER_NAMES = ("c_pos", "c_norm", "c_tang", "c_uv0", "c_uv1", "c_color")
 
@@ -31,6 +40,20 @@ def _combined_geometry(ds):
     return {n: ds[n] for n in _CORNER_NAMES}, ds["tri_mesh"]
 
 
+def _shift_rows_band(rows: torch.Tensor, y0: int) -> torch.Tensor:
+    """Translate row-major (T, NSETUP) plane-equation setup into band-local
+    y: E(px, py - y0) must equal the frame value, so every y-linear
+    plane's constant gains B*y0 and the y bboxes move up by y0."""
+    s = rows.clone()
+    y = float(y0)
+    for rb, rc in ((S_E0B, S_E0C), (S_E1B, S_E1C), (S_E2B, S_E2C),
+                   (S_ZB, S_ZC)):
+        s[:, rc] = s[:, rc] + s[:, rb] * y
+    s[:, S_BB_MINY] = s[:, S_BB_MINY] - y
+    s[:, S_BB_MAXY] = s[:, S_BB_MAXY] - y
+    return s
+
+
 def _run_vertex(ds, mask, *, rw: int, rh_full: int, needs_clip: bool):
     geo, tri_mesh = _combined_geometry(ds)
     return vertex_stage(
@@ -38,6 +61,34 @@ def _run_vertex(ds, mask, *, rw: int, rh_full: int, needs_clip: bool):
         geo["c_uv1"], geo["c_color"], tri_mesh, ds["mesh_info"],
         ds["world"], ds["normal_mat"], ds["camera"]["view_proj"], mask,
         width=rw, height=rh_full, needs_clip=needs_clip)
+
+
+def _run_vertex_compact(ds, mask, tri_idx, *, rw: int, rh_full: int,
+                        needs_clip: bool, row_offset: int = 0,
+                        shift_rows: bool = False):
+    """Vertex stage over a compacted triangle set: tri_idx (Nc,) int32
+    pool indices, -1 = padding. The overlay buckets hold a few hundred
+    triangles of a pool of hundreds of thousands; the corner gather is
+    output-sized (flat row-major indices c*T + idx into each (C, T) pool)
+    and the rows carry their pool ids in S_ORIG_ID (vertex_stage
+    orig_ids), which the fat K7/K8 kernels emit as tri_id."""
+    safe = tri_idx.clamp(min=0).long()
+
+    def cols(a):
+        cdim, t = a.shape
+        gidx = (torch.arange(cdim, device=a.device)[:, None] * t
+                + safe[None, :])
+        return a.reshape(cdim * t)[gidx.reshape(-1)].reshape(cdim, -1)
+
+    geo = {n: cols(ds[n]) for n in _CORNER_NAMES}
+    tri_mesh = torch.where(tri_idx >= 0, ds["tri_mesh"][safe],
+                           torch.full_like(tri_idx, -1))
+    rows = vertex_stage(
+        geo["c_pos"], geo["c_norm"], geo["c_tang"], geo["c_uv0"],
+        geo["c_uv1"], geo["c_color"], tri_mesh, ds["mesh_info"],
+        ds["world"], ds["normal_mat"], ds["camera"]["view_proj"], mask,
+        tri_idx, width=rw, height=rh_full, needs_clip=needs_clip)
+    return _shift_rows_band(rows, row_offset) if shift_rows else rows
 
 
 def prep_setup_rows(rows: torch.Tensor) -> torch.Tensor:
@@ -67,6 +118,107 @@ def _opaque_band(ds, opaque_mask, *, rw: int, rh: int, needs_clip: bool,
     return hdr_ch, vis["tri_id"], vis["depth"], vis["bins"]
 
 
+def _overlay_band(hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask, *,
+                  rw: int, band_h: int, rh_full: int, row_offset: int = 0,
+                  shift_rows: bool = False, needs_clip: bool,
+                  solid_env: bool, has_color: bool, has_uv1: bool,
+                  use_mips: bool, slot_mask, has_nearest: bool, ext,
+                  n_transparent_layers: int, ov_tri_idx,
+                  crop_y0: int | None = None, crop_h: int | None = None,
+                  tile_cap: int | None = None):
+    """Transparent forward peel + HUD over the shaded opaque band
+    (reference: frame.py _overlay_band). slot_mask / ext are the overlay
+    bucket's own; ov_tri_idx is the overlay's compacted triangle pool
+    (renderer._overlay_tri_idx). transparent_mask / hud_mask None skip
+    their pass. Returns (hdr_ch, tri_id)."""
+    # ---- row-band crop: the overlay runs only on the rows its geometry's
+    # projected AABBs reach (renderer._overlay_crop); off with volume
+    # refraction, which gathers the opaque image outside the band
+    if (crop_h is not None and not shift_rows and crop_h < band_h
+            and not ext[EXT_VOLUME]):
+        y0 = crop_y0
+        hdr_c = [c.reshape(band_h, rw)[y0:y0 + crop_h].reshape(-1)
+                 for c in hdr_ch]
+        hdr_c, tri_c = _overlay_band(
+            hdr_c, tri_id[y0:y0 + crop_h], depth[y0:y0 + crop_h], ds,
+            transparent_mask, hud_mask, rw=rw, band_h=crop_h,
+            rh_full=rh_full, row_offset=y0, shift_rows=True,
+            needs_clip=needs_clip, solid_env=solid_env, has_color=has_color,
+            has_uv1=has_uv1, use_mips=use_mips, slot_mask=slot_mask,
+            has_nearest=has_nearest, ext=ext,
+            n_transparent_layers=n_transparent_layers,
+            ov_tri_idx=ov_tri_idx, tile_cap=tile_cap)
+        out = []
+        for full, band in zip(hdr_ch, hdr_c):
+            full = full.reshape(band_h, rw).clone()
+            full[y0:y0 + crop_h] = band.reshape(crop_h, rw)
+            out.append(full.reshape(-1))
+        tri_id = tri_id.clone()
+        tri_id[y0:y0 + crop_h] = tri_c
+        return out, tri_id
+
+    def run_vertex(mask):
+        return _run_vertex_compact(ds, mask, ov_tri_idx, rw=rw,
+                                   rh_full=rh_full, needs_clip=needs_clip,
+                                   row_offset=row_offset,
+                                   shift_rows=shift_rows)
+
+    shade_kw = dict(height_full=rh_full, row_offset=row_offset,
+                    use_mips=use_mips, slot_mask=slot_mask,
+                    solid_env=solid_env, has_nearest=has_nearest, ext=ext)
+
+    # ---- transparent forward pass: K-layer depth peel under the shared,
+    # read-only opaque depth; back-to-front composite ---------------------
+    if transparent_mask is not None:
+        t_rows = prep_setup_rows(run_vertex(transparent_mask))
+        n_t32 = (-(-band_h // BT_H)) * (rw // BT_W)
+        # covered-tile compaction of the whole peel + shade when the host
+        # cap bounds the transparent tiles below the band (not with volume
+        # refraction, which gathers the opaque image at arbitrary pixels)
+        if (tile_cap is not None and not ext[EXT_VOLUME]
+                and min(tile_cap, n_t32) * BT_H * BT_W < band_h * rw):
+            layers_c, t_idx, ntx32 = rasterize_layers_compact(
+                t_rows, depth, width=rw, height=band_h,
+                n_layers=n_transparent_layers, tile_cap32=tile_cap,
+                has_uv1=has_uv1, has_color=has_color)
+            hdr_ch = shade_transparent_compact32(
+                layers_c, t_idx, hdr_ch, ds, width=rw, height=band_h,
+                n_tx=ntx32, n_layers=n_transparent_layers, **shade_kw)
+        else:
+            # analytic uv derivatives here too, as the compacted peel: the
+            # tile cap can toggle with camera motion, and screen
+            # differencing here would make mip selection pop
+            layers = rasterize_layers_rows(
+                t_rows, depth, width=rw, height=band_h,
+                n_layers=n_transparent_layers, has_uv1=has_uv1,
+                has_color=has_color, analytic_derivs=True)
+            hdr_ch = shade_transparent_layers_c(
+                layers, hdr_ch, ds, width=rw, height=band_h,
+                n_layers=n_transparent_layers, **shade_kw)
+
+    # ---- HUD pass: its own cleared depth, composited on top -------------
+    if hud_mask is not None:
+        h_rows = prep_setup_rows(run_vertex(hud_mask))
+        # the compacted pool breaks K2's row index == pool id invariant, so
+        # the HUD takes K7, which reads the ids from S_ORIG_ID (the
+        # reference's K1 + K2 branch over the full pool serves instanced
+        # overlay meshes, which the port refuses until M2b)
+        h_vis = rasterize(h_rows, width=rw, height=band_h, has_uv1=has_uv1,
+                          has_color=has_color, analytic_derivs=False)
+        P = rw * band_h
+        h_planes = {k: v.reshape(P) for k, v in h_vis.items()}
+        h_color, h_alpha, h_valid, _ = shade_surface(
+            h_planes, ds, width=rw, height=band_h, **shade_kw)
+        a = torch.where(h_valid, h_alpha, torch.zeros_like(h_alpha))
+        out = [torch.where(h_valid, h_color[c] * a + hdr_ch[c] * (1 - a),
+                           hdr_ch[c]) for c in range(3)]
+        out.append(torch.where(h_valid, torch.maximum(hdr_ch[3], a),
+                               hdr_ch[3]))
+        hdr_ch = out
+        tri_id = torch.where(h_vis["tri_id"] >= 0, h_vis["tri_id"], tri_id)
+    return hdr_ch, tri_id
+
+
 def _finish_frame(hdr_ch, tri_id, depth, *, rw: int, rh: int, width: int,
                   height: int, tonemap: ToneMapping):
     """Crop the padding, tonemap + sRGB display pass, stack to (H, W, 4)."""
@@ -76,14 +228,25 @@ def _finish_frame(hdr_ch, tri_id, depth, *, rw: int, rh: int, width: int,
             depth[:height, :width])
 
 
-def render_frame(ds, opaque_mask, *, width: int, height: int,
-                 tonemap: ToneMapping, needs_clip: bool = True,
-                 solid_env: bool = False, has_color: bool = True,
-                 has_uv1: bool = False, use_mips: bool = True,
-                 slot_mask=NO_SLOTS, has_nearest: bool = True, ext=NO_EXT,
-                 debug_mode: str = "none"):
+def render_frame(ds, opaque_mask, transparent_mask=None, hud_mask=None, *,
+                 width: int, height: int, tonemap: ToneMapping,
+                 needs_clip: bool = True, solid_env: bool = False,
+                 has_color: bool = True, has_uv1: bool = False,
+                 use_mips: bool = True, slot_mask=NO_SLOTS,
+                 has_nearest: bool = True, ext=NO_EXT,
+                 debug_mode: str = "none", n_transparent_layers: int = 4,
+                 overlay_slot_mask=None, overlay_ext=None,
+                 overlay_crop_y0: int | None = None,
+                 overlay_crop_h: int | None = None, overlay_tri_idx=None,
+                 overlay_tile_cap: int | None = None):
     """Returns (display rgba (H, W, 4) f32 in [0, 1], tri_id (H, W) int32
-    in triangle-pool space (-1 = miss), depth (H, W) f32, raster bins)."""
+    in triangle-pool space (-1 = miss), depth (H, W) f32, raster bins).
+
+    transparent_mask / hud_mask: (M,) bool device masks of the overlay
+    buckets, or None when a bucket is empty; the overlay_* arguments are
+    the host's per-frame specialization (renderer.py). The overlay runs
+    over its compacted triangle pool, overlay_tri_idx; None (no live
+    overlay triangle) skips it."""
     rw = _pad_to(width, TILE_W)
     rh = _pad_to(height, TILE_H)
     hdr_ch, tri_id, depth, bins = _opaque_band(
@@ -91,6 +254,20 @@ def render_frame(ds, opaque_mask, *, width: int, height: int,
         solid_env=solid_env, has_color=has_color, has_uv1=has_uv1,
         use_mips=use_mips, slot_mask=slot_mask, has_nearest=has_nearest,
         ext=ext, debug_mode=debug_mode)
+    if overlay_tri_idx is not None and (transparent_mask is not None
+                                        or hud_mask is not None):
+        hdr_ch, tri_id = _overlay_band(
+            hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask, rw=rw,
+            band_h=rh, rh_full=rh, needs_clip=needs_clip,
+            solid_env=solid_env, has_color=has_color, has_uv1=has_uv1,
+            use_mips=use_mips,
+            slot_mask=(slot_mask if overlay_slot_mask is None
+                       else overlay_slot_mask),
+            has_nearest=has_nearest,
+            ext=ext if overlay_ext is None else overlay_ext,
+            n_transparent_layers=n_transparent_layers,
+            crop_y0=overlay_crop_y0, crop_h=overlay_crop_h,
+            ov_tri_idx=overlay_tri_idx, tile_cap=overlay_tile_cap)
     ldr, tri_id, depth = _finish_frame(hdr_ch, tri_id, depth, rw=rw, rh=rh,
                                        width=width, height=height,
                                        tonemap=tonemap)

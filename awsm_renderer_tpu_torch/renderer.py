@@ -1,13 +1,16 @@
 """AwsmRendererTorch — the port's renderer facade.
 
 Port of awsm_renderer_tpu/renderer.py (AwsmRendererTpu) for the slice
-ported so far: opaque glTF PBR / unlit materials with every texture slot
-and KHR_texture_transform, the opaque material extensions (clearcoat,
-sheen, iridescence, anisotropy, specular) and the debug views, under a
-solid or image environment, at most 8 punctual lights, no AA, no effects.
-The key-based stores, the per-frame dirty flush to device tensors and the
-host-side cull + pass bucketing mirror the reference; the frame runs
-eagerly on `device` (passes/frame.py).
+ported so far: glTF PBR / unlit materials with every texture slot and
+KHR_texture_transform, the material extensions (clearcoat, sheen,
+iridescence, anisotropy, specular, transmission, volume), the debug
+views, the transparent overlay (BLEND / MASK / transmission meshes in a
+K-layer depth peel, the editor grid kind) and HUD meshes, under a solid
+or image environment, at most 8 punctual lights, no AA, no effects. The
+key-based stores, the per-frame dirty flush to device tensors and the
+host-side cull, pass bucketing and per-pass specialization (overlay
+crop, compacted overlay pool, tile cap, proven layer bound) mirror the
+reference; the frame runs eagerly on `device` (passes/frame.py).
 
 Content or configuration outside the slice raises NotImplementedError
 naming its ROADMAP.md milestone instead of rendering it wrongly.
@@ -35,7 +38,6 @@ from .core.skins import Skins
 from .core.textures import TEXEL_COLS, Textures, f32_to_bf16_bits
 from .core.transforms import Transform, Transforms
 from .errors import ConfigError
-from .ops.shade import EXT_TRANSMISSION, EXT_VOLUME
 from .passes.frame import render_frame
 
 MAX_DENSE_LIGHTS = 8
@@ -75,10 +77,12 @@ class AwsmRendererTorch:
         self.environment = Environment()
         self._device: Dict[str, object] = {}
         self._env_rows64 = None        # image-env quad rows appended to texels
-        self._prep = None              # (scene signature, (masks, mask))
+        self._prep = None              # (scene signature, _prepare())
         self._last_tri_id = None       # device plane kept for picking
         self._mesh_row_to_key: Dict[int, int] = {}
         self._tri_mesh_device_order = None
+        self._mesh_flush_gen = 0       # bumps on every mesh-pool flush
+        self._ov_idx_cache = None      # (overlay mask, flush gen, tensor)
         self.last_bins = None          # raster bins of the last frame
 
     # ---- content helpers (host stores, as the reference) -----------------
@@ -189,6 +193,7 @@ class AwsmRendererTorch:
                     d["tri_mesh"][s:s + rows.size] = self._tensor(tri_mesh_c)
             d["mesh_info"] = self._tensor(m.mesh_info)
             m.gpu_dirty = False
+            self._mesh_flush_gen += 1
             self._mesh_row_to_key = {row: key
                                      for key, row in m._mesh_alloc.items()}
 
@@ -335,12 +340,178 @@ class AwsmRendererTorch:
         if cfg.light_tiles:
             raise _unsupported("tiled light lists", "M12 passes and hooks")
 
+    def _overlay_tri_idx(self, masks):
+        """Compacted overlay triangle ids: pool indices of every triangle
+        of a transparent/HUD mesh, power-of-2 padded with -1 (at least
+        128). None when nothing is live, and the frame then skips the
+        overlay: it runs only over this pool. Cached by mask content and mesh
+        flush (the isin scan over the pool costs milliseconds). Instanced
+        groups, which the reference excludes here, are refused by
+        _prepare."""
+        mask = masks["transparent"] | masks["hud"]
+        tm = self._tri_mesh_device_order
+        if tm is None or not mask.any():
+            return None
+        cached = self._ov_idx_cache
+        if (cached is not None and cached[1] == self._mesh_flush_gen
+                and np.array_equal(cached[0], mask)):
+            return cached[2]
+        sel = np.where(np.isin(tm, np.where(mask)[0]))[0].astype(np.int32)
+        if sel.size == 0:
+            return None
+        cap = max(128, 1 << (int(sel.size) - 1).bit_length())
+        out = np.full(cap, -1, np.int32)
+        out[: sel.size] = sel
+        dev = self._tensor(out)
+        self._ov_idx_cache = (mask.copy(), self._mesh_flush_gen, dev)
+        return dev
+
+    def _projected_corners(self, masks, bucket_mask):
+        """World AABB corners of the bucket's visible meshes projected
+        through the camera -> (selected rows, keys, clip (8N, 3), w
+        (8N,)), or None when the bucket is empty."""
+        mins, maxs, keys = self.meshes.world_bounds()
+        if not keys:
+            return None
+        sel = np.nonzero(bucket_mask[self.meshes.world_rows()])[0]
+        if sel.size == 0:
+            return None
+        mn, mx = mins[sel], maxs[sel]
+        corners = np.stack([
+            np.stack([np.where(b & 1, mx[:, 0], mn[:, 0]),
+                      np.where(b & 2, mx[:, 1], mn[:, 1]),
+                      np.where(b & 4, mx[:, 2], mn[:, 2])], axis=-1)
+            for b in range(8)], axis=1)                      # (N, 8, 3)
+        vp = np.asarray(self.camera.view_projection, np.float32)
+        h = corners.reshape(-1, 3)
+        return sel, keys, h @ vp[:3, :3].T + vp[:3, 3], h @ vp[3, :3] + vp[3, 3]
+
+    def _overlay_crop(self, masks):
+        """Screen row band the transparent/HUD geometry covers: (y0, band
+        height), or None = the whole frame. The projected AABB rows are
+        quantized to 32-row multiples with a power-of-2 height; an AABB
+        touching the near plane (unbounded screen extent) disables it."""
+        rh1 = ((self.config.height + 7) // 8) * 8
+        proj = self._projected_corners(masks, masks["transparent"]
+                                       | masks["hud"])
+        if proj is None:
+            return None
+        _sel, _keys, clip, w = proj
+        if (w <= 1e-6).any():
+            return None
+        sy = (0.5 - 0.5 * clip[:, 1] / w) * rh1
+        y0 = int(np.clip(np.floor(sy.min()), 0, rh1))
+        y1 = int(np.clip(np.ceil(sy.max()), 0, rh1))
+        y0q = (y0 // 32) * 32
+        y1q = -(-y1 // 32) * 32
+        b = 32
+        while b < y1q - y0q:
+            b *= 2
+        if b >= rh1:
+            return None
+        y0q = max(0, min(y0q, rh1 - b))
+        return y0q, b
+
+    def _transparent_layer_bound(self, masks):
+        """Proven upper bound on per-pixel transparent depth complexity, or
+        None when unprovable: every visible transparent mesh must be a
+        verified-convex resource (core/meshes._is_convex), so it adds at
+        most 1 fragment per ray (2 when double-sided); the bound is the
+        max point-stab of the multiplicity-weighted projected-AABB screen
+        rects on an 8-pixel grid (1-pixel safety pad). Peels beyond it
+        cannot receive fragments, so the clamp is exact."""
+        proj = self._projected_corners(masks, masks["transparent"])
+        if proj is None:
+            return None
+        sel, keys, clip, w = proj
+        mult = []
+        for i in sel:
+            mesh = self.meshes.get(keys[i])
+            res = self.meshes._resources.get(mesh.resource_key)
+            if res is None or not res.convex:
+                return None
+            mult.append(2 if mesh.double_sided else 1)
+        if (w <= 1e-6).any():
+            return None     # near-plane crossing: unbounded screen rect
+        WW = max(self.config.width, 1)
+        HH = max(self.config.height, 1)
+        sx = ((0.5 + 0.5 * clip[:, 0] / w) * WW).reshape(-1, 8)
+        sy = ((0.5 - 0.5 * clip[:, 1] / w) * HH).reshape(-1, 8)
+        gx = max(WW // 8, 1)
+        gy = max(HH // 8, 1)
+        x0 = np.clip(np.floor((sx.min(1) - 1) / 8), 0, gx - 1).astype(int)
+        x1 = np.clip(np.floor((sx.max(1) + 1) / 8), 0, gx - 1).astype(int)
+        y0 = np.clip(np.floor((sy.min(1) - 1) / 8), 0, gy - 1).astype(int)
+        y1 = np.clip(np.floor((sy.max(1) + 1) / 8), 0, gy - 1).astype(int)
+        m = np.asarray(mult, np.int32)
+        acc = np.zeros((gy + 1, gx + 1), np.int32)
+        np.add.at(acc, (y0, x0), m)
+        np.add.at(acc, (y0, x1 + 1), -m)
+        np.add.at(acc, (y1 + 1, x0), -m)
+        np.add.at(acc, (y1 + 1, x1 + 1), m)
+        return int(acc.cumsum(0).cumsum(1)[:-1, :-1].max())
+
+    def _bucket_tile_cap(self, masks, bucket: str, tile_h: int = 8,
+                         tile_w: int = 128):
+        """Upper bound on the (tile_h x tile_w) tiles one pass bucket can
+        cover: per-mesh projected-AABB screen rects, tile-quantized (1 px
+        safety pad), union-counted (over-counting is safe), then quantized
+        so camera motion changes the cap in bounded steps: transparent
+        buckets in 32-aligned 1.25x steps from 64, the opaque bucket in
+        ~n_tiles/32 steps. None = empty bucket, a mesh crosses the near
+        plane, or the bound would not pay for itself. The transparent cap
+        (32x32 tiles) drives the covered-tile compaction of the K-layer
+        peel + shade."""
+        rw1 = ((self.config.width + 127) // 128) * 128
+        rh1 = ((self.config.height + 7) // 8) * 8
+        rh_t = -(-rh1 // tile_h) * tile_h
+        n_tiles = (rh_t // tile_h) * (rw1 // tile_w)
+        proj = self._projected_corners(masks, masks[bucket])
+        if proj is None:
+            return None
+        _sel, _keys, clip, w = proj
+        if (w <= 1e-6).any():
+            return None
+        sx = ((0.5 + 0.5 * clip[:, 0] / w) * rw1).reshape(-1, 8)
+        sy = ((0.5 - 0.5 * clip[:, 1] / w) * rh1).reshape(-1, 8)
+        ntx, nty = rw1 // tile_w, rh_t // tile_h
+        # the overlay band's tile grid can sit up to tile_h - 8 rows off
+        # this frame-aligned grid (_overlay_crop clamps y0 to rh1 - band,
+        # an 8-multiple): expand the rects by that slack
+        slack = max(0, tile_h - 8)
+        tx0 = np.clip(np.floor((sx.min(1) - 1) / tile_w), 0, ntx - 1).astype(int)
+        tx1 = np.clip(np.floor((sx.max(1) + 1) / tile_w), 0, ntx - 1).astype(int)
+        ty0 = np.clip(np.floor((sy.min(1) - 1 - slack) / tile_h), 0,
+                      nty - 1).astype(int)
+        ty1 = np.clip(np.floor((sy.max(1) + 1 + slack) / tile_h), 0,
+                      nty - 1).astype(int)
+        acc = np.zeros((nty + 1, ntx + 1), np.int32)
+        np.add.at(acc, (ty0, tx0), 1)
+        np.add.at(acc, (ty0, tx1 + 1), -1)
+        np.add.at(acc, (ty1 + 1, tx0), -1)
+        np.add.at(acc, (ty1 + 1, tx1 + 1), 1)
+        cap = int(np.count_nonzero(
+            acc.cumsum(axis=0).cumsum(axis=1)[:-1, :-1]))
+        if cap <= 0:
+            return None
+        if bucket == "opaque":
+            step = max(64, 1 << max(0, (n_tiles // 32 - 1)).bit_length())
+            capb = -(-cap // step) * step
+            if capb * 8 >= n_tiles * 7:   # < 12.5% sky: not worth it
+                return None
+            return capb
+        capb = 64
+        while capb < cap:
+            capb = -(-(capb * 5 // 4) // 32) * 32
+        if capb * 4 >= n_tiles * 3:
+            return None
+        return capb
+
     def _prepare(self):
-        """Cull + bucket, the opaque bucket's shading specialization
-        (slot_mask, ext), and refuse content outside the slice."""
+        """Cull + bucket, each bucket's shading specialization (slot_mask,
+        ext), the overlay's crop band, compacted pool, tile cap and layer
+        clamp, and refuse content outside the slice."""
         masks = self._mesh_masks()
-        if masks["transparent"].any() or masks["hud"].any():
-            raise _unsupported("transparent / HUD meshes", "M8 overlay")
         info = self.meshes.mesh_info
         if (info[:, 3] > 0).any() or (info[:, 5] > 0).any():
             raise _unsupported("morph targets / skins",
@@ -352,11 +523,32 @@ class AwsmRendererTorch:
             raise _unsupported(f"more than {MAX_DENSE_LIGHTS} lights "
                                "(tiled light lists)", "M12 passes and hooks")
         op_rows = self._bucket_mat_rows(masks["opaque"])
-        ext = self._ext_mask(op_rows)
-        if ext[EXT_TRANSMISSION] or ext[EXT_VOLUME]:
-            raise _unsupported("transmission / volume materials",
-                               "M8 overlay")
-        return masks, self._slot_mask(op_rows), ext
+        prep = dict(masks=masks, slot_mask=self._slot_mask(op_rows),
+                    ext=self._ext_mask(op_rows),
+                    opaque_dev=self._tensor(masks["opaque"]),
+                    transparent_dev=None, hud_dev=None, ov_slot_mask=None,
+                    ov_ext=None, ov_crop=None, ov_idx=None, ov_tile_cap=None,
+                    n_layers=self.config.max_transparent_layers)
+        has_transparent = bool(masks["transparent"].any())
+        has_hud = bool(masks["hud"].any())
+        if has_transparent or has_hud:
+            ov_rows = self._bucket_mat_rows(masks["transparent"]
+                                            | masks["hud"])
+            prep.update(ov_slot_mask=self._slot_mask(ov_rows),
+                        ov_ext=self._ext_mask(ov_rows),
+                        ov_crop=self._overlay_crop(masks),
+                        ov_idx=self._overlay_tri_idx(masks))
+        if has_transparent:
+            prep["transparent_dev"] = self._tensor(masks["transparent"])
+            # 32x32 units: the cap sizes the compacted peel's tile grid
+            prep["ov_tile_cap"] = self._bucket_tile_cap(
+                masks, "transparent", tile_h=32, tile_w=32)
+            bound = self._transparent_layer_bound(masks)
+            if bound:
+                prep["n_layers"] = min(prep["n_layers"], bound)
+        if has_hud:
+            prep["hud_dev"] = self._tensor(masks["hud"])
+        return prep
 
     def _scene_signature(self, cfg=None):
         """Content signature of everything a frame depends on (the
@@ -391,24 +583,31 @@ class AwsmRendererTorch:
             debug_mode = "material"
         ds = self._flush()
         prep_key = self._scene_signature(cfg)
-        if self._prep is not None and self._prep[0] == prep_key:
-            masks, slot_mask, ext, opaque_dev = self._prep[1]
-        else:
-            masks, slot_mask, ext = self._prepare()
-            opaque_dev = self._tensor(masks["opaque"])
-            self._prep = (prep_key, (masks, slot_mask, ext, opaque_dev))
+        if self._prep is None or self._prep[0] != prep_key:
+            self._prep = (prep_key, self._prepare())
+        prep = self._prep[1]
+        masks = prep["masks"]
         tx = self.textures
+        ov_crop = prep["ov_crop"]
         ldr, tri_id, _depth, bins = render_frame(
-            ds, opaque_dev, width=cfg.width, height=cfg.height,
+            ds, prep["opaque_dev"], prep["transparent_dev"], prep["hud_dev"],
+            width=cfg.width, height=cfg.height,
             tonemap=cfg.post_processing.tonemapping,
             needs_clip=masks["needs_clip"],
             solid_env=self.environment.is_solid,
             has_color=self.meshes.uses_vertex_colors,
             has_uv1=bool((self.materials.tex_slots[:, :, 1] == 1).any()),
-            use_mips=cfg.anti_aliasing.mipmap, slot_mask=slot_mask,
+            use_mips=cfg.anti_aliasing.mipmap, slot_mask=prep["slot_mask"],
             has_nearest=bool((tx.descriptors[:, 5] == 0).any()
                              and tx.descriptor_capacity > 0),
-            ext=ext, debug_mode=debug_mode)
+            ext=prep["ext"], debug_mode=debug_mode,
+            n_transparent_layers=prep["n_layers"],
+            overlay_slot_mask=prep["ov_slot_mask"],
+            overlay_ext=prep["ov_ext"],
+            overlay_crop_y0=ov_crop[0] if ov_crop else None,
+            overlay_crop_h=ov_crop[1] if ov_crop else None,
+            overlay_tri_idx=prep["ov_idx"],
+            overlay_tile_cap=prep["ov_tile_cap"])
         self._last_tri_id = tri_id
         self._rendered_sig = prep_key
         self.last_bins = bins

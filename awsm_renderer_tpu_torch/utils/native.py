@@ -2,38 +2,78 @@
 
 The reference's host tier is native Rust; ours is C++ behind a C ABI with
 numpy fallbacks (`HAVE_NATIVE` False) so nothing hard-depends on the .so.
-Builds lazily via `make -C native` when missing and a toolchain exists.
+
+The port builds its own copy of the library from the repository's
+``native/awsm_host.cpp`` with ``native/Makefile``'s compiler flags into
+``<repo>/build/host/`` at first use, under a name keyed by a hash of the
+source, the flags and the host CPU (``-march=native`` code must not run
+on another machine that shares the directory; an edit rebuilds). Without
+a C++ compiler, or when the build fails, every entry point takes its
+numpy fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
+import shutil
 import subprocess
 from typing import Optional
 
 import numpy as np
 
-# the host library and its sources are shared with the JAX package: load
-# them by file path (a ctypes load imports no Python package)
-_REPO = os.path.join(os.path.dirname(__file__), "..", "..")
-_LIB_PATH = os.path.join(_REPO, "awsm_renderer_tpu", "native", "libawsm_host.so")
-_NATIVE_SRC = os.path.join(_REPO, "native")
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+_SOURCE = os.path.join(_REPO, "native", "awsm_host.cpp")
+_BUILD_DIR = os.path.join(_REPO, "build", "host")
+# native/Makefile's CXXFLAGS
+CXXFLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17", "-Wall")
+
+
+def _cpu_tag() -> bytes:
+    """The CPU's model and feature flags (what -march=native compiles
+    for), or the machine type where /proc/cpuinfo is unreadable."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            lines = [ln for ln in f if ln.startswith(("model name", "flags"))]
+        return "".join(lines[:2]).encode()
+    except OSError:
+        return platform.machine().encode()
+
+
+def _lib_path() -> str:
+    h = hashlib.sha256(" ".join(CXXFLAGS).encode() + _cpu_tag())
+    if os.path.exists(_SOURCE):
+        with open(_SOURCE, "rb") as f:
+            h.update(f.read())
+    return os.path.join(_BUILD_DIR, f"libawsm_host_{h.hexdigest()[:16]}.so")
+
+
+_LIB_PATH = _lib_path()
 
 _lib: Optional[ctypes.CDLL] = None
 
 
 def _try_build() -> None:
-    makefile = os.path.join(_NATIVE_SRC, "Makefile")
-    if not os.path.exists(makefile):
+    """Compile the source into _LIB_PATH (through a temporary name, so
+    concurrent first uses never load a half-written file)."""
+    cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
+    if cxx is None or not os.path.exists(_SOURCE):
         return
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
     try:
-        subprocess.run(
-            ["make", "-C", _NATIVE_SRC], check=True,
-            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL, timeout=120,
-        )
-    except Exception:
+        proc = subprocess.run([cxx, *CXXFLAGS, "-o", tmp, _SOURCE],
+                              capture_output=True, timeout=300)
+        if proc.returncode == 0:
+            os.replace(tmp, _LIB_PATH)
+    except (OSError, subprocess.TimeoutExpired):
         pass
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def _load() -> Optional[ctypes.CDLL]:

@@ -6,38 +6,53 @@ It needs one CUDA device and exits non-zero without one (it never falls
 back to the CPU). Phases:
 
   build    compile the port's CUDA kernels (csrc/) from the checkout;
-  scene    build bench.py's 1080p stress scene "Stress-1080p-ibl-tex"
+  scene    build bench.py's whole 1080p stress scene "Stress-1080p-ibl-tex"
            through the port's API (15x15 colonnade of boxes and spheres,
            ~259k triangles, 12 random PBR materials with bench.py's three
            sRGB 128x128 checker base-colour textures and mip chains, seed
-           42, 1 directional + 6 point lights) without the glass panes,
-           under the procedural "env-ibl" equirect environment at size
-           128;
+           42, the ring of 12 alpha-blended glass panes, 1 directional + 6
+           point lights) under the procedural "env-ibl" equirect
+           environment at size 128;
   kernels  run K1 raster, K2 resolve, K3 material fetch, K4 tap planner,
            K5 texel filter and K6 env-tap gather on the first frame's real
-           intermediates, each against its plain PyTorch twin on the card
-           (K1/K3/K5/K6 bit-equal, K2 ints equal and floats rtol 1e-5 atol
-           1e-6, K4 indices equal and weights within 1e-6 except at taps
-           whose LOD lies within 1e-5 of an integer, fewer than 0.01% of
-           taps), and time both; K4 and K5 again on the helmet frame's
-           five-tap batch;
+           (opaque-pass) intermediates, each against its plain PyTorch
+           twin on the card (K1/K3/K5/K6 bit-equal, K2 ints equal and
+           floats rtol 1e-5 atol 1e-6, K4 indices equal and weights within
+           1e-6 except at taps whose LOD lies within 1e-5 of an integer,
+           fewer than 0.01% of taps), and time both; K4 and K5 again on
+           the helmet frame's five-tap batch;
   frame    render 12 stress frames under a camera orbit, check that every
-           kernel launched on each frame, that the image is finite with
-           both sky and geometry, and that pick() agrees with the tri_id
-           plane;
+           kernel of the path launched on each frame (K8's compacted peel
+           for the panes included), that the image is finite with both sky
+           and geometry, and that pick() agrees with the tri_id plane;
+  overlay  (a) the stress frame's overlay: the compaction (C of n_tiles),
+           layer clamp and crop band of its prep, K8 against its twin bit
+           for bit on the first frame's first peel, timed, and the host
+           syncs of one frame; (b) the same scene with the panes given
+           KHR transmission + volume (thickness 0.5, which turns the crop
+           and the compaction off) and one HUD box: 12 orbit frames with
+           K7 (peel and non-peel) and K6's f32 entry launched on every
+           frame, each held bit for bit against its twin on the first
+           frame's intermediates and timed, and pick() at the HUD box's
+           centre returning its key;
   gltf     build the glTF catalog's helmet (five 1024x1024 maps) with the
            port's gltf/samples.py, load_gltf + populate_gltf it at 1080p
            under the same environment, render 12 orbit frames and check
            launches and the image;
-  golden   render the 128x64 "box", "env-ibl" and "box-textured" probes
-           and the 256x128 glTF goldens "glb-helmet",
-           "glb-texture-transform", "glb-multi-uv" and "glb-ext-clearcoat"
-           on the card and hold them against tests/goldens at the golden
-           tolerance.
+  golden   render the 128x64 "box", "env-ibl", "box-textured",
+           "alpha-blend" and "effect-refraction" probes, the 256x128 glTF
+           goldens "glb-helmet", "glb-texture-transform", "glb-multi-uv",
+           "glb-ext-clearcoat", "glb-alpha-modes", "glb-ext-transmission"
+           and "glb-sponza-lite", and the 512x256 parity goldens
+           "parity-glb-alpha-modes-512" and "parity-ext-transmission-512"
+           on the card, each at the tolerance of the JAX test that owns it.
 
-Prints one line per check, then a JSON line of per-kernel results, the
-card's name and power limit, and last the ok line. Any failed phase
-raises, and the script exits non-zero.
+Prints one line per check, then a JSON line of per-kernel results (time,
+twin time, the least time the card could take for the same work and
+which of bytes or operations sets it, and a single PyTorch call's time
+where one computes the same function), the card's name and power limit,
+and last the ok line. Any failed phase raises, and the script exits
+non-zero.
 """
 
 from __future__ import annotations
@@ -51,6 +66,7 @@ import time
 
 W, H = 1920, 1080
 N_FRAMES = 12
+HUD_AT = (0.0, 2.5, 0.0)     # the overlay phase's HUD box, above the ring
 DEVICE = "cuda"     # the card; a CPU rehearsal of the phases sets "cpu"
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -87,6 +103,35 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+# One H100 SXM's published peaks (NVIDIA's data sheet; at the 700 W
+# limit): HBM bandwidth and float32 outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# float operations of one triangle-pixel coverage test: three edge
+# functions and the z plane, each a*px + (b*py + c)
+OPS_PER_TEST = 16
+
+
+def bound(nbytes: float, nops: float):
+    """The least ms the card could take: the larger of `nbytes` over the
+    memory rate and `nops` over the float32 rate, and which one it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def unique_rows(idx, n_rows: int) -> int:
+    """Distinct rows that clamped indices `idx` touch in an n_rows table
+    (what a gather must read at least once)."""
+    import torch
+
+    return int(torch.unique(idx.clamp(0, n_rows - 1)).numel())
+
+
 def env_ibl_equirect(np):
     """The procedural equirect of demo/scenes.py scene_env_ibl."""
     eq = np.zeros((32, 64, 3), np.float32)
@@ -97,11 +142,16 @@ def env_ibl_equirect(np):
     return eq
 
 
-def build_stress_scene(P, np, device, textured=True):
-    """bench.py build_stress_scene(effects=False) geometry, textures and
-    lights, through the port's API; the glass panes left out (the
-    transparent overlay is not ported). textured=False leaves the
-    base-colour slots unbound (the untextured frame of earlier runs)."""
+def build_stress_scene(P, np, device, textured=True, panes=True,
+                       volume=False, hud=False):
+    """bench.py build_stress_scene(effects=False) — geometry, textures,
+    the ring of 12 alpha-blended glass panes and lights — through the
+    port's API. textured=False leaves the base-colour slots unbound (the
+    untextured frame of earlier runs); panes=False leaves the panes out
+    (the opaque-only scene of earlier runs); volume=True gives the panes'
+    glass KHR transmission and volume (transmission 1, thickness 0.5, ior
+    1.5: screen-space refraction); hud=True adds one HUD box above the
+    ring. Returns (renderer, opaque mesh keys, HUD key or None)."""
     from awsm_renderer_tpu_torch.core.materials import TS_BASE_COLOR
     from awsm_renderer_tpu_torch.geometry import (
         box, checker_texture, uv_sphere,
@@ -121,8 +171,15 @@ def build_stress_scene(P, np, device, textured=True):
         textures=({TS_BASE_COLOR: P.TextureRef(
             r.textures.row_of(tex_ids[i % 3]))} if textured else {})))
         for i in range(12)]
+    vol = (dict(transmission_factor=1.0, thickness=0.5, ior=1.5)
+           if volume else {})
+    glass = r.materials.insert(P.PbrMaterial(
+        base_color_factor=np.array([0.4, 0.7, 0.9, 0.4], np.float32),
+        alpha_mode=P.AlphaMode.BLEND, roughness_factor=0.1,
+        metallic_factor=0.0, **vol))
     box_res = r.meshes.insert_resource(box(0.8))
     sph_res = r.meshes.insert_resource(uv_sphere(0.45, rings=24, sectors=48))
+    pane_res = r.meshes.insert_resource(box(0.9))
     keys = []
     for gx in range(-7, 8):
         for gz in range(-7, 8):
@@ -134,7 +191,21 @@ def build_stress_scene(P, np, device, textured=True):
             r.transforms.update_world()
             keys.append(r.meshes.insert(res, r.transforms.row_of(tk),
                                         r.materials.row_of(mat), tk, mat))
+    for i in range(12 if panes else 0):
+        a = 2 * np.pi * i / 12
+        tk = r.transforms.insert(P.Transform(translation=np.array(
+            [np.cos(a) * 4.5, 1.2, np.sin(a) * 4.5], np.float32)))
+        r.transforms.update_world()
+        r.meshes.insert(pane_res, r.transforms.row_of(tk),
+                        r.materials.row_of(glass), tk, glass,
+                        transparent=True)
     r.meshes.update_world(r.transforms)
+    hud_key = None
+    if hud:
+        hud_key = r.add_mesh(box(0.6), r.materials.insert(P.UnlitMaterial(
+            base_color_factor=np.array([0.1, 0.9, 0.2, 1], np.float32))),
+            transform=P.Transform(translation=np.array(HUD_AT, np.float32)),
+            hud=True)
     r.lights.insert(P.Light.directional([-0.5, -1, -0.3], intensity=2.0))
     for i in range(6):
         r.lights.insert(P.Light.point(
@@ -142,7 +213,7 @@ def build_stress_scene(P, np, device, textured=True):
             color=tuple(rng.uniform(0.4, 1, 3)), intensity=10.0, range=15.0))
     r.environment.set_environment_from_equirect(env_ibl_equirect(np),
                                                 size=128)
-    return r, keys
+    return r, keys, hud_key
 
 
 def orbit_camera(r, np, i: int, rad=None, height=7.0):
@@ -162,20 +233,33 @@ KERNEL_SITES = ("rasterize16_slim", "resolve_planes_fused",
 
 def capture_first_frame(r, names=KERNEL_SITES):
     """Render one frame with recorders on the kernel wrappers `names`;
-    return the arguments each was called with on the main path."""
-    from awsm_renderer_tpu_torch.ops import cubemap, raster, shade, texsample
+    return the arguments of each wrapper's first call on the main path
+    (for rasterize_binned, of its first peel call under
+    "rasterize_binned/peel" and of its first call without a peel under
+    "rasterize_binned/nopeel")."""
+    from awsm_renderer_tpu_torch.ops import (
+        cubemap, raster, relayout, shade, texsample,
+    )
 
     captured = {}
     where = {"rasterize16_slim": raster, "resolve_planes_fused": shade,
              "onehot_split_rows": shade, "tap_plan_fused": texsample,
              "filter_taps_fused": texsample,
-             "gather_split_channels": cubemap}
+             "gather_split_channels": cubemap,
+             "rasterize_binned": raster,
+             "_rasterize_binned_compact": raster,
+             "gather_split_channels_f32": relayout}
     sites = tuple((where[n], n) for n in names)
     originals = [getattr(mod, attr) for mod, attr in sites]
 
     def recorder(attr, fn):
         def wrapped(*args, **kwargs):
-            captured[attr] = (args, kwargs)
+            key = attr
+            if attr == "rasterize_binned":
+                peel = (args[1] if len(args) > 1
+                        else kwargs.get("zlo")) is not None
+                key = f"{attr}/{'peel' if peel else 'nopeel'}"
+            captured.setdefault(key, (args, kwargs))
             return fn(*args, **kwargs)
         return wrapped
 
@@ -209,11 +293,12 @@ def phase_kernels(r, np, torch):
         RESOLVE_NAMES, resolve_planes_fused, resolve_planes_reference,
     )
 
-    log("phase kernels: the first frame's intermediates")
-    cap = capture_first_frame(r)
+    log("phase kernels: the first frame's (opaque-pass) intermediates")
+    cap = capture_first_frame(r, KERNEL_SITES + ("_rasterize_binned_compact",))
     torch.cuda.synchronize()
-    check(sorted(cap) == sorted(KERNEL_SITES),
-          "the first frame called all six kernel wrappers")
+    check(sorted(cap) == sorted(KERNEL_SITES + ("_rasterize_binned_compact",)),
+          "the first frame called the six opaque-pass kernel wrappers and "
+          "K8's")
     results = {}
 
     # ---- K1 ---------------------------------------------------------------
@@ -239,12 +324,19 @@ def phase_kernels(r, np, torch):
         f"|ddepth| {err}")
     check(n_bad == 0, "K1 col and depth bit-equal to the plain twin")
     check(int((col >= 0).sum()) > 0, "K1 covers pixels")
+    # the coverage tests the bins ask for: every binned (tile, group)
+    # pair, big groups against every tile
+    n_tiles = counts.numel()
+    tests = ((int(counts.sum()) + int(bins[6].item()) * n_tiles) * 16
+             * 32 * 32)
     results["K1"] = dict(
         err=err,
         ms=cuda_ms(lambda: rasterize16_slim(srows, bins, width=rw,
                                             height=rh), 20),
         plain_ms=cuda_ms(lambda: rasterize16_slim_reference(
-            srows, bins, width=rw, height=rh), 2))
+            srows, bins, width=rw, height=rh), 2),
+        bound=bound(nbytes(srows, *bins, col, depth), tests * OPS_PER_TEST),
+        library_ms=None)
 
     # ---- K2 ---------------------------------------------------------------
     (tid, srows2), kw = cap["resolve_planes_fused"]
@@ -260,11 +352,15 @@ def phase_kernels(r, np, torch):
     log(f"  K2 resolve_planes_fused tid {tuple(tid.shape)} -> 21 planes: "
         f"{n_bad} values outside rtol 1e-5 atol 1e-6, max |d| {err}")
     check(n_bad == 0, "K2 planes within rtol 1e-5, atol 1e-6 of the twin")
+    # the winners' 256-byte setup rows, once each, the ids and 20 planes
+    n_win = unique_rows(tid[tid >= 0], srows2.shape[0])
     results["K2"] = dict(
         err=err,
         ms=cuda_ms(lambda: resolve_planes_fused(tid, srows2, **kw), 20),
         plain_ms=cuda_ms(lambda: resolve_planes_reference(tid, srows2, **kw),
-                         5))
+                         5),
+        bound=bound(n_win * 256 + tid.numel() * 4 * 22, 0.0),
+        library_ms=None)
 
     # ---- K3 ---------------------------------------------------------------
     (mat_row, table), _ = cap["onehot_split_rows"]
@@ -283,11 +379,17 @@ def phase_kernels(r, np, torch):
         f"{tuple(table.shape)} -> {tuple(a.shape)}: {n_bad} mismatches "
         f"({n_bad_x} with out-of-range rows)")
     check(n_bad == 0 and n_bad_x == 0, "K3 bit-equal to the twin")
+    # the library yardstick: one index_select of the transposed table
+    # (in-range rows; K3 also zeroes rows outside the table)
+    table_t = table.T.contiguous()
+    safe = mat_row.clamp(0, table.shape[0] - 1)
     results["K3"] = dict(
         err=err,
         ms=cuda_ms(lambda: onehot_split_rows(mat_row, table), 20),
         plain_ms=cuda_ms(lambda: onehot_split_rows_reference(mat_row,
-                                                             table), 20))
+                                                             table), 20),
+        bound=bound(nbytes(mat_row, table, a), 0.0),
+        library_ms=cuda_ms(lambda: torch.index_select(table_t, 1, safe), 20))
 
     # ---- K6 ---------------------------------------------------------------
     (texels, idx, ncols), _ = cap["gather_split_channels"]
@@ -306,17 +408,24 @@ def phase_kernels(r, np, torch):
         f" {tuple(idx.shape)} -> {tuple(a.shape)}: {n_bad} mismatches "
         f"({n_bad_x} with clipped indices)")
     check(n_bad == 0 and n_bad_x == 0, "K6 bit-equal to the twin")
+    # the library yardstick: one index_select of the first ncols columns
+    # (bf16 out: without K6's widening to f32)
+    cols_t = texels[:, :ncols].T.contiguous()
+    safe = idx.clamp(0, texels.shape[0] - 1)
+    n_rows = unique_rows(idx, texels.shape[0])
     results["K6"] = dict(
         err=err,
         ms=cuda_ms(lambda: gather_split_channels(texels, idx, ncols), 20),
         plain_ms=cuda_ms(lambda: gather_split_channels_reference(
-            texels, idx, ncols), 20))
+            texels, idx, ncols), 20),
+        bound=bound(n_rows * ncols * 2 + nbytes(idx, a), 0.0),
+        library_ms=cuda_ms(lambda: torch.index_select(cols_t, 1, safe), 20))
     results["K4"], results["K5"] = check_k4_k5(cap, "stress", torch)
     for k, v in results.items():
         log(f"  {k}: kernel {v['ms']:.4f} ms, plain twin "
             f"{v['plain_ms']:.4f} ms")
     kernels.reset_launch_counts()
-    return results
+    return results, cap
 
 
 def lod_near_integer(args, kw, torch):
@@ -375,37 +484,53 @@ def check_k4_k5(cap, label, torch, timed=True):
     check(n_bad5 == 0, f"K5 [{label}] bit-equal to the twin")
     if not timed:
         return None
+    # bytes: every input plane and table once, idx + 11 weights out (the
+    # planner's few dozen float operations per tap stay under a hundredth
+    # of that); K5: idx and weights in, each distinct texel row's columns
+    # once, rgba out
+    ins = [t for t in list(args) + list(kw.values())
+           if isinstance(t, torch.Tensor)]
+    ins += [t for t in (args[3] or ()) if isinstance(t, torch.Tensor)]
+    cols = 52 if fkw.get("mips") else 16
+    n_rows = unique_rows(fidx, texq.shape[0])
     k4 = dict(err=err,
               ms=cuda_ms(lambda: tap_plan_fused(*args, **kw), 20),
-              plain_ms=cuda_ms(lambda: tap_plan_reference(*args, **kw), 5))
+              plain_ms=cuda_ms(lambda: tap_plan_reference(*args, **kw), 5),
+              bound=bound(nbytes(*ins, idx, w), 0.0), library_ms=None)
     k5 = dict(err=err5,
               ms=cuda_ms(lambda: filter_taps_fused(texq, fidx, fw, **fkw),
                          20),
               plain_ms=cuda_ms(lambda: filter_taps_reference(
-                  texq, fidx, fw, **fkw), 5))
+                  texq, fidx, fw, **fkw), 5),
+              bound=bound(n_rows * cols * 2 + nbytes(fidx, fw, a), 0.0),
+              library_ms=None)
     return k4, k5
 
 
-def orbit_frames(r, np, torch, camera):
+def orbit_frames(r, np, torch, camera, expect):
     """Warm-up frame, then N_FRAMES frames with the launch counts set to 0
-    just before and read just after. Returns (last image, median ms,
-    host wall ms/frame, counts)."""
+    just before and read just after; every kernel in `expect` must have
+    launched on each frame. Returns (last image, median ms, host wall
+    ms/frame, counts over the N_FRAMES)."""
     from awsm_renderer_tpu_torch.ops import kernels
 
     camera(0)
     r.render_device()            # warm-up (allocator, first-use paths)
     torch.cuda.synchronize()
-    ev = []
+    ev, per_frame = [], []
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     for i in range(N_FRAMES):
         camera(i + 1)
+        before = dict(kernels.launch_counts)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
         img = r.render_device()
         b.record()
         ev.append((a, b))
+        per_frame.append({k: n - before[k]
+                          for k, n in kernels.launch_counts.items()})
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / N_FRAMES
     counts = dict(kernels.launch_counts)
@@ -415,8 +540,10 @@ def orbit_frames(r, np, torch, camera):
         f"{min(frame_ms):.3f}, max {max(frame_ms):.3f}; host wall "
         f"{wall:.3f} ms/frame")
     log(f"  launch counts over {N_FRAMES} frames: {counts}")
-    for name, n in counts.items():
-        check(n >= N_FRAMES, f"{name} launched {n} >= {N_FRAMES} times")
+    for name in expect:
+        low = min(f[name] for f in per_frame)
+        check(low >= 1, f"{name} launched on every frame ({counts[name]} "
+                        f"launches, at least {low} a frame)")
     return img, med, wall, counts
 
 
@@ -434,11 +561,17 @@ def check_image(img, np, torch):
     return cov
 
 
+OPAQUE_PATH = ("rasterize16_slim", "resolve_planes_fused",
+               "onehot_split_rows", "tap_plan_fused", "filter_taps_fused",
+               "gather_split_channels")
+
+
 def phase_frame(r, keys, np, torch):
-    log(f"phase frame: Stress-1080p-ibl-tex, {N_FRAMES} frames at {W}x{H} "
-        f"under an orbit")
+    log(f"phase frame: Stress-1080p-ibl-tex (panes included), {N_FRAMES} "
+        f"frames at {W}x{H} under an orbit")
     img, med, wall, counts = orbit_frames(
-        r, np, torch, lambda i: orbit_camera(r, np, i))
+        r, np, torch, lambda i: orbit_camera(r, np, i),
+        OPAQUE_PATH + ("rasterize_binned_compact",))
     cov = check_image(img, np, torch)
     tid = r._last_tri_id
     check(bool(((tid >= 0) == (cov > 0.5)).all()),
@@ -451,6 +584,189 @@ def phase_frame(r, keys, np, torch):
     check(key == want and (key is None or key in keys),
           f"pick({x}, {y}) = {key} matches tri_id {t}")
     return med, wall, counts
+
+
+def count_syncs(r, torch, label: str) -> int:
+    """Host syncs one frame makes: torch's sync debug mode warns at every
+    call that waits for the device. Logs the count and the source lines
+    that made them."""
+    import collections
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            r.render_device()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    sites = collections.Counter(
+        f"{os.path.relpath(w.filename, REPO)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    n = sum(sites.values())
+    log(f"  host syncs in one {label} frame: {n}; by source line: "
+        f"{dict(sites.most_common())}")
+    return n
+
+
+def hold_planes(label, a, b, torch):
+    """Bit-compare two plane dicts; returns the max |difference|."""
+    check(sorted(a) == sorted(b), f"{label}: same planes")
+    n_bad = sum(bit_mismatches(a[k].contiguous(), b[k].contiguous(), torch)
+                for k in a)
+    err = max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+    n_hit = int((a["tri_id"] >= 0).sum())
+    log(f"  {label}: {len(a)} planes of {tuple(a['tri_id'].shape)}, {n_hit} "
+        f"fragments, {n_bad} mismatching values")
+    check(n_bad == 0 and n_hit > 0, f"{label} bit-equal to the twin")
+    return err
+
+
+def binned_bound(rows, bins, tiles, n_px, planes, zb, torch):
+    """K7/K8's least time: the overlay setup, bins and peel bounds read
+    once and the planes written once; the coverage tests the bins ask for
+    (each listed chunk's 128 triangles against a tile's 1024 pixels)."""
+    bin_idx, counts, _B, zmin = bins
+    listed = int(counts.long().index_select(0, tiles.long()).sum())
+    return bound(nbytes(rows, bin_idx, counts, zmin, *zb)
+                 + n_px * 4 * len(planes), listed * 128 * 1024 * OPS_PER_TEST)
+
+
+def phase_overlay(P, np, torch, r_stress, cap_stress):
+    """(a) the stress frame's overlay (K8), from the first frame's capture;
+    (b) the volume + HUD variant (K7 peel and non-peel, K6-f32)."""
+    from awsm_renderer_tpu_torch.ops import kernels
+    from awsm_renderer_tpu_torch.ops.raster import (
+        BT_H, BT_W, build_bins, plane_layout, rasterize_binned,
+        rasterize_binned_compact_reference, rasterize_binned_reference,
+        _rasterize_binned_compact,
+    )
+    from awsm_renderer_tpu_torch.ops.relayout import (
+        gather_split_channels_f32, gather_split_channels_f32_reference,
+    )
+
+    results = {}
+    log(f"phase overlay (a): the stress frame's 12 glass panes at {W}x{H}")
+    prep = r_stress._prep[1]
+    crop = prep["ov_crop"]
+    band_h = crop[1] if crop else H
+    n_tiles = (-(-band_h // BT_H)) * (-(-W // BT_W))
+    (rows, zlo_c, zhi_c), kw = cap_stress["_rasterize_binned_compact"]
+    C = int(kw["tile_idx"].shape[0])
+    log(f"  prep: crop band {crop} (y0, rows), tile cap {prep['ov_tile_cap']}"
+        f", layer clamp {prep['n_layers']} of "
+        f"{r_stress.config.max_transparent_layers}, compacted pool "
+        f"{int((prep['ov_idx'] >= 0).sum())} of {prep['ov_idx'].shape[0]} "
+        f"triangle slots; setup rows {tuple(rows.shape)}")
+    log(f"  K8 compaction: C = {C} covered tiles of the band's {n_tiles}")
+    check(C < n_tiles, "the compacted peel is engaged (C < n_tiles)")
+    names = plane_layout(kw["has_uv1"], kw["has_color"])
+    a = _rasterize_binned_compact(rows, zlo_c, zhi_c, **kw)
+    ref_kw = dict(bins=kw["bins"], tile_idx=kw["tile_idx"], n_tx=kw["n_tx"],
+                  names=names)
+    b = rasterize_binned_compact_reference(rows, zlo_c, zhi_c, **ref_kw)
+    torch.cuda.synchronize()
+    err = hold_planes("K8 _rasterize_binned_compact (first peel)", a, b,
+                      torch)
+    results["K8"] = dict(
+        err=err, ms=cuda_ms(lambda: _rasterize_binned_compact(
+            rows, zlo_c, zhi_c, **kw), 20),
+        plain_ms=cuda_ms(lambda: rasterize_binned_compact_reference(
+            rows, zlo_c, zhi_c, **ref_kw), 2),
+        bound=binned_bound(rows, kw["bins"], kw["tile_idx"], C * 1024,
+                           names, (zlo_c, zhi_c), torch),
+        library_ms=None)
+    results["syncs_a"] = count_syncs(r_stress, torch, "stress")
+
+    log(f"phase overlay (b): the panes with KHR transmission + volume and a "
+        f"HUD box, {N_FRAMES} frames at {W}x{H}")
+    r, _keys, hud_key = build_stress_scene(P, np, DEVICE, volume=True,
+                                           hud=True)
+    orbit_camera(r, np, 0)
+    cap = capture_first_frame(r, ("rasterize_binned",
+                                  "gather_split_channels_f32"))
+    torch.cuda.synchronize()
+    check(sorted(cap) == ["gather_split_channels_f32",
+                          "rasterize_binned/nopeel", "rasterize_binned/peel"],
+          "the first frame ran K7 peel, K7 without a peel and K6-f32")
+    prep = r._prep[1]
+    log(f"  prep: crop band {prep['ov_crop']} (off with volume in the "
+        f"frame), layer clamp {prep['n_layers']}, ext {prep['ov_ext']}")
+
+    (rows, zlo, zhi), kw = cap["rasterize_binned/peel"]
+    names = plane_layout(kw["has_uv1"], kw["has_color"],
+                         kw["analytic_derivs"])
+    a = rasterize_binned(rows, zlo, zhi, **kw)
+    ref_kw = dict(bins=kw["bins"], width=kw["width"], height=kw["height"],
+                  names=names)
+    b = rasterize_binned_reference(rows, zlo, zhi, **ref_kw)
+    torch.cuda.synchronize()
+    err = hold_planes("K7 rasterize_binned (first peel)", a, b, torch)
+    n_tiles = (-(-kw["height"] // BT_H)) * (-(-kw["width"] // BT_W))
+    all_tiles = torch.arange(n_tiles, device=rows.device)
+    results["K7"] = dict(
+        err=err, ms=cuda_ms(lambda: rasterize_binned(rows, zlo, zhi, **kw),
+                            20),
+        plain_ms=cuda_ms(lambda: rasterize_binned_reference(
+            rows, zlo, zhi, **ref_kw), 2),
+        bound=binned_bound(rows, kw["bins"], all_tiles, zlo.numel(), names,
+                           (zlo, zhi), torch),
+        library_ms=None)
+
+    (h_rows,), hkw = cap["rasterize_binned/nopeel"]
+    w32 = -(-hkw["width"] // BT_W) * BT_W
+    h32 = -(-hkw["height"] // BT_H) * BT_H
+    h_bins = build_bins(h_rows, width=w32, height=h32)
+    hkw = dict(hkw, bins=h_bins)
+    h_names = plane_layout(hkw["has_uv1"], hkw["has_color"],
+                           hkw["analytic_derivs"])
+    a = rasterize_binned(h_rows, **hkw)
+    b = rasterize_binned_reference(h_rows, None, None, bins=h_bins,
+                                   width=hkw["width"], height=hkw["height"],
+                                   names=h_names)
+    torch.cuda.synchronize()
+    hold_planes("K7 rasterize_binned (HUD, no peel)", a, b, torch)
+    results["K7_nopeel_ms"] = cuda_ms(lambda: rasterize_binned(h_rows, **hkw),
+                                      20)
+
+    (table, idx, ncols), _ = cap["gather_split_channels_f32"]
+    a = gather_split_channels_f32(table, idx, ncols)
+    b = gather_split_channels_f32_reference(table, idx, ncols)
+    torch.cuda.synchronize()
+    n_bad = bit_mismatches(a, b, torch)
+    log(f"  K6-f32 gather_split_channels_f32 table {tuple(table.shape)} f32 "
+        f"x idx {tuple(idx.shape)} -> {tuple(a.shape)}: {n_bad} mismatches")
+    check(n_bad == 0, "K6-f32 bit-equal to the twin")
+    cols_t = table[:, :ncols].T.contiguous()
+    safe = idx.clamp(0, table.shape[0] - 1)
+    results["K6f32"] = dict(
+        err=float((a - b).abs().max()),
+        ms=cuda_ms(lambda: gather_split_channels_f32(table, idx, ncols), 20),
+        plain_ms=cuda_ms(lambda: gather_split_channels_f32_reference(
+            table, idx, ncols), 20),
+        bound=bound(unique_rows(idx, table.shape[0]) * ncols * 4
+                    + nbytes(idx, a), 0.0),
+        library_ms=cuda_ms(lambda: torch.index_select(cols_t, 1, safe), 20))
+    kernels.reset_launch_counts()
+
+    img, med, wall, counts = orbit_frames(
+        r, np, torch, lambda i: orbit_camera(r, np, i),
+        OPAQUE_PATH + ("rasterize_binned", "gather_split_channels_f32"))
+    check_image(img, np, torch)
+    check(counts["rasterize_binned_compact"] == 0,
+          "volume refraction keeps the band-wide peel (no K8)")
+    vp = np.asarray(r.camera.view_projection, np.float64)
+    clip = vp @ np.array([*HUD_AT, 1.0])
+    x = int((clip[0] / clip[3] * 0.5 + 0.5) * W)
+    y = int((0.5 - 0.5 * clip[1] / clip[3]) * H)
+    key = r.pick(x, y)
+    check(key == hud_key, f"pick({x}, {y}) at the HUD box's centre = {key} "
+                          f"(its key {hud_key})")
+    results["syncs_b"] = count_syncs(r, torch, "volume + HUD")
+    results["frames_b"] = (med, wall, counts)
+    return results
 
 
 def build_helmet_scene(P, np, device):
@@ -504,8 +820,9 @@ def phase_gltf(P, np, torch):
     check(cap["tap_plan_fused"][0][0].shape[0] == 5 * P_px,
           "the helmet frame plans five taps per pixel in one K4 launch")
     k45 = check_k4_k5(cap, "helmet", torch)
-    img, med, wall, counts = orbit_frames(r, np, torch, camera)
+    img, med, wall, counts = orbit_frames(r, np, torch, camera, OPAQUE_PATH)
     check_image(img, np, torch)
+    count_syncs(r, torch, "glb-helmet (opaque only)")
     return med, wall, counts, k45
 
 
@@ -554,17 +871,51 @@ def phase_golden(P, np, torch):
                                             intensity=2.5))
         return [1.5, 1.2, 2.2]
 
-    def hold(name, img):
+    def scene_alpha_blend(r):
+        """demo/scenes.py scene_alpha_blend: opaque, mask and blend boxes
+        over a backdrop."""
+        from awsm_renderer_tpu_torch.core.materials import TS_BASE_COLOR
+        from awsm_renderer_tpu_torch.geometry import plane
+
+        img = np.zeros((32, 32, 4), np.uint8)
+        img[:, :, :3] = 200
+        img[:, :, 3] = 255
+        img[8:24, 8:24] = [80, 220, 80, 100]
+        ref = P.TextureRef(r.textures.row_of(r.textures.add_image(
+            img, srgb=True)))
+        for i, mode in enumerate((P.AlphaMode.OPAQUE, P.AlphaMode.MASK,
+                                  P.AlphaMode.BLEND)):
+            mat = r.materials.insert(P.UnlitMaterial(
+                alpha_mode=mode, textures={TS_BASE_COLOR: ref}))
+            r.add_mesh(box(0.8), mat, transform=P.Transform(
+                translation=np.array([(i - 1) * 1.2, 0, 0], np.float32)))
+        back = r.materials.insert(P.UnlitMaterial(
+            base_color_factor=np.array([0.9, 0.2, 0.2, 1], np.float32)))
+        r.add_mesh(plane(6), back, transform=P.Transform(
+            translation=np.array([0, 0, -1.5], np.float32),
+            rotation=np.array([0.7071, 0, 0, 0.7071], np.float32)))
+        return [0, 0.6, 3.5]
+
+    def hold(name, img, tight=False):
         golden = np.asarray(Image.open(os.path.join(
             REPO, "tests", "goldens", f"{name}.png"))).astype(np.int16)
         check(golden.shape == img.shape, f"{name}: shape {img.shape}")
-        frac = float((np.abs(golden - img.astype(np.int16)) > 4).mean())
+        diff = np.abs(golden - img.astype(np.int16))
+        if tight:     # tests/test_parity_golden.py
+            frac = float((diff > 2).mean())
+            check(diff.mean() <= 1.0 and frac <= 0.003,
+                  f"{name}: mean |diff| {diff.mean():.4f} (limit 1), "
+                  f"{frac:.4%} off by > 2/255 (limit 0.3%)")
+            return
+        frac = float((diff > 4).mean())
         check(frac < 0.005, f"{name}: {frac:.4%} of channel values off "
                             f"by > 4/255 (limit 0.5%)")
 
-    log("phase golden: 128x64 probes and 256x128 glTF goldens on the card")
+    log("phase golden: 128x64 probes, 256x128 glTF goldens and 512x256 "
+        "parity goldens on the card")
     for name, fn in (("box", scene_box), ("env-ibl", scene_env_ibl),
-                     ("box-textured", scene_box_textured)):
+                     ("box-textured", scene_box_textured),
+                     ("alpha-blend", scene_alpha_blend)):
         r = P.AwsmRendererTorch(P.RendererConfig(width=128, height=64),
                                 device=DEVICE)
         eye = fn(r)
@@ -576,8 +927,33 @@ def phase_golden(P, np, torch):
 
     out_dir = os.path.join(REPO, "build", "chip_smoke")
     os.makedirs(out_dir, exist_ok=True)
+    # tests/test_parity_golden.py test_effect_golden_refraction
+    from awsm_renderer_tpu_torch.core.materials import TS_BASE_COLOR
+    from awsm_renderer_tpu_torch.geometry import checker_texture, plane
+
+    r = P.AwsmRendererTorch(P.RendererConfig(width=128, height=64),
+                            device=DEVICE)
+    r.camera.update(m3.look_at([0, 0.6, 3.0], [0, 0, 0], [0, 1, 0]),
+                    m3.perspective(np.pi / 3, 2.0, 0.1, 100.0))
+    tex = r.textures.add_image(
+        checker_texture(64, 8, (230, 80, 40), (240, 235, 220)), srgb=True)
+    back = r.materials.insert(P.PbrMaterial(
+        base_color_factor=np.ones(4, np.float32), roughness_factor=0.9,
+        textures={TS_BASE_COLOR: P.TextureRef(r.textures.row_of(tex))}))
+    glass = r.materials.insert(P.PbrMaterial(
+        base_color_factor=np.array([1, 1, 1, 1], np.float32),
+        transmission_factor=1.0, thickness=0.3, ior=1.5,
+        roughness_factor=0.05, metallic_factor=0.0))
+    r.add_mesh(plane(3.5), back, transform=P.Transform(
+        translation=np.array([0, 0, -0.8], np.float32),
+        rotation=m3.quat_from_axis_angle([1, 0, 0], np.pi / 2)))
+    r.add_mesh(uv_sphere(0.55), glass)
+    r.lights.insert(P.Light.directional([-0.5, -1, -0.3], intensity=2.0))
+    hold("effect-refraction", r.render_u8(), tight=True)
+
     for name in ("glb-helmet", "glb-texture-transform", "glb-multi-uv",
-                 "glb-ext-clearcoat"):
+                 "glb-ext-clearcoat", "glb-alpha-modes",
+                 "glb-ext-transmission", "glb-sponza-lite"):
         glb, (eye, center) = SAMPLES[name]()
         path = os.path.join(out_dir, f"{name}.glb")
         with open(path, "wb") as f:
@@ -588,6 +964,23 @@ def phase_golden(P, np, torch):
         r.update_all(0.35, m3.look_at(eye, center, (0, 1, 0)),
                      m3.perspective(np.pi / 3, 2.0, 0.05, 100.0))
         hold(name, r.render_u8())
+
+    # tests/test_parity_golden.py _render_glb at 512x256, tight tolerance
+    for name, golden in (("glb-alpha-modes", "parity-glb-alpha-modes-512"),
+                         ("glb-ext-transmission",
+                          "parity-ext-transmission-512")):
+        path = os.path.join(out_dir, f"{name}.glb")
+        r = P.AwsmRendererTorch(P.RendererConfig(width=512, height=256),
+                                device=DEVICE)
+        P.populate_gltf(r, P.load_gltf(path))
+        r.lights.insert(P.Light.directional([-0.4, -1.0, -0.35],
+                                            intensity=2.5))
+        r.lights.insert(P.Light.point([2.0, 1.5, 2.0], color=(1.0, 0.9, 0.8),
+                                      intensity=6.0))
+        eye, center = SAMPLES[name]()[1]
+        r.update_all(0.0, m3.look_at(eye, center, (0, 1, 0)),
+                     m3.perspective(np.pi / 3, 2.0, 0.05, 500.0))
+        hold(golden, r.render_u8(), tight=True)
 
 
 def main() -> int:
@@ -620,16 +1013,19 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
 
     t0 = time.perf_counter()
-    r, keys = build_stress_scene(P, np, DEVICE)
+    r, keys, _ = build_stress_scene(P, np, DEVICE)
     orbit_camera(r, np, 0)
     n_tris = int((r.meshes.tri_mesh >= 0).sum())
-    log(f"phase scene: Stress-1080p-ibl-tex, {len(keys)} meshes, {n_tris} "
-        f"triangles, {r.lights.count} lights, 3 base-colour textures, built "
-        f"in {time.perf_counter() - t0:.1f} s")
+    log(f"phase scene: Stress-1080p-ibl-tex, {r.meshes.count} meshes "
+        f"({len(keys)} opaque, 12 glass panes), {n_tris} triangles, "
+        f"{r.lights.count} lights, 3 base-colour textures, built in "
+        f"{time.perf_counter() - t0:.1f} s")
 
-    results = phase_kernels(r, np, torch)
+    results, cap = phase_kernels(r, np, torch)
     med, wall, counts = phase_frame(r, keys, np, torch)
-    del r
+    ov = phase_overlay(P, np, torch, r, cap)
+    results.update((k, ov[k]) for k in ("K7", "K8", "K6f32"))
+    del r, cap
     h_med, h_wall, _h_counts, (h_k4, h_k5) = phase_gltf(P, np, torch)
     phase_golden(P, np, torch)
 
@@ -638,12 +1034,18 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
         "nvidia-smi unavailable"
+    b_med, b_wall, b_counts = ov["frames_b"]
     log(f"frame Stress-1080p-ibl-tex: median {med:.3f} ms/frame (CUDA "
-        f"events), host wall {wall:.3f} ms/frame, at {W}x{H} ({card})")
+        f"events), host wall {wall:.3f} ms/frame, {ov['syncs_a']} host "
+        f"syncs/frame, at {W}x{H} ({card})")
+    log(f"frame Stress-1080p-ibl-tex + volume panes + HUD: median "
+        f"{b_med:.3f} ms/frame (CUDA events), host wall {b_wall:.3f} "
+        f"ms/frame, {ov['syncs_b']} host syncs/frame, at {W}x{H} ({card})")
     log(f"frame glb-helmet: median {h_med:.3f} ms/frame (CUDA events), host "
         f"wall {h_wall:.3f} ms/frame, at {W}x{H} ({card})")
     log(f"helmet batch: K4 {h_k4['ms']:.4f} ms (twin {h_k4['plain_ms']:.4f}"
         f"), K5 {h_k5['ms']:.4f} ms (twin {h_k5['plain_ms']:.4f}) ({card})")
+    log(f"K7 without a peel (the HUD): {ov['K7_nopeel_ms']:.4f} ms ({card})")
     sources = {
         "K1": ("rasterize16_slim", "awsm_renderer_tpu_torch/csrc/raster16.cu",
                "awsm_renderer_tpu/ops/raster.py:1615"),
@@ -660,14 +1062,32 @@ def main() -> int:
         "K6": ("gather_split_channels",
                "awsm_renderer_tpu_torch/csrc/relayout.cu",
                "awsm_renderer_tpu/ops/relayout.py:69"),
+        "K6f32": ("gather_split_channels_f32",
+                  "awsm_renderer_tpu_torch/csrc/relayout.cu",
+                  "awsm_renderer_tpu/ops/relayout.py:69"),
+        "K7": ("rasterize_binned", "awsm_renderer_tpu_torch/csrc/binned.cu",
+               "awsm_renderer_tpu/ops/raster.py:705"),
+        "K8": ("rasterize_binned_compact",
+               "awsm_renderer_tpu_torch/csrc/binned.cu",
+               "awsm_renderer_tpu/ops/raster.py:1001"),
     }
     out = []
     for k, (name, src, rep) in sources.items():
         res = results[k]
+        # launches on the main path that runs the kernel: the stress
+        # frames, or (K7, K6-f32) the volume + HUD frames
+        n = counts[name] if counts[name] else b_counts[name]
+        bound_ms, bound_by = res["bound"]
+        lib = res["library_ms"]
+        log(f"  {k} {name}: kernel {res['ms']:.4f} ms, twin "
+            f"{res['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
+            f", library {'-' if lib is None else f'{lib:.4f} ms'}, "
+            f"{n} launches over {N_FRAMES} frames ({card})")
         out.append({"name": name, "route": "cuda", "source": src,
-                    "replaces": rep, "launches": counts[name],
+                    "replaces": rep, "launches": n,
                     "max_abs_err": res["err"], "ms": res["ms"],
-                    "plain_ms": res["plain_ms"]})
+                    "plain_ms": res["plain_ms"], "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": lib})
     print(json.dumps({"kernels": out}))
     print(card)
     print(json.dumps({"ok": True, "device": {

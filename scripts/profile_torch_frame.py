@@ -2,10 +2,12 @@
 """Where the PyTorch port's frame spends its time, on one CUDA card.
 
 Builds one of chip_smoke.py's scenes at --width x --height (--scene
-stress: Stress-1080p-ibl-tex, bench.py's geometry, textures and lights
-under an image environment; --scene stress-untextured: the same without
-its textures; --scene helmet: the glTF catalog's helmet),
-warms up, then:
+stress: Stress-1080p-ibl-tex, bench.py's whole scene — geometry,
+textures, the ring of 12 glass panes and lights — under an image
+environment; --scene stress-untextured: the same without its textures;
+--scene stress-volume: the panes with KHR transmission + volume and a
+HUD box, chip_smoke.py's overlay (b) scene; --scene helmet: the glTF
+catalog's helmet), warms up, then:
   1. renders --frames orbit frames with the profiler off: median ms/frame
      from CUDA events around each frame, and host wall ms/frame;
   2. renders --frames more under torch.profiler (CPU + CUDA activities)
@@ -14,7 +16,8 @@ warms up, then:
      kernels launched per frame.
 
 Usage (repo root, one card):
-    python3 scripts/profile_torch_frame.py [--scene stress|helmet]
+    python3 scripts/profile_torch_frame.py
+        [--scene stress|stress-untextured|stress-volume|helmet]
         [--width 1920 --height 1080]
 """
 
@@ -36,7 +39,8 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=20)
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--scene", choices=("stress", "stress-untextured",
-                                        "helmet"), default="stress")
+                                        "stress-volume", "helmet"),
+                    default="stress")
     args = ap.parse_args()
 
     import numpy as np
@@ -52,8 +56,10 @@ def main() -> int:
 
     CS.W, CS.H = args.width, args.height
     if args.scene.startswith("stress"):
-        r, _ = CS.build_stress_scene(P, np, "cuda",
-                                     textured=args.scene == "stress")
+        r, _, _ = CS.build_stress_scene(
+            P, np, "cuda", textured=args.scene != "stress-untextured",
+            volume=args.scene == "stress-volume",
+            hud=args.scene == "stress-volume")
 
         def camera(i):
             CS.orbit_camera(r, np, i)

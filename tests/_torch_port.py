@@ -5,9 +5,27 @@ numpy (bf16 as uint16 bit patterns)."""
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+import torch
 
 W, H = 128, 64
+
+
+def _share_cores():
+    """Under pytest-xdist, give torch's intra-op pool each worker's share
+    of the cores (rounded up). By default every worker takes every core,
+    and its spinning threads stall one another: on an 8-core host kept
+    busy by six other processes, the 512x256 golden renders of
+    tests/test_torch_overlay.py took 65-91 s each with 8 threads and
+    1.2-1.3 s with 2."""
+    n = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "0"))
+    if n > 1:
+        torch.set_num_threads(max(1, -(-(os.cpu_count() or 1) // n)))
+
+
+_share_cores()
 
 
 def camera(scene_info):

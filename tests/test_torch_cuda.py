@@ -7,7 +7,8 @@ without a CUDA device. Run on the card with:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-K1, K3, K5 and K6 are bit-equal to their twins; K2's ints are equal and
+K1, K3, K5, K6 (both entries), K7 and K8 are bit-equal to their twins;
+K2's ints are equal and
 its floats within rtol 1e-5, atol 1e-6 (both round every product and sum
 separately, so they agree exactly in practice). K4's row indices equal
 the twin's and its weights are within 1e-6, except at taps whose LOD lies
@@ -175,6 +176,10 @@ def test_card_frame_matches_cpu_frame(dev, scene):
     want["gather_split_channels"] = int(not card.environment.is_solid)
     textured = scene == "box-textured"
     want["tap_plan_fused"] = want["filter_taps_fused"] = int(textured)
+    # the overlay's kernels: no transparent or HUD content here
+    for name in ("rasterize_binned", "rasterize_binned_compact",
+                 "gather_split_channels_f32"):
+        want[name] = 0
     assert kernels.launch_counts == want
     img_cpu = cpu.render()
     np.testing.assert_array_equal(card._last_tri_id.cpu().numpy(),
@@ -182,3 +187,106 @@ def test_card_frame_matches_cpu_frame(dev, scene):
     np.testing.assert_allclose(img_card, img_cpu, rtol=0,
                                atol=1e-4 if textured else 1e-5)
     assert card.pick(T.W // 2, T.H // 2) == cpu.pick(T.W // 2, T.H // 2)
+
+
+def _all_bits_equal(a, b):
+    assert sorted(a) == sorted(b)
+    for k in a:
+        assert torch.equal(_bits(a[k]), _bits(b[k])), k
+
+
+@pytest.mark.parametrize("layout", [(True, True, True), (False, False,
+                                                         False)],
+                         ids=["full", "slim"])
+@pytest.mark.parametrize("peel", [False, True], ids=["nopeel", "peel"])
+def test_k7_kernel_bit_equal_to_twin(dev, layout, peel):
+    from awsm_renderer_tpu_torch.ops import kernels
+    from awsm_renderer_tpu_torch.ops import raster as TR
+    from test_torch_binned import _setup, _tris
+
+    _s, rows = _setup(_tris(5, 300, T.W, T.H))
+    rows = torch.as_tensor(rows).to(dev)
+    g = torch.Generator().manual_seed(2)
+    zb = ((torch.rand(T.H, T.W, generator=g) * 0.3).to(dev),
+          (0.6 + torch.rand(T.H, T.W, generator=g) * 0.4).to(dev)) \
+        if peel else (None, None)
+    has_uv1, has_color, derivs = layout
+    names = TR.plane_layout(has_uv1, has_color, derivs)
+    bins = TR.build_bins(rows, width=T.W, height=T.H)
+    n0 = kernels.launch_counts["rasterize_binned"]
+    a = TR.rasterize_binned(rows, *zb, width=T.W, height=T.H, bins=bins,
+                            has_uv1=has_uv1, has_color=has_color,
+                            analytic_derivs=derivs)
+    assert kernels.launch_counts["rasterize_binned"] == n0 + 1
+    b = TR.rasterize_binned_reference(rows, *zb, bins=bins, width=T.W,
+                                      height=T.H, names=names)
+    torch.cuda.synchronize()
+    _all_bits_equal(a, b)
+    assert int((a["tri_id"] >= 0).sum()) > 1000
+
+
+def test_k8_kernel_bit_equal_to_twin(dev):
+    from awsm_renderer_tpu_torch.ops import kernels
+    from awsm_renderer_tpu_torch.ops import raster as TR
+    from test_torch_binned import _setup, _tris
+
+    tris = (_tris(7, 90, 70, 60, 4.0, 4.0)
+            + _tris(8, 90, 250, 124, 180.0, 60.0))
+    rows = torch.as_tensor(_setup(tris, seed=3)[1]).to(dev)
+    bins = TR.build_bins(rows, width=256, height=128)
+    tile_idx = torch.tensor([0, 1, 2, 8, 9, 10, 13, 14, 15, 21, 22, 23, 31],
+                            dtype=torch.int32, device=dev)
+    g = torch.Generator().manual_seed(4)
+    zlo = (torch.rand(13, 1024, generator=g) * 0.3).to(dev)
+    zhi = (0.6 + torch.rand(13, 1024, generator=g) * 0.4).to(dev)
+    n0 = kernels.launch_counts["rasterize_binned_compact"]
+    a = TR._rasterize_binned_compact(rows, zlo, zhi, bins=bins,
+                                     tile_idx=tile_idx, n_tx=8,
+                                     has_uv1=True, has_color=True)
+    assert kernels.launch_counts["rasterize_binned_compact"] == n0 + 1
+    b = TR.rasterize_binned_compact_reference(
+        rows, zlo, zhi, bins=bins, tile_idx=tile_idx, n_tx=8,
+        names=TR.plane_layout(True, True, True))
+    torch.cuda.synchronize()
+    _all_bits_equal(a, b)
+    assert int((a["tri_id"] >= 0).sum()) > 1000
+
+
+def test_k6_f32_kernel_bit_equal_to_twin(dev):
+    from awsm_renderer_tpu_torch.ops.relayout import (
+        gather_split_channels_f32, gather_split_channels_f32_reference,
+    )
+
+    g = torch.Generator().manual_seed(5)
+    table = torch.randn(70000, 4, generator=g).to(dev)
+    idx = torch.randint(-10, 70010, (90001,), generator=g,
+                        dtype=torch.int32).to(dev)
+    for n in (4, 3):
+        assert torch.equal(
+            _bits(gather_split_channels_f32(table, idx, n)),
+            _bits(gather_split_channels_f32_reference(table, idx, n)))
+
+
+@pytest.mark.parametrize("case", ["blend-over-opaque", "hud",
+                                  "refraction-4"])
+def test_card_overlay_frame_matches_cpu_frame(dev, case, monkeypatch):
+    """The overlay on the card (K7 peel or non-peel, K6's f32 entry for
+    refraction) against the same frame on the CPU."""
+    import test_torch_overlay as TO
+    from awsm_renderer_tpu_torch.ops import kernels
+    from test_torch_overlay import CASES, H, W
+
+    cpu, key = CASES[case](False)
+    monkeypatch.setattr(TO, "DEVICE", "cuda")
+    card, _ = CASES[case](False)
+    kernels.reset_launch_counts()
+    img_card = card.render()
+    assert kernels.launch_counts["rasterize_binned"] >= 1
+    if case == "refraction-4":
+        assert kernels.launch_counts["gather_split_channels_f32"] >= 1
+    img_cpu = cpu.render()
+    np.testing.assert_array_equal(card._last_tri_id.cpu().numpy(),
+                                  cpu._last_tri_id.numpy())
+    np.testing.assert_allclose(img_card, img_cpu, rtol=0, atol=1e-4)
+    if key is not None:
+        assert card.pick(W // 2, H // 2) == cpu.pick(W // 2, H // 2)

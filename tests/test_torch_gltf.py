@@ -8,8 +8,7 @@ Every catalog entry either renders and matches its golden at
 tests/test_gltf_golden.py's tolerance (< 0.5% of channel values off by
 more than 4/255, same camera, 256x128, Khronos PBR Neutral), or raises
 NotImplementedError naming the ROADMAP milestone that ports its content
-(M8 transparent overlay and transmission, M2b skins / morphs /
-instancing)."""
+(M2b skins / morphs / instancing)."""
 
 import os
 
@@ -23,18 +22,17 @@ GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 W, H = 256, 128
 # catalog entries the port renders; every other entry raises
 RENDERED = (
-    "glb-box-animated", "glb-cameras", "glb-ext-anisotropy",
-    "glb-ext-clearcoat", "glb-ext-iridescence", "glb-ext-sheen",
-    "glb-ext-specular", "glb-ext-unlit", "glb-helmet", "glb-interleaved",
-    "glb-metal-rough-spheres", "glb-mirrored-tangent", "glb-multi-uv",
-    "glb-negative-scale", "glb-non-indexed", "glb-normalized-attrs",
-    "glb-npot-texture", "glb-orientation", "glb-sparse-displaced",
-    "glb-strip-fan", "glb-texture-settings", "glb-texture-transform",
-    "glb-unlit",
+    "glb-alpha-modes", "glb-box-animated", "glb-cameras",
+    "glb-ext-anisotropy", "glb-ext-clearcoat", "glb-ext-iridescence",
+    "glb-ext-sheen", "glb-ext-specular", "glb-ext-transmission",
+    "glb-ext-unlit", "glb-extensions-compare", "glb-helmet",
+    "glb-interleaved", "glb-metal-rough-spheres", "glb-mirrored-tangent",
+    "glb-multi-uv", "glb-negative-scale", "glb-non-indexed",
+    "glb-normalized-attrs", "glb-npot-texture", "glb-orientation",
+    "glb-sparse-displaced", "glb-sponza-lite", "glb-strip-fan",
+    "glb-texture-settings", "glb-texture-transform", "glb-unlit",
 )
 RAISES = {
-    "glb-alpha-modes": "M8", "glb-ext-transmission": "M8",
-    "glb-extensions-compare": "M8", "glb-sponza-lite": "M8",
     "glb-fox": "M2b", "glb-instanced": "M2b", "glb-many-influences": "M2b",
     "glb-morph-stress": "M2b", "glb-morphed": "M2b",
     "glb-recursive-skeletons": "M2b", "glb-skinned": "M2b",

@@ -132,14 +132,20 @@ def test_flush_range_updates_bit_equal():
 
 
 def test_native_host_library_path():
+    """The port builds its own copy of the host library from
+    native/awsm_host.cpp into build/host/ and loads nothing under the JAX
+    package; where no compiler exists the stores fall back to numpy."""
     from awsm_renderer_tpu_torch.utils import native
 
-    # the shared host library loads by file path (no JAX package import);
-    # where it is absent the stores fall back to numpy
-    assert os.path.normpath(native._LIB_PATH).endswith(
-        os.path.join("awsm_renderer_tpu", "native", "libawsm_host.so"))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = os.path.normpath(native._LIB_PATH)
+    assert os.path.dirname(path) == os.path.join(repo, "build", "host")
+    assert not path.startswith(os.path.join(repo, "awsm_renderer_tpu") +
+                               os.sep)
+    assert native._SOURCE == os.path.join(repo, "native", "awsm_host.cpp")
     if os.path.exists(native._LIB_PATH):
         assert native._load() is not None
+        assert native.HAVE_NATIVE
 
 
 def test_import_without_jax_and_cuda_refused():
@@ -222,7 +228,8 @@ def _transparent(r):
     from awsm_renderer_tpu_torch.geometry import box
 
     mat = r.materials.insert(P.PbrMaterial(alpha_mode=P.AlphaMode.BLEND))
-    r.add_mesh(box(0.3), mat)
+    r.add_mesh(box(0.3), mat, transform=P.Transform(
+        translation=np.array([0, 0.9, 0], np.float32)))
 
 
 def _transmission(r):
@@ -230,19 +237,34 @@ def _transmission(r):
     from awsm_renderer_tpu_torch.geometry import box
 
     r.add_mesh(box(0.3), r.materials.insert(P.PbrMaterial(
-        transmission_factor=1.0)))
+        transmission_factor=1.0)), transform=P.Transform(
+            translation=np.array([0, 0.9, 0], np.float32)))
 
 
 def _skinned_gltf(r):
     T.gltf_scene(r, "glb-skinned")
 
 
+def _supersample(r):
+    from dataclasses import replace
+
+    r.config = replace(r.config, anti_aliasing=replace(
+        r.config.anti_aliasing, supersample=True))
+
+
+def _temporal(r):
+    from dataclasses import replace
+
+    r.config = replace(r.config, anti_aliasing=replace(
+        r.config.anti_aliasing, temporal=True))
+
+
 @pytest.mark.parametrize("scene, edit, milestone", [
     ("box", _msaa, "M10"),
+    ("box", _supersample, "M10"),
+    ("box", _temporal, "M11"),
     ("box", _bloom, "M9"),
     ("box", _many_lights, "M12"),
-    ("box", _transparent, "M8"),
-    ("box", _transmission, "M8"),
     ("box", _skinned_gltf, "M2b"),
     ("morph-cube", None, "M2b"),
     ("instanced", None, "M2b"),
@@ -253,6 +275,20 @@ def test_out_of_slice_content_raises(scene, edit, milestone):
         edit(r)
     with pytest.raises(NotImplementedError, match=milestone):
         r.render_device()
+
+
+@pytest.mark.parametrize("edit", [_transparent, _transmission],
+                         ids=["transparent", "transmission"])
+def test_overlay_content_renders(edit):
+    """Transparent and transmissive meshes take the overlay pass (they
+    raised before the overlay slice was ported)."""
+    r = T.torch_renderer("box")
+    base = r.render()
+    edit(r)
+    img = r.render()
+    assert np.isfinite(img).all()
+    assert r._prep[1]["transparent_dev"] is not None
+    assert not np.array_equal(img, base)
 
 
 def test_debug_modes_and_hooks_raise():

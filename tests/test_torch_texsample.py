@@ -30,6 +30,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_port  # noqa: F401  (torch's share of the cores under xdist)
+
 from awsm_renderer_tpu_torch.core.textures import (
     Sampler, Textures, WRAP_CLAMP, WRAP_MIRROR, WRAP_REPEAT,
 )
