@@ -8,7 +8,12 @@
 // and evaluates _resolve_math at the pixel center: perspective-correct
 // barycentrics, uv0/uv1/colour/normal/tangent interpolation, flat mat_row
 // and tangent_w, uv0 screen derivatives. A miss writes tri_id = -1 and
-// zero planes; tri_id is the raster column itself.
+// zero planes; tri_id is the raster column itself. Pixel centres come
+// from the flat index, (x * coord_scale + 0.5, (y + row_offset) *
+// coord_scale + 0.5) (coord_scale 2: ids taken at the top-left sample of
+// the MSAA raster at twice the resolution; the reference's
+// awsm_renderer_tpu/ops/shade.py:469-476), or from explicit px/py planes
+// (the covered-tile-compacted opaque shade).
 //
 // The math lives in resolve_math.cuh (shared with K7/K8): explicit
 // __fmul_rn/__fadd_rn/__fsub_rn in the reference's order, built with
@@ -31,7 +36,9 @@ using awsm::NSETUP;
 
 __global__ void resolve_kernel(const int* __restrict__ tid,
                                const float* __restrict__ setup, int T, int P,
-                               int width, int row_offset,
+                               int width, int row_offset, int coord_scale,
+                               const float* __restrict__ px_in,
+                               const float* __restrict__ py_in,
                                int* __restrict__ out_tid,
                                float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -44,8 +51,13 @@ __global__ void resolve_kernel(const int* __restrict__ tid,
     return;
   }
   const float* row = setup + (size_t)min(t, T - 1) * NSETUP;
-  const float px = awsm::add((float)(i % width), 0.5f);
-  const float py = awsm::add((float)(i / width + row_offset), 0.5f);
+  const float scale = (float)coord_scale;
+  const float px = px_in ? px_in[i]
+                         : awsm::add(awsm::mul((float)(i % width), scale), 0.5f);
+  const float py =
+      py_in ? py_in[i]
+            : awsm::add(awsm::mul((float)(i / width + row_offset), scale),
+                        0.5f);
   awsm::resolve_math(row, px, py, [&](int k, float v) {
     out[(size_t)k * P + i] = v;
   });
@@ -55,12 +67,14 @@ __global__ void resolve_kernel(const int* __restrict__ tid,
 }  // namespace
 
 extern "C" int awsm_resolve(const int* tid, const float* setup, int T, int P,
-                            int width, int row_offset, int* out_tid,
+                            int width, int row_offset, int coord_scale,
+                            const float* px, const float* py, int* out_tid,
                             float* out_planes, cudaStream_t stream) {
   if (P > 0) {
     const int block = 256;
     resolve_kernel<<<(P + block - 1) / block, block, 0, stream>>>(
-        tid, setup, T, P, width, row_offset, out_tid, out_planes);
+        tid, setup, T, P, width, row_offset, coord_scale, px, py, out_tid,
+        out_planes);
   }
   return (int)cudaGetLastError();
 }

@@ -132,3 +132,14 @@ def sample_env_batch_c(sky_rows: int, irr_rows: int, pref_shape,
         else:
             irr_out = s0
     return irr_out, pref_outs, sky_out
+
+
+def sample_skybox_pool_c(texq: torch.Tensor, env_base: int, sky_rows: int,
+                         d3):
+    """Skybox-only bilinear taps from the texel-pool env rows: one K6
+    gather (the sky of the tiles the compacted opaque shade skips, so the
+    gather is O(sky pixels)). sky_rows: 6*S*S rows of the packed skybox;
+    d3: (x, y, z) direction planes. Returns [r, g, b, a]."""
+    idx, fx, fy = _bilinear_setup_c(d3, math.isqrt(sky_rows // 6))
+    cols = gather_split_channels(texq, (env_base + idx).to(torch.int32), 16)
+    return _blend_quads_c(cols, fx, fy)

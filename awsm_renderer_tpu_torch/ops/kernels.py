@@ -31,7 +31,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 SOURCES = ("raster16.cu", "resolve.cu", "relayout.cu", "texsample.cu",
-           "binned.cu")
+           "binned.cu", "raster_msaa.cu")
 # -fmad=false: no FMA contraction anywhere. The edge functions and the
 # resolve ALU must round exactly like their plain PyTorch twins (separate
 # mul and add kernels); a contracted edge function opens pinholes along
@@ -41,10 +41,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry points: name -> argtypes (every one returns cudaError_t as int)
+# C entry points: name -> argtypes, the stream last (every one returns
+# cudaError_t as int)
 _SIGNATURES = {
     "awsm_raster16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
-    "awsm_resolve": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "awsm_resolve": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "awsm_onehot_split_rows": [_P, _P, _I, _I, _I, _P, _P],
     "awsm_gather_split_channels": [_P, _I, _I, _P, _I, _I, _P, _P],
     "awsm_gather_split_channels_f32": [_P, _I, _I, _P, _I, _I, _P, _P],
@@ -53,6 +54,8 @@ _SIGNATURES = {
     "awsm_filter_taps": [_P, _I, _I, _P, _P, _I, _I, _P, _P],
     "awsm_binned": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _I, _I,
                     _P, _P, _P],
+    "awsm_raster_msaa": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
+                         _P],
 }
 
 launch_counts: Dict[str, int] = {
@@ -65,6 +68,7 @@ launch_counts: Dict[str, int] = {
     "gather_split_channels_f32": 0,
     "rasterize_binned": 0,
     "rasterize_binned_compact": 0,
+    "rasterize16_msaa": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,11 +1,13 @@
 """Binned tile rasterizers.
 
-Port of two paths of awsm_renderer_tpu/ops/raster.py. The opaque (v5)
+Port of three paths of awsm_renderer_tpu/ops/raster.py. The opaque (v5)
 path: pad_setup_rows, _group_zmin, build_bins16 (sort-based (tile,
 group) pair binning, plain PyTorch here as it is XLA code there), K1
 rasterize16_slim (hand-written CUDA, csrc/raster16.cu) with its plain
 twin rasterize16_slim_reference, and rasterize16 (K1 then the K2
-attribute resolve). The overlay's (v4) fat path: _chunk_bboxes,
+attribute resolve). The MSAA path: K9 rasterize16_msaa (csrc/
+raster_msaa.cu, twin rasterize16_msaa_reference) over build_bins16's
+64x64 submask bins. The overlay's (v4) fat path: _chunk_bboxes,
 _chunk_zmin, build_bins, K7 rasterize_binned and K8
 _rasterize_binned_compact (csrc/binned.cu, twins *_reference), the
 K-layer peels rasterize_layers_rows and rasterize_layers_compact. The
@@ -35,6 +37,7 @@ BT_W = 32
 CHUNK = 128
 _BIG = 3.0e38
 GROUP = 16            # triangles per binned fetch group
+SUB = 8               # triangles per subgroup (K9's quadrant masks)
 K_SLOTS = 32          # max coarse tiles a group may bin to before it is "big"
 NBIG_CAP = 512        # capacity of the global big-group list
 
@@ -106,24 +109,34 @@ def _f2i(x: torch.Tensor) -> torch.Tensor:
 
 
 def build_bins16(setup_rows: torch.Tensor, *, width: int, height: int,
-                 vis_cap: int = 65536, stash_cap: int = 128):
+                 vis_cap: int = 65536, stash_cap: int = 128,
+                 tile_h: int = BT_H, tile_w: int = BT_W,
+                 pack_submask: bool = False):
     """Sort-based (tile, group) pair binning (reference: raster.py
-    build_bins16 without the MSAA submask packing).
+    build_bins16).
 
-    setup_rows (T, NSETUP), T a GROUP multiple; 32x32 coarse tiles over
-    (height, width), both 32-multiples. Groups spanning <= K_SLOTS tiles
-    emit one pair per spanned tile keyed (tile << rank_bits) | zmin_rank,
-    so each tile's list comes out near-to-far, ties in group order; wider
-    groups go to the big list. Returns (entries (vis_cap,), offsets,
-    counts (n_tiles,), zmin_g (G,), big_packed, big_ids (NBIG_CAP,),
-    n_big (1,), n_clipped (1,)) — all int32 except zmin_g; n_clipped
-    counts tiles whose bin was cut to stash_cap - 1 entries or by vis_cap."""
+    setup_rows (T, NSETUP), T a GROUP multiple; tile_h x tile_w coarse
+    tiles over (height, width), multiples of them (32x32 for K1; K9 bins
+    64x64 supersampled tiles = 32x32 display tiles). Groups spanning <=
+    K_SLOTS tiles emit one pair per spanned tile keyed (tile << rank_bits)
+    | zmin_rank, so each tile's list comes out near-to-far, ties in group
+    order; wider groups go to the big list.
+
+    pack_submask (K9): entries become (group << 8) | (mask1 << 4) | mask0,
+    where bit q = qy*2 + qx of mask{h} is set iff SUBGROUP h's bbox (its 8
+    consecutive triangles) overlaps the tile's quadrant q, half-open like
+    the tile span; pairs no subgroup touches are dropped.
+
+    Returns (entries (vis_cap,), offsets, counts (n_tiles,), zmin_g (G,),
+    big_packed, big_ids (NBIG_CAP,), n_big (1,), n_clipped (1,)) — all
+    int32 except zmin_g; n_clipped counts tiles whose bin was cut to
+    stash_cap - 1 entries or by vis_cap."""
     dev = setup_rows.device
     T = setup_rows.shape[0]
     if T % GROUP:
         raise ValueError(f"setup rows {T} not a multiple of {GROUP}")
     G = T // GROUP
-    n_ty, n_tx = height // BT_H, width // BT_W
+    n_ty, n_tx = height // tile_h, width // tile_w
     n_tiles = n_ty * n_tx
     rank_bits = _ceil_log2(G)
     if _ceil_log2(n_tiles) + rank_bits > 30:
@@ -137,11 +150,11 @@ def build_bins16(setup_rows: torch.Tensor, *, width: int, height: int,
     nonempty = minx <= maxx
 
     i32 = torch.int32
-    tx0 = _f2i(torch.floor(minx / BT_W)).clamp(0, n_tx - 1)
-    ty0 = _f2i(torch.floor(miny / BT_H)).clamp(0, n_ty - 1)
+    tx0 = _f2i(torch.floor(minx / tile_w)).clamp(0, n_tx - 1)
+    ty0 = _f2i(torch.floor(miny / tile_h)).clamp(0, n_ty - 1)
     # a bbox max exactly on a tile boundary belongs to the lower tile only
-    tx1 = (_f2i(torch.ceil(maxx / BT_W)) - 1).clamp(0, n_tx - 1)
-    ty1 = (_f2i(torch.ceil(maxy / BT_H)) - 1).clamp(0, n_ty - 1)
+    tx1 = (_f2i(torch.ceil(maxx / tile_w)) - 1).clamp(0, n_tx - 1)
+    ty1 = (_f2i(torch.ceil(maxy / tile_h)) - 1).clamp(0, n_ty - 1)
     tx1 = torch.maximum(tx1, tx0)
     ty1 = torch.maximum(ty1, ty0)
     sw = tx1 - tx0 + 1
@@ -161,10 +174,41 @@ def build_bins16(setup_rows: torch.Tensor, *, width: int, height: int,
     tiley = ty0[:, None] + torch.div(j, sw[:, None], rounding_mode="floor")
     slot_ok = small[:, None] & (j < span[:, None])
     tile = tiley * n_tx + tilex
+    gids = torch.arange(G, dtype=i32, device=dev)[:, None]
+    if pack_submask:
+        if _ceil_log2(G) + 8 > 31:
+            raise ValueError(f"{G} groups overflow the packed entries")
+        n_sub = GROUP // SUB
+
+        def sub(col, red):
+            return red(setup_rows[:, col].reshape(G, n_sub, SUB), dim=2)
+
+        sx0 = sub(S_BB_MINX, torch.amin)[:, None, :]          # (G, 1, S)
+        sy0 = sub(S_BB_MINY, torch.amin)[:, None, :]
+        sx1 = sub(S_BB_MAXX, torch.amax)[:, None, :]
+        sy1 = sub(S_BB_MAXY, torch.amax)[:, None, :]
+        tile_x0 = (tilex * tile_w).float()[:, :, None]         # (G, K, 1)
+        tile_y0 = (tiley * tile_h).float()[:, :, None]
+        mid_x = tile_x0 + tile_w // 2
+        mid_y = tile_y0 + tile_h // 2
+        lx = (sx0 < mid_x) & (sx1 > tile_x0)
+        rx = (sx1 > mid_x) & (sx0 < tile_x0 + tile_w)
+        top = (sy0 < mid_y) & (sy1 > tile_y0)
+        bot = (sy1 > mid_y) & (sy0 < tile_y0 + tile_h)
+        mask = ((lx & top).to(i32) | (rx & top).to(i32) << 1
+                | (lx & bot).to(i32) << 2 | (rx & bot).to(i32) << 3)
+        mask = torch.where(sx0 <= sx1, mask, 0)                # (G, K, S)
+        packed = mask[:, :, 0]
+        for h in range(1, n_sub):
+            packed = packed | (mask[:, :, h] << (4 * h))
+        # pairs where no subgroup touches the tile carry no work: drop
+        slot_ok = slot_ok & (packed != 0)
+        vals = (gids << 8) | packed
+    else:
+        vals = gids.expand(G, K_SLOTS)
     inval = n_tiles << rank_bits
     keys = torch.where(slot_ok, (tile << rank_bits) | rank[:, None],
                        torch.full_like(tile, inval))
-    vals = torch.arange(G, dtype=i32, device=dev)[:, None].expand(G, K_SLOTS)
     keys_s, perm = torch.sort(keys.reshape(-1), stable=True)
     vals_s = vals.reshape(-1)[perm]
 
@@ -343,6 +387,164 @@ def rasterize16(setup_rows, *, width: int, height: int,
     out = {k: resolved[k].reshape(height, width) for k in names}
     out["bins"] = bins
     return out
+
+
+# ---- K9: the MSAA-4x coverage raster ----------------------------------
+#
+# Coverage and depth at 2x2 samples per display pixel from setup in
+# SUPERSAMPLED coordinates (twice the display resolution), binned to
+# 64x64 supersampled tiles = 32x32 display tiles with per-subgroup
+# quadrant masks (build_bins16 pack_submask). Shading happens once per
+# display pixel afterwards (passes/frame.py _opaque_band_msaa).
+
+MSAA_SAMPLES = ((0, 0), (0, 1), (1, 0), (1, 1))   # (i, j): tl, tr, bl, br
+
+
+def _merge_groups_msaa(P16, col_base, px, py, zs, cs, live):
+    """Merge one 16-triangle group per tile into the 4 per-sample states,
+    in triangle order, strict z < best (the reference's per-subgroup "min
+    z, lowest index" then strict < across subgroups).
+
+    P16 (n, 16, NSETUP); px/py (n, 1024) supersampled coordinates of each
+    display pixel's top-left sample center; zs/cs lists of 4 (n, 1024)
+    sample states (tl, tr, bl, br), updated in place; live (n, 1024)
+    bool. Sample (i, j) evaluates e00 = a*px + (b*py + c), then + a if j,
+    then + b if i, the reference's _msaa_sample_winners rounding. Its
+    missing z <= 1 test is implied: states start at 1.0 under strict <."""
+    for k in range(P16.shape[1]):
+        r = P16[:, k, :]
+        edges = []
+        for ra in (S_E0A, S_E1A, S_E2A):
+            a, b, c = r[:, ra:ra + 1], r[:, ra + 1:ra + 2], r[:, ra + 2:ra + 3]
+            tl = (a > 0) | ((a == 0) & (b > 0))
+            edges.append((a * px + (b * py + c), a, b,
+                          torch.where(tl, 0.0, _FMIN)))
+        za, zb = r[:, S_ZA:S_ZA + 1], r[:, S_ZB:S_ZB + 1]
+        z00 = za * px + (zb * py + r[:, S_ZC:S_ZC + 1])
+        for s, (i, j) in enumerate(MSAA_SAMPLES):
+            cover = live
+            for e00, a, b, thr in edges:
+                e = e00 + a if j else e00
+                e = e + b if i else e
+                cover = cover & (e >= thr)
+            z = z00 + za if j else z00
+            z = z + zb if i else z
+            take = cover & (z >= 0.0) & (z < zs[s])
+            zs[s] = torch.where(take, z, zs[s])
+            cs[s] = torch.where(take, (col_base + k)[:, None], cs[s])
+
+
+def rasterize16_msaa_reference(setup_rows, bins, *, width2: int,
+                               height2: int):
+    """Plain PyTorch twin of K9: walks the same bins in the same order as
+    the kernel (all display tiles at once, one entry index at a time, an
+    entry merged only in the quadrants its mask names; then the big
+    groups in every quadrant), so the sample ids and the depth are
+    bit-equal to it. Works on any device. Returns ([tl, tr, bl, br]
+    (H1, W1) int32 winner setup rows, -1 = miss; depth1 (H1, W1) f32, the
+    min of the 4 samples' z, 1.0 where all missed) at H1 = height2 // 2,
+    W1 = width2 // 2."""
+    entries, offsets, counts, _zmin, big_packed, big_ids, n_big, _ = bins
+    dev = setup_rows.device
+    H1, W1 = height2 // 2, width2 // 2
+    n_tx = -(-width2 // (2 * BT_W))
+    n_ty = -(-height2 // (2 * BT_H))
+    n_tiles = n_ty * n_tx
+    groups = setup_rows.reshape(-1, GROUP, NSETUP)
+    t = torch.arange(n_tiles, device=dev)
+    tile_x, tile_y = t % n_tx, torch.div(t, n_tx, rounding_mode="floor")
+    flat = torch.arange(BT_H * BT_W, device=dev)
+    lx = flat % BT_W
+    ly = torch.div(flat, BT_W, rounding_mode="floor")
+    quad = ((ly >= BT_H // 2).int() * 2 + (lx >= BT_W // 2).int())[None, :]
+    px = 2.0 * ((tile_x * BT_W)[:, None] + lx[None, :]).float() + 0.5
+    py = 2.0 * ((tile_y * BT_H)[:, None] + ly[None, :]).float() + 0.5
+    zs = [torch.ones((n_tiles, BT_H * BT_W), device=dev) for _ in range(4)]
+    cs = [torch.full((n_tiles, BT_H * BT_W), -1, dtype=torch.int32,
+                     device=dev) for _ in range(4)]
+    counts_l = counts.long()
+    offsets_l = offsets.long()
+    for b in range(int(counts_l.max().item()) if n_tiles else 0):
+        live = b < counts_l
+        e = entries[(offsets_l + b).clamp(max=entries.numel() - 1)]
+        e = torch.where(live, e, torch.zeros_like(e))
+        g = (e >> 8).long()
+        gate = ((e[:, None] >> quad) & 0x11) != 0
+        _merge_groups_msaa(groups[g], (g * GROUP).int(), px, py, zs, cs,
+                           live[:, None] & gate)
+    for i in range(int(n_big.item())):
+        bb = int(big_packed[i].item())
+        gx0, gy0 = bb & 255, (bb >> 8) & 255
+        gx1, gy1 = (bb >> 16) & 255, (bb >> 24) & 255
+        live = ((gx0 <= tile_x) & (tile_x <= gx1)
+                & (gy0 <= tile_y) & (tile_y <= gy1))
+        g = big_ids[i].long().expand(n_tiles)
+        _merge_groups_msaa(groups[g], (g * GROUP).int(), px, py, zs, cs,
+                           live[:, None].expand(-1, BT_H * BT_W))
+
+    def deswizzle(x):
+        x = x.reshape(n_ty, n_tx, BT_H, BT_W).transpose(1, 2)
+        return x.reshape(n_ty * BT_H, n_tx * BT_W)[:H1, :W1]
+
+    depth = torch.minimum(torch.minimum(zs[0], zs[1]),
+                          torch.minimum(zs[2], zs[3]))
+    return [deswizzle(c) for c in cs], deswizzle(depth)
+
+
+def rasterize16_msaa(setup_rows: torch.Tensor, bins=None, *, width2: int,
+                     height2: int, vis_cap: int | None = None,
+                     stash_cap: int | None = None):
+    """K9: MSAA-4x coverage raster from row-major setup (T, NSETUP) f32 in
+    supersampled coordinates (width2 x height2, twice the display size),
+    T a GROUP multiple. Returns ([tl, tr, bl, br] (H1, W1) int32 sample
+    winners, depth1 (H1, W1) f32 min-sample depth, bins) at H1 =
+    height2 // 2, W1 = width2 // 2; ids are setup-row indices.
+
+    vis_cap / stash_cap None bin without clipping (the kernel streams
+    groups); the reference's caps (65536 entries, stash_cap 4096,
+    raster.py:1936-1938) reproduce its bins exactly. A CUDA tensor
+    launches the hand-written kernel (csrc/raster_msaa.cu); a CPU tensor
+    takes the plain twin."""
+    W64 = -(-width2 // (2 * BT_W)) * (2 * BT_W)
+    H64 = -(-height2 // (2 * BT_H)) * (2 * BT_H)
+    if vis_cap is None:
+        vis_cap = max(setup_rows.shape[0] // GROUP * K_SLOTS, 1)
+    if stash_cap is None:
+        stash_cap = vis_cap + 1
+    if bins is None:
+        bins = build_bins16(setup_rows, width=W64, height=H64,
+                            vis_cap=vis_cap, stash_cap=stash_cap,
+                            tile_h=2 * BT_H, tile_w=2 * BT_W,
+                            pack_submask=True)
+    if setup_rows.device.type == "cpu":
+        return (*rasterize16_msaa_reference(setup_rows, bins, width2=width2,
+                                            height2=height2), bins)
+    if setup_rows.dtype != torch.float32 or setup_rows.dim() != 2 \
+            or setup_rows.shape[1] != NSETUP:
+        raise ValueError(f"setup rows must be (T, {NSETUP}) f32")
+    if setup_rows.shape[0] % GROUP:
+        raise ValueError(f"setup rows {setup_rows.shape[0]} not a multiple "
+                         f"of {GROUP}")
+    entries, offsets, counts, _zmin, big_packed, big_ids, n_big, _ = bins
+    kernels.check_cuda(setup_rows, entries, offsets, counts, big_packed,
+                       big_ids, n_big)
+    for b in (entries, offsets, counts, big_packed, big_ids, n_big):
+        if b.dtype != torch.int32:
+            raise ValueError("bins must be int32")
+    n_tx = W64 // (2 * BT_W)
+    n_tiles = (H64 // (2 * BT_H)) * n_tx
+    if counts.numel() != n_tiles or offsets.numel() != n_tiles:
+        raise ValueError(f"bins hold {counts.numel()} tiles, not {n_tiles}")
+    H1, W1 = height2 // 2, width2 // 2
+    samp = torch.empty((4, H1, W1), dtype=torch.int32,
+                       device=setup_rows.device)
+    depth = torch.empty((H1, W1), dtype=torch.float32,
+                        device=setup_rows.device)
+    ptrs = [t.data_ptr() for t in (setup_rows, entries, offsets, counts,
+                                   big_packed, big_ids, n_big)]
+    kernels.launch("rasterize16_msaa", "awsm_raster_msaa", *ptrs, n_tiles,
+                   n_tx, W1, H1, samp.data_ptr(), depth.data_ptr())
+    return list(samp), depth, bins
 
 
 # ---- v4 binned fat raster: K7 rasterize_binned, K8 the compacted peel ----

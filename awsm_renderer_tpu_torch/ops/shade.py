@@ -141,6 +141,29 @@ def _material_table(ds) -> torch.Tensor:
                       ds["mat_flags"].float()], dim=1)
 
 
+def _material_columns(ds, slot_mask, debug_mode: str):
+    """The fused-table columns a shade call reads — the float params, the
+    3 columns of each active slot, the kind and alpha-mode flags (+ the
+    debug bitmask for the per-material view) — as (column list, int64
+    index tensor on the table's device). The index tensor is built once
+    per (slot_mask, view) and kept in `ds`: indexing the table with a
+    Python list copies the list to the card on every call, which waits
+    for the stream."""
+    flag0 = M.NUM_F32 + M.NUM_TEX_SLOTS * 3
+    needed = list(range(M.NUM_F32))
+    needed += [M.NUM_F32 + s * 3 + c for s in range(M.NUM_TEX_SLOTS)
+               if slot_mask[s] for c in range(3)]
+    needed += [flag0 + M.MI_KIND, flag0 + M.MI_ALPHA_MODE]
+    if debug_mode == "material":
+        needed.append(flag0 + M.MI_DEBUG_MASK)
+    cache = ds.setdefault("mat_columns", {})
+    key = tuple(needed)
+    if key not in cache:
+        cache[key] = torch.tensor(needed, dtype=torch.int64,
+                                  device=ds["mat_float"].device)
+    return needed, cache[key]
+
+
 def _screen_gradient(ch, W: int, H: int, vertical: bool = False,
                      layers: int = 1):
     """Min-magnitude forward/backward screen difference of one (P,) plane
@@ -216,18 +239,23 @@ def _resolve_math(ch, px, py):
 
 
 def resolve_planes_reference(tid: torch.Tensor, setup_rows: torch.Tensor, *,
-                             width: int, row_offset: int = 0):
+                             width: int, row_offset: int = 0,
+                             coord_scale: int = 1, px=None, py=None):
     """Plain PyTorch twin of K2: winner column (P,) int32 -> {name: (P,)}
     for RESOLVE_NAMES. tri_id is the column itself (-1 on a miss); every
-    float plane is 0 on a miss."""
+    float plane is 0 on a miss. The planes are evaluated at (x *
+    coord_scale + 0.5, (y + row_offset) * coord_scale + 0.5) for flat
+    index i = y * width + x, or at explicit raster-space centers px/py
+    (P,) f32 when given."""
     P = tid.shape[0]
     T = setup_rows.shape[0]
     S = setup_rows.index_select(0, tid.clamp(0, T - 1).long())   # (P, 64)
     ch = S.T
-    i = torch.arange(P, device=tid.device)
-    px = (i % width).float() + 0.5
-    py = (torch.div(i, width, rounding_mode="floor")
-          + row_offset).float() + 0.5
+    if px is None:
+        i = torch.arange(P, device=tid.device)
+        px = (i % width).float() * coord_scale + 0.5
+        py = ((torch.div(i, width, rounding_mode="floor")
+               + row_offset).float() * coord_scale + 0.5)
     res = _resolve_math(ch, px, py)
     miss = tid < 0
     out = {"tri_id": torch.where(miss, torch.full_like(tid, -1), tid)}
@@ -238,27 +266,46 @@ def resolve_planes_reference(tid: torch.Tensor, setup_rows: torch.Tensor, *,
 
 
 def resolve_planes_fused(tid: torch.Tensor, setup_rows: torch.Tensor, *,
-                         width: int, row_offset: int = 0):
+                         width: int, row_offset: int = 0,
+                         coord_scale: int = 1, px=None, py=None):
     """K2: slim winner buffer -> the 21 RESOLVE_NAMES planes (P,).
 
     tid (P,) int32 raster columns (-1 = miss) over a width-wide pixel
-    grid starting at row `row_offset`; setup_rows (T', NSETUP) f32. A CUDA
-    tensor launches csrc/resolve.cu; a CPU tensor takes the twin."""
+    grid starting at row `row_offset`; setup_rows (T', NSETUP) f32.
+    coord_scale 2: the ids were taken at the top-left sample of a raster
+    at twice the resolution (MSAA), whose plane equations are evaluated
+    at that sample's center. px/py (P,) f32: explicit raster-space
+    centers (the covered-tile-compacted shade, whose flat index no longer
+    encodes the screen position); width/row_offset/coord_scale are then
+    unused. A CUDA tensor launches csrc/resolve.cu; a CPU tensor takes
+    the twin."""
+    if (px is None) != (py is None):
+        raise ValueError("px and py go together")
     if tid.device.type == "cpu":
         return resolve_planes_reference(tid, setup_rows, width=width,
-                                        row_offset=row_offset)
+                                        row_offset=row_offset,
+                                        coord_scale=coord_scale, px=px,
+                                        py=py)
     if tid.dtype != torch.int32 or tid.dim() != 1:
         raise ValueError("tid must be (P,) int32")
     if setup_rows.dtype != torch.float32 or setup_rows.shape[1] != NSETUP:
         raise ValueError(f"setup rows must be (T, {NSETUP}) f32")
-    kernels.check_cuda(tid, setup_rows)
     P = tid.shape[0]
+    xy = ()
+    if px is not None:
+        if (px.dtype != torch.float32 or py.dtype != torch.float32
+                or px.shape != (P,) or py.shape != (P,)):
+            raise ValueError("px/py must be (P,) f32")
+        xy = (px, py)
+    kernels.check_cuda(tid, setup_rows, *xy)
     out_tid = torch.empty_like(tid)
     planes = torch.empty((len(RESOLVE_NAMES) - 1, P), dtype=torch.float32,
                          device=tid.device)
     kernels.launch("resolve_planes_fused", "awsm_resolve",
                    tid.data_ptr(), setup_rows.data_ptr(),
-                   setup_rows.shape[0], P, width, row_offset,
+                   setup_rows.shape[0], P, width, row_offset, coord_scale,
+                   px.data_ptr() if xy else None,
+                   py.data_ptr() if xy else None,
                    out_tid.data_ptr(), planes.data_ptr())
     out = {"tri_id": out_tid}
     out.update(zip(RESOLVE_NAMES[1:], planes))
@@ -326,16 +373,9 @@ def shade_surface(planes, ds, *, width: int, height: int, solid_env: bool,
     v = norm3([cam_pos[k] - world_pos[k] for k in range(3)])
 
     # ---- material fetch (K3): only the columns this bucket reads ----------
-    # float params, the 3 columns of each active slot, the kind and
-    # alpha-mode flags (+ the debug bitmask for the per-material view)
     flag0 = M.NUM_F32 + M.NUM_TEX_SLOTS * 3
-    needed = list(range(M.NUM_F32))
-    needed += [M.NUM_F32 + s * 3 + c for s in range(M.NUM_TEX_SLOTS)
-               if slot_mask[s] for c in range(3)]
-    needed += [flag0 + M.MI_KIND, flag0 + M.MI_ALPHA_MODE]
-    if debug_mode == "material":
-        needed.append(flag0 + M.MI_DEBUG_MASK)
-    table = _material_table(ds)[:, needed].contiguous()
+    needed, col_idx = _material_columns(ds, slot_mask, debug_mode)
+    table = _material_table(ds).index_select(1, col_idx)
     mat_row = planes["mat_row"].to(torch.int32).clamp(0, table.shape[0] - 1)
     cols = onehot_split_rows(mat_row, table)                  # (C, P)
     fused = dict(zip(needed, cols))
@@ -700,6 +740,140 @@ def shade_deferred_c(vis, ds, *, width: int, height: int,
         color = [n_final[c] * 0.5 + 0.5 for c in range(3)]
     out = [torch.where(valid, color[c], sky[c]) for c in range(3)]
     return out + [valid.float()]
+
+
+def _tile_swizzle(p: torch.Tensor, H: int, W: int, th: int = 8):
+    """(..., H*W) row-major plane -> (..., n_units, th*128) of (th, 128)
+    units, unit-row-major."""
+    lead = p.shape[:-1]
+    t = p.reshape(*lead, H // th, th, W // 128, 128).transpose(-3, -2)
+    return t.reshape(*lead, (H // th) * (W // 128), th * 128)
+
+
+def _tile_unswizzle(t: torch.Tensor, H: int, W: int, th: int = 8):
+    """(n_units, th*128) of (th, 128) units -> (H*W,) row-major plane."""
+    return (t.reshape(H // th, W // 128, th, 128).transpose(1, 2)
+            .reshape(H * W))
+
+
+def shade_units_c(tid_c, dep_c, idx, setup_rows, ds, *, width: int,
+                  height_full: int, row_offset: int, resolve_row_offset: int,
+                  coord_scale: int, th: int, use_mips: bool, slot_mask,
+                  solid_env: bool, has_nearest: bool, ext, debug_mode: str):
+    """Shade an explicit set of C compacted (th, 128) units (reference:
+    shade.py shade_units_c, shared with the temporal path).
+
+    idx (C,) names the units in the band's (H // th, W // 128) grid;
+    tid_c / dep_c their gathered (C*th*128,) winner and depth planes. K2
+    evaluates the planes at explicit raster-space centers (x *
+    coord_scale + 0.5, as the band-wide resolve derives from the flat
+    index), and the pixels' NDC coordinates ride as planes into
+    shade_surface. Returns ([r, g, b] compact planes, valid); miss pixels
+    carry the sky."""
+    C = idx.shape[0]
+    U = th * 128
+    ntx = width // 128
+    tx = (idx % ntx).float()
+    ty = torch.div(idx, ntx, rounding_mode="floor").float()
+    q = torch.arange(U, dtype=torch.float32, device=idx.device)
+    gx = tx[:, None] * 128.0 + (q % 128)[None, :]             # (C, U)
+    gy = ty[:, None] * float(th) + torch.floor(q / 128)[None, :]
+    px = (gx * coord_scale + 0.5).reshape(C * U)
+    py = ((gy + float(resolve_row_offset)) * coord_scale
+          + 0.5).reshape(C * U)
+    vis = resolve_planes_fused(tid_c, setup_rows, width=width, px=px, py=py)
+    planes = {k: vis[k] for k in RESOLVE_NAMES}
+    planes["depth"] = dep_c
+    planes["ndc_x"] = ((gx + 0.5) / width * 2.0 - 1.0).reshape(C * U)
+    planes["ndc_y"] = (1.0 - (gy + float(row_offset) + 0.5)
+                       / height_full * 2.0).reshape(C * U)
+    surf_mode = (debug_mode if debug_mode in ("ibl", "punctual", "material")
+                 or debug_mode.startswith("channel:") else "none")
+    color, _alpha, valid, n_final, sky = shade_surface(
+        planes, ds, width=128, height=C * th, height_full=height_full,
+        solid_env=solid_env, use_mips=use_mips, slot_mask=slot_mask,
+        has_nearest=has_nearest, ext=ext, debug_mode=surf_mode,
+        want_sky=True)
+    if debug_mode == "normals":
+        color = [n_final[c] * 0.5 + 0.5 for c in range(3)]
+    return [torch.where(valid, color[c], sky[c]) for c in range(3)], valid
+
+
+def shade_deferred_compact_c(tid_flat, setup_rows, depth_flat, ds, *,
+                             width: int, height: int, height_full: int,
+                             row_offset: int, resolve_row_offset: int,
+                             coord_scale: int, use_mips: bool, slot_mask,
+                             solid_env: bool, has_nearest: bool, ext,
+                             debug_mode: str, tile_cap: int,
+                             tile_rows: int = 8):
+    """Covered-tile-compacted deferred opaque shade (reference: shade.py
+    shade_deferred_compact_c; the MSAA frame's).
+
+    The slim tri_id plane (height*width,) cuts into (tile_rows, 128)
+    units; the covered units come first (a stable argsort) and the first
+    C = min(tile_cap, n_units) (a host bound, renderer._bucket_tile_cap)
+    are resolved and shaded (shade_units_c); the rest is sky: the
+    solid environment's constant, or for an image environment one
+    skybox-only K6 gather over the skipped units' view rays
+    (cubemap.sample_skybox_pool_c). Equal to shade_deferred_c's result
+    whenever the cap covers every live unit. Returns [r, g, b, a] (P,)."""
+    H, W, th = height, width, tile_rows
+    U = th * 128
+    n_tiles = (H // th) * (W // 128)
+    C = min(tile_cap, n_tiles)
+    sw_tid = _tile_swizzle(tid_flat, H, W, th)                # (n_units, U)
+    cov = (sw_tid >= 0).any(dim=-1)
+    order = torch.argsort((~cov).to(torch.int8), stable=True)  # covered first
+    idx = order[:C]
+    tid_c = sw_tid.index_select(0, idx).reshape(C * U)
+    dep_c = _tile_swizzle(depth_flat, H, W, th).index_select(
+        0, idx).reshape(C * U)
+    out_c, valid = shade_units_c(
+        tid_c, dep_c, idx, setup_rows, ds, width=W, height_full=height_full,
+        row_offset=row_offset, resolve_row_offset=resolve_row_offset,
+        coord_scale=coord_scale, th=th, use_mips=use_mips,
+        slot_mask=slot_mask, solid_env=solid_env, has_nearest=has_nearest,
+        ext=ext, debug_mode=debug_mode)
+
+    R = n_tiles - C
+    rest_sky = None
+    if not solid_env and R:
+        # per-pixel skybox for the skipped units: view rays through the
+        # far plane, as shade_surface's miss path reconstructs them
+        from .cubemap import sample_skybox_pool_c
+
+        idx_rest = order[C:]
+        q = torch.arange(U, dtype=torch.float32, device=idx.device)
+        ntx = W // 128
+        gxr = ((idx_rest % ntx).float()[:, None] * 128.0
+               + (q % 128)[None, :])
+        gyr = (torch.div(idx_rest, ntx, rounding_mode="floor").float()
+               [:, None] * float(th) + torch.floor(q / 128)[None, :])
+        nx = ((gxr + 0.5) / W * 2.0 - 1.0).reshape(R * U)
+        ny = (1.0 - (gyr + float(row_offset) + 0.5)
+              / height_full * 2.0).reshape(R * U)
+        ivp = [[float(x) for x in r] for r in ds["camera"]["inv_view_proj"]]
+        wp = [nx * ivp[j][0] + ny * ivp[j][1] + ivp[j][2] + ivp[j][3]
+              for j in range(4)]
+        iw = 1.0 / torch.where(torch.abs(wp[3]) > _EPS, wp[3],
+                               torch.full_like(wp[3], _EPS))
+        cam = [float(x) for x in ds["camera"]["position"]]
+        d3 = tuple(wp[k] * iw - cam[k] for k in range(3))
+        rest_sky = sample_skybox_pool_c(ds["texels"], ds["env_pool_base"],
+                                        ds["skybox"].shape[0], d3)
+
+    out = []
+    dev = tid_flat.device
+    for c in range(3):
+        fill = float(ds["skybox"][0, c]) if solid_env else 0.0
+        scat = torch.full((n_tiles, U), fill, device=dev).index_copy(
+            0, idx, out_c[c].reshape(C, U))
+        if rest_sky is not None:
+            scat = scat.index_copy(0, idx_rest, rest_sky[c].reshape(R, U))
+        out.append(_tile_unswizzle(scat, H, W, th))
+    alpha = torch.zeros((n_tiles, U), device=dev).index_copy(
+        0, idx, valid.float().reshape(C, U))
+    return out + [_tile_unswizzle(alpha, H, W, th)]
 
 
 def _composite(color, alpha, valid, trans, bg, out_rgb):

@@ -1,11 +1,14 @@
-"""Frame pipeline of the port's slice: vertex -> raster (K1) -> resolve
-(K2) -> deferred shade (K3 material fetch, K4 + K5 texture taps, K6 env
-taps) -> transparent peel (K7 or K8) + forward shade + composite -> HUD
-(K7) -> display.
+"""Frame pipeline of the port's slice: vertex -> raster (K1, or K9 at
+2x2 samples with MSAA) -> resolve (K2) -> deferred shade (K3 material
+fetch, K4 + K5 texture taps, K6 env taps; covered-tile compacted with
+MSAA) -> MSAA edge blend or supersample resolve -> transparent peel (K7
+or K8) + forward shade + composite -> HUD (K7) -> bloom, depth of field
+-> display -> SMAA.
 
-Port of the non-AA, effect-free path of awsm_renderer_tpu/passes/frame.py:
-render_frame -> _opaque_band -> _overlay_band -> _finish_frame. PyTorch
-runs it eagerly, op by op, on the scene tensors' device.
+Port of awsm_renderer_tpu/passes/frame.py: render_frame ->
+_opaque_band / _opaque_band_msaa -> _msaa_edge_blend /
+_resolve_supersample -> _overlay_band -> _finish_frame. PyTorch runs it
+eagerly, op by op, on the scene tensors' device.
 """
 
 from __future__ import annotations
@@ -13,12 +16,16 @@ from __future__ import annotations
 import torch
 
 from ..config import ToneMapping
+from ..ops.effects import (
+    DOF_RING_SCALES, bloom_c, depth_of_field_c, smaa_c,
+)
 from ..ops.raster import (
     BT_H, BT_W, TILE_H, TILE_W, pad_setup_rows, rasterize, rasterize16,
-    rasterize_layers_compact, rasterize_layers_rows,
+    rasterize16_msaa, rasterize_layers_compact, rasterize_layers_rows,
 )
 from ..ops.shade import (
-    EXT_VOLUME, NO_EXT, NO_SLOTS, shade_deferred_c, shade_surface,
+    EXT_VOLUME, NO_EXT, NO_SLOTS, RESOLVE_NAMES, resolve_planes_fused,
+    shade_deferred_c, shade_deferred_compact_c, shade_surface,
     shade_transparent_compact32, shade_transparent_layers_c,
 )
 from ..ops.tonemap import display_pass_c
@@ -28,6 +35,8 @@ from ..ops.vertex import (
 )
 
 _CORNER_NAMES = ("c_pos", "c_norm", "c_tang", "c_uv0", "c_uv1", "c_color")
+# height of the MSAA frame's compacted opaque shade units (x 128 pixels)
+OPAQUE_TILE_ROWS = 8
 
 
 def _pad_to(x: int, m: int) -> int:
@@ -116,6 +125,113 @@ def _opaque_band(ds, opaque_mask, *, rw: int, rh: int, needs_clip: bool,
                               slot_mask=slot_mask, has_nearest=has_nearest,
                               ext=ext, debug_mode=debug_mode)
     return hdr_ch, vis["tri_id"], vis["depth"], vis["bins"]
+
+
+def _opaque_band_msaa(ds, opaque_mask, *, rw2: int, rh2: int, rw1: int,
+                      rh1: int, needs_clip: bool, solid_env: bool,
+                      use_mips: bool, slot_mask, has_nearest: bool, ext,
+                      debug_mode: str, tile_cap: int | None = None):
+    """MSAA-4x opaque stage: coverage and depth at 2x2 samples per display
+    pixel (K9 over the vertex stage at twice the resolution, rw2 x rh2),
+    shading once per display pixel at its top-left sample (K2 with
+    coord_scale 2), covered-tile compacted when the host cap tile_cap
+    bounds the covered (OPAQUE_TILE_ROWS, 128) units below the band. The
+    "edges" view skips shading: white where a pixel's 4 samples disagree,
+    dim grey on interior coverage, black on a miss.
+
+    Returns (hdr [r, g, b, a] (rh1*rw1,) planes, samp = 4x (rh1, rw1)
+    sample-id planes [tl, tr, bl, br], depth1 (rh1, rw1), K9's bins)."""
+    srows = prep_setup_rows(_run_vertex(ds, opaque_mask, rw=rw2,
+                                        rh_full=rh2, needs_clip=needs_clip))
+    samp_raw, depth1_raw, bins = rasterize16_msaa(srows, width2=rw2,
+                                                  height2=rh2)
+    w_half = rw2 // 2
+
+    def fit_cols(p, fill):
+        if w_half >= rw1:
+            return p[:, :rw1]
+        pad = torch.full((p.shape[0], rw1 - w_half), fill, dtype=p.dtype,
+                         device=p.device)
+        return torch.cat([p, pad], dim=1)
+
+    samp = [fit_cols(p, -1) for p in samp_raw]
+    depth1 = fit_cols(depth1_raw, 1.0)
+    P = rh1 * rw1
+    rep = samp[0].reshape(P)
+    if debug_mode == "edges":
+        edge = ((samp[1] != samp[0]) | (samp[2] != samp[0])
+                | (samp[3] != samp[0])).reshape(P)
+        v = torch.where(edge, 1.0, torch.where(rep >= 0, 0.15, 0.0))
+        return [v, v, v, (rep >= 0).float()], samp, depth1, bins
+
+    # covered-tile compaction (shade.py shade_deferred_compact_c): an image
+    # environment fills the skipped units' sky from its texel-pool rows.
+    # rh1 and rw1 are TILE_H- and TILE_W-multiples (8, 128), so the
+    # reference's layout conditions (frame.py:751-756) reduce to this gate
+    if (tile_cap is not None and (solid_env or "env_pool_base" in ds)
+            and tile_cap * OPAQUE_TILE_ROWS * 128 < P):
+        hdr_ch = shade_deferred_compact_c(
+            rep, srows, depth1.reshape(P), ds, width=rw1, height=rh1,
+            height_full=rh1, row_offset=0, resolve_row_offset=0,
+            coord_scale=2, use_mips=use_mips, slot_mask=slot_mask,
+            solid_env=solid_env, has_nearest=has_nearest, ext=ext,
+            debug_mode=debug_mode, tile_cap=tile_cap,
+            tile_rows=OPAQUE_TILE_ROWS)
+        return hdr_ch, samp, depth1, bins
+
+    vis = resolve_planes_fused(rep, srows, width=rw1, coord_scale=2)
+    vis = {k: vis[k] for k in RESOLVE_NAMES}
+    vis["depth"] = depth1.reshape(P)
+    hdr_ch = shade_deferred_c(vis, ds, width=rw1, height=rh1,
+                              solid_env=solid_env, use_mips=use_mips,
+                              slot_mask=slot_mask, has_nearest=has_nearest,
+                              ext=ext, debug_mode=debug_mode)
+    return hdr_ch, samp, depth1, bins
+
+
+def _msaa_edge_blend(hdr_ch, samp, H: int, W: int):
+    """Per-sample MSAA resolve in image space: each of a pixel's 4
+    coverage samples takes the shaded colour of the pixel whose winner
+    matches it — its own when the ids agree, otherwise the nearest
+    neighbour toward the sample's quadrant (axis neighbours first, then
+    the diagonal; else its own) — and the 4 average. Rolls and
+    selects, as the reference (wrapping at the borders)."""
+    rep = samp[0]
+    imgs = [c.reshape(H, W) for c in hdr_ch]
+    acc = [torch.zeros_like(imgs[0]) + im for im in imgs]   # ts == rep
+    for s_idx, (i, j) in enumerate(((0, 1), (1, 0), (1, 1)), start=1):
+        ts = samp[s_idx]
+        dy = -1 if i == 0 else 1
+        dx = -1 if j == 0 else 1
+        chosen = list(imgs)
+        found = ts == rep
+        for oy, ox in ((0, dx), (dy, 0), (dy, dx)):
+            ntid = torch.roll(rep, (-oy, -ox), dims=(0, 1))  # value at p+o
+            m = (~found) & (ntid == ts)
+            chosen = [torch.where(m, torch.roll(im, (-oy, -ox), dims=(0, 1)),
+                                  c) for im, c in zip(imgs, chosen)]
+            found = found | m
+        acc = [a + c for a, c in zip(acc, chosen)]
+    return [(a * 0.25).reshape(H * W) for a in acc]
+
+
+def _resolve_supersample(hdr_ch, tri_id, depth, *, width: int, height: int,
+                         rw2: int, rw1: int, rh1: int):
+    """2x2 box resolve of the supersampled opaque HDR to display
+    resolution, re-padded onto the 1x grid: the mean of the HDR, the min
+    of the depth (conservative for the transparent peel), the top-left
+    sample's tri_id; pads tri_id -1, depth 0.0."""
+    h2, w2 = height * 2, width * 2
+    hdr_ch = [c.reshape(-1, rw2)[:h2, :w2].reshape(height, 2, width, 2)
+              .mean(dim=(1, 3)) for c in hdr_ch]
+    tri_id = tri_id[:h2:2, :w2:2]
+    depth = depth[:h2, :w2].reshape(height, 2, width, 2).amin(dim=(1, 3))
+    pad = (0, rw1 - width, 0, rh1 - height)
+    hdr_ch = [torch.nn.functional.pad(c, pad).reshape(rh1 * rw1)
+              for c in hdr_ch]
+    tri_id = torch.nn.functional.pad(tri_id, pad, value=-1)
+    depth = torch.nn.functional.pad(depth, pad)
+    return hdr_ch, tri_id, depth
 
 
 def _overlay_band(hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask, *,
@@ -219,17 +335,33 @@ def _overlay_band(hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask, *,
     return hdr_ch, tri_id
 
 
-def _finish_frame(hdr_ch, tri_id, depth, *, rw: int, rh: int, width: int,
-                  height: int, tonemap: ToneMapping):
-    """Crop the padding, tonemap + sRGB display pass, stack to (H, W, 4)."""
+def _finish_frame(hdr_ch, tri_id, depth, ds, *, rw: int, rh: int,
+                  width: int, height: int, tonemap: ToneMapping,
+                  bloom: bool = False, dof: bool = False, smaa: bool = False,
+                  dof_rings=None):
+    """Crop the padding, then the effects chain at display resolution on
+    channel planes: bloom, depth of field (dof_rings: the host-proven
+    active ring subset, () = the identity), the tonemap + sRGB display
+    pass, SMAA on the display image; stack to (H, W, 4)."""
     hdr_ch = [c.reshape(rh, rw)[:height, :width] for c in hdr_ch]
-    ldr_ch = display_pass_c(hdr_ch, tonemap)
-    return (torch.stack(ldr_ch, dim=-1), tri_id[:height, :width],
-            depth[:height, :width])
+    tri_id = tri_id[:height, :width]
+    depth = depth[:height, :width]
+    rgb = hdr_ch[:3]
+    if bloom:
+        rgb = bloom_c(rgb)
+    if dof and dof_rings != ():
+        rgb = depth_of_field_c(
+            rgb, depth, ds["camera"],
+            rings=DOF_RING_SCALES if dof_rings is None else dof_rings)
+    ldr_ch = display_pass_c(list(rgb) + hdr_ch[3:], tonemap)
+    if smaa:
+        ldr_ch = smaa_c(ldr_ch[:3]) + ldr_ch[3:]
+    return torch.stack(ldr_ch, dim=-1), tri_id, depth
 
 
 def render_frame(ds, opaque_mask, transparent_mask=None, hud_mask=None, *,
                  width: int, height: int, tonemap: ToneMapping,
+                 supersample: bool = False, msaa: bool = False,
                  needs_clip: bool = True, solid_env: bool = False,
                  has_color: bool = True, has_uv1: bool = False,
                  use_mips: bool = True, slot_mask=NO_SLOTS,
@@ -238,27 +370,53 @@ def render_frame(ds, opaque_mask, transparent_mask=None, hud_mask=None, *,
                  overlay_slot_mask=None, overlay_ext=None,
                  overlay_crop_y0: int | None = None,
                  overlay_crop_h: int | None = None, overlay_tri_idx=None,
-                 overlay_tile_cap: int | None = None):
+                 overlay_tile_cap: int | None = None,
+                 opaque_tile_cap: int | None = None, bloom: bool = False,
+                 dof: bool = False, smaa: bool = False, dof_rings=None):
     """Returns (display rgba (H, W, 4) f32 in [0, 1], tri_id (H, W) int32
     in triangle-pool space (-1 = miss), depth (H, W) f32, raster bins).
 
     transparent_mask / hud_mask: (M,) bool device masks of the overlay
-    buckets, or None when a bucket is empty; the overlay_* arguments are
-    the host's per-frame specialization (renderer.py). The overlay runs
-    over its compacted triangle pool, overlay_tri_idx; None (no live
-    overlay triangle) skips it."""
-    rw = _pad_to(width, TILE_W)
-    rh = _pad_to(height, TILE_H)
-    hdr_ch, tri_id, depth, bins = _opaque_band(
-        ds, opaque_mask, rw=rw, rh=rh, needs_clip=needs_clip,
-        solid_env=solid_env, has_color=has_color, has_uv1=has_uv1,
-        use_mips=use_mips, slot_mask=slot_mask, has_nearest=has_nearest,
-        ext=ext, debug_mode=debug_mode)
+    buckets, or None when a bucket is empty; the overlay_* and
+    opaque_tile_cap arguments are the host's per-frame specialization
+    (renderer.py). The overlay runs over its compacted triangle pool,
+    overlay_tri_idx; None (no live overlay triangle) skips it. msaa: the
+    opaque stage at 2x2 samples per pixel (K9), shaded once per pixel and
+    edge-blended; supersample: the opaque stage at twice the resolution
+    (K1), box-resolved before the overlay. The overlay always runs at
+    display resolution over the resolved depth."""
+    if supersample and msaa:
+        raise ValueError("pick one AA mode: supersample or msaa")
+    rw1 = _pad_to(width, TILE_W)
+    rh1 = _pad_to(height, TILE_H)
+    if msaa:
+        hdr_ch, samp, depth, bins = _opaque_band_msaa(
+            ds, opaque_mask, rw2=_pad_to(width * 2, TILE_W), rh2=2 * rh1,
+            rw1=rw1, rh1=rh1, needs_clip=needs_clip, solid_env=solid_env,
+            use_mips=use_mips, slot_mask=slot_mask, has_nearest=has_nearest,
+            ext=ext, debug_mode=debug_mode, tile_cap=opaque_tile_cap)
+        if debug_mode != "edges":         # keep the edge view crisp
+            hdr_ch = _msaa_edge_blend(hdr_ch, samp, rh1, rw1)
+        tri_id = samp[0]
+    else:
+        scale = 2 if supersample else 1
+        rw2 = _pad_to(width * scale, TILE_W)
+        hdr_ch, tri_id, depth, bins = _opaque_band(
+            ds, opaque_mask, rw=rw2, rh=_pad_to(height * scale, TILE_H),
+            needs_clip=needs_clip, solid_env=solid_env, has_color=has_color,
+            has_uv1=has_uv1, use_mips=use_mips, slot_mask=slot_mask,
+            has_nearest=has_nearest, ext=ext, debug_mode=debug_mode)
+        if supersample:
+            # resolve BEFORE the overlay: the peel and HUD then run at
+            # display resolution, over the resolved depth
+            hdr_ch, tri_id, depth = _resolve_supersample(
+                hdr_ch, tri_id, depth, width=width, height=height, rw2=rw2,
+                rw1=rw1, rh1=rh1)
     if overlay_tri_idx is not None and (transparent_mask is not None
                                         or hud_mask is not None):
         hdr_ch, tri_id = _overlay_band(
-            hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask, rw=rw,
-            band_h=rh, rh_full=rh, needs_clip=needs_clip,
+            hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask, rw=rw1,
+            band_h=rh1, rh_full=rh1, needs_clip=needs_clip,
             solid_env=solid_env, has_color=has_color, has_uv1=has_uv1,
             use_mips=use_mips,
             slot_mask=(slot_mask if overlay_slot_mask is None
@@ -268,9 +426,10 @@ def render_frame(ds, opaque_mask, transparent_mask=None, hud_mask=None, *,
             n_transparent_layers=n_transparent_layers,
             crop_y0=overlay_crop_y0, crop_h=overlay_crop_h,
             ov_tri_idx=overlay_tri_idx, tile_cap=overlay_tile_cap)
-    ldr, tri_id, depth = _finish_frame(hdr_ch, tri_id, depth, rw=rw, rh=rh,
-                                       width=width, height=height,
-                                       tonemap=tonemap)
+    ldr, tri_id, depth = _finish_frame(
+        hdr_ch, tri_id, depth, ds, rw=rw1, rh=rh1, width=width,
+        height=height, tonemap=tonemap, bloom=bloom, dof=dof, smaa=smaa,
+        dof_rings=dof_rings)
     # picking ids in triangle-pool space (clipping doubles the rows)
     T_pool = ds["tri_mesh"].shape[0]
     tri_id = torch.where(tri_id >= 0, tri_id % T_pool, -1)

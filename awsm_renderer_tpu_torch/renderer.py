@@ -6,10 +6,11 @@ KHR_texture_transform, the material extensions (clearcoat, sheen,
 iridescence, anisotropy, specular, transmission, volume), the debug
 views, the transparent overlay (BLEND / MASK / transmission meshes in a
 K-layer depth peel, the editor grid kind) and HUD meshes, under a solid
-or image environment, at most 8 punctual lights, no AA, no effects. The
-key-based stores, the per-frame dirty flush to device tensors and the
-host-side cull, pass bucketing and per-pass specialization (overlay
-crop, compacted overlay pool, tile cap, proven layer bound) mirror the
+or image environment, at most 8 punctual lights, MSAA-4x / supersample /
+SMAA anti-aliasing, bloom and depth of field. The key-based stores, the
+per-frame dirty flush to device tensors and the host-side cull, pass
+bucketing and per-pass specialization (overlay crop, compacted overlay
+pool, tile caps, proven layer bound, DoF ring set) mirror the
 reference; the frame runs eagerly on `device` (passes/frame.py).
 
 Content or configuration outside the slice raises NotImplementedError
@@ -38,7 +39,7 @@ from .core.skins import Skins
 from .core.textures import TEXEL_COLS, Textures, f32_to_bf16_bits
 from .core.transforms import Transform, Transforms
 from .errors import ConfigError
-from .passes.frame import render_frame
+from .passes.frame import OPAQUE_TILE_ROWS, render_frame
 
 MAX_DENSE_LIGHTS = 8
 # component-major corner pools the static vertex stage reads: name -> comps
@@ -247,8 +248,14 @@ class AwsmRendererTorch:
                     [tx.texels_packed, self._env_rows64], axis=0),
                     self.device)
 
-        if self.camera.gpu_dirty or "camera" not in d:
-            # the camera is a uniform: kept on the host, read as floats
+        dof = np.array([self.camera.dof.focus_distance,
+                        self.camera.dof.aperture], np.float32)
+        if (self.camera.gpu_dirty or "camera" not in d
+                or not np.array_equal(d["camera"]["dof"], dof)):
+            # the camera is a uniform: kept on the host, read as floats.
+            # The DoF parameters are plain fields that set no dirty flag,
+            # so an edit to them repacks too (the reference's flush keeps
+            # the old ones until the camera moves)
             d["camera"] = self.camera.packed(
                 viewport=(self.config.width, self.config.height))
             self.camera.gpu_dirty = False
@@ -329,14 +336,12 @@ class AwsmRendererTorch:
         return tuple(bool(b) for b in (slots[mat_rows] >= 0).any(axis=0))
 
     def _check_config(self, cfg: RendererConfig) -> None:
-        aa, pp = cfg.anti_aliasing, cfg.post_processing
-        if aa.msaa or aa.supersample or aa.smaa:
-            raise _unsupported("anti-aliasing (msaa/supersample/smaa)",
-                               "M10 AA modes")
+        aa = cfg.anti_aliasing
+        if aa.msaa and aa.supersample:
+            raise ConfigError("pick one AA mode: AntiAliasing(msaa=True) "
+                              "and supersample=True are exclusive")
         if aa.temporal:
             raise _unsupported("temporal anti-aliasing", "M11 temporal reuse")
-        if pp.bloom or pp.dof:
-            raise _unsupported("bloom / depth of field", "M9 effects")
         if cfg.light_tiles:
             raise _unsupported("tiled light lists", "M12 passes and hooks")
 
@@ -507,10 +512,47 @@ class AwsmRendererTorch:
             return None
         return capb
 
+    def _dof_ring_set(self, masks):
+        """Static DoF ring set from a host-side CoC bound (ops/effects.py
+        dof_max_coc / dof_active_rings) over the view-depth range [the
+        nearest AABB corner of the visible meshes (floored at the near
+        plane), the far plane]: rings the bound proves weightless are
+        left out, () skips DoF (the WGSL coc < 0.5 early-out). The min
+        view depth over an AABB is the min over its 8 corners."""
+        from .ops.effects import (
+            dof_active_rings, dof_max_coc, linearize_depth_host,
+        )
+
+        proj = np.asarray(self.camera.projection, np.float64)
+        near_d = linearize_depth_host(0.0, proj)
+        far_d = linearize_depth_host(1.0, proj)
+        mins, maxs, _keys = self.meshes.world_bounds()
+        if len(mins):
+            vis = masks["opaque"] | masks["transparent"] | masks["hud"]
+            sel = np.nonzero(vis[self.meshes.world_rows()])[0]
+            mins, maxs = mins[sel], maxs[sel]
+        if len(mins):
+            view = np.asarray(self.camera.view, np.float64)
+            corners = np.stack([
+                np.stack([np.where(b & 1, maxs[:, 0], mins[:, 0]),
+                          np.where(b & 2, maxs[:, 1], mins[:, 1]),
+                          np.where(b & 4, maxs[:, 2], mins[:, 2])], axis=-1)
+                for b in range(8)], axis=1)                  # (N, 8, 3)
+            vz = -(corners.reshape(-1, 3) @ view[2, :3] + view[2, 3])
+            dmin = max(float(vz.min()), min(near_d, far_d))
+        else:
+            dmin = min(near_d, far_d)
+        dmax = max(far_d, dmin)
+        coc_max = dof_max_coc(
+            [self.camera.dof.focus_distance, self.camera.dof.aperture],
+            float(proj[1, 1]), dmin, dmax, self.config.height)
+        return dof_active_rings(coc_max)
+
     def _prepare(self):
         """Cull + bucket, each bucket's shading specialization (slot_mask,
         ext), the overlay's crop band, compacted pool, tile cap and layer
-        clamp, and refuse content outside the slice."""
+        clamp, the MSAA frame's opaque tile cap, the DoF ring set, and
+        refuse content outside the slice."""
         masks = self._mesh_masks()
         info = self.meshes.mesh_info
         if (info[:, 3] > 0).any() or (info[:, 5] > 0).any():
@@ -528,7 +570,15 @@ class AwsmRendererTorch:
                     opaque_dev=self._tensor(masks["opaque"]),
                     transparent_dev=None, hud_dev=None, ov_slot_mask=None,
                     ov_ext=None, ov_crop=None, ov_idx=None, ov_tile_cap=None,
-                    n_layers=self.config.max_transparent_layers)
+                    n_layers=self.config.max_transparent_layers,
+                    # the MSAA frame's covered-tile compacted shade
+                    op_tile_cap=(self._bucket_tile_cap(
+                        masks, "opaque", tile_h=OPAQUE_TILE_ROWS,
+                        tile_w=128)
+                        if self.config.anti_aliasing.msaa else None),
+                    dof_rings=(self._dof_ring_set(masks)
+                               if self.config.post_processing.dof
+                               else None))
         has_transparent = bool(masks["transparent"].any())
         has_hud = bool(masks["hud"].any())
         if has_transparent or has_hud:
@@ -560,6 +610,7 @@ class AwsmRendererTorch:
             self.skins.gpu_dirty, self.environment.gpu_dirty,
             self.textures.gpu_dirty, self.lights.gpu_dirty,
             self.camera.view.tobytes(), self.camera.projection.tobytes(),
+            self.camera.dof.focus_distance, self.camera.dof.aperture,
             cfg if cfg is not None else self.config,
         )
 
@@ -589,15 +640,18 @@ class AwsmRendererTorch:
         masks = prep["masks"]
         tx = self.textures
         ov_crop = prep["ov_crop"]
+        aa, pp = cfg.anti_aliasing, cfg.post_processing
         ldr, tri_id, _depth, bins = render_frame(
             ds, prep["opaque_dev"], prep["transparent_dev"], prep["hud_dev"],
-            width=cfg.width, height=cfg.height,
-            tonemap=cfg.post_processing.tonemapping,
+            width=cfg.width, height=cfg.height, tonemap=pp.tonemapping,
+            supersample=aa.supersample, msaa=aa.msaa, bloom=pp.bloom,
+            dof=pp.dof, smaa=aa.smaa, dof_rings=prep["dof_rings"],
+            opaque_tile_cap=prep["op_tile_cap"],
             needs_clip=masks["needs_clip"],
             solid_env=self.environment.is_solid,
             has_color=self.meshes.uses_vertex_colors,
             has_uv1=bool((self.materials.tex_slots[:, :, 1] == 1).any()),
-            use_mips=cfg.anti_aliasing.mipmap, slot_mask=prep["slot_mask"],
+            use_mips=aa.mipmap, slot_mask=prep["slot_mask"],
             has_nearest=bool((tx.descriptors[:, 5] == 0).any()
                              and tx.descriptor_capacity > 0),
             ext=prep["ext"], debug_mode=debug_mode,
@@ -617,7 +671,8 @@ class AwsmRendererTorch:
         """Render one frame and read it back: (H, W, 4) f32 sRGB.
 
         debug_mode: "none" | "normals" | "ibl" | "punctual" |
-        "channel:<name>" (ops/shade.py DEBUG_CHANNELS)."""
+        "edges" (the MSAA edge view; needs msaa) | "channel:<name>"
+        (ops/shade.py DEBUG_CHANNELS)."""
         return self.render_device(debug_mode, hooks).cpu().numpy()
 
     def render_u8(self) -> np.ndarray:

@@ -35,12 +35,24 @@ back to the CPU). Phases:
            frame, each held bit for bit against its twin on the first
            frame's intermediates and timed, and pick() at the HUD box's
            centre returning its key;
+  aa       bench.py's headline frame "Stress-1080p-msaa-bloom-dof": the
+           stress scene, panes included, with MSAA-4x, bloom and depth of
+           field (focus 16 m, f/1); K9 against its twin bit for bit on the
+           first frame's own setup rows and bins, timed, with the bins'
+           entry count, n_big and the tiles the reference's caps would
+           clip; K2's coord_scale=2 and explicit-px/py entries against
+           the twin; 12 orbit frames with K9 (and K8 for the panes)
+           launched on each, the image, pick() against the sample plane,
+           host syncs; then 3 supersample frames (peak device memory) and
+           one SMAA frame of the stress scene;
   gltf     build the glTF catalog's helmet (five 1024x1024 maps) with the
            port's gltf/samples.py, load_gltf + populate_gltf it at 1080p
            under the same environment, render 12 orbit frames and check
            launches and the image;
   golden   render the 128x64 "box", "env-ibl", "box-textured",
-           "alpha-blend" and "effect-refraction" probes, the 256x128 glTF
+           "alpha-blend", "effect-refraction", "effect-bloom",
+           "effect-dof", "effect-smaa" and "effect-msaa" probes, the
+           1024x512 "parity-production-msaa-1024", the 256x128 glTF
            goldens "glb-helmet", "glb-texture-transform", "glb-multi-uv",
            "glb-ext-clearcoat", "glb-alpha-modes", "glb-ext-transmission"
            and "glb-sponza-lite", and the 512x256 parity goldens
@@ -143,12 +155,15 @@ def env_ibl_equirect(np):
 
 
 def build_stress_scene(P, np, device, textured=True, panes=True,
-                       volume=False, hud=False):
-    """bench.py build_stress_scene(effects=False) — geometry, textures,
-    the ring of 12 alpha-blended glass panes and lights — through the
-    port's API. textured=False leaves the base-colour slots unbound (the
-    untextured frame of earlier runs); panes=False leaves the panes out
-    (the opaque-only scene of earlier runs); volume=True gives the panes'
+                       volume=False, hud=False, effects=False):
+    """bench.py build_stress_scene — geometry, textures, the ring of 12
+    alpha-blended glass panes and lights — through the port's API, with
+    effects=False unless `effects`: then bench.py's headline
+    configuration, MSAA-4x with mipmaps, bloom and depth of field focused
+    at 16 m with aperture f/1 (bench.py:121-126, :210-211).
+    textured=False leaves the base-colour slots unbound (the untextured
+    frame of earlier runs); panes=False leaves the panes out (the
+    opaque-only scene of earlier runs); volume=True gives the panes'
     glass KHR transmission and volume (transmission 1, thickness 0.5, ior
     1.5: screen-space refraction); hud=True adds one HUD box above the
     ring. Returns (renderer, opaque mesh keys, HUD key or None)."""
@@ -157,8 +172,13 @@ def build_stress_scene(P, np, device, textured=True, panes=True,
         box, checker_texture, uv_sphere,
     )
 
-    r = P.AwsmRendererTorch(P.RendererConfig(width=W, height=H),
-                            device=device)
+    r = P.AwsmRendererTorch(P.RendererConfig(
+        width=W, height=H,
+        post_processing=P.PostProcessing(bloom=effects, dof=effects),
+        anti_aliasing=P.AntiAliasing(msaa=effects, mipmap=True)),
+        device=device)
+    r.camera.dof.focus_distance = 16.0
+    r.camera.dof.aperture = 1.0
     rng = np.random.default_rng(42)
     tex_ids = [r.textures.add_image(checker_texture(
         128, c, tuple(rng.integers(100, 255, 3)),
@@ -240,16 +260,20 @@ def capture_first_frame(r, names=KERNEL_SITES):
     from awsm_renderer_tpu_torch.ops import (
         cubemap, raster, relayout, shade, texsample,
     )
+    from awsm_renderer_tpu_torch.passes import frame
 
     captured = {}
-    where = {"rasterize16_slim": raster, "resolve_planes_fused": shade,
-             "onehot_split_rows": shade, "tap_plan_fused": texsample,
-             "filter_taps_fused": texsample,
-             "gather_split_channels": cubemap,
-             "rasterize_binned": raster,
-             "_rasterize_binned_compact": raster,
-             "gather_split_channels_f32": relayout}
-    sites = tuple((where[n], n) for n in names)
+    # the modules whose global the main path calls each wrapper through
+    where = {"rasterize16_slim": (raster,),
+             "resolve_planes_fused": (shade, frame),
+             "onehot_split_rows": (shade,), "tap_plan_fused": (texsample,),
+             "filter_taps_fused": (texsample,),
+             "gather_split_channels": (cubemap,),
+             "rasterize_binned": (raster,),
+             "_rasterize_binned_compact": (raster,),
+             "gather_split_channels_f32": (relayout,),
+             "rasterize16_msaa": (frame,)}
+    sites = tuple((mod, n) for n in names for mod in where[n])
     originals = [getattr(mod, attr) for mod, attr in sites]
 
     def recorder(attr, fn):
@@ -259,6 +283,9 @@ def capture_first_frame(r, names=KERNEL_SITES):
                 peel = (args[1] if len(args) > 1
                         else kwargs.get("zlo")) is not None
                 key = f"{attr}/{'peel' if peel else 'nopeel'}"
+            elif attr == "resolve_planes_fused" and \
+                    kwargs.get("px") is not None:
+                key = f"{attr}/xy"
             captured.setdefault(key, (args, kwargs))
             return fn(*args, **kwargs)
         return wrapped
@@ -769,6 +796,191 @@ def phase_overlay(P, np, torch, r_stress, cap_stress):
     return results
 
 
+def msaa_tests(bins, n_tx: int) -> int:
+    """Sample coverage tests K9 makes on `bins`: each entry in the
+    quadrants its mask names (256 display pixels each), each big group in
+    every tile its bbox reaches (1024 pixels), x 16 triangles x 4
+    samples."""
+    import torch
+
+    entries, _offsets, counts, _z, big_packed, _ids, n_big, _ = bins
+    n_tiles = counts.numel()
+    e = entries[:int(counts.sum())]    # unclipped bins: tile after tile
+    quads = sum(((e >> q) & 0x11) != 0 for q in range(4))
+    px = int(quads.sum()) * 256
+    t = torch.arange(n_tiles, device=entries.device)
+    tx, ty = t % n_tx, torch.div(t, n_tx, rounding_mode="floor")
+    bb = big_packed[:int(n_big.item())].long()[:, None]
+    hits = (((bb & 255) <= tx) & (tx <= ((bb >> 16) & 255))
+            & (((bb >> 8) & 255) <= ty) & (ty <= ((bb >> 24) & 255)))
+    px += int(hits.sum()) * 1024
+    return px * 16 * 4
+
+
+def phase_aa(P, np, torch):
+    """bench.py's headline frame: the stress scene (panes included) with
+    MSAA-4x, bloom and DoF at 1080p. K9 and K2's MSAA entries against
+    their twins on the first frame's own intermediates, 12 orbit frames,
+    host syncs; then supersample and SMAA frames."""
+    from awsm_renderer_tpu_torch.ops import kernels
+    from awsm_renderer_tpu_torch.ops.raster import (
+        BT_W, build_bins16, rasterize16_msaa, rasterize16_msaa_reference,
+    )
+    from awsm_renderer_tpu_torch.ops.shade import (
+        RESOLVE_NAMES, resolve_planes_fused, resolve_planes_reference,
+    )
+
+    log(f"phase aa: Stress-1080p-msaa-bloom-dof (bench.py's headline "
+        f"config, panes included), {N_FRAMES} frames at {W}x{H}")
+    r, keys, _ = build_stress_scene(P, np, DEVICE, effects=True)
+    orbit_camera(r, np, 0)
+    cap = capture_first_frame(r, ("rasterize16_msaa", "resolve_planes_fused"))
+    torch.cuda.synchronize()
+    prep = r._prep[1]
+    C = prep["op_tile_cap"]
+    n_units = (-(-H // 8)) * (-(-W // 128))
+    log(f"  prep: opaque tile cap {C} of {n_units} (8, 128) units "
+        f"({'engaged' if C is not None else 'declined'}), DoF rings "
+        f"{prep['dof_rings']}, overlay tile cap {prep['ov_tile_cap']}")
+    check("rasterize16_msaa" in cap, "the MSAA frame called K9")
+    results = {}
+
+    # ---- K9 ---------------------------------------------------------------
+    (srows,), kw = cap["rasterize16_msaa"]
+    w2, h2 = kw["width2"], kw["height2"]
+    samp, depth, bins = rasterize16_msaa(srows, width2=w2, height2=h2)
+    # the twin takes seconds at this size: time the checking call itself
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    rsamp, rdepth = rasterize16_msaa_reference(srows, bins, width2=w2,
+                                               height2=h2)
+    ev[1].record()
+    torch.cuda.synchronize()
+    n_bad = sum(bit_mismatches(a, b, torch) for a, b in zip(samp, rsamp))
+    n_bad += bit_mismatches(depth, rdepth, torch)
+    err = float((depth - rdepth).abs().max())
+    n_tx = -(-w2 // (2 * BT_W))
+    counts = bins[2]
+    log(f"  setup rows {tuple(srows.shape)} f32, supersampled raster "
+        f"{w2}x{h2} -> display {tuple(depth.shape)}")
+    log(f"  K9 bins: {counts.numel()} display tiles, {int(counts.sum())} "
+        f"(tile, group) entries, max {int(counts.max())} a tile, "
+        f"n_big {int(bins[6].item())} (cap 512)")
+    ref = build_bins16(srows, width=-(-w2 // 64) * 64,
+                       height=-(-h2 // 64) * 64, vis_cap=65536,
+                       stash_cap=4096, tile_h=64, tile_w=64,
+                       pack_submask=True)
+    log(f"  under the reference's caps (vis_cap 65536, stash_cap 4096): "
+        f"n_clipped {int(ref[7].item())} tiles, {int(ref[2].sum())} entries "
+        f"kept of {int(counts.sum())}")
+    log(f"  K9 rasterize16_msaa 4 sample planes + depth: {n_bad} "
+        f"mismatching values, max |ddepth| {err}")
+    check(n_bad == 0, "K9 sample ids and depth bit-equal to the plain twin")
+    check(int((samp[0] >= 0).sum()) > 0, "K9 covers samples")
+    tests = msaa_tests(bins, n_tx)
+    results["K9"] = dict(
+        err=err,
+        ms=cuda_ms(lambda: rasterize16_msaa(srows, bins, width2=w2,
+                                            height2=h2), 20),
+        plain_ms=ev[0].elapsed_time(ev[1]),
+        bound=bound(nbytes(srows, *bins, *samp, depth), tests * OPS_PER_TEST),
+        library_ms=None)
+    log(f"  K9 bound: {tests} sample tests x {OPS_PER_TEST} operations, "
+        f"{results['K9']['bound'][0]:.4f} ms ({results['K9']['bound'][1]})")
+
+    # ---- K2's MSAA entries --------------------------------------------------
+    rw1 = -(-W // 128) * 128
+    tid = samp[0][:, :rw1].contiguous().reshape(-1)
+    k2 = {}
+    entries = [("coord_scale", tid, dict(width=rw1, coord_scale=2))]
+    if "resolve_planes_fused/xy" in cap:
+        (t_c, rows_c), kw_c = cap["resolve_planes_fused/xy"]
+        check(rows_c is srows, "the compacted shade resolves K9's setup rows")
+        entries.append(("explicit_xy", t_c, kw_c))
+    for label, t, kw2 in entries:
+        a = resolve_planes_fused(t, srows, **kw2)
+        b = resolve_planes_reference(t, srows, **kw2)
+        torch.cuda.synchronize()
+        check(torch.equal(a["tri_id"], b["tri_id"]),
+              f"K2 [{label}] tri_id equal")
+        e2, bad = 0.0, 0
+        for name in RESOLVE_NAMES[1:]:
+            e2 = max(e2, float((a[name] - b[name]).abs().max()))
+            bad += int((~torch.isclose(a[name], b[name], rtol=1e-5,
+                                       atol=1e-6)).sum())
+        log(f"  K2 resolve_planes_fused [{label}] {t.numel()} pixels: {bad}"
+            f" values outside rtol 1e-5 atol 1e-6, max |d| {e2}")
+        check(bad == 0, f"K2 [{label}] within rtol 1e-5, atol 1e-6 of the "
+                        f"twin")
+        k2[label] = dict(
+            ms=cuda_ms(lambda: resolve_planes_fused(t, srows, **kw2), 20),
+            plain_ms=cuda_ms(lambda: resolve_planes_reference(t, srows,
+                                                              **kw2), 5))
+    results["K2_msaa"] = k2
+    del rsamp, rdepth, ref
+    kernels.reset_launch_counts()
+
+    img, med, wall, counts_f = orbit_frames(
+        r, np, torch, lambda i: orbit_camera(r, np, i),
+        ("rasterize16_msaa", "resolve_planes_fused", "onehot_split_rows",
+         "tap_plan_fused", "filter_taps_fused", "gather_split_channels",
+         "rasterize_binned_compact"))
+    check(counts_f["rasterize16_slim"] == 0, "MSAA frames launch no K1")
+    cov = check_image(img, np, torch)
+    tid_p = r._last_tri_id
+    # the edge blend averages the 4 samples' coverage: a pixel whose
+    # top-left sample hits keeps alpha >= 1/4, one whose sample misses
+    # <= 3/4
+    check(bool((cov[tid_p >= 0] > 0.2).all() and (cov[tid_p < 0]
+                                                 < 0.8).all()),
+          "tri_id plane (the top-left sample) agrees with the blended "
+          "coverage")
+    x, y = W // 2, H // 2
+    key = r.pick(x, y)
+    t = int(tid_p[y, x])
+    want = (None if t < 0 else
+            r._mesh_row_to_key.get(int(r._tri_mesh_device_order[t])))
+    check(key == want and (key is None or key in keys),
+          f"pick({x}, {y}) = {key} matches the sample plane's tri_id {t}")
+    results["syncs"] = count_syncs(r, torch, "MSAA + bloom + DoF")
+    results["frames"] = (med, wall, counts_f)
+    del r, cap, samp, depth, bins
+
+    # ---- supersample and SMAA frames ---------------------------------------
+    from dataclasses import replace
+
+    for label, aa, n in (("supersample", dict(supersample=True), 3),
+                         ("smaa", dict(smaa=True), 1)):
+        r, _keys, _ = build_stress_scene(P, np, DEVICE)
+        r.config = replace(r.config, anti_aliasing=P.AntiAliasing(**aa))
+        orbit_camera(r, np, 0)
+        r.render_device()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        times = []
+        for i in range(n):
+            orbit_camera(r, np, i + 1)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            img = r.render_device()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"  {label}: {n} frames at {W}x{H}, ms (CUDA events) "
+            f"{[round(v, 3) for v in times]}, peak device memory "
+            f"{peak:.2f} GiB, launches {dict(kernels.launch_counts)}")
+        check_image(img, np, torch)
+        check(kernels.launch_counts["rasterize16_slim"] == n,
+              f"{label} frames take K1 once a frame")
+        results[label] = (statistics.median(times), peak)
+        del r
+    kernels.reset_launch_counts()
+    return results
+
+
 def build_helmet_scene(P, np, device):
     """The glTF catalog's helmet (gltf/samples.py glb_helmet) written to
     build/chip_smoke/, loaded with load_gltf + populate_gltf at W x H
@@ -911,8 +1123,8 @@ def phase_golden(P, np, torch):
         check(frac < 0.005, f"{name}: {frac:.4%} of channel values off "
                             f"by > 4/255 (limit 0.5%)")
 
-    log("phase golden: 128x64 probes, 256x128 glTF goldens and 512x256 "
-        "parity goldens on the card")
+    log("phase golden: 128x64 probes and effect goldens, 256x128 glTF "
+        "goldens, 512x256 and 1024x512 parity goldens on the card")
     for name, fn in (("box", scene_box), ("env-ibl", scene_env_ibl),
                      ("box-textured", scene_box_textured),
                      ("alpha-blend", scene_alpha_blend)):
@@ -950,6 +1162,110 @@ def phase_golden(P, np, torch):
     r.add_mesh(uv_sphere(0.55), glass)
     r.lights.insert(P.Light.directional([-0.5, -1, -0.3], intensity=2.0))
     hold("effect-refraction", r.render_u8(), tight=True)
+
+    # tests/test_parity_golden.py's effect goldens: bloom, DoF, SMAA, MSAA
+    def effect_renderer(width=128, height=64, **cfg):
+        r = P.AwsmRendererTorch(P.RendererConfig(width=width, height=height,
+                                                 **cfg), device=DEVICE)
+        r.camera.update(m3.look_at([0, 0.6, 3.0], [0, 0, 0], [0, 1, 0]),
+                        m3.perspective(np.pi / 3, width / height, 0.1,
+                                       100.0))
+        return r
+
+    F = np.float32
+    r = effect_renderer(post_processing=P.PostProcessing(
+        tonemapping=P.ToneMapping.ACES, bloom=True))
+    glow = r.materials.insert(P.PbrMaterial(
+        base_color_factor=np.array([0.1, 0.1, 0.1, 1], F),
+        emissive_factor=np.array([4.0, 3.2, 1.2], F), roughness_factor=0.8))
+    dark = r.materials.insert(P.PbrMaterial(
+        base_color_factor=np.array([0.2, 0.2, 0.25, 1], F)))
+    r.add_mesh(uv_sphere(0.45), glow)
+    r.add_mesh(box(0.5), dark, transform=P.Transform(
+        translation=np.array([-1.1, 0, 0], F)))
+    r.lights.insert(P.Light.directional([-0.5, -1, -0.3], intensity=1.0))
+    hold("effect-bloom", r.render_u8(), tight=True)
+
+    r = effect_renderer(post_processing=P.PostProcessing(
+        tonemapping=P.ToneMapping.KHRONOS_PBR_NEUTRAL, dof=True))
+    r.camera.dof.focus_distance = 3.0
+    r.camera.dof.aperture = 0.1
+    for size, rgba, z in ((0.5, (0.9, 0.3, 0.2, 1), 0.0),
+                          (2.0, (0.2, 0.6, 0.9, 1), -14.0)):
+        mat = r.materials.insert(P.UnlitMaterial(
+            base_color_factor=np.array(rgba, F)))
+        r.add_mesh(box(size), mat, transform=P.Transform(
+            translation=np.array([0.8 if z else 0.0, 0, z], F)))
+    hold("effect-dof", r.render_u8(), tight=True)
+
+    for name, aa in (("effect-smaa", dict(smaa=True)),
+                     ("effect-msaa", dict(msaa=True))):
+        r = effect_renderer(anti_aliasing=P.AntiAliasing(**aa))
+        mat = r.materials.insert(P.UnlitMaterial(
+            base_color_factor=np.array([1, 1, 1, 1], F)))
+        r.add_mesh(box(0.8), mat, transform=P.Transform(
+            rotation=m3.quat_from_axis_angle([0, 0, 1], 0.3)))
+        hold(name, r.render_u8(), tight=True)
+
+    # tests/test_parity_golden.py test_parity_production_msaa_1024 (slow
+    # on the CPU): MSAA with a real opaque tile cap, the overlay crop and
+    # compaction, K-layer panes, bloom + DoF at 1024x512
+    Wp, Hp = 1024, 512
+    r = P.AwsmRendererTorch(P.RendererConfig(
+        width=Wp, height=Hp,
+        anti_aliasing=P.AntiAliasing(msaa=True, mipmap=True),
+        post_processing=P.PostProcessing(
+            tonemapping=P.ToneMapping.ACES, bloom=True, dof=True)),
+        device=DEVICE)
+    rng = np.random.default_rng(5)
+    tex = r.textures.add_image(
+        checker_texture(64, 8, (210, 160, 90), (60, 50, 45)), srgb=True)
+    mats = [r.materials.insert(P.PbrMaterial(
+        base_color_factor=np.array([*rng.uniform(0.3, 1.0, 3), 1.0], F),
+        metallic_factor=float(rng.uniform(0, 1)),
+        roughness_factor=float(rng.uniform(0.25, 0.9)),
+        textures={TS_BASE_COLOR: P.TextureRef(r.textures.row_of(tex))}))
+        for _ in range(6)]
+    glass = r.materials.insert(P.PbrMaterial(
+        base_color_factor=np.array([0.35, 0.6, 0.9, 0.45], F),
+        alpha_mode=P.AlphaMode.BLEND, roughness_factor=0.1))
+    box_res = r.meshes.insert_resource(box(0.7))
+    sph_res = r.meshes.insert_resource(uv_sphere(0.4, rings=12, sectors=24))
+    for gx in range(-3, 4):
+        for gz in range(-3, 4):
+            res = box_res if (gx + gz) % 2 == 0 else sph_res
+            tk = r.transforms.insert(P.Transform(translation=np.array(
+                [gx * 1.3, float(rng.uniform(-0.25, 0.25)), gz * 1.3], F)))
+            r.transforms.update_world()
+            r.meshes.insert(res, r.transforms.row_of(tk),
+                            r.materials.row_of(mats[(gx * 7 + gz) % 6]),
+                            tk, mats[(gx * 7 + gz) % 6])
+    pane = r.meshes.insert_resource(box(0.8))
+    for i in range(6):
+        a = 2 * np.pi * i / 6
+        tk = r.transforms.insert(P.Transform(translation=np.array(
+            [np.cos(a) * 2.6, 0.9, np.sin(a) * 2.6], F)))
+        r.transforms.update_world()
+        r.meshes.insert(pane, r.transforms.row_of(tk),
+                        r.materials.row_of(glass), tk, glass,
+                        transparent=True)
+    r.meshes.update_world(r.transforms)
+    r.lights.insert(P.Light.directional([-0.5, -1, -0.3], intensity=2.0))
+    r.lights.insert(P.Light.point([3, 2, 3], intensity=8.0, range=12.0))
+    r.camera.update(m3.look_at([6, 4.2, 6], [0, 0, 0], [0, 1, 0]),
+                    m3.perspective(np.pi / 3, Wp / Hp, 0.1, 120.0))
+    r.camera.dof.focus_distance = 9.0
+    r.camera.dof.aperture = 1.0
+    masks = r._mesh_masks()
+    check(r._bucket_tile_cap(masks, "opaque") is not None
+          and r._bucket_tile_cap(masks, "transparent", tile_h=32,
+                                 tile_w=32) is not None,
+          "parity-production-msaa-1024: the opaque and transparent tile "
+          "caps engage")
+    img = r.render_u8()
+    hold("parity-production-msaa-1024", img, tight=True)
+    cov = (np.abs(np.diff(img[..., 1].astype(np.int16), axis=0)) > 6).mean()
+    check(cov > 0.02, f"parity-production-msaa-1024: dense coverage {cov:.3f}")
 
     for name in ("glb-helmet", "glb-texture-transform", "glb-multi-uv",
                  "glb-ext-clearcoat", "glb-alpha-modes",
@@ -1026,6 +1342,8 @@ def main() -> int:
     ov = phase_overlay(P, np, torch, r, cap)
     results.update((k, ov[k]) for k in ("K7", "K8", "K6f32"))
     del r, cap
+    aa = phase_aa(P, np, torch)
+    results["K9"] = aa["K9"]
     h_med, h_wall, _h_counts, (h_k4, h_k5) = phase_gltf(P, np, torch)
     phase_golden(P, np, torch)
 
@@ -1046,6 +1364,17 @@ def main() -> int:
     log(f"helmet batch: K4 {h_k4['ms']:.4f} ms (twin {h_k4['plain_ms']:.4f}"
         f"), K5 {h_k5['ms']:.4f} ms (twin {h_k5['plain_ms']:.4f}) ({card})")
     log(f"K7 without a peel (the HUD): {ov['K7_nopeel_ms']:.4f} ms ({card})")
+    a_med, a_wall, a_counts = aa["frames"]
+    log(f"frame Stress-1080p-msaa-bloom-dof: median {a_med:.3f} ms/frame "
+        f"(CUDA events), host wall {a_wall:.3f} ms/frame, {aa['syncs']} host"
+        f" syncs/frame, at {W}x{H} ({card})")
+    for label in ("supersample", "smaa"):
+        ms, peak = aa[label]
+        log(f"frame Stress-1080p-ibl-tex + {label}: median {ms:.3f} ms/frame"
+            f", peak device memory {peak:.2f} GiB, at {W}x{H} ({card})")
+    for label, v in aa["K2_msaa"].items():
+        log(f"K2 [{label}] entry: kernel {v['ms']:.4f} ms, twin "
+            f"{v['plain_ms']:.4f} ms ({card})")
     sources = {
         "K1": ("rasterize16_slim", "awsm_renderer_tpu_torch/csrc/raster16.cu",
                "awsm_renderer_tpu/ops/raster.py:1615"),
@@ -1070,13 +1399,17 @@ def main() -> int:
         "K8": ("rasterize_binned_compact",
                "awsm_renderer_tpu_torch/csrc/binned.cu",
                "awsm_renderer_tpu/ops/raster.py:1001"),
+        "K9": ("rasterize16_msaa",
+               "awsm_renderer_tpu_torch/csrc/raster_msaa.cu",
+               "awsm_renderer_tpu/ops/raster.py:1966"),
     }
     out = []
     for k, (name, src, rep) in sources.items():
         res = results[k]
         # launches on the main path that runs the kernel: the stress
-        # frames, or (K7, K6-f32) the volume + HUD frames
-        n = counts[name] if counts[name] else b_counts[name]
+        # frames, or (K7, K6-f32) the volume + HUD frames, or (K9) the
+        # MSAA frames
+        n = counts[name] or b_counts[name] or a_counts[name]
         bound_ms, bound_by = res["bound"]
         lib = res["library_ms"]
         log(f"  {k} {name}: kernel {res['ms']:.4f} ms, twin "

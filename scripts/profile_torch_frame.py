@@ -6,8 +6,10 @@ stress: Stress-1080p-ibl-tex, bench.py's whole scene — geometry,
 textures, the ring of 12 glass panes and lights — under an image
 environment; --scene stress-untextured: the same without its textures;
 --scene stress-volume: the panes with KHR transmission + volume and a
-HUD box, chip_smoke.py's overlay (b) scene; --scene helmet: the glTF
-catalog's helmet), warms up, then:
+HUD box, chip_smoke.py's overlay (b) scene; --scene stress-msaa: the
+stress scene in bench.py's headline configuration, MSAA + bloom + DoF,
+chip_smoke.py's aa scene; --scene helmet: the glTF catalog's helmet),
+warms up, then:
   1. renders --frames orbit frames with the profiler off: median ms/frame
      from CUDA events around each frame, and host wall ms/frame;
   2. renders --frames more under torch.profiler (CPU + CUDA activities)
@@ -17,7 +19,7 @@ catalog's helmet), warms up, then:
 
 Usage (repo root, one card):
     python3 scripts/profile_torch_frame.py
-        [--scene stress|stress-untextured|stress-volume|helmet]
+        [--scene stress|stress-untextured|stress-volume|stress-msaa|helmet]
         [--width 1920 --height 1080]
 """
 
@@ -39,7 +41,8 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=20)
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--scene", choices=("stress", "stress-untextured",
-                                        "stress-volume", "helmet"),
+                                        "stress-volume", "stress-msaa",
+                                        "helmet"),
                     default="stress")
     args = ap.parse_args()
 
@@ -59,7 +62,8 @@ def main() -> int:
         r, _, _ = CS.build_stress_scene(
             P, np, "cuda", textured=args.scene != "stress-untextured",
             volume=args.scene == "stress-volume",
-            hud=args.scene == "stress-volume")
+            hud=args.scene == "stress-volume",
+            effects=args.scene == "stress-msaa")
 
         def camera(i):
             CS.orbit_camera(r, np, i)

@@ -114,3 +114,32 @@ def env_equirect():
     eq[..., 1] = 0.3 + 0.25 * v
     eq[..., 2] = 1.0 - 0.8 * v
     return eq
+
+
+GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
+
+
+def golden_renderer(width=128, height=64, **cfg):
+    """tests/test_parity_golden.py _base_renderer on the port: the effect
+    goldens' camera at [0, 0.6, 3] looking at the origin."""
+    import awsm_renderer_tpu_torch as P
+    from awsm_renderer_tpu_torch.utils import math3d as m3
+
+    r = P.AwsmRendererTorch(P.RendererConfig(width=width, height=height,
+                                             **cfg), device="cpu")
+    r.camera.update(m3.look_at([0, 0.6, 3.0], [0, 0, 0], [0, 1, 0]),
+                    m3.perspective(np.pi / 3, width / height, 0.1, 100.0))
+    return r
+
+
+def hold_tight(name, img):
+    """tests/test_parity_golden.py _check_tight, read-only: mean |diff| <=
+    1/255 and <= 0.3% of channel values off by more than 2/255."""
+    from PIL import Image
+
+    golden = np.asarray(Image.open(os.path.join(GOLDEN_DIR, f"{name}.png")))
+    assert golden.shape == img.shape
+    diff = np.abs(golden.astype(np.int16) - img.astype(np.int16))
+    assert diff.mean() <= 1.0, f"{name}: mean diff {diff.mean():.3f}"
+    frac = (diff > 2).mean()
+    assert frac <= 0.003, f"{name}: {frac:.3%} off by > 2/255"

@@ -7,15 +7,16 @@ without a CUDA device. Run on the card with:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-K1, K3, K5, K6 (both entries), K7 and K8 are bit-equal to their twins;
-K2's ints are equal and
+K1, K3, K5, K6 (both entries), K7, K8 and K9 are bit-equal to their
+twins; K2's ints are equal and
 its floats within rtol 1e-5, atol 1e-6 (both round every product and sum
 separately, so they agree exactly in practice). K4's row indices equal
 the twin's and its weights are within 1e-6, except at taps whose LOD lies
 within 1e-5 of an integer (log2f vs torch.log2 may floor to the other
 mip). The card frame's tri_id plane equals the CPU frame's, and its LDR
 image is within 1e-5 (torch's CUDA pow/exp2 may differ from the CPU's by
-an ulp; a textured frame within 1e-4, for the same reason in its LOD)."""
+an ulp; a textured frame within 1e-4, for the same reason in its LOD;
+the MSAA / supersample / effects frames within 1e-4)."""
 
 import numpy as np
 import pytest
@@ -176,9 +177,10 @@ def test_card_frame_matches_cpu_frame(dev, scene):
     want["gather_split_channels"] = int(not card.environment.is_solid)
     textured = scene == "box-textured"
     want["tap_plan_fused"] = want["filter_taps_fused"] = int(textured)
-    # the overlay's kernels: no transparent or HUD content here
+    # the overlay's kernels: no transparent or HUD content here; K9
+    # only with MSAA
     for name in ("rasterize_binned", "rasterize_binned_compact",
-                 "gather_split_channels_f32"):
+                 "gather_split_channels_f32", "rasterize16_msaa"):
         want[name] = 0
     assert kernels.launch_counts == want
     img_cpu = cpu.render()
@@ -290,3 +292,112 @@ def test_card_overlay_frame_matches_cpu_frame(dev, case, monkeypatch):
     np.testing.assert_allclose(img_card, img_cpu, rtol=0, atol=1e-4)
     if key is not None:
         assert card.pick(W // 2, H // 2) == cpu.pick(W // 2, H // 2)
+
+
+def _msaa_rows(dev, case, monkeypatch):
+    """(setup rows on the card, width2, height2) of tests/test_torch_msaa.py
+    cases: the MSAA scene's own 2x setup, the big-group triangles, and
+    the same at a raster that is no 64-multiple (K9 crops its tiles)."""
+    import test_torch_msaa as TM
+
+    if case == "scene":
+        monkeypatch.setattr(TM, "DEVICE", "cuda")
+        return TM._rows2x(TM._scene(False, False))
+    rows, w2, h2 = TM._big_rows()
+    if case == "crop":
+        w2, h2 = 456, 296
+    return torch.as_tensor(rows).to(dev), w2, h2
+
+
+@pytest.mark.parametrize("case", ["scene", "big_groups", "crop"])
+def test_k9_kernel_bit_equal_to_twin(dev, case, monkeypatch):
+    from awsm_renderer_tpu_torch.ops import kernels
+    from awsm_renderer_tpu_torch.ops import raster as TR
+    from test_torch_msaa import MSAA_CAPS
+
+    rows, w2, h2 = _msaa_rows(dev, case, monkeypatch)
+    for caps in ({}, MSAA_CAPS):
+        n0 = kernels.launch_counts["rasterize16_msaa"]
+        samp, depth, bins = TR.rasterize16_msaa(rows, width2=w2, height2=h2,
+                                                **caps)
+        assert kernels.launch_counts["rasterize16_msaa"] == n0 + 1
+        rsamp, rdepth = TR.rasterize16_msaa_reference(rows, bins, width2=w2,
+                                                      height2=h2)
+        torch.cuda.synchronize()
+        assert depth.shape == (h2 // 2, w2 // 2)
+        for a, b in zip(samp, rsamp):
+            assert torch.equal(a, b)
+        assert torch.equal(_bits(depth), _bits(rdepth))
+        assert int((samp[0] >= 0).sum()) > 100
+
+
+def test_k2_msaa_entries_match_twin(dev, monkeypatch):
+    from awsm_renderer_tpu_torch.ops import kernels
+    from awsm_renderer_tpu_torch.ops.raster import rasterize16_msaa
+    from awsm_renderer_tpu_torch.ops.shade import (
+        RESOLVE_NAMES, resolve_planes_fused, resolve_planes_reference,
+    )
+
+    rows, w2, h2 = _msaa_rows(dev, "scene", monkeypatch)
+    samp, _, _ = rasterize16_msaa(rows, width2=w2, height2=h2)
+    W1 = w2 // 2
+    tid = samp[0].reshape(-1).contiguous()
+    g = torch.Generator().manual_seed(6)
+    sel = torch.randperm(tid.numel(), generator=g)[:5000].to(dev)
+    px = 2.0 * (sel % W1).float() + 0.5
+    py = 2.0 * torch.div(sel, W1, rounding_mode="floor").float() + 0.5
+    for t, kw in ((tid, dict(width=W1, coord_scale=2)),
+                  (tid[sel].contiguous(), dict(width=W1, px=px, py=py))):
+        n0 = kernels.launch_counts["resolve_planes_fused"]
+        a = resolve_planes_fused(t, rows, **kw)
+        assert kernels.launch_counts["resolve_planes_fused"] == n0 + 1
+        b = resolve_planes_reference(t, rows, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(a["tri_id"], b["tri_id"])
+        for k in RESOLVE_NAMES[1:]:
+            torch.testing.assert_close(a[k], b[k], rtol=1e-5, atol=1e-6,
+                                       msg=k)
+
+
+@pytest.mark.parametrize("key", ["msaa-image", "msaa-solid", "supersample",
+                                 "effects"])
+def test_card_aa_frame_matches_cpu_frame(dev, key, monkeypatch):
+    """The MSAA frame (K9, K2's coord_scale and explicit-px/py entries
+    through the compacted shade, the edge blend), the supersample frame
+    and an MSAA + SMAA + bloom + DoF frame on the card against the same
+    frames on the CPU."""
+    from dataclasses import replace
+
+    import awsm_renderer_tpu_torch as P
+    import test_torch_msaa as TM
+    from awsm_renderer_tpu_torch.ops import kernels
+
+    TM._forced_cap(monkeypatch, P.AwsmRendererTorch, 8)
+    aa = dict(supersample=True) if key == "supersample" else {}
+
+    def build():
+        r = TM._scene(False, key == "msaa-image", **aa)
+        if key == "effects":
+            r.config = replace(
+                r.config, anti_aliasing=P.AntiAliasing(msaa=True, smaa=True),
+                post_processing=P.PostProcessing(bloom=True, dof=True))
+            r.camera.dof.focus_distance = 1.0
+            r.camera.dof.aperture = 0.05
+        return r
+
+    cpu = build()
+    monkeypatch.setattr(TM, "DEVICE", "cuda")
+    card = build()
+    kernels.reset_launch_counts()
+    img_card = card.render()
+    msaa = key != "supersample"
+    assert kernels.launch_counts["rasterize16_msaa"] == int(msaa)
+    assert kernels.launch_counts["rasterize16_slim"] == int(not msaa)
+    img_cpu = cpu.render()
+    np.testing.assert_array_equal(card._last_tri_id.cpu().numpy(),
+                                  cpu._last_tri_id.numpy())
+    np.testing.assert_allclose(img_card, img_cpu, rtol=0, atol=1e-4)
+    if key == "effects":
+        assert card._prep[1]["dof_rings"] != ()
+    assert card.pick(TM.W // 4, 3 * TM.H // 4) == cpu.pick(TM.W // 4,
+                                                          3 * TM.H // 4)
