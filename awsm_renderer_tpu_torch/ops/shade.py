@@ -742,34 +742,41 @@ def shade_deferred_c(vis, ds, *, width: int, height: int,
     return out + [valid.float()]
 
 
-def _tile_swizzle(p: torch.Tensor, H: int, W: int, th: int = 8):
+# rows of the compacted opaque shade's (OPAQUE_TILE_ROWS, 128) units
+OPAQUE_TILE_ROWS = 8
+
+
+def _tile_swizzle(p: torch.Tensor, H: int, W: int):
     """(..., H*W) row-major plane -> (..., n_units, th*128) of (th, 128)
-    units, unit-row-major."""
+    units (th = OPAQUE_TILE_ROWS), unit-row-major."""
+    th = OPAQUE_TILE_ROWS
     lead = p.shape[:-1]
     t = p.reshape(*lead, H // th, th, W // 128, 128).transpose(-3, -2)
     return t.reshape(*lead, (H // th) * (W // 128), th * 128)
 
 
-def _tile_unswizzle(t: torch.Tensor, H: int, W: int, th: int = 8):
+def _tile_unswizzle(t: torch.Tensor, H: int, W: int):
     """(n_units, th*128) of (th, 128) units -> (H*W,) row-major plane."""
+    th = OPAQUE_TILE_ROWS
     return (t.reshape(H // th, W // 128, th, 128).transpose(1, 2)
             .reshape(H * W))
 
 
 def shade_units_c(tid_c, dep_c, idx, setup_rows, ds, *, width: int,
-                  height_full: int, row_offset: int, resolve_row_offset: int,
-                  coord_scale: int, th: int, use_mips: bool, slot_mask,
-                  solid_env: bool, has_nearest: bool, ext, debug_mode: str):
-    """Shade an explicit set of C compacted (th, 128) units (reference:
-    shade.py shade_units_c, shared with the temporal path).
+                  height: int, use_mips: bool, slot_mask, solid_env: bool,
+                  has_nearest: bool, ext, debug_mode: str):
+    """Shade an explicit set of C compacted (th, 128) units (th =
+    OPAQUE_TILE_ROWS; reference: shade.py shade_units_c, shared with the
+    temporal path) of a height-row frame.
 
-    idx (C,) names the units in the band's (H // th, W // 128) grid;
-    tid_c / dep_c their gathered (C*th*128,) winner and depth planes. K2
-    evaluates the planes at explicit raster-space centers (x *
-    coord_scale + 0.5, as the band-wide resolve derives from the flat
-    index), and the pixels' NDC coordinates ride as planes into
-    shade_surface. Returns ([r, g, b] compact planes, valid); miss pixels
-    carry the sky."""
+    idx (C,) names the units in the frame's (H // th, W // 128) grid;
+    tid_c / dep_c their gathered (C*th*128,) winner and depth planes,
+    taken at the top-left sample of a 2x raster. K2 evaluates the planes
+    at explicit raster-space centers (2x + 0.5, as the band-wide resolve
+    derives them from the flat index with coord_scale 2), and the pixels'
+    NDC coordinates ride as planes into shade_surface. Returns ([r, g, b]
+    compact planes, valid); miss pixels carry the sky."""
+    th = OPAQUE_TILE_ROWS
     C = idx.shape[0]
     U = th * 128
     ntx = width // 128
@@ -778,19 +785,17 @@ def shade_units_c(tid_c, dep_c, idx, setup_rows, ds, *, width: int,
     q = torch.arange(U, dtype=torch.float32, device=idx.device)
     gx = tx[:, None] * 128.0 + (q % 128)[None, :]             # (C, U)
     gy = ty[:, None] * float(th) + torch.floor(q / 128)[None, :]
-    px = (gx * coord_scale + 0.5).reshape(C * U)
-    py = ((gy + float(resolve_row_offset)) * coord_scale
-          + 0.5).reshape(C * U)
+    px = (gx * 2 + 0.5).reshape(C * U)
+    py = (gy * 2 + 0.5).reshape(C * U)
     vis = resolve_planes_fused(tid_c, setup_rows, width=width, px=px, py=py)
     planes = {k: vis[k] for k in RESOLVE_NAMES}
     planes["depth"] = dep_c
     planes["ndc_x"] = ((gx + 0.5) / width * 2.0 - 1.0).reshape(C * U)
-    planes["ndc_y"] = (1.0 - (gy + float(row_offset) + 0.5)
-                       / height_full * 2.0).reshape(C * U)
+    planes["ndc_y"] = (1.0 - (gy + 0.5) / height * 2.0).reshape(C * U)
     surf_mode = (debug_mode if debug_mode in ("ibl", "punctual", "material")
                  or debug_mode.startswith("channel:") else "none")
     color, _alpha, valid, n_final, sky = shade_surface(
-        planes, ds, width=128, height=C * th, height_full=height_full,
+        planes, ds, width=128, height=C * th, height_full=height,
         solid_env=solid_env, use_mips=use_mips, slot_mask=slot_mask,
         has_nearest=has_nearest, ext=ext, debug_mode=surf_mode,
         want_sky=True)
@@ -800,40 +805,36 @@ def shade_units_c(tid_c, dep_c, idx, setup_rows, ds, *, width: int,
 
 
 def shade_deferred_compact_c(tid_flat, setup_rows, depth_flat, ds, *,
-                             width: int, height: int, height_full: int,
-                             row_offset: int, resolve_row_offset: int,
-                             coord_scale: int, use_mips: bool, slot_mask,
-                             solid_env: bool, has_nearest: bool, ext,
-                             debug_mode: str, tile_cap: int,
-                             tile_rows: int = 8):
+                             width: int, height: int, use_mips: bool,
+                             slot_mask, solid_env: bool, has_nearest: bool,
+                             ext, debug_mode: str, tile_cap: int):
     """Covered-tile-compacted deferred opaque shade (reference: shade.py
-    shade_deferred_compact_c; the MSAA frame's).
+    shade_deferred_compact_c; the MSAA frame's, whose ids come from the
+    top-left samples of a 2x raster).
 
-    The slim tri_id plane (height*width,) cuts into (tile_rows, 128)
-    units; the covered units come first (a stable argsort) and the first
+    The slim tri_id plane (height*width,) cuts into (OPAQUE_TILE_ROWS,
+    128) units; the covered units come first (a stable argsort) and the first
     C = min(tile_cap, n_units) (a host bound, renderer._bucket_tile_cap)
     are resolved and shaded (shade_units_c); the rest is sky: the
     solid environment's constant, or for an image environment one
     skybox-only K6 gather over the skipped units' view rays
     (cubemap.sample_skybox_pool_c). Equal to shade_deferred_c's result
     whenever the cap covers every live unit. Returns [r, g, b, a] (P,)."""
-    H, W, th = height, width, tile_rows
+    H, W, th = height, width, OPAQUE_TILE_ROWS
     U = th * 128
     n_tiles = (H // th) * (W // 128)
     C = min(tile_cap, n_tiles)
-    sw_tid = _tile_swizzle(tid_flat, H, W, th)                # (n_units, U)
+    sw_tid = _tile_swizzle(tid_flat, H, W)                    # (n_units, U)
     cov = (sw_tid >= 0).any(dim=-1)
     order = torch.argsort((~cov).to(torch.int8), stable=True)  # covered first
     idx = order[:C]
     tid_c = sw_tid.index_select(0, idx).reshape(C * U)
-    dep_c = _tile_swizzle(depth_flat, H, W, th).index_select(
+    dep_c = _tile_swizzle(depth_flat, H, W).index_select(
         0, idx).reshape(C * U)
     out_c, valid = shade_units_c(
-        tid_c, dep_c, idx, setup_rows, ds, width=W, height_full=height_full,
-        row_offset=row_offset, resolve_row_offset=resolve_row_offset,
-        coord_scale=coord_scale, th=th, use_mips=use_mips,
-        slot_mask=slot_mask, solid_env=solid_env, has_nearest=has_nearest,
-        ext=ext, debug_mode=debug_mode)
+        tid_c, dep_c, idx, setup_rows, ds, width=W, height=H,
+        use_mips=use_mips, slot_mask=slot_mask, solid_env=solid_env,
+        has_nearest=has_nearest, ext=ext, debug_mode=debug_mode)
 
     R = n_tiles - C
     rest_sky = None
@@ -850,8 +851,7 @@ def shade_deferred_compact_c(tid_flat, setup_rows, depth_flat, ds, *,
         gyr = (torch.div(idx_rest, ntx, rounding_mode="floor").float()
                [:, None] * float(th) + torch.floor(q / 128)[None, :])
         nx = ((gxr + 0.5) / W * 2.0 - 1.0).reshape(R * U)
-        ny = (1.0 - (gyr + float(row_offset) + 0.5)
-              / height_full * 2.0).reshape(R * U)
+        ny = (1.0 - (gyr + 0.5) / H * 2.0).reshape(R * U)
         ivp = [[float(x) for x in r] for r in ds["camera"]["inv_view_proj"]]
         wp = [nx * ivp[j][0] + ny * ivp[j][1] + ivp[j][2] + ivp[j][3]
               for j in range(4)]
@@ -870,10 +870,10 @@ def shade_deferred_compact_c(tid_flat, setup_rows, depth_flat, ds, *,
             0, idx, out_c[c].reshape(C, U))
         if rest_sky is not None:
             scat = scat.index_copy(0, idx_rest, rest_sky[c].reshape(R, U))
-        out.append(_tile_unswizzle(scat, H, W, th))
+        out.append(_tile_unswizzle(scat, H, W))
     alpha = torch.zeros((n_tiles, U), device=dev).index_copy(
         0, idx, valid.float().reshape(C, U))
-    return out + [_tile_unswizzle(alpha, H, W, th)]
+    return out + [_tile_unswizzle(alpha, H, W)]
 
 
 def _composite(color, alpha, valid, trans, bg, out_rgb):

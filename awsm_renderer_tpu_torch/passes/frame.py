@@ -24,8 +24,8 @@ from ..ops.raster import (
     rasterize16_msaa, rasterize_layers_compact, rasterize_layers_rows,
 )
 from ..ops.shade import (
-    EXT_VOLUME, NO_EXT, NO_SLOTS, RESOLVE_NAMES, resolve_planes_fused,
-    shade_deferred_c, shade_deferred_compact_c, shade_surface,
+    EXT_VOLUME, NO_EXT, NO_SLOTS, OPAQUE_TILE_ROWS, RESOLVE_NAMES,
+    resolve_planes_fused, shade_deferred_c, shade_deferred_compact_c, shade_surface,
     shade_transparent_compact32, shade_transparent_layers_c,
 )
 from ..ops.tonemap import display_pass_c
@@ -35,8 +35,6 @@ from ..ops.vertex import (
 )
 
 _CORNER_NAMES = ("c_pos", "c_norm", "c_tang", "c_uv0", "c_uv1", "c_color")
-# height of the MSAA frame's compacted opaque shade units (x 128 pixels)
-OPAQUE_TILE_ROWS = 8
 
 
 def _pad_to(x: int, m: int) -> int:
@@ -172,11 +170,9 @@ def _opaque_band_msaa(ds, opaque_mask, *, rw2: int, rh2: int, rw1: int,
             and tile_cap * OPAQUE_TILE_ROWS * 128 < P):
         hdr_ch = shade_deferred_compact_c(
             rep, srows, depth1.reshape(P), ds, width=rw1, height=rh1,
-            height_full=rh1, row_offset=0, resolve_row_offset=0,
-            coord_scale=2, use_mips=use_mips, slot_mask=slot_mask,
+            use_mips=use_mips, slot_mask=slot_mask,
             solid_env=solid_env, has_nearest=has_nearest, ext=ext,
-            debug_mode=debug_mode, tile_cap=tile_cap,
-            tile_rows=OPAQUE_TILE_ROWS)
+            debug_mode=debug_mode, tile_cap=tile_cap)
         return hdr_ch, samp, depth1, bins
 
     vis = resolve_planes_fused(rep, srows, width=rw1, coord_scale=2)

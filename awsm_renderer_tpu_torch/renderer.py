@@ -39,7 +39,8 @@ from .core.skins import Skins
 from .core.textures import TEXEL_COLS, Textures, f32_to_bf16_bits
 from .core.transforms import Transform, Transforms
 from .errors import ConfigError
-from .passes.frame import OPAQUE_TILE_ROWS, render_frame
+from .ops.shade import OPAQUE_TILE_ROWS
+from .passes.frame import render_frame
 
 MAX_DENSE_LIGHTS = 8
 # component-major corner pools the static vertex stage reads: name -> comps

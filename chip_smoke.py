@@ -122,6 +122,10 @@ F32_OPS_PER_S = 67e12
 # float operations of one triangle-pixel coverage test: three edge
 # functions and the z plane, each a*px + (b*py + c)
 OPS_PER_TEST = 16
+# K9's four samples of one triangle-pixel: the full test at the top-left
+# sample, then per plane + a (top-right), + b (bottom-left), + a + b
+# (bottom-right): 16 + 4 + 4 + 8
+OPS_PER_MSAA_PIXEL = 32
 
 
 def bound(nbytes: float, nops: float):
@@ -796,11 +800,10 @@ def phase_overlay(P, np, torch, r_stress, cap_stress):
     return results
 
 
-def msaa_tests(bins, n_tx: int) -> int:
-    """Sample coverage tests K9 makes on `bins`: each entry in the
-    quadrants its mask names (256 display pixels each), each big group in
-    every tile its bbox reaches (1024 pixels), x 16 triangles x 4
-    samples."""
+def msaa_pixel_tris(bins, n_tx: int) -> int:
+    """(display pixel, triangle) pairs K9 tests on `bins`: each entry in
+    the quadrants its mask names (256 display pixels each), each big group
+    in every tile its bbox reaches (1024 pixels), x 16 triangles."""
     import torch
 
     entries, _offsets, counts, _z, big_packed, _ids, n_big, _ = bins
@@ -814,7 +817,7 @@ def msaa_tests(bins, n_tx: int) -> int:
     hits = (((bb & 255) <= tx) & (tx <= ((bb >> 16) & 255))
             & (((bb >> 8) & 255) <= ty) & (ty <= ((bb >> 24) & 255)))
     px += int(hits.sum()) * 1024
-    return px * 16 * 4
+    return px * 16
 
 
 def phase_aa(P, np, torch):
@@ -877,16 +880,18 @@ def phase_aa(P, np, torch):
         f"mismatching values, max |ddepth| {err}")
     check(n_bad == 0, "K9 sample ids and depth bit-equal to the plain twin")
     check(int((samp[0] >= 0).sum()) > 0, "K9 covers samples")
-    tests = msaa_tests(bins, n_tx)
+    pairs = msaa_pixel_tris(bins, n_tx)
     results["K9"] = dict(
         err=err,
         ms=cuda_ms(lambda: rasterize16_msaa(srows, bins, width2=w2,
                                             height2=h2), 20),
         plain_ms=ev[0].elapsed_time(ev[1]),
-        bound=bound(nbytes(srows, *bins, *samp, depth), tests * OPS_PER_TEST),
+        bound=bound(nbytes(srows, *bins, *samp, depth),
+                    pairs * OPS_PER_MSAA_PIXEL),
         library_ms=None)
-    log(f"  K9 bound: {tests} sample tests x {OPS_PER_TEST} operations, "
-        f"{results['K9']['bound'][0]:.4f} ms ({results['K9']['bound'][1]})")
+    log(f"  K9 bound: {pairs} pixel-triangle pairs x {OPS_PER_MSAA_PIXEL} "
+        f"operations, {results['K9']['bound'][0]:.4f} ms "
+        f"({results['K9']['bound'][1]})")
 
     # ---- K2's MSAA entries --------------------------------------------------
     rw1 = -(-W // 128) * 128

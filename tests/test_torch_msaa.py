@@ -363,18 +363,23 @@ def test_edges_view_renders():
 def jax_frames():
     """The JAX renderer's frames, each rendered once: MSAA under the
     image env with the opaque cap forced to 8 (compacted), MSAA under
-    the solid env with cap 8, and supersample."""
+    the solid env with cap 8, and supersample. Each first render is an
+    XLA compile of its own frame; the three compile side by side in
+    threads (XLA compiles without the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from awsm_renderer_tpu import AwsmRendererTpu
 
-    out = {}
+    scenes = {"msaa-image": _scene(True, True),
+              "msaa-solid": _scene(True, False),
+              "supersample": _scene(True, False, supersample=True)}
     with pytest.MonkeyPatch.context() as mp:
+        # supersample frames ask for no opaque cap: the patch leaves it be
         _forced_cap(mp, AwsmRendererTpu, 8)
-        for key, image_env in (("msaa-image", True), ("msaa-solid", False)):
-            rj = _scene(True, image_env)
-            out[key] = (rj, rj.render(), np.asarray(rj._last_tri_id))
-    rj = _scene(True, False, supersample=True)
-    out["supersample"] = (rj, rj.render(), np.asarray(rj._last_tri_id))
-    return out
+        with ThreadPoolExecutor(len(scenes)) as ex:
+            imgs = {k: ex.submit(rj.render) for k, rj in scenes.items()}
+            return {k: (rj, imgs[k].result(), np.asarray(rj._last_tri_id))
+                    for k, rj in scenes.items()}
 
 
 def _hold_frame(lt, lj, tt, tj):
