@@ -10,7 +10,7 @@ Nothing here runs at import time: the CPU tests import every module, and
 a host without CUDA may have no ``nvcc`` at all.
 
 Each kernel wrapper (ops/raster.py, ops/shade.py, ops/relayout.py,
-ops/texsample.py) calls
+ops/texsample.py, ops/temporal.py) calls
 ``launch`` exactly where it launches its kernel; ``launch`` raises on a
 non-zero ``cudaError_t`` and adds one to ``launch_counts[name]``, which is
 how a run shows that the main path went through the kernels.
@@ -31,7 +31,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 SOURCES = ("raster16.cu", "resolve.cu", "relayout.cu", "texsample.cu",
-           "binned.cu", "raster_msaa.cu")
+           "binned.cu", "raster_msaa.cu", "temporal.cu")
 # -fmad=false: no FMA contraction anywhere. The edge functions and the
 # resolve ALU must round exactly like their plain PyTorch twins (separate
 # mul and add kernels); a contracted edge function opens pinholes along
@@ -56,6 +56,7 @@ _SIGNATURES = {
                     _P, _P, _P],
     "awsm_raster_msaa": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
                          _P],
+    "awsm_reproject": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
 }
 
 launch_counts: Dict[str, int] = {
@@ -69,6 +70,7 @@ launch_counts: Dict[str, int] = {
     "rasterize_binned": 0,
     "rasterize_binned_compact": 0,
     "rasterize16_msaa": 0,
+    "reproject_history": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -763,19 +763,22 @@ def _tile_unswizzle(t: torch.Tensor, H: int, W: int):
 
 
 def shade_units_c(tid_c, dep_c, idx, setup_rows, ds, *, width: int,
-                  height: int, use_mips: bool, slot_mask, solid_env: bool,
-                  has_nearest: bool, ext, debug_mode: str):
+                  height: int, coord_scale: int, use_mips: bool, slot_mask,
+                  solid_env: bool, has_nearest: bool, ext, debug_mode: str):
     """Shade an explicit set of C compacted (th, 128) units (th =
-    OPAQUE_TILE_ROWS; reference: shade.py shade_units_c, shared with the
-    temporal path) of a height-row frame.
+    OPAQUE_TILE_ROWS; reference: shade.py shade_units_c) of a height-row
+    frame: the MSAA frame's covered units and the temporal frame's
+    chosen ones.
 
     idx (C,) names the units in the frame's (H // th, W // 128) grid;
     tid_c / dep_c their gathered (C*th*128,) winner and depth planes,
-    taken at the top-left sample of a 2x raster. K2 evaluates the planes
-    at explicit raster-space centers (2x + 0.5, as the band-wide resolve
-    derives them from the flat index with coord_scale 2), and the pixels'
-    NDC coordinates ride as planes into shade_surface. Returns ([r, g, b]
-    compact planes, valid); miss pixels carry the sky."""
+    taken on a raster at coord_scale times the display resolution (2:
+    the top-left sample of the MSAA raster; 1: the temporal frame's). K2
+    evaluates the planes at explicit raster-space centers (x *
+    coord_scale + 0.5, as the band-wide resolve derives them from the
+    flat index), and the pixels' NDC coordinates ride as planes into
+    shade_surface. Returns ([r, g, b] compact planes, valid); miss pixels
+    carry the sky."""
     th = OPAQUE_TILE_ROWS
     C = idx.shape[0]
     U = th * 128
@@ -785,8 +788,8 @@ def shade_units_c(tid_c, dep_c, idx, setup_rows, ds, *, width: int,
     q = torch.arange(U, dtype=torch.float32, device=idx.device)
     gx = tx[:, None] * 128.0 + (q % 128)[None, :]             # (C, U)
     gy = ty[:, None] * float(th) + torch.floor(q / 128)[None, :]
-    px = (gx * 2 + 0.5).reshape(C * U)
-    py = (gy * 2 + 0.5).reshape(C * U)
+    px = (gx * coord_scale + 0.5).reshape(C * U)
+    py = (gy * coord_scale + 0.5).reshape(C * U)
     vis = resolve_planes_fused(tid_c, setup_rows, width=width, px=px, py=py)
     planes = {k: vis[k] for k in RESOLVE_NAMES}
     planes["depth"] = dep_c
@@ -832,7 +835,7 @@ def shade_deferred_compact_c(tid_flat, setup_rows, depth_flat, ds, *,
     dep_c = _tile_swizzle(depth_flat, H, W).index_select(
         0, idx).reshape(C * U)
     out_c, valid = shade_units_c(
-        tid_c, dep_c, idx, setup_rows, ds, width=W, height=H,
+        tid_c, dep_c, idx, setup_rows, ds, width=W, height=H, coord_scale=2,
         use_mips=use_mips, slot_mask=slot_mask, solid_env=solid_env,
         has_nearest=has_nearest, ext=ext, debug_mode=debug_mode)
 

@@ -3,12 +3,15 @@
 fetch, K4 + K5 texture taps, K6 env taps; covered-tile compacted with
 MSAA) -> MSAA edge blend or supersample resolve -> transparent peel (K7
 or K8) + forward shade + composite -> HUD (K7) -> bloom, depth of field
--> display -> SMAA.
+-> display -> SMAA. The temporal frame swaps the opaque stage for a
+jittered K1 raster, history reprojection (K10) and a budgeted shade of
+the units the history cannot answer for.
 
 Port of awsm_renderer_tpu/passes/frame.py: render_frame ->
 _opaque_band / _opaque_band_msaa -> _msaa_edge_blend /
-_resolve_supersample -> _overlay_band -> _finish_frame. PyTorch runs it
-eagerly, op by op, on the scene tensors' device.
+_resolve_supersample -> _overlay_band -> _finish_frame, and
+render_frame_temporal. PyTorch runs it eagerly, op by op, on the scene
+tensors' device.
 """
 
 from __future__ import annotations
@@ -21,12 +24,17 @@ from ..ops.effects import (
 )
 from ..ops.raster import (
     BT_H, BT_W, TILE_H, TILE_W, pad_setup_rows, rasterize, rasterize16,
-    rasterize16_msaa, rasterize_layers_compact, rasterize_layers_rows,
+    rasterize16_msaa, rasterize16_slim, rasterize_layers_compact,
+    rasterize_layers_rows,
 )
 from ..ops.shade import (
     EXT_VOLUME, NO_EXT, NO_SLOTS, OPAQUE_TILE_ROWS, RESOLVE_NAMES,
-    resolve_planes_fused, shade_deferred_c, shade_deferred_compact_c, shade_surface,
-    shade_transparent_compact32, shade_transparent_layers_c,
+    _tile_swizzle, _tile_unswizzle, resolve_planes_fused, shade_deferred_c,
+    shade_deferred_compact_c, shade_surface, shade_transparent_compact32,
+    shade_transparent_layers_c, shade_units_c,
+)
+from ..ops.temporal import (
+    reproject_history, select_units, temporal_merge, temporal_offsets,
 )
 from ..ops.tonemap import display_pass_c
 from ..ops.vertex import (
@@ -430,3 +438,101 @@ def render_frame(ds, opaque_mask, transparent_mask=None, hud_mask=None, *,
     T_pool = ds["tri_mesh"].shape[0]
     tri_id = torch.where(tri_id >= 0, tri_id % T_pool, -1)
     return ldr, tri_id, depth, bins
+
+
+def render_frame_temporal(ds, opaque_mask, transparent_mask, hud_mask, hist,
+                          age, *, width: int, height: int,
+                          tonemap: ToneMapping, shade_cap: int, alpha: float,
+                          needs_clip: bool = True, solid_env: bool = False,
+                          has_color: bool = True, has_uv1: bool = False,
+                          use_mips: bool = True, slot_mask=NO_SLOTS,
+                          has_nearest: bool = True, ext=NO_EXT,
+                          n_transparent_layers: int = 4,
+                          overlay_slot_mask=None, overlay_ext=None,
+                          overlay_crop_y0: int | None = None,
+                          overlay_crop_h: int | None = None,
+                          overlay_tri_idx=None,
+                          overlay_tile_cap: int | None = None,
+                          bloom: bool = False, dof: bool = False,
+                          smaa: bool = False, dof_rings=None):
+    """Temporal-reuse frame (TAA; reference: frame.py
+    render_frame_temporal): shade only what the previous frame cannot
+    answer for. hist (5, rh1, rw1) f32 history [r, g, b, tid bits,
+    depth]; age (n_units,) int32 frames since each (8, 128) unit shaded;
+    shade_cap the host's unit budget C. Per frame:
+
+      1. K1 at display resolution with the jittered camera (ids + depth);
+      2. reprojection offsets through the unjittered current and previous
+         matrices, then K10 (validity by winner id and depth);
+      3. select_units picks C units; their ids and depths are gathered
+         (index_select over _tile_swizzle), shaded (shade_units_c,
+         coord_scale 1) and scattered back (index_copy, _tile_unswizzle);
+      4. temporal_merge (3x3-clamped blend); new_age = 0 on the shaded
+         units, age + 1 elsewhere;
+      5. the overlay, effects and display as render_frame.
+
+    C comes from the host, so no step reads a device value on the host.
+    Returns (ldr, tri_id, depth, new_hist, new_age)."""
+    rw1 = _pad_to(width, TILE_W)
+    rh1 = _pad_to(height, TILE_H)
+    U = OPAQUE_TILE_ROWS * 128
+    n_units = (rh1 // OPAQUE_TILE_ROWS) * (rw1 // 128)
+
+    # ---- 1. slim geometry (jittered camera) -------------------------------
+    srows = prep_setup_rows(_run_vertex(ds, opaque_mask, rw=rw1, rh_full=rh1,
+                                        needs_clip=needs_clip))
+    col, depth, _bins = rasterize16_slim(srows, width=rw1, height=rh1)
+
+    # ---- 2. reproject + validate (unjittered matrices) ---------------------
+    off_x, off_y, exp_z = temporal_offsets(ds["camera"], depth, width=rw1,
+                                           height=rh1)
+    rep_r, rep_g, rep_b, valid, blendable = reproject_history(
+        hist, off_x, off_y, exp_z, col, width=rw1, height=rh1)
+
+    # ---- 3. shade the budgeted unit set ------------------------------------
+    idx, shaded_unit = select_units(valid, age, width=rw1, height=rh1,
+                                    shade_cap=shade_cap)
+    C = idx.shape[0]
+    tid_c = _tile_swizzle(col, rh1, rw1).index_select(0, idx).reshape(C * U)
+    dep_c = _tile_swizzle(depth, rh1, rw1).index_select(0, idx).reshape(C * U)
+    out_c, _valid_c = shade_units_c(
+        tid_c, dep_c, idx, srows, ds, width=rw1, height=rh1, coord_scale=1,
+        use_mips=use_mips, slot_mask=slot_mask, solid_env=solid_env,
+        has_nearest=has_nearest, ext=ext, debug_mode="none")
+    new_ch = [_tile_unswizzle(
+        torch.zeros((n_units, U), device=col.device).index_copy(
+            0, idx, out_c[c].reshape(C, U)), rh1, rw1) for c in range(3)]
+    shaded_px = _tile_unswizzle(shaded_unit[:, None].expand(n_units, U),
+                                rh1, rw1)
+
+    # ---- 4. temporal resolve + new history ---------------------------------
+    merged, new_hist, cov = temporal_merge(
+        new_ch, shaded_px, [rep_r, rep_g, rep_b], valid, blendable, hist,
+        col, depth, width=rw1, height=rh1, alpha=alpha)
+    new_age = torch.where(shaded_unit, 0, age + 1)
+
+    # ---- 5. overlay + effects + display (as render_frame) ------------------
+    hdr_ch = merged + [cov]
+    tri_id = col.reshape(rh1, rw1)
+    depth2 = depth.reshape(rh1, rw1)
+    if overlay_tri_idx is not None and (transparent_mask is not None
+                                        or hud_mask is not None):
+        hdr_ch, tri_id = _overlay_band(
+            hdr_ch, tri_id, depth2, ds, transparent_mask, hud_mask, rw=rw1,
+            band_h=rh1, rh_full=rh1, needs_clip=needs_clip,
+            solid_env=solid_env, has_color=has_color, has_uv1=has_uv1,
+            use_mips=use_mips,
+            slot_mask=(slot_mask if overlay_slot_mask is None
+                       else overlay_slot_mask),
+            has_nearest=has_nearest,
+            ext=ext if overlay_ext is None else overlay_ext,
+            n_transparent_layers=n_transparent_layers,
+            crop_y0=overlay_crop_y0, crop_h=overlay_crop_h,
+            ov_tri_idx=overlay_tri_idx, tile_cap=overlay_tile_cap)
+    ldr, tri_id, depth2 = _finish_frame(
+        hdr_ch, tri_id, depth2, ds, rw=rw1, rh=rh1, width=width,
+        height=height, tonemap=tonemap, bloom=bloom, dof=dof, smaa=smaa,
+        dof_rings=dof_rings)
+    T_pool = ds["tri_mesh"].shape[0]
+    tri_id = torch.where(tri_id >= 0, tri_id % T_pool, -1)
+    return ldr, tri_id, depth2, new_hist, new_age

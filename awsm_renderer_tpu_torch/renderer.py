@@ -7,7 +7,9 @@ iridescence, anisotropy, specular, transmission, volume), the debug
 views, the transparent overlay (BLEND / MASK / transmission meshes in a
 K-layer depth peel, the editor grid kind) and HUD meshes, under a solid
 or image environment, at most 8 punctual lights, MSAA-4x / supersample /
-SMAA anti-aliasing, bloom and depth of field. The key-based stores, the
+SMAA / temporal (TAA) anti-aliasing, bloom and depth of field. The
+temporal frame keeps its history across frames (self._temporal); any
+content flush or resize resets it. The key-based stores, the
 per-frame dirty flush to device tensors and the host-side cull, pass
 bucketing and per-pass specialization (overlay crop, compacted overlay
 pool, tile caps, proven layer bound, DoF ring set) mirror the
@@ -26,7 +28,7 @@ import torch
 
 from .config import RendererConfig
 from .core.animation import Animations
-from .core.camera import CameraState
+from .core.camera import CameraState, get_halton_jitter
 from .core.environment import Environment
 from .core.frustum import Frustum
 from .core.lights import Lights
@@ -40,7 +42,9 @@ from .core.textures import TEXEL_COLS, Textures, f32_to_bf16_bits
 from .core.transforms import Transform, Transforms
 from .errors import ConfigError
 from .ops.shade import OPAQUE_TILE_ROWS
-from .passes.frame import render_frame
+from .ops.raster import TILE_H, TILE_W
+from .ops.temporal import reset_history
+from .passes.frame import _pad_to, render_frame, render_frame_temporal
 
 MAX_DENSE_LIGHTS = 8
 # component-major corner pools the static vertex stage reads: name -> comps
@@ -86,6 +90,8 @@ class AwsmRendererTorch:
         self._mesh_flush_gen = 0       # bumps on every mesh-pool flush
         self._ov_idx_cache = None      # (overlay mask, flush gen, tensor)
         self.last_bins = None          # raster bins of the last frame
+        self._content_epoch = 0        # non-camera store flush counter
+        self._temporal = None          # TAA state: hist/age/prev_vp/epoch
 
     # ---- content helpers (host stores, as the reference) -----------------
 
@@ -153,9 +159,22 @@ class AwsmRendererTorch:
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
 
-    def _flush(self) -> Dict[str, object]:
+    def _flush(self, jitter_px=None, prev_view_proj=None) -> Dict[str, object]:
+        """Upload the dirty host stores. jitter_px / prev_view_proj (the
+        temporal frame's) repack the camera with the Halton jitter and
+        the previous frame's unjittered view-projection."""
         d = self._device
         self.skins.flush_pending(self.transforms)
+        # content epoch: bumped whenever a non-camera store reaches the
+        # device; the temporal history is valid only while it holds.
+        # Skinning is refused (M2b), so nothing uploads the skins' joint
+        # matrices: their flag only feeds the epoch, and is consumed here
+        if (self.transforms.gpu_dirty or self.meshes.gpu_dirty
+                or self.materials.gpu_dirty or self.lights.gpu_dirty
+                or self.textures.gpu_dirty or self.environment.gpu_dirty
+                or self.skins.gpu_dirty):
+            self._content_epoch += 1
+        self.skins.gpu_dirty = False
         t = self.transforms
         if t.gpu_dirty:
             d["world"] = self._tensor(t.world)
@@ -251,14 +270,22 @@ class AwsmRendererTorch:
 
         dof = np.array([self.camera.dof.focus_distance,
                         self.camera.dof.aperture], np.float32)
-        if (self.camera.gpu_dirty or "camera" not in d
+        want_nj = jitter_px is not None
+        if (self.camera.gpu_dirty or "camera" not in d or want_nj
+                or ("view_proj_nj" in d["camera"]) != want_nj
                 or not np.array_equal(d["camera"]["dof"], dof)):
             # the camera is a uniform: kept on the host, read as floats.
             # The DoF parameters are plain fields that set no dirty flag,
             # so an edit to them repacks too (the reference's flush keeps
-            # the old ones until the camera moves)
-            d["camera"] = self.camera.packed(
-                viewport=(self.config.width, self.config.height))
+            # the old ones until the camera moves). A temporal frame
+            # repacks every frame (its jitter and previous matrix change),
+            # and leaving temporal mode repacks without them
+            cam = self.camera.packed(
+                viewport=(self.config.width, self.config.height),
+                jitter_px=jitter_px)
+            if prev_view_proj is not None:
+                cam["prev_view_proj"] = prev_view_proj
+            d["camera"] = cam
             self.camera.gpu_dirty = False
         return d
 
@@ -341,8 +368,6 @@ class AwsmRendererTorch:
         if aa.msaa and aa.supersample:
             raise ConfigError("pick one AA mode: AntiAliasing(msaa=True) "
                               "and supersample=True are exclusive")
-        if aa.temporal:
-            raise _unsupported("temporal anti-aliasing", "M11 temporal reuse")
         if cfg.light_tiles:
             raise _unsupported("tiled light lists", "M12 passes and hooks")
 
@@ -633,7 +658,22 @@ class AwsmRendererTorch:
                 self.materials.flags[:, MI_DEBUG_MASK] != 0).any():
             # a material's debug bitmask switches to the per-material view
             debug_mode = "material"
-        ds = self._flush()
+        aa, pp = cfg.anti_aliasing, cfg.post_processing
+        # temporal reuse engages unless a debug view or another AA mode
+        # reshapes the opaque stage; those fall back to the ordinary frame.
+        # The history leaves self._temporal until this frame returns, so a
+        # frame that raises makes the next one reset
+        use_temporal = (aa.temporal and debug_mode == "none"
+                        and not aa.supersample and not aa.msaa)
+        st, self._temporal = self._temporal, None
+        if use_temporal:
+            ds = self._flush(
+                jitter_px=get_halton_jitter((self.camera.frame_count % 8)
+                                            + 1),
+                prev_view_proj=(st["prev_vp"] if st is not None
+                                else self.camera.view_projection))
+        else:
+            ds = self._flush()
         prep_key = self._scene_signature(cfg)
         if self._prep is None or self._prep[0] != prep_key:
             self._prep = (prep_key, self._prepare())
@@ -641,28 +681,54 @@ class AwsmRendererTorch:
         masks = prep["masks"]
         tx = self.textures
         ov_crop = prep["ov_crop"]
-        aa, pp = cfg.anti_aliasing, cfg.post_processing
-        ldr, tri_id, _depth, bins = render_frame(
-            ds, prep["opaque_dev"], prep["transparent_dev"], prep["hud_dev"],
+        kw = dict(
             width=cfg.width, height=cfg.height, tonemap=pp.tonemapping,
-            supersample=aa.supersample, msaa=aa.msaa, bloom=pp.bloom,
-            dof=pp.dof, smaa=aa.smaa, dof_rings=prep["dof_rings"],
-            opaque_tile_cap=prep["op_tile_cap"],
-            needs_clip=masks["needs_clip"],
+            bloom=pp.bloom, dof=pp.dof, smaa=aa.smaa,
+            dof_rings=prep["dof_rings"], needs_clip=masks["needs_clip"],
             solid_env=self.environment.is_solid,
             has_color=self.meshes.uses_vertex_colors,
             has_uv1=bool((self.materials.tex_slots[:, :, 1] == 1).any()),
             use_mips=aa.mipmap, slot_mask=prep["slot_mask"],
             has_nearest=bool((tx.descriptors[:, 5] == 0).any()
                              and tx.descriptor_capacity > 0),
-            ext=prep["ext"], debug_mode=debug_mode,
-            n_transparent_layers=prep["n_layers"],
+            ext=prep["ext"], n_transparent_layers=prep["n_layers"],
             overlay_slot_mask=prep["ov_slot_mask"],
             overlay_ext=prep["ov_ext"],
             overlay_crop_y0=ov_crop[0] if ov_crop else None,
             overlay_crop_h=ov_crop[1] if ov_crop else None,
             overlay_tri_idx=prep["ov_idx"],
             overlay_tile_cap=prep["ov_tile_cap"])
+        bucket_masks = (prep["opaque_dev"], prep["transparent_dev"],
+                        prep["hud_dev"])
+        if use_temporal:
+            rw1 = _pad_to(cfg.width, TILE_W)
+            rh1 = _pad_to(cfg.height, TILE_H)
+            n_units = (rh1 // 8) * (rw1 // 128)
+            # the history survives camera motion (that is its point); a
+            # content flush or a resize resets it, and the reset frame
+            # shades every unit so the next one starts converged
+            if (st is None or st["epoch"] != self._content_epoch
+                    or st["shape"] != (rh1, rw1)):
+                hist = reset_history(rh1, rw1, self.device)
+                age = torch.full((n_units,), 1 << 20, dtype=torch.int32,
+                                 device=self.device)
+                cap = n_units
+            else:
+                hist, age = st["hist"], st["age"]
+                cap = max(1, min(n_units, int(round(cfg.temporal.cap_frac
+                                                    * n_units))))
+            ldr, tri_id, _depth, hist, age = render_frame_temporal(
+                ds, *bucket_masks, hist, age, shade_cap=cap,
+                alpha=cfg.temporal.alpha, **kw)
+            self._temporal = dict(
+                hist=hist, age=age, prev_vp=self.camera.view_projection,
+                epoch=self._content_epoch, shape=(rh1, rw1))
+            bins = None
+        else:
+            ldr, tri_id, _depth, bins = render_frame(
+                ds, *bucket_masks, supersample=aa.supersample, msaa=aa.msaa,
+                opaque_tile_cap=prep["op_tile_cap"], debug_mode=debug_mode,
+                **kw)
         self._last_tri_id = tri_id
         self._rendered_sig = prep_key
         self.last_bins = bins

@@ -45,6 +45,18 @@ back to the CPU). Phases:
            launched on each, the image, pick() against the sample plane,
            host syncs; then 3 supersample frames (peak device memory) and
            one SMAA frame of the stress scene;
+  temporal bench.py's temporal headline "Stress-1080p-temporal-orbit": the
+           stress scene with temporal AA (K1 jittered, K10 history
+           reprojection, C = 243 of 2,025 (8, 128) units shaded a frame),
+           bloom and DoF, on bench.py's orbit arc: one reset frame, then
+           orbit frames; the valid and blendable shares on the boxes and
+           on the spheres of the two frames after the reset; K10 against
+           its twin bit for bit on a steady frame's own inputs, timed; 24
+           timed orbit frames with K1, K2, K3, K4, K5, K6, K8 and K10
+           launched on each, C and the valid and blendable shares printed
+           per frame, host syncs; then tests/test_temporal.py's
+           convergence check (the 128x32 box, 8 static temporal frames
+           against the ordinary frame) on the card;
   gltf     build the glTF catalog's helmet (five 1024x1024 maps) with the
            port's gltf/samples.py, load_gltf + populate_gltf it at 1080p
            under the same environment, render 12 orbit frames and check
@@ -159,12 +171,14 @@ def env_ibl_equirect(np):
 
 
 def build_stress_scene(P, np, device, textured=True, panes=True,
-                       volume=False, hud=False, effects=False):
+                       volume=False, hud=False, effects=False,
+                       temporal=False):
     """bench.py build_stress_scene — geometry, textures, the ring of 12
     alpha-blended glass panes and lights — through the port's API, with
     effects=False unless `effects`: then bench.py's headline
     configuration, MSAA-4x with mipmaps, bloom and depth of field focused
-    at 16 m with aperture f/1 (bench.py:121-126, :210-211).
+    at 16 m with aperture f/1 (bench.py:121-126, :210-211); temporal=True
+    swaps MSAA for temporal AA (bench.py's temporal=True).
     textured=False leaves the base-colour slots unbound (the untextured
     frame of earlier runs); panes=False leaves the panes out (the
     opaque-only scene of earlier runs); volume=True gives the panes'
@@ -179,7 +193,8 @@ def build_stress_scene(P, np, device, textured=True, panes=True,
     r = P.AwsmRendererTorch(P.RendererConfig(
         width=W, height=H,
         post_processing=P.PostProcessing(bloom=effects, dof=effects),
-        anti_aliasing=P.AntiAliasing(msaa=effects, mipmap=True)),
+        anti_aliasing=P.AntiAliasing(msaa=effects and not temporal,
+                                     temporal=temporal, mipmap=True)),
         device=device)
     r.camera.dof.focus_distance = 16.0
     r.camera.dof.aperture = 1.0
@@ -262,7 +277,7 @@ def capture_first_frame(r, names=KERNEL_SITES):
     "rasterize_binned/peel" and of its first call without a peel under
     "rasterize_binned/nopeel")."""
     from awsm_renderer_tpu_torch.ops import (
-        cubemap, raster, relayout, shade, texsample,
+        cubemap, raster, relayout, shade, temporal, texsample,
     )
     from awsm_renderer_tpu_torch.passes import frame
 
@@ -276,7 +291,8 @@ def capture_first_frame(r, names=KERNEL_SITES):
              "rasterize_binned": (raster,),
              "_rasterize_binned_compact": (raster,),
              "gather_split_channels_f32": (relayout,),
-             "rasterize16_msaa": (frame,)}
+             "rasterize16_msaa": (frame,),
+             "reproject_history_planes": (temporal,)}
     sites = tuple((mod, n) for n in names for mod in where[n])
     originals = [getattr(mod, attr) for mod, attr in sites]
 
@@ -538,11 +554,13 @@ def check_k4_k5(cap, label, torch, timed=True):
     return k4, k5
 
 
-def orbit_frames(r, np, torch, camera, expect):
-    """Warm-up frame, then N_FRAMES frames with the launch counts set to 0
+def orbit_frames(r, np, torch, camera, expect, n_frames=N_FRAMES,
+                 after=None):
+    """Warm-up frame, then n_frames frames with the launch counts set to 0
     just before and read just after; every kernel in `expect` must have
-    launched on each frame. Returns (last image, median ms, host wall
-    ms/frame, counts over the N_FRAMES)."""
+    launched on each frame; after(r), if given, runs after each frame's
+    render call (it must not wait for the device). Returns (last image,
+    median ms, host wall ms/frame, counts over the n_frames)."""
     from awsm_renderer_tpu_torch.ops import kernels
 
     camera(0)
@@ -551,7 +569,7 @@ def orbit_frames(r, np, torch, camera, expect):
     ev, per_frame = [], []
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    for i in range(N_FRAMES):
+    for i in range(n_frames):
         camera(i + 1)
         before = dict(kernels.launch_counts)
         a = torch.cuda.Event(enable_timing=True)
@@ -562,15 +580,17 @@ def orbit_frames(r, np, torch, camera, expect):
         ev.append((a, b))
         per_frame.append({k: n - before[k]
                           for k, n in kernels.launch_counts.items()})
+        if after is not None:
+            after(r)
     torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / N_FRAMES
+    wall = (time.perf_counter() - t0) * 1e3 / n_frames
     counts = dict(kernels.launch_counts)
     frame_ms = [a.elapsed_time(b) for a, b in ev]
     med = statistics.median(frame_ms)
     log(f"  frame ms (CUDA events): median {med:.3f}, min "
         f"{min(frame_ms):.3f}, max {max(frame_ms):.3f}; host wall "
         f"{wall:.3f} ms/frame")
-    log(f"  launch counts over {N_FRAMES} frames: {counts}")
+    log(f"  launch counts over {n_frames} frames: {counts}")
     for name in expect:
         low = min(f[name] for f in per_frame)
         check(low >= 1, f"{name} launched on every frame ({counts[name]} "
@@ -986,6 +1006,203 @@ def phase_aa(P, np, torch):
     return results
 
 
+def temporal_camera(r, np, i: int):
+    """bench.py _temporal_headline's orbit arc: view i of 32, 0.008 rad a
+    view at radius 14.14 (about 13 px of reprojection a frame)."""
+    from awsm_renderer_tpu_torch.utils import math3d as m3
+
+    a = 0.7854 + 0.008 * (i % 32)
+    r.camera.update(m3.look_at([14.14 * np.sin(a), 7.0, 14.14 * np.cos(a)],
+                               [0, 0, 0], [0, 1, 0]),
+                    m3.perspective(np.pi / 3, W / H, 0.1, 200.0))
+
+
+TEMPORAL_FRAMES = 24
+TEMPORAL_PATH = ("rasterize16_slim", "reproject_history",
+                 "resolve_planes_fused", "onehot_split_rows",
+                 "tap_plan_fused", "filter_taps_fused",
+                 "gather_split_channels", "rasterize_binned_compact")
+
+
+def valid_by_mesh(r, cur_tid, v, np, torch):
+    """Valid and blendable shares of the covered pixels whose winner
+    belongs to a mesh of at most 12 triangles (the stress scene's boxes)
+    and to a larger one (its 2,304-triangle spheres)."""
+    tm = np.asarray(r._tri_mesh_device_order)
+    n_tris = np.bincount(tm[tm >= 0], minlength=int(tm.max()) + 1)
+    small = torch.as_tensor(n_tris <= 12, device=v.device)
+    tm_dev = torch.as_tensor(tm, device=v.device).long()
+    tid = cur_tid.reshape(v.shape)
+    rows = tm_dev[(tid.clamp(min=0) % tm.shape[0]).long()]
+    box = small[rows.clamp(min=0)] & (rows >= 0)
+    out = []
+    for sel in ((tid >= 0) & box, (tid >= 0) & ~box):
+        n = max(int(sel.sum()), 1)
+        out.append((n, int(((v & 1) > 0)[sel].sum()) / n,
+                    int(((v & 2) > 0)[sel].sum()) / n))
+    return out
+
+
+def check_convergence(P, np, torch):
+    """tests/test_temporal.py test_temporal_static_converges_to_plain on
+    the card: the 128x32 box, 8 static temporal frames against the
+    ordinary frame."""
+    from awsm_renderer_tpu_torch.geometry import box
+    from awsm_renderer_tpu_torch.utils import math3d as m3
+
+    Wc, Hc = 128, 32
+
+    def make(temporal):
+        r = P.AwsmRendererTorch(P.RendererConfig(
+            width=Wc, height=Hc,
+            anti_aliasing=P.AntiAliasing(temporal=temporal),
+            post_processing=P.PostProcessing(
+                tonemapping=P.ToneMapping.NONE)), device=DEVICE)
+        r.camera.update(m3.look_at([0, 0.5, 3], [0, 0, 0], [0, 1, 0]),
+                        m3.perspective(np.pi / 3, Wc / Hc, 0.1, 100.0))
+        r.add_mesh(box(), r.materials.insert(P.PbrMaterial()))
+        return r
+
+    rt = make(True)
+    for _ in range(8):
+        img = rt.render()
+    ref = make(False).render()
+    err = np.abs(img[..., :3] - ref[..., :3])
+    mean, p95, mx = (float(err.mean()), float(np.percentile(err, 95)),
+                     float(err.max()))
+    check(np.isfinite(img).all() and mean < 2e-3 and p95 < 1e-2 and mx < 0.6,
+          f"temporal convergence (128x32 box, 8 static frames vs the "
+          f"ordinary frame): mean |d| {mean:.6f} (< 2e-3), 95th percentile "
+          f"{p95:.6f} (< 1e-2), max {mx:.4f} (< 0.6)")
+
+
+def phase_temporal(P, np, torch):
+    """bench.py's temporal headline: the stress scene (panes included)
+    with temporal AA, bloom and DoF at 1080p on bench.py's orbit arc. K10
+    against its twin on a steady frame's own inputs, 24 timed orbit
+    frames, host syncs, then the convergence check."""
+    from awsm_renderer_tpu_torch.ops import kernels, temporal
+    from awsm_renderer_tpu_torch.ops.temporal import (
+        history_sources, reproject_history_planes,
+        reproject_history_reference,
+    )
+
+    log(f"phase temporal: Stress-1080p-temporal-orbit (bench.py's temporal "
+        f"headline, panes included) at {W}x{H}")
+    r, keys, _ = build_stress_scene(P, np, DEVICE, effects=True,
+                                    temporal=True)
+    n_units = (-(-H // 8)) * (-(-W // 128))
+    temporal_camera(r, np, 0)
+    r.render_device()              # the reset frame: every unit shaded
+    for i in (1, 2):
+        temporal_camera(r, np, i)
+        cap = capture_first_frame(r, ("reproject_history_planes",))
+        torch.cuda.synchronize()
+        check("reproject_history_planes" in cap,
+              f"temporal frame {i} called K10")
+        args, _ = cap["reproject_history_planes"]
+        v_i = reproject_history_reference(*args)[3]
+        for label, (n, val, bl) in zip(
+                ("boxes", "spheres"), valid_by_mesh(r, args[4], v_i, np,
+                                                    torch)):
+            log(f"  frame {i} (view {i}) after the reset: {n} covered "
+                f"pixels on {label}: valid {val:.4f}, blendable {bl:.4f}")
+    prep = r._prep[1]
+    log(f"  prep: DoF rings {prep['dof_rings']}, overlay tile cap "
+        f"{prep['ov_tile_cap']}, crop {prep['ov_crop']}")
+    results = {}
+
+    # ---- K10 on frame 2's own inputs ---------------------------------------
+    args, _ = cap["reproject_history_planes"]
+    hist, off_x, off_y, exp_z, cur_tid, scal = args
+    Hh, Wh = hist.shape[1:]
+    a = reproject_history_planes(*args)
+    b = reproject_history_reference(*args)
+    torch.cuda.synchronize()
+    n_bad = sum(bit_mismatches(x, y, torch) for x, y in zip(a, b))
+    err = max(float((x - y).abs().max()) for x, y in zip(a[:3], b[:3]))
+    v = a[3]
+    cov = cur_tid.reshape(Hh, Wh) >= 0
+    n_cov = int(cov.sum())
+    src, inr = history_sources(off_x, off_y, scal, Hh, Wh)
+    blend = (v & 2) > 0
+    n_valid_cov = int(((v & 1) > 0)[cov].sum())
+    log(f"  K10 reproject_history_planes history {tuple(hist.shape)} f32, "
+        f"{scal.shape[0]} units ({int((scal[:, 4] > 0).sum())} ok): "
+        f"{n_bad} mismatching values; in range {int(inr.sum())}, blendable "
+        f"{int(blend.sum())}, valid {int(((v & 1) > 0).sum())} of "
+        f"{v.numel()} pixels; of the {n_cov} covered, valid {n_valid_cov}")
+    check(n_bad == 0, "K10 bit-equal to the plain twin on frame 2's inputs")
+    check(n_valid_cov > 0, "the steady frame reuses covered pixels")
+    # bytes: the planes in and out once, the history's tid at each
+    # distinct in-range source, its colours and depth at each distinct
+    # blendable source
+    n_tid = int(torch.unique(src[inr.reshape(-1)]).numel())
+    n_col = int(torch.unique(src[blend.reshape(-1)]).numel())
+    hist2 = hist.reshape(5, -1)
+    results["K10"] = dict(
+        err=err,
+        ms=cuda_ms(lambda: reproject_history_planes(*args), 50),
+        plain_ms=cuda_ms(lambda: reproject_history_reference(*args), 10),
+        bound=bound(nbytes(off_x, off_y, exp_z, cur_tid, scal, *a)
+                    + 4 * n_tid + 16 * n_col, 0.0),
+        library_ms=cuda_ms(lambda: torch.index_select(hist2, 1, src), 50))
+    log(f"  K10: kernel {results['K10']['ms']:.4f} ms, twin "
+        f"{results['K10']['plain_ms']:.4f} ms, bound "
+        f"{results['K10']['bound'][0]:.4f} ms ({results['K10']['bound'][1]})"
+        f", index_select {results['K10']['library_ms']:.4f} ms")
+    del cap, args, hist, a, b, src, inr, hist2
+    kernels.reset_launch_counts()
+
+    # ---- 24 timed orbit frames ---------------------------------------------
+    seen, ages = [], []
+    orig = temporal.reproject_history_planes
+
+    def recorder(*a_):
+        out = orig(*a_)
+        seen.append((a_[4], out[3]))         # cur_tid, v
+        return out
+
+    temporal.reproject_history_planes = recorder
+    try:
+        img, med, wall, counts = orbit_frames(
+            r, np, torch, lambda i: temporal_camera(r, np, 3 + i),
+            TEMPORAL_PATH, n_frames=TEMPORAL_FRAMES,
+            after=lambda rr: ages.append(rr._temporal["age"]))
+    finally:
+        temporal.reproject_history_planes = orig
+    cap_c = max(1, min(n_units, round(r.config.temporal.cap_frac * n_units)))
+    cs = []
+    for i, ((ctid, vv), age) in enumerate(zip(seen[1:], ages)):
+        cv = ctid.reshape(vv.shape) >= 0
+        n = max(int(cv.sum()), 1)
+        C = int((age == 0).sum())
+        cs.append(C)
+        log(f"  orbit frame {i + 1} (view {4 + i}): C = {C} of {n_units} "
+            f"units; covered pixels {n}: valid "
+            f"{int(((vv & 1) > 0)[cv].sum()) / n:.4f}, blendable "
+            f"{int(((vv & 2) > 0)[cv].sum()) / n:.4f}")
+    check(all(c == cap_c for c in cs),
+          f"C = {cap_c} units shaded on each of {len(cs)} orbit frames")
+    check_image(img, np, torch)
+    tid = r._last_tri_id
+    x, y = W // 2, H // 2
+    key = r.pick(x, y)
+    t = int(tid[y, x])
+    want = (None if t < 0 else
+            r._mesh_row_to_key.get(int(r._tri_mesh_device_order[t])))
+    check(key == want and (key is None or key in keys),
+          f"pick({x}, {y}) = {key} matches tri_id {t}")
+    del seen, ages
+    temporal_camera(r, np, 3 + TEMPORAL_FRAMES + 1)
+    results["syncs"] = count_syncs(r, torch, "temporal (steady)")
+    results["frames"] = (med, wall, counts)
+    del r
+    check_convergence(P, np, torch)
+    kernels.reset_launch_counts()
+    return results
+
+
 def build_helmet_scene(P, np, device):
     """The glTF catalog's helmet (gltf/samples.py glb_helmet) written to
     build/chip_smoke/, loaded with load_gltf + populate_gltf at W x H
@@ -1349,6 +1566,8 @@ def main() -> int:
     del r, cap
     aa = phase_aa(P, np, torch)
     results["K9"] = aa["K9"]
+    tm = phase_temporal(P, np, torch)
+    results["K10"] = tm["K10"]
     h_med, h_wall, _h_counts, (h_k4, h_k5) = phase_gltf(P, np, torch)
     phase_golden(P, np, torch)
 
@@ -1373,6 +1592,11 @@ def main() -> int:
     log(f"frame Stress-1080p-msaa-bloom-dof: median {a_med:.3f} ms/frame "
         f"(CUDA events), host wall {a_wall:.3f} ms/frame, {aa['syncs']} host"
         f" syncs/frame, at {W}x{H} ({card})")
+    t_med, t_wall, t_counts = tm["frames"]
+    log(f"frame Stress-1080p-temporal-orbit: median {t_med:.3f} ms/frame "
+        f"(CUDA events), host wall {t_wall:.3f} ms/frame, {tm['syncs']} "
+        f"host syncs/frame, over {TEMPORAL_FRAMES} orbit frames at {W}x{H} "
+        f"({card})")
     for label in ("supersample", "smaa"):
         ms, peak = aa[label]
         log(f"frame Stress-1080p-ibl-tex + {label}: median {ms:.3f} ms/frame"
@@ -1407,20 +1631,24 @@ def main() -> int:
         "K9": ("rasterize16_msaa",
                "awsm_renderer_tpu_torch/csrc/raster_msaa.cu",
                "awsm_renderer_tpu/ops/raster.py:1966"),
+        "K10": ("reproject_history",
+                "awsm_renderer_tpu_torch/csrc/temporal.cu",
+                "awsm_renderer_tpu/ops/temporal.py:430"),
     }
     out = []
     for k, (name, src, rep) in sources.items():
         res = results[k]
         # launches on the main path that runs the kernel: the stress
         # frames, or (K7, K6-f32) the volume + HUD frames, or (K9) the
-        # MSAA frames
-        n = counts[name] or b_counts[name] or a_counts[name]
+        # MSAA frames, or (K10) the temporal frames
+        n = (counts[name] or b_counts[name] or a_counts[name]
+             or t_counts[name])
         bound_ms, bound_by = res["bound"]
         lib = res["library_ms"]
         log(f"  {k} {name}: kernel {res['ms']:.4f} ms, twin "
             f"{res['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
             f", library {'-' if lib is None else f'{lib:.4f} ms'}, "
-            f"{n} launches over {N_FRAMES} frames ({card})")
+            f"{n} launches over the path's timed frames ({card})")
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": rep, "launches": n,
                     "max_abs_err": res["err"], "ms": res["ms"],

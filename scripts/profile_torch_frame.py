@@ -8,7 +8,10 @@ environment; --scene stress-untextured: the same without its textures;
 --scene stress-volume: the panes with KHR transmission + volume and a
 HUD box, chip_smoke.py's overlay (b) scene; --scene stress-msaa: the
 stress scene in bench.py's headline configuration, MSAA + bloom + DoF,
-chip_smoke.py's aa scene; --scene helmet: the glTF catalog's helmet),
+chip_smoke.py's aa scene; --scene stress-temporal: the stress scene in
+bench.py's temporal headline configuration, temporal AA + bloom + DoF on
+bench.py's orbit arc, chip_smoke.py's temporal scene; --scene helmet:
+the glTF catalog's helmet),
 warms up, then:
   1. renders --frames orbit frames with the profiler off: median ms/frame
      from CUDA events around each frame, and host wall ms/frame;
@@ -19,7 +22,8 @@ warms up, then:
 
 Usage (repo root, one card):
     python3 scripts/profile_torch_frame.py
-        [--scene stress|stress-untextured|stress-volume|stress-msaa|helmet]
+        [--scene stress|stress-untextured|stress-volume|stress-msaa|
+                 stress-temporal|helmet]
         [--width 1920 --height 1080]
 """
 
@@ -42,7 +46,7 @@ def main() -> int:
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--scene", choices=("stress", "stress-untextured",
                                         "stress-volume", "stress-msaa",
-                                        "helmet"),
+                                        "stress-temporal", "helmet"),
                     default="stress")
     args = ap.parse_args()
 
@@ -63,10 +67,14 @@ def main() -> int:
             P, np, "cuda", textured=args.scene != "stress-untextured",
             volume=args.scene == "stress-volume",
             hud=args.scene == "stress-volume",
-            effects=args.scene == "stress-msaa")
+            effects=args.scene in ("stress-msaa", "stress-temporal"),
+            temporal=args.scene == "stress-temporal")
 
         def camera(i):
-            CS.orbit_camera(r, np, i)
+            if args.scene == "stress-temporal":
+                CS.temporal_camera(r, np, i)
+            else:
+                CS.orbit_camera(r, np, i)
     else:
         r, camera, _ = CS.build_helmet_scene(P, np, "cuda")
     for i in range(3):

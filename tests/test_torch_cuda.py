@@ -10,13 +10,16 @@ without a CUDA device. Run on the card with:
 K1, K3, K5, K6 (both entries), K7, K8 and K9 are bit-equal to their
 twins; K2's ints are equal and
 its floats within rtol 1e-5, atol 1e-6 (both round every product and sum
-separately, so they agree exactly in practice). K4's row indices equal
+separately, so they agree exactly in practice). K10 is bit-equal to its
+twin on the same unit scalars. K4's row indices equal
 the twin's and its weights are within 1e-6, except at taps whose LOD lies
 within 1e-5 of an integer (log2f vs torch.log2 may floor to the other
 mip). The card frame's tri_id plane equals the CPU frame's, and its LDR
 image is within 1e-5 (torch's CUDA pow/exp2 may differ from the CPU's by
 an ulp; a textured frame within 1e-4, for the same reason in its LOD;
-the MSAA / supersample / effects frames within 1e-4)."""
+the MSAA / supersample / effects frames within 1e-4). The temporal
+card frames choose the same units as the CPU frames, and their images
+and history colours agree within 1e-4."""
 
 import numpy as np
 import pytest
@@ -180,7 +183,8 @@ def test_card_frame_matches_cpu_frame(dev, scene):
     # the overlay's kernels: no transparent or HUD content here; K9
     # only with MSAA
     for name in ("rasterize_binned", "rasterize_binned_compact",
-                 "gather_split_channels_f32", "rasterize16_msaa"):
+                 "gather_split_channels_f32", "rasterize16_msaa",
+                 "reproject_history"):
         want[name] = 0
     assert kernels.launch_counts == want
     img_cpu = cpu.render()
@@ -401,3 +405,58 @@ def test_card_aa_frame_matches_cpu_frame(dev, key, monkeypatch):
         assert card._prep[1]["dof_rings"] != ()
     assert card.pick(TM.W // 4, 3 * TM.H // 4) == cpu.pick(TM.W // 4,
                                                           3 * TM.H // 4)
+
+
+@pytest.mark.parametrize("case", ["narrow", "border", "special"])
+def test_k10_kernel_bit_equal_to_twin(dev, case):
+    """K10 at 1080x1920 on random histories and unit-varying offsets
+    (outward motion at the borders; 1e6, +-inf and NaN pixels)."""
+    from awsm_renderer_tpu_torch.ops import kernels
+    from awsm_renderer_tpu_torch.ops import temporal as TT
+    from test_torch_temporal import _k10_case
+
+    args = [torch.from_numpy(np.array(a)).to(dev)
+            for a in _k10_case(case, size=(1920, 1080))]
+    scal = TT._unit_scalars(args[1], args[2], width=1920, height=1080)
+    n0 = kernels.launch_counts["reproject_history"]
+    a = TT.reproject_history_planes(*args, scal)
+    assert kernels.launch_counts["reproject_history"] == n0 + 1
+    b = TT.reproject_history_reference(*args, scal)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(_bits(x), _bits(y))
+    v = a[3]
+    assert 0 < int(((v & 1) > 0).sum()) < int(((v & 2) > 0).sum())
+
+
+def test_card_temporal_frame_matches_cpu_frame(dev):
+    """A reset frame and three orbit frames of the temporal box on the
+    card (K1, K10, K2's explicit px/py entry, K3) against the same frames
+    on the CPU."""
+    import awsm_renderer_tpu_torch as P
+    from awsm_renderer_tpu_torch.ops import kernels
+    from test_torch_temporal import _orbit
+
+    aa = P.AntiAliasing(temporal=True)
+    cpu = T.torch_renderer("box", anti_aliasing=aa)
+    card = T.build(P.AwsmRendererTorch(P.RendererConfig(
+        width=T.W, height=T.H, anti_aliasing=aa), device="cuda"), "box")
+    for i in range(4):
+        _orbit(cpu, i)
+        _orbit(card, i)
+        kernels.reset_launch_counts()
+        img_card = card.render()
+        for name in ("rasterize16_slim", "reproject_history",
+                     "resolve_planes_fused"):
+            assert kernels.launch_counts[name] == 1, name
+        img_cpu = cpu.render()
+        st_card, st_cpu = card._temporal, cpu._temporal
+        np.testing.assert_array_equal(st_card["age"].cpu().numpy(),
+                                      st_cpu["age"].numpy())
+        np.testing.assert_array_equal(card._last_tri_id.cpu().numpy(),
+                                      cpu._last_tri_id.numpy())
+        np.testing.assert_allclose(img_card, img_cpu, rtol=0, atol=1e-4)
+        h_card, h_cpu = st_card["hist"].cpu(), st_cpu["hist"]
+        assert torch.equal(_bits(h_card[3]), _bits(h_cpu[3]))
+        torch.testing.assert_close(h_card[:3], h_cpu[:3], rtol=0, atol=1e-4)
+    assert card.pick(T.W // 2, T.H // 2) == cpu.pick(T.W // 2, T.H // 2)

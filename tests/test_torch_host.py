@@ -260,7 +260,6 @@ def _temporal(r):
 
 
 @pytest.mark.parametrize("scene, edit, milestone", [
-    ("box", _temporal, "M11"),
     ("box", _many_lights, "M12"),
     ("box", _skinned_gltf, "M2b"),
     ("morph-cube", None, "M2b"),
@@ -288,6 +287,48 @@ def test_aa_and_effects_render(scene, edit):
     img = r.render()
     assert img.shape == base.shape and np.isfinite(img).all()
     assert not np.array_equal(img, base)
+
+
+@pytest.mark.parametrize("other, debug_mode", [
+    (_msaa, "none"), (None, "normals")], ids=["msaa", "debug-view"])
+def test_temporal_falls_back_to_the_ordinary_frame(other, debug_mode):
+    """Temporal AA with MSAA, or under a debug view, renders the ordinary
+    frame, as the JAX renderer's use_temporal rule (renderer.py:970) does,
+    and keeps no history."""
+    plain = T.torch_renderer("box")
+    r = T.torch_renderer("box")
+    _temporal(r)
+    if other is not None:
+        other(plain)
+        other(r)
+    want = plain.render(debug_mode=debug_mode)
+    got = r.render(debug_mode=debug_mode)
+    assert r._temporal is None
+    np.testing.assert_array_equal(got, want)
+
+
+def test_temporal_frame_that_raises_resets_the_next():
+    """The history leaves the renderer while a temporal frame runs: a
+    frame that raises leaves none, and the next frame resets (shades
+    every unit) instead of reusing a half-updated history."""
+    from awsm_renderer_tpu_torch import renderer as R
+
+    r = T.torch_renderer("box")
+    _temporal(r)
+    r.render()
+    r.render()
+    assert int((r._temporal["age"] == 0).sum()) == 1
+
+    def fail(*a, **k):
+        raise RuntimeError("frame failed")
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(R, "render_frame_temporal", fail)
+        with pytest.raises(RuntimeError, match="frame failed"):
+            r.render()
+    assert r._temporal is None
+    r.render()
+    assert bool((r._temporal["age"] == 0).all())
 
 
 def test_msaa_with_supersample_is_refused():
