@@ -51,7 +51,6 @@ constexpr int BT = 32;
 constexpr int NPX = BT * BT;
 constexpr int NPLANE = 12;  // edge triples (0..8) + z-plane (9..11)
 constexpr float FMIN = 1.1754943508222875e-38f;
-constexpr int HAS_UV1 = 1, HAS_COLOR = 2, HAS_DERIVS = 4;
 
 __device__ __forceinline__ float plane(float a, float b, float c, float px,
                                        float py) {
@@ -120,20 +119,9 @@ binned_kernel(const float* __restrict__ setup, const int* __restrict__ bins,
 
   // output planes: depth, then RESOLVE_NAMES[1:] without the untaken
   // uv1 / colour / derivative groups (ops/raster.py plane_layout)
-  const bool uv1 = flags & HAS_UV1, color = flags & HAS_COLOR;
-  const bool derivs = flags & HAS_DERIVS;
   auto emit = [&](int k, float v) {
-    int slot = k;
-    if (k >= 3) {
-      if (k < 5 && !uv1) return;
-      if (!uv1) slot -= 2;
-    }
-    if (k >= 5) {
-      if (k < 9 && !color) return;
-      if (!color) slot -= 4;
-    }
-    if (k >= 16 && !derivs) return;
-    out[(size_t)(1 + slot) * P_out + o] = v;
+    const int slot = awsm::plane_slot(k, flags);
+    if (slot >= 0) out[(size_t)(1 + slot) * P_out + o] = v;
   };
   out[o] = best_z;
   if (best_col < 0) {

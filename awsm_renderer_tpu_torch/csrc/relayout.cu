@@ -21,10 +21,23 @@
 // (N, C) f32 table at the refracted pixels and splits them into
 // (ncols, M) planes.
 //
-// All three are pure data movement: bounded on the H100 by DRAM bandwidth
+// K12 awsm_split_rows replaces awsm_renderer_tpu/ops/relayout.py::
+// split_rows (pallas_call at relayout.py:106): a channel-major (C, P)
+// table, f32 or bf16, materialised as C separate f32 rows. On the card the
+// rows of one (C, P) f32 output are already separate contiguous arrays, so
+// this is a widening copy, four values a thread per step (16-byte stores).
+//
+// K13 awsm_channel_rows replaces relayout.py::channel_rows (pallas_call at
+// :188): (P, C) -> (C, P) f32, a shared-memory tile transpose. A block
+// reads TP whole rows (TP * C contiguous values, coalesced), writes them
+// into a padded [C][TP + 1] tile, and stores each channel's TP values as
+// one contiguous run of row c.
+//
+// All five are pure data movement: bounded on the H100 by DRAM bandwidth
 // (K3: 4 B read + 4*C B written per pixel, the table stays in L1/L2; K6:
 // a 32 B row read and 64 B written per tap; K6-f32: a 16 B row read and
-// 16 B written per refracted pixel). Simple and right first; vectorised
+// 16 B written per refracted pixel; K12 and K13: each value read once
+// and written once as f32). Simple and right first; vectorised
 // 16 B loads and stores are later work.
 
 #include <cuda_runtime.h>
@@ -68,7 +81,88 @@ __global__ void gather_split_f32_kernel(const float* __restrict__ table,
   for (int c = 0; c < ncols; ++c) out[(size_t)c * M + i] = src[c];
 }
 
+// x holds n values, f32 (bf16 == 0) or bf16 bit patterns (bf16 == 1)
+__device__ __forceinline__ float load_f32(const void* x, size_t i, int bf16) {
+  return bf16 ? __uint_as_float((uint32_t)((const uint16_t*)x)[i] << 16)
+              : ((const float*)x)[i];
+}
+
+// vec: x (and out) aligned for 4-value vector accesses; the tail past the
+// last whole group of 4, or everything when not aligned, goes one by one
+__global__ void split_rows_kernel(const void* __restrict__ x, int bf16,
+                                  int vec, size_t n, float* __restrict__ out) {
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  const size_t i0 = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t n4 = vec ? n / 4 : 0;
+  float4* out4 = reinterpret_cast<float4*>(out);
+  if (bf16) {
+    const uint2* x4 = static_cast<const uint2*>(x);  // 4 bf16 values
+    for (size_t i = i0; i < n4; i += stride) {
+      const uint2 v = x4[i];
+      out4[i] = make_float4(__uint_as_float(v.x << 16),
+                            __uint_as_float(v.x & 0xffff0000u),
+                            __uint_as_float(v.y << 16),
+                            __uint_as_float(v.y & 0xffff0000u));
+    }
+  } else {
+    const float4* x4 = static_cast<const float4*>(x);
+    for (size_t i = i0; i < n4; i += stride) out4[i] = x4[i];
+  }
+  for (size_t i = 4 * n4 + i0; i < n; i += stride) {
+    out[i] = load_f32(x, i, bf16);
+  }
+}
+
+constexpr int CR_THREADS = 256;
+
+// one block per TP rows; tile is C x (TP + 1) floats of dynamic shared memory
+__global__ void __launch_bounds__(CR_THREADS)
+channel_rows_kernel(const void* __restrict__ x, int bf16, int P, int C, int TP,
+                    float* __restrict__ out) {
+  extern __shared__ float tile[];
+  const int p0 = blockIdx.x * TP;
+  const int rows = min(TP, P - p0);
+  const int n = rows * C;
+  const size_t base = (size_t)p0 * C;
+  for (int i = threadIdx.x; i < n; i += CR_THREADS) {
+    tile[(i % C) * (TP + 1) + i / C] = load_f32(x, base + i, bf16);
+  }
+  __syncthreads();
+  for (int c = 0; c < C; ++c) {
+    for (int p = threadIdx.x; p < rows; p += CR_THREADS) {
+      out[(size_t)c * P + p0 + p] = tile[c * (TP + 1) + p];
+    }
+  }
+}
+
 }  // namespace
+
+extern "C" int awsm_split_rows(const void* x, int bf16, int C, int P,
+                               float* out, cudaStream_t stream) {
+  const size_t n = (size_t)C * P;
+  if (n > 0) {
+    const int vec = (uintptr_t)x % (bf16 ? 8 : 16) == 0;
+    const int block = 256;
+    const size_t want = (n / 4 + block - 1) / block;
+    const int grid = (int)(want < 1 ? 1 : want < 65535 ? want : 65535);
+    split_rows_kernel<<<grid, block, 0, stream>>>(x, bf16, vec, n, out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// TP rows a block: a power of two with C * TP <= 8192 floats (32 KB of
+// shared memory), between 8 and 1024; C at most 1024
+extern "C" int awsm_channel_rows(const void* x, int bf16, int P, int C,
+                                 float* out, cudaStream_t stream) {
+  if (P > 0 && C > 0) {
+    int TP = 1024;
+    while (TP > 8 && C * TP > 8192) TP >>= 1;
+    const size_t smem = (size_t)C * (TP + 1) * sizeof(float);
+    channel_rows_kernel<<<(P + TP - 1) / TP, CR_THREADS, smem, stream>>>(
+        x, bf16, P, C, TP, out);
+  }
+  return (int)cudaGetLastError();
+}
 
 extern "C" int awsm_onehot_split_rows(const int* rows, const float* table,
                                       int cap, int C, int P, float* out,

@@ -16,6 +16,8 @@ namespace awsm {
 
 constexpr int NSETUP = 64;
 constexpr int NRESOLVE = 20;  // float planes after tri_id, RESOLVE_NAMES order
+// layout flags of a fat plane set (ops/raster.py plane_layout)
+constexpr int HAS_UV1 = 1, HAS_COLOR = 2, HAS_DERIVS = 4;
 // setup row indices (ops/vertex.py)
 constexpr int S_E0A = 0, S_E1A = 3, S_E2A = 6, S_IW0 = 12, S_MAT_ROW = 19;
 constexpr int S_TANGENT_W = 20, S_UV0 = 21, S_UV1 = 27, S_COLOR = 33;
@@ -28,6 +30,17 @@ __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b);
 __device__ __forceinline__ float dot3(float a0, float a1, float a2, float b0,
                                       float b1, float b2) {
   return add(add(mul(a0, b0), mul(a1, b1)), mul(a2, b2));
+}
+
+// Slot of resolve plane k (RESOLVE_NAMES[1:] order) among the float
+// planes after depth, in a layout without the untaken uv1 / colour /
+// derivative groups; -1 when plane k is not in the layout.
+__device__ __forceinline__ int plane_slot(int k, int flags) {
+  const bool uv1 = flags & HAS_UV1, color = flags & HAS_COLOR;
+  if ((k == 3 || k == 4) && !uv1) return -1;
+  if (k >= 5 && k < 9 && !color) return -1;
+  if (k >= 16 && !(flags & HAS_DERIVS)) return -1;
+  return k - (k >= 5 && !uv1 ? 2 : 0) - (k >= 9 && !color ? 4 : 0);
 }
 
 // Emits emit(k, value) for k = 0..NRESOLVE-1 in RESOLVE_NAMES[1:] order:

@@ -31,7 +31,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 SOURCES = ("raster16.cu", "resolve.cu", "relayout.cu", "texsample.cu",
-           "binned.cu", "raster_msaa.cu", "temporal.cu")
+           "binned.cu", "raster_msaa.cu", "temporal.cu", "dense.cu")
 # -fmad=false: no FMA contraction anywhere. The edge functions and the
 # resolve ALU must round exactly like their plain PyTorch twins (separate
 # mul and add kernels); a contracted edge function opens pinholes along
@@ -57,6 +57,9 @@ _SIGNATURES = {
     "awsm_raster_msaa": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
                          _P],
     "awsm_reproject": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+    "awsm_dense": [_P, _I, _P, _I, _I, _P, _P, _I, _P, _P, _P],
+    "awsm_split_rows": [_P, _I, _I, _I, _P, _P],
+    "awsm_channel_rows": [_P, _I, _I, _I, _P, _P],
 }
 
 launch_counts: Dict[str, int] = {
@@ -71,6 +74,10 @@ launch_counts: Dict[str, int] = {
     "rasterize_binned_compact": 0,
     "rasterize16_msaa": 0,
     "reproject_history": 0,
+    "rasterize_dense": 0,
+    "rasterize_peel_dense": 0,
+    "split_rows": 0,
+    "channel_rows": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,6 +1,6 @@
-"""Binned tile rasterizers.
+"""Binned tile rasterizers, and the dense raster.
 
-Port of three paths of awsm_renderer_tpu/ops/raster.py. The opaque (v5)
+Port of four paths of awsm_renderer_tpu/ops/raster.py. The opaque (v5)
 path: pad_setup_rows, _group_zmin, build_bins16 (sort-based (tile,
 group) pair binning, plain PyTorch here as it is XLA code there), K1
 rasterize16_slim (hand-written CUDA, csrc/raster16.cu) with its plain
@@ -11,8 +11,13 @@ raster_msaa.cu, twin rasterize16_msaa_reference) over build_bins16's
 _chunk_zmin, build_bins, K7 rasterize_binned and K8
 _rasterize_binned_compact (csrc/binned.cu, twins *_reference), the
 K-layer peels rasterize_layers_rows and rasterize_layers_compact. The
-port's setup is row-major (T, NSETUP) everywhere, so the reference's
-column-major pad_setup is pad_setup_rows here.
+dense route: K11a / K11b (csrc/dense.cu, twins rasterize_dense_reference
+and rasterize_peel_dense_reference) behind rasterize(binned=False) and
+rasterize_peel(binned=False), which no frame path takes (the reference's
+interpret-mode route; here the on-card oracle for the binned kernels,
+chip_smoke.py's oracle phase). The port's setup is row-major (T,
+NSETUP) everywhere, so the reference's column-major pad_setup is
+pad_setup_rows here.
 
 Fill convention: top-left rule with pixel centers at +0.5; depth is NDC z
 in [0, 1], cleared to 1.0, LESS compare.
@@ -853,15 +858,229 @@ def _peel_layers(peel, zlo, n_layers: int):
             for n in per_layer[0]}
 
 
-def rasterize(setup_rows, *, width: int, height: int, has_uv1: bool = True,
+def rasterize(setup_rows, *, width: int, height: int, binned: bool = True,
+              slim: bool = False, has_uv1: bool = True,
               has_color: bool = True, analytic_derivs: bool = True):
-    """One fat raster of row-major setup without a peel -> {name: (height,
-    width)} (reference: rasterize, whose hardware route is K7). The HUD
-    pass takes it over a compacted overlay pool, where tri_id must come
-    from S_ORIG_ID."""
-    return rasterize_binned(setup_rows, width=width, height=height,
-                            has_uv1=has_uv1, has_color=has_color,
-                            analytic_derivs=analytic_derivs)
+    """One raster of row-major setup (T, NSETUP) f32 without a peel ->
+    {name: (height, width)} (reference: rasterize). binned=True (the
+    default, the reference's hardware route) takes K7; the HUD pass takes
+    it over a compacted overlay pool, where tri_id must come from
+    S_ORIG_ID. binned=False takes the dense route K11a (the reference's
+    interpret-mode route; the port's on-card oracle for K1, K7, K8 and
+    K9). slim=True returns only tri_id and depth."""
+    if not binned:
+        return _rasterize_dense(setup_rows, None, None, width=width,
+                                height=height, slim=slim, has_uv1=has_uv1,
+                                has_color=has_color,
+                                analytic_derivs=analytic_derivs)
+    out = rasterize_binned(setup_rows, width=width, height=height,
+                           has_uv1=has_uv1, has_color=has_color,
+                           analytic_derivs=analytic_derivs)
+    return {k: out[k] for k in ("tri_id", "depth")} if slim else out
+
+
+def rasterize_peel(setup_rows, zlo, zhi, *, width: int, height: int,
+                   binned: bool = True, slim: bool = False,
+                   has_uv1: bool = True, has_color: bool = True,
+                   analytic_derivs: bool = True):
+    """One depth peel: the nearest fragment with zlo < z < zhi per pixel
+    (reference: rasterize_peel); zlo/zhi (height, width) f32. binned=True
+    takes K7, binned=False the dense peel K11b."""
+    if not binned:
+        return _rasterize_dense(setup_rows, zlo, zhi, width=width,
+                                height=height, slim=slim, has_uv1=has_uv1,
+                                has_color=has_color,
+                                analytic_derivs=analytic_derivs)
+    out = rasterize_binned(setup_rows, zlo, zhi, width=width, height=height,
+                           has_uv1=has_uv1, has_color=has_color,
+                           analytic_derivs=analytic_derivs)
+    return {k: out[k] for k in ("tri_id", "depth")} if slim else out
+
+
+# ---- K11a / K11b: the dense raster and the dense peel -------------------
+#
+# Every 8x128 tile tests every 128-triangle chunk's bbox and merges the
+# chunks that overlap it in index order: no bins, no near-first order, no
+# hi-Z. Its walk is its own code (not _merge_groups), so it checks the
+# binned kernels' walks rather than repeating them.
+
+
+def _dense_tiles(plane: torch.Tensor, n_ty: int, n_tx: int) -> torch.Tensor:
+    """(H, W) -> (n_tiles, 1024) row-major 8x128 tile blocks."""
+    return (plane.reshape(n_ty, TILE_H, n_tx, TILE_W).transpose(1, 2)
+            .reshape(n_ty * n_tx, TILE_H * TILE_W))
+
+
+def _dense_untile(tiles: torch.Tensor, n_ty: int, n_tx: int) -> torch.Tensor:
+    """(n_tiles, 1024) 8x128 tile blocks -> (H, W)."""
+    return (tiles.reshape(n_ty, n_tx, TILE_H, TILE_W).transpose(1, 2)
+            .reshape(n_ty * TILE_H, n_tx * TILE_W))
+
+
+def _dense_walk(setup_rows, width: int, height: int, zbounds=None):
+    """The K11 merge for every 8x128 tile: each tile takes, over the chunks
+    whose bbox overlaps it, the covering fragment of least z (0 <= z <= 1,
+    zlo < z < zhi under a peel), the lowest triangle index on ties, and
+    keeps it only if strictly nearer than what it holds (the reference's
+    subgroup merge, here one chunk at a time). Returns (best_z, best_col
+    (n_tiles, 1024), px, py)."""
+    dev = setup_rows.device
+    n_chunks = setup_rows.shape[0] // CHUNK
+    n_ty, n_tx = height // TILE_H, width // TILE_W
+    n_tiles = n_ty * n_tx
+    chunks = setup_rows.reshape(n_chunks, CHUNK, NSETUP)
+    minx = chunks[:, :, S_BB_MINX].amin(dim=1)
+    miny = chunks[:, :, S_BB_MINY].amin(dim=1)
+    maxx = chunks[:, :, S_BB_MAXX].amax(dim=1)
+    maxy = chunks[:, :, S_BB_MAXY].amax(dim=1)
+    tx0 = torch.arange(n_tx, device=dev).float() * TILE_W
+    ty0 = torch.arange(n_ty, device=dev).float() * TILE_H
+    ox = (minx[None, :] < (tx0 + TILE_W)[:, None]) & (maxx[None, :]
+                                                      > tx0[:, None])
+    oy = (miny[None, :] < (ty0 + TILE_H)[:, None]) & (maxy[None, :]
+                                                      > ty0[:, None])
+    overlap = (oy[:, None, :] & ox[None, :, :]).reshape(n_tiles, n_chunks)
+    # (chunk, tile) pairs in chunk order, one host read for the whole walk
+    pairs = overlap.T.nonzero().cpu()
+    splits = torch.bincount(pairs[:, 0], minlength=n_chunks).tolist()
+    tiles_of = torch.split(pairs[:, 1], splits)
+
+    flat = torch.arange(TILE_H * TILE_W, device=dev)
+    t = torch.arange(n_tiles, device=dev)
+    tx = (t % n_tx) * TILE_W
+    ty = torch.div(t, n_tx, rounding_mode="floor") * TILE_H
+    px = tx.float()[:, None] + (flat % TILE_W).float() + 0.5
+    py = ty.float()[:, None] + torch.div(flat, TILE_W,
+                                         rounding_mode="floor").float() + 0.5
+    zb = None
+    if zbounds is not None:
+        zb = tuple(_dense_tiles(z, n_ty, n_tx) for z in zbounds)
+    best_z = torch.ones((n_tiles, TILE_H * TILE_W), device=dev)
+    best_col = torch.full((n_tiles, TILE_H * TILE_W), -1, dtype=torch.int32,
+                          device=dev)
+    lane = torch.arange(CHUNK, device=dev)[None, :, None]
+    for c, tl in enumerate(tiles_of):
+        if tl.numel() == 0:
+            continue
+        tl = tl.to(dev)
+        x, y = px[tl][:, None, :], py[tl][:, None, :]      # (n, 1, 1024)
+        P = chunks[c].T[:, None, :, None]                 # (64, 1, 128, 1)
+        cover = None
+        for ra in (S_E0A, S_E1A, S_E2A):
+            a, b, cc = P[ra], P[ra + 1], P[ra + 2]
+            e = a * x + (b * y + cc)
+            top_left = (a > 0) | ((a == 0) & (b > 0))
+            ok = e >= torch.where(top_left, 0.0, _FMIN)
+            cover = ok if cover is None else cover & ok
+        z = P[S_ZA] * x + (P[S_ZB] * y + P[S_ZC])         # (n, 128, 1024)
+        cover = cover & (z >= 0.0) & (z <= 1.0)
+        if zb is not None:
+            cover = cover & (z > zb[0][tl][:, None, :]) \
+                & (z < zb[1][tl][:, None, :])
+        zc = torch.where(cover, z, torch.full_like(z, _BIG))
+        zmin = zc.amin(dim=1, keepdim=True)
+        win = torch.where(zc == zmin, lane, CHUNK).amin(dim=1, keepdim=True)
+        zwin = zc.gather(1, win.clamp(max=CHUNK - 1))[:, 0]
+        cur_z, cur_c = best_z[tl], best_col[tl]
+        take = zwin < cur_z
+        best_z[tl] = torch.where(take, zwin, cur_z)
+        best_col[tl] = torch.where(take, (c * CHUNK + win[:, 0]).int(),
+                                   cur_c)
+    return best_z, best_col, px, py
+
+
+def _dense_reference(setup_rows, zlo, zhi, *, width: int, height: int,
+                     names):
+    n_ty, n_tx = height // TILE_H, width // TILE_W
+    zb = None if zlo is None else (zlo, zhi)
+    best_z, best_col, px, py = _dense_walk(setup_rows, width, height, zb)
+    if names == ("tri_id", "depth"):
+        ids = setup_rows[:, S_ORIG_ID].index_select(
+            0, best_col.reshape(-1).clamp(min=0).long()).to(torch.int32)
+        tid = torch.where(best_col.reshape(-1) < 0, -1, ids)
+        planes = {"tri_id": tid.reshape(best_z.shape), "depth": best_z}
+    else:
+        planes = _flush_planes(setup_rows, best_z, best_col, px, py, names)
+    return {k: _dense_untile(v, n_ty, n_tx) for k, v in planes.items()}
+
+
+def rasterize_dense_reference(setup_rows, *, width: int, height: int,
+                              slim: bool = False, has_uv1: bool = True,
+                              has_color: bool = True,
+                              analytic_derivs: bool = True):
+    """Plain PyTorch twin of K11a (bit-equal to the kernel). Works on any
+    device."""
+    return _dense_reference(setup_rows, None, None, width=width,
+                            height=height, names=_dense_names(
+                                slim, has_uv1, has_color, analytic_derivs))
+
+
+def rasterize_peel_dense_reference(setup_rows, zlo, zhi, *, width: int,
+                                   height: int, slim: bool = False,
+                                   has_uv1: bool = True,
+                                   has_color: bool = True,
+                                   analytic_derivs: bool = True):
+    """Plain PyTorch twin of K11b (bit-equal to the kernel). Works on any
+    device."""
+    return _dense_reference(setup_rows, zlo, zhi, width=width,
+                            height=height, names=_dense_names(
+                                slim, has_uv1, has_color, analytic_derivs))
+
+
+def _dense_names(slim, has_uv1, has_color, analytic_derivs):
+    if slim:
+        return ("tri_id", "depth")
+    return plane_layout(has_uv1, has_color, analytic_derivs)
+
+
+def _rasterize_dense(setup_rows, zlo, zhi, *, width: int, height: int,
+                     slim: bool, has_uv1: bool, has_color: bool,
+                     analytic_derivs: bool):
+    """K11a (zlo None) / K11b: the dense raster of row-major setup (T,
+    NSETUP) f32, T a CHUNK multiple, width a TILE_W and height a TILE_H
+    multiple (the reference asserts the same). tri_id is the winner's
+    S_ORIG_ID (-1 on a miss), depth 1.0 where nothing wins; the fat
+    planes are the winner's attributes at the pixel centre. A CUDA
+    tensor launches csrc/dense.cu; a CPU tensor takes the plain twin."""
+    if setup_rows.shape[0] % CHUNK:
+        raise ValueError(f"setup rows {setup_rows.shape[0]} not a multiple "
+                         f"of {CHUNK}")
+    if width % TILE_W or height % TILE_H:
+        raise ValueError(f"{width}x{height} is not a multiple of "
+                         f"{TILE_W}x{TILE_H}")
+    names = _dense_names(slim, has_uv1, has_color, analytic_derivs)
+    if setup_rows.device.type == "cpu":
+        return _dense_reference(setup_rows, zlo, zhi, width=width,
+                                height=height, names=names)
+    if setup_rows.dtype != torch.float32 or setup_rows.dim() != 2 \
+            or setup_rows.shape[1] != NSETUP:
+        raise ValueError(f"setup rows must be (T, {NSETUP}) f32")
+    peel = zlo is not None
+    P = width * height
+    if peel:
+        zlo, zhi = zlo.contiguous(), zhi.contiguous()
+        if zlo.dtype != torch.float32 or zhi.dtype != torch.float32 \
+                or zlo.numel() != P or zhi.numel() != P:
+            raise ValueError(f"zlo/zhi must be f32 of {P} values")
+    kernels.check_cuda(setup_rows, *((zlo, zhi) if peel else ()))
+    dev = setup_rows.device
+    n_chunks = setup_rows.shape[0] // CHUNK
+    bbox = torch.empty((n_chunks, 4), dtype=torch.float32, device=dev)
+    tid = torch.empty(P, dtype=torch.int32, device=dev)
+    planes = torch.empty((len(names) - 1, P), dtype=torch.float32,
+                         device=dev)
+    flags = ((1 if "uv1_u" in names else 0) | (2 if "color_r" in names else 0)
+             | (4 if "du0_dx" in names else 0) | (8 if slim else 0))
+    kernels.launch("rasterize_peel_dense" if peel else "rasterize_dense",
+                   "awsm_dense", setup_rows.data_ptr(), n_chunks,
+                   bbox.data_ptr(), width, height,
+                   zlo.data_ptr() if peel else None,
+                   zhi.data_ptr() if peel else None, flags, tid.data_ptr(),
+                   planes.data_ptr())
+    out = {"tri_id": tid.reshape(height, width)}
+    out.update((k, p.reshape(height, width)) for k, p in zip(names[1:],
+                                                             planes))
+    return out
 
 
 def rasterize_layers(rows, opaque_depth, *, width: int, height: int,

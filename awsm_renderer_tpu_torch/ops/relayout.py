@@ -1,12 +1,17 @@
 """Gather-and-split kernels of the shade: K3 (material fetch) and K6
-(environment taps in bf16; the volume-refraction background in f32).
+(environment taps in bf16; the volume-refraction background in f32); and
+the two relayouts no frame path runs, K12 split_rows and K13
+channel_rows.
 
-Port of the two awsm_renderer_tpu/ops/relayout.py kernels the slice runs.
-On the TPU these exist to give every channel its own rank-1 array (a
-layout concern there); on the card they are plain gathers written by hand
-(csrc/relayout.cu) that emit channel-major (C, N) f32 planes. Each has a
-public plain twin (*_reference) for any device; a CPU tensor takes the
-twin, a CUDA tensor the kernel.
+Port of the four awsm_renderer_tpu/ops/relayout.py kernels. On the TPU
+these exist to give every channel its own rank-1 array (a layout concern
+there); on the card K3 and K6 are plain gathers written by hand
+(csrc/relayout.cu) that emit channel-major (C, N) f32 planes, K12 a
+widening copy and K13 a tile transpose. The reference reaches K12 only
+through its fallback tap branch (texsample.py:569-632), which the port
+does not copy, and K13 has no caller: both are ported as standalone
+kernels. Each has a public plain twin (*_reference) for any device; a CPU
+tensor takes the twin, a CUDA tensor the kernel.
 """
 
 from __future__ import annotations
@@ -102,4 +107,51 @@ def gather_split_channels_f32(table: torch.Tensor, idx: torch.Tensor,
     kernels.launch("gather_split_channels_f32",
                    "awsm_gather_split_channels_f32", table.data_ptr(), N, C,
                    idx.data_ptr(), M, ncols, out.data_ptr())
+    return out
+
+
+def _f32_or_bf16(x: torch.Tensor, name: str) -> int:
+    """1 for bf16, 0 for f32; raises on another dtype or a 2-D mismatch."""
+    if x.dim() != 2 or x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name} must be 2-D f32 or bf16")
+    return int(x.dtype == torch.bfloat16)
+
+
+def split_rows_reference(x: torch.Tensor):
+    """(C, P) f32/bf16 -> tuple of C (P,) f32 rows."""
+    return tuple(x.float().clone().unbind(0))
+
+
+def split_rows(x: torch.Tensor):
+    """K12: a channel-major (C, P) f32 or bf16 table -> tuple of C
+    separate (P,) f32 rows (reference: relayout.py split_rows)."""
+    if x.device.type == "cpu":
+        return split_rows_reference(x)
+    bf16 = _f32_or_bf16(x, "x")
+    kernels.check_cuda(x)
+    C, P = x.shape
+    out = torch.empty((C, P), dtype=torch.float32, device=x.device)
+    kernels.launch("split_rows", "awsm_split_rows", x.data_ptr(), bf16, C, P,
+                   out.data_ptr())
+    return tuple(out.unbind(0))
+
+
+def channel_rows_reference(x: torch.Tensor) -> torch.Tensor:
+    """(P, C) f32/bf16 -> (C, P) f32."""
+    return x.t().float().contiguous()
+
+
+def channel_rows(x: torch.Tensor) -> torch.Tensor:
+    """K13: (P, C) f32 or bf16 -> (C, P) f32, physically transposed
+    (reference: relayout.py channel_rows); C at most 1024."""
+    if x.device.type == "cpu":
+        return channel_rows_reference(x)
+    bf16 = _f32_or_bf16(x, "x")
+    kernels.check_cuda(x)
+    P, C = x.shape
+    if C > 1024:
+        raise ValueError(f"{C} channels: at most 1024")
+    out = torch.empty((C, P), dtype=torch.float32, device=x.device)
+    kernels.launch("channel_rows", "awsm_channel_rows", x.data_ptr(), bf16,
+                   P, C, out.data_ptr())
     return out

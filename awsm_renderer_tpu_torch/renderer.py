@@ -89,6 +89,8 @@ class AwsmRendererTorch:
         self._tri_mesh_device_order = None
         self._mesh_flush_gen = 0       # bumps on every mesh-pool flush
         self._ov_idx_cache = None      # (overlay mask, flush gen, tensor)
+        self._mask_cache: Dict[str, tuple] = {}   # name -> (mask, tensor)
+        self._last_render_call = ("none", None)   # pick() replays it
         self.last_bins = None          # raster bins of the last frame
         self._content_epoch = 0        # non-camera store flush counter
         self._temporal = None          # TAA state: hist/age/prev_vp/epoch
@@ -158,6 +160,26 @@ class AwsmRendererTorch:
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+
+    def _upload(self, a) -> torch.Tensor:
+        """Host array -> device tensor without waiting for the device: on
+        a card, staged through pinned memory and copied on the current
+        stream (a copy from pageable memory waits for the device)."""
+        if self.device.type != "cuda":
+            return self._tensor(a)
+        return torch.from_numpy(np.ascontiguousarray(a)).pin_memory().to(
+            self.device, non_blocking=True)
+
+    def _device_mask(self, name: str, arr: np.ndarray) -> torch.Tensor:
+        """Upload a bucket mask only when its content changed (reference:
+        renderer.py _device_mask). _prepare reruns on every camera move,
+        and the frustum cull changes the masks as the camera moves."""
+        cached = self._mask_cache.get(name)
+        if cached is not None and np.array_equal(cached[0], arr):
+            return cached[1]
+        dev = self._upload(arr)
+        self._mask_cache[name] = (arr.copy(), dev)
+        return dev
 
     def _flush(self, jitter_px=None, prev_view_proj=None) -> Dict[str, object]:
         """Upload the dirty host stores. jitter_px / prev_view_proj (the
@@ -393,7 +415,7 @@ class AwsmRendererTorch:
         cap = max(128, 1 << (int(sel.size) - 1).bit_length())
         out = np.full(cap, -1, np.int32)
         out[: sel.size] = sel
-        dev = self._tensor(out)
+        dev = self._upload(out)
         self._ov_idx_cache = (mask.copy(), self._mesh_flush_gen, dev)
         return dev
 
@@ -593,7 +615,7 @@ class AwsmRendererTorch:
         op_rows = self._bucket_mat_rows(masks["opaque"])
         prep = dict(masks=masks, slot_mask=self._slot_mask(op_rows),
                     ext=self._ext_mask(op_rows),
-                    opaque_dev=self._tensor(masks["opaque"]),
+                    opaque_dev=self._device_mask("opaque", masks["opaque"]),
                     transparent_dev=None, hud_dev=None, ov_slot_mask=None,
                     ov_ext=None, ov_crop=None, ov_idx=None, ov_tile_cap=None,
                     n_layers=self.config.max_transparent_layers,
@@ -615,7 +637,8 @@ class AwsmRendererTorch:
                         ov_crop=self._overlay_crop(masks),
                         ov_idx=self._overlay_tri_idx(masks))
         if has_transparent:
-            prep["transparent_dev"] = self._tensor(masks["transparent"])
+            prep["transparent_dev"] = self._device_mask(
+                "transparent", masks["transparent"])
             # 32x32 units: the cap sizes the compacted peel's tile grid
             prep["ov_tile_cap"] = self._bucket_tile_cap(
                 masks, "transparent", tile_h=32, tile_w=32)
@@ -623,7 +646,7 @@ class AwsmRendererTorch:
             if bound:
                 prep["n_layers"] = min(prep["n_layers"], bound)
         if has_hud:
-            prep["hud_dev"] = self._tensor(masks["hud"])
+            prep["hud_dev"] = self._device_mask("hud", masks["hud"])
         return prep
 
     def _scene_signature(self, cfg=None):
@@ -732,6 +755,8 @@ class AwsmRendererTorch:
         self._last_tri_id = tri_id
         self._rendered_sig = prep_key
         self.last_bins = bins
+        # pick() re-renders THIS frame's configuration when it is stale
+        self._last_render_call = (debug_mode, hooks)
         return ldr
 
     def render(self, debug_mode: str = "none", hooks=None) -> np.ndarray:
@@ -754,7 +779,16 @@ class AwsmRendererTorch:
                 != self._scene_signature()):
             if self.meshes.count == 0:
                 return None
-            self.render_device()
+            # replay the last render call (reference: renderer.py pick),
+            # without its host-side pre/post_render hooks
+            dm, hk = self._last_render_call
+            if hk is not None and (getattr(hk, "pre_render", None)
+                                   or getattr(hk, "post_render", None)):
+                import dataclasses
+
+                hk = dataclasses.replace(hk, pre_render=None,
+                                         post_render=None)
+            self.render_device(debug_mode=dm, hooks=hk)
         h, w = self._last_tri_id.shape
         if not (0 <= x < w and 0 <= y < h):
             return None

@@ -28,13 +28,13 @@ back to the CPU). Phases:
   overlay  (a) the stress frame's overlay: the compaction (C of n_tiles),
            layer clamp and crop band of its prep, K8 against its twin bit
            for bit on the first frame's first peel, timed, and the host
-           syncs of one frame; (b) the same scene with the panes given
-           KHR transmission + volume (thickness 0.5, which turns the crop
-           and the compaction off) and one HUD box: 12 orbit frames with
-           K7 (peel and non-peel) and K6's f32 entry launched on every
-           frame, each held bit for bit against its twin on the first
-           frame's intermediates and timed, and pick() at the HUD box's
-           centre returning its key;
+           syncs of two frames on a moving camera; (b) the same scene with
+           the panes given KHR transmission + volume (thickness 0.5, which
+           turns the crop and the compaction off) and one HUD box: 12
+           orbit frames with K7 (peel and non-peel) and K6's f32 entry
+           launched on every frame, each held bit for bit against its twin
+           on the first frame's intermediates and timed, and pick() at the
+           HUD box's centre returning its key;
   aa       bench.py's headline frame "Stress-1080p-msaa-bloom-dof": the
            stress scene, panes included, with MSAA-4x, bloom and depth of
            field (focus 16 m, f/1); K9 against its twin bit for bit on the
@@ -45,6 +45,25 @@ back to the CPU). Phases:
            launched on each, the image, pick() against the sample plane,
            host syncs; then 3 supersample frames (peak device memory) and
            one SMAA frame of the stress scene;
+  oracle   the dense raster K11a and dense peel K11b (no frame path runs
+           them) as an independent check of the binned kernels on the
+           frames' own 1080p intermediates: K11a fat against K1 + K2 on
+           the stress frame's opaque setup, K11b against K7 on each peel
+           of the volume + HUD frame and against K8 on each of the stress
+           frame's pane peels at K8's covered tiles, K11a slim at
+           3840x2160 against K9's four sample planes of the MSAA frame.
+           Every tri_id mismatch must be an exact depth tie (the walk
+           order picks) or, against K9, a sample where an edge value or
+           the two candidates' z lie within 4 ulps (K9's e00 + a + b
+           rounding). Where the ids agree, depth is bit-equal (against
+           K9, whose min-sample depth rounds the same way, within 4 ulps
+           of the z-plane terms) and the fat planes within 1e-4. Then
+           K11a (fat and slim, on rows 384..640 of the stress setup with
+           all its chunks), K11b (the volume + HUD frame's first peel),
+           K12 split_rows on an (8, 1920*1080) f32 table and K13
+           channel_rows on a (1920*1080, 4) bf16 block against their
+           twins, bit for bit, timed beside their bounds (K12 and K13
+           also beside one torch call computing the same function);
   temporal bench.py's temporal headline "Stress-1080p-temporal-orbit": the
            stress scene with temporal AA (K1 jittered, K10 history
            reprojection, C = 243 of 2,025 (8, 128) units shaded a frame),
@@ -54,7 +73,8 @@ back to the CPU). Phases:
            its twin bit for bit on a steady frame's own inputs, timed; 24
            timed orbit frames with K1, K2, K3, K4, K5, K6, K8 and K10
            launched on each, C and the valid and blendable shares printed
-           per frame, host syncs; then tests/test_temporal.py's
+           per frame, host syncs on a moving camera; then
+           tests/test_temporal.py's
            convergence check (the 128x32 box, 8 static temporal frames
            against the ordinary frame) on the card;
   gltf     build the glTF catalog's helmet (five 1024x1024 maps) with the
@@ -67,9 +87,11 @@ back to the CPU). Phases:
            1024x512 "parity-production-msaa-1024", the 256x128 glTF
            goldens "glb-helmet", "glb-texture-transform", "glb-multi-uv",
            "glb-ext-clearcoat", "glb-alpha-modes", "glb-ext-transmission"
-           and "glb-sponza-lite", and the 512x256 parity goldens
-           "parity-glb-alpha-modes-512" and "parity-ext-transmission-512"
-           on the card, each at the tolerance of the JAX test that owns it.
+           and "glb-sponza-lite", and the nine 512x256 parity goldens
+           "parity-glb-helmet-512", "parity-glb-alpha-modes-512" and
+           "parity-ext-{anisotropy,clearcoat,iridescence,sheen,specular,
+           transmission,unlit}-512" on the card (26 goldens), each at the
+           tolerance of the JAX test that owns it.
 
 Prints one line per check, then a JSON line of per-kernel results (time,
 twin time, the least time the card could take for the same work and
@@ -91,6 +113,7 @@ import time
 W, H = 1920, 1080
 N_FRAMES = 12
 HUD_AT = (0.0, 2.5, 0.0)     # the overlay phase's HUD box, above the ring
+STRESS_GRID = 7     # bench.py's colonnade: gx, gz in [-7, 7] (15 x 15)
 DEVICE = "cuda"     # the card; a CPU rehearsal of the phases sets "cpu"
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -220,8 +243,8 @@ def build_stress_scene(P, np, device, textured=True, panes=True,
     sph_res = r.meshes.insert_resource(uv_sphere(0.45, rings=24, sectors=48))
     pane_res = r.meshes.insert_resource(box(0.9))
     keys = []
-    for gx in range(-7, 8):
-        for gz in range(-7, 8):
+    for gx in range(-STRESS_GRID, STRESS_GRID + 1):
+        for gz in range(-STRESS_GRID, STRESS_GRID + 1):
             res = box_res if (gx + gz) % 2 == 0 else sph_res
             mat = mats[(gx * 15 + gz) % 12]
             tk = r.transforms.insert(P.Transform(translation=np.array(
@@ -270,12 +293,13 @@ KERNEL_SITES = ("rasterize16_slim", "resolve_planes_fused",
                 "gather_split_channels")
 
 
-def capture_first_frame(r, names=KERNEL_SITES):
+def capture_first_frame(r, names=KERNEL_SITES, calls=None):
     """Render one frame with recorders on the kernel wrappers `names`;
     return the arguments of each wrapper's first call on the main path
     (for rasterize_binned, of its first peel call under
     "rasterize_binned/peel" and of its first call without a peel under
-    "rasterize_binned/nopeel")."""
+    "rasterize_binned/nopeel"). A dict `calls` collects every call's
+    arguments, in order, under the same keys."""
     from awsm_renderer_tpu_torch.ops import (
         cubemap, raster, relayout, shade, temporal, texsample,
     )
@@ -307,6 +331,8 @@ def capture_first_frame(r, names=KERNEL_SITES):
                     kwargs.get("px") is not None:
                 key = f"{attr}/xy"
             captured.setdefault(key, (args, kwargs))
+            if calls is not None:
+                calls.setdefault(key, []).append((args, kwargs))
             return fn(*args, **kwargs)
         return wrapped
 
@@ -327,7 +353,9 @@ def bit_mismatches(a, b, torch) -> int:
 
 
 def phase_kernels(r, np, torch):
-    """First-frame intermediates -> each kernel vs its twin, timed."""
+    """First-frame intermediates -> each kernel vs its twin, timed.
+    Returns (results, the first call's arguments per wrapper, the
+    arguments of every K8 peel)."""
     from awsm_renderer_tpu_torch.ops import kernels
     from awsm_renderer_tpu_torch.ops.raster import (
         build_bins16, rasterize16_slim, rasterize16_slim_reference,
@@ -341,7 +369,9 @@ def phase_kernels(r, np, torch):
     )
 
     log("phase kernels: the first frame's (opaque-pass) intermediates")
-    cap = capture_first_frame(r, KERNEL_SITES + ("_rasterize_binned_compact",))
+    calls = {}
+    cap = capture_first_frame(r, KERNEL_SITES + ("_rasterize_binned_compact",),
+                              calls)
     torch.cuda.synchronize()
     check(sorted(cap) == sorted(KERNEL_SITES + ("_rasterize_binned_compact",)),
           "the first frame called the six opaque-pass kernel wrappers and "
@@ -472,7 +502,7 @@ def phase_kernels(r, np, torch):
         log(f"  {k}: kernel {v['ms']:.4f} ms, plain twin "
             f"{v['plain_ms']:.4f} ms")
     kernels.reset_launch_counts()
-    return results, cap
+    return results, cap, calls["_rasterize_binned_compact"]
 
 
 def lod_near_integer(args, kw, torch):
@@ -637,29 +667,34 @@ def phase_frame(r, keys, np, torch):
     return med, wall, counts
 
 
-def count_syncs(r, torch, label: str) -> int:
-    """Host syncs one frame makes: torch's sync debug mode warns at every
-    call that waits for the device. Logs the count and the source lines
-    that made them."""
+def count_syncs(r, torch, label: str, camera, start: int) -> int:
+    """Host syncs of two consecutive frames on a moving camera (camera(i)
+    for i = start, start + 1 before each; the renderer's per-frame prep
+    reruns on every move): torch's sync debug mode warns at every call
+    that waits for the device. Logs each frame's count and the source
+    lines that made them; returns the larger count."""
     import collections
     import warnings
 
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            r.render_device()
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    sites = collections.Counter(
-        f"{os.path.relpath(w.filename, REPO)}:{w.lineno}" for w in caught
-        if "synchroniz" in str(w.message))
-    n = sum(sites.values())
-    log(f"  host syncs in one {label} frame: {n}; by source line: "
-        f"{dict(sites.most_common())}")
-    return n
+    counts = []
+    for i in (start, start + 1):
+        camera(i)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                r.render_device()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        sites = collections.Counter(
+            f"{os.path.relpath(w.filename, REPO)}:{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message))
+        counts.append(sum(sites.values()))
+        log(f"  host syncs in a {label} frame on a moved camera (view {i}): "
+            f"{counts[-1]}; by source line: {dict(sites.most_common())}")
+    return max(counts)
 
 
 def hold_planes(label, a, b, torch):
@@ -729,15 +764,19 @@ def phase_overlay(P, np, torch, r_stress, cap_stress):
         bound=binned_bound(rows, kw["bins"], kw["tile_idx"], C * 1024,
                            names, (zlo_c, zhi_c), torch),
         library_ms=None)
-    results["syncs_a"] = count_syncs(r_stress, torch, "stress")
+    results["syncs_a"] = count_syncs(
+        r_stress, torch, "stress", lambda i: orbit_camera(r_stress, np, i),
+        N_FRAMES + 1)
 
     log(f"phase overlay (b): the panes with KHR transmission + volume and a "
         f"HUD box, {N_FRAMES} frames at {W}x{H}")
     r, _keys, hud_key = build_stress_scene(P, np, DEVICE, volume=True,
                                            hud=True)
     orbit_camera(r, np, 0)
+    calls = {}
     cap = capture_first_frame(r, ("rasterize_binned",
-                                  "gather_split_channels_f32"))
+                                  "gather_split_channels_f32"), calls)
+    results["k7_calls"] = calls["rasterize_binned/peel"]
     torch.cuda.synchronize()
     check(sorted(cap) == ["gather_split_channels_f32",
                           "rasterize_binned/nopeel", "rasterize_binned/peel"],
@@ -815,7 +854,9 @@ def phase_overlay(P, np, torch, r_stress, cap_stress):
     key = r.pick(x, y)
     check(key == hud_key, f"pick({x}, {y}) at the HUD box's centre = {key} "
                           f"(its key {hud_key})")
-    results["syncs_b"] = count_syncs(r, torch, "volume + HUD")
+    results["syncs_b"] = count_syncs(
+        r, torch, "volume + HUD", lambda i: orbit_camera(r, np, i),
+        N_FRAMES + 1)
     results["frames_b"] = (med, wall, counts)
     return results
 
@@ -871,6 +912,7 @@ def phase_aa(P, np, torch):
     # ---- K9 ---------------------------------------------------------------
     (srows,), kw = cap["rasterize16_msaa"]
     w2, h2 = kw["width2"], kw["height2"]
+    results["msaa_in"] = (srows, w2, h2)
     samp, depth, bins = rasterize16_msaa(srows, width2=w2, height2=h2)
     # the twin takes seconds at this size: time the checking call itself
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -967,7 +1009,9 @@ def phase_aa(P, np, torch):
             r._mesh_row_to_key.get(int(r._tri_mesh_device_order[t])))
     check(key == want and (key is None or key in keys),
           f"pick({x}, {y}) = {key} matches the sample plane's tri_id {t}")
-    results["syncs"] = count_syncs(r, torch, "MSAA + bloom + DoF")
+    results["syncs"] = count_syncs(
+        r, torch, "MSAA + bloom + DoF", lambda i: orbit_camera(r, np, i),
+        N_FRAMES + 1)
     results["frames"] = (med, wall, counts_f)
     del r, cap, samp, depth, bins
 
@@ -1003,6 +1047,460 @@ def phase_aa(P, np, torch):
         results[label] = (statistics.median(times), peak)
         del r
     kernels.reset_launch_counts()
+    return results
+
+
+# ---- the oracle: K11 against the binned kernels ----------------------------
+#
+# The dense raster (K11a) and dense peel (K11b) walk every chunk in index
+# order; K1 and K9 walk 16-triangle groups in bin order (near first) and K7
+# and K8 walk chunks near first. All evaluate a*px + (b*py + c) in f32 with
+# the same rounding, so their winners may differ only where two triangles
+# give a pixel bit-equal z (an exact depth tie: the walk order picks). K9
+# adds a and b to its top-left sample's values, so at a sample it may also
+# differ where an edge value, or the two candidates' z, lies within a few
+# ulps of its threshold (K9's sample rounding). Anything else is a fault.
+
+ORACLE_ULPS = 4
+F32_EPS = 2.0 ** -23       # an ulp of x is at most F32_EPS * |x|
+ORACLE_BAND = (384, 256)   # (y0, rows) of the stress setup for the twins
+
+
+def _rows_of_ids(rows, ids, torch):
+    """The setup rows that carry each id (S_ORIG_ID; a clipped triangle's
+    two copies share one): [(row index (n,), found (n,) bool)] x 2."""
+    from awsm_renderer_tpu_torch.ops.vertex import S_ORIG_ID
+
+    oid = rows[:, S_ORIG_ID]
+    order = torch.argsort(oid, stable=True)
+    sid = oid[order]
+    f = ids.float()
+    out = []
+    for k in (0, 1):
+        pos = (torch.searchsorted(sid, f) + k).clamp(max=sid.numel() - 1)
+        out.append((order[pos], (sid[pos] == f) & (ids >= 0)))
+    return out
+
+
+def _fragment(rows, r, px, py, zb, torch):
+    """Rows r's fragments at (px, py), each step rounded as the kernels
+    do: (covers, z, an edge value within ORACLE_ULPS ulps of its
+    threshold, the z-plane terms' magnitude)."""
+    from awsm_renderer_tpu_torch.ops.raster import _FMIN
+
+    R = rows[r]
+    cover = torch.ones_like(px, dtype=torch.bool)
+    near = torch.zeros_like(cover)
+    for k in range(4):
+        a, b, c = R[:, 3 * k], R[:, 3 * k + 1], R[:, 3 * k + 2]
+        v = a * px + (b * py + c)
+        mag = (a * px).abs() + (b * py).abs() + c.abs()
+        if k == 3:
+            z, zmag = v, mag
+            break
+        tl = (a > 0) | ((a == 0) & (b > 0))
+        thr = torch.where(tl, 0.0, _FMIN)
+        cover &= v >= thr
+        near |= (v - thr).abs() <= ORACLE_ULPS * F32_EPS * mag
+    cover &= (z >= 0.0) & (z <= 1.0)
+    if zb is not None:
+        cover &= (z > zb[0]) & (z < zb[1])
+    return cover, z, near, zmag
+
+
+def classify_mismatches(rows, ids_a, ids_b, px, py, torch, zb=None,
+                        k9=False):
+    """Pixels (or samples) where setup ids ids_a and ids_b (n,) differ, at
+    centres px, py (n,) f32, zb optional peel bounds (n,) each: counts of
+    exact depth ties (both winners cover the point with bit-equal z), of
+    K9 sample-rounding flips (k9 only: either winner has an edge value, or
+    the two a z, within ORACLE_ULPS ulps) and of the rest."""
+    n = ids_a.numel()
+    tie = torch.zeros(n, dtype=torch.bool, device=px.device)
+    flip = torch.zeros_like(tie)
+    frags = []
+    for ids in (ids_a, ids_b):
+        side = []
+        for r, ok in _rows_of_ids(rows, ids, torch):
+            cover, z, near, zmag = _fragment(rows, r, px, py, zb, torch)
+            side.append((ok, cover & ok, z, near & ok, zmag))
+            flip |= near & ok
+        frags.append(side)
+    for ok_a, cov_a, z_a, _na, m_a in frags[0]:
+        for ok_b, cov_b, z_b, _nb, m_b in frags[1]:
+            tie |= cov_a & cov_b & (z_a.view(torch.int32)
+                                    == z_b.view(torch.int32))
+            flip |= (ok_a & ok_b & ((z_a - z_b).abs() <= ORACLE_ULPS
+                                     * F32_EPS * torch.maximum(m_a, m_b)))
+    if not k9:
+        flip = torch.zeros_like(flip)
+    flip &= ~tie
+    rest = ~(tie | flip)
+    return dict(ties=int(tie.sum()), k9_rounding=int(flip.sum()),
+                unclassified=int(rest.sum()), rest=rest)
+
+
+def pixel_centres(h: int, w: int, device, torch, step=1, di=0, dj=0):
+    """(px, py) (h*w,) f32 centres of an h x w grid of pixels, each at
+    step * index + offset + 0.5 (step 2 gives one MSAA sample plane)."""
+    ys, xs = torch.meshgrid(torch.arange(h, device=device),
+                            torch.arange(w, device=device), indexing="ij")
+    return ((step * xs + dj).float().reshape(-1) + 0.5,
+            (step * ys + di).float().reshape(-1) + 0.5)
+
+
+def hold_oracle(label, rows, a, b, torch, px, py, zb=None, k9=False,
+                depth=True, planes=()):
+    """Oracle comparison of plane dicts a (the dense kernel) and b (the
+    binned kernel) over the same pixels: id mismatches classified, depth
+    bit-equal and the float `planes` within 1e-4 where the ids agree.
+    Returns the counts."""
+    ta, tb = a["tri_id"].reshape(-1), b["tri_id"].reshape(-1)
+    off = ta != tb
+    idx = off.nonzero()[:, 0]
+    sel = None if zb is None else tuple(z.reshape(-1)[idx] for z in zb)
+    c = classify_mismatches(rows, ta[idx], tb[idx], px[idx], py[idx], torch,
+                            sel, k9)
+    same = ~off
+    n_depth = 0
+    if depth:
+        da, db = a["depth"].reshape(-1), b["depth"].reshape(-1)
+        n_depth = int((da.view(torch.int32) != db.view(torch.int32))[same]
+                      .sum())
+    err = 0.0
+    for k in planes:
+        d = (a[k].reshape(-1) - b[k].reshape(-1)).abs()[same]
+        err = max(err, float(d.max()) if d.numel() else 0.0)
+    log(f"  oracle {label}: {ta.numel()} pixels compared, "
+        f"{int((ta >= 0).sum())} covered (dense), {idx.numel()} tri_id "
+        f"mismatches: {c['ties']} exact depth ties, {c['k9_rounding']} K9 "
+        f"sample-rounding flips, {c['unclassified']} unclassified; depth "
+        f"{'not compared' if not depth else f'{n_depth} not bit-equal'} "
+        f"where the ids agree; fat planes max |d| {err}")
+    if c["unclassified"]:
+        bad = idx[c["rest"]][:8]
+        log(f"    unclassified at {bad.tolist()}: dense {ta[bad].tolist()}"
+            f", binned {tb[bad].tolist()}")
+    check(c["unclassified"] == 0, f"oracle {label}: every tri_id mismatch "
+                                  f"is classified")
+    check(int((ta >= 0).sum()) > 0, f"oracle {label}: the dense kernel "
+                                    f"covers pixels")
+    if depth:
+        check(n_depth == 0, f"oracle {label}: depth bit-equal where the "
+                            f"ids agree")
+    if planes:
+        check(err <= 1e-4, f"oracle {label}: fat planes within 1e-4")
+    return dict(n=ta.numel(), mismatches=idx.numel(), ties=c["ties"],
+                k9_rounding=c["k9_rounding"],
+                unclassified=c["unclassified"])
+
+
+def dense_padded(rows, zlo, zhi, *, width: int, height: int, torch, **kw):
+    """K11a (zlo None) or K11b over a (height, width) frame padded up to
+    the dense grid's 128 x 8 multiples (peel bounds 0 in the padding, which
+    admits nothing), cropped back."""
+    from awsm_renderer_tpu_torch.ops import raster as TR
+
+    W1 = -(-width // TR.TILE_W) * TR.TILE_W
+    H1 = -(-height // TR.TILE_H) * TR.TILE_H
+    if zlo is None:
+        out = TR.rasterize(rows, width=W1, height=H1, binned=False, **kw)
+    else:
+        def pad(z):
+            full = torch.zeros((H1, W1), dtype=z.dtype, device=z.device)
+            full[:height, :width] = z.reshape(height, width)
+            return full
+
+        out = TR.rasterize_peel(rows, pad(zlo), pad(zhi), width=W1,
+                                height=H1, binned=False, **kw)
+    return {k: v[:height, :width] for k, v in out.items()}
+
+
+def dense_pairs(rows, width: int, height: int, torch) -> int:
+    """(8x128 tile, 128-triangle chunk) pairs whose bboxes overlap: the
+    merges K11 runs on these inputs."""
+    from awsm_renderer_tpu_torch.ops import raster as TR
+
+    n_chunks = rows.shape[0] // TR.CHUNK
+    mnx, mny, mxx, mxy = TR._chunk_bboxes(rows, n_chunks)
+    tx0 = torch.arange(width // TR.TILE_W, device=rows.device).float() \
+        * TR.TILE_W
+    ty0 = torch.arange(height // TR.TILE_H, device=rows.device).float() \
+        * TR.TILE_H
+    ox = ((mnx[None] < (tx0 + TR.TILE_W)[:, None])
+          & (mxx[None] > tx0[:, None])).sum(0)
+    oy = ((mny[None] < (ty0 + TR.TILE_H)[:, None])
+          & (mxy[None] > ty0[:, None])).sum(0)
+    return int((ox * oy).sum())
+
+
+def dense_bound(rows, width: int, height: int, n_out_planes: int, torch,
+                peel=False):
+    """K11's least time: setup (and peel bounds) read once, the planes
+    written once; OPS_PER_TEST per coverage test over the overlapping
+    (tile, chunk) pairs, 1024 pixels x 128 triangles each."""
+    n_px = width * height
+    tests = dense_pairs(rows, width, height, torch) * 1024 * 128
+    return bound(nbytes(rows) + n_px * 4 * (n_out_planes + (2 if peel
+                                                            else 0)),
+                 tests * OPS_PER_TEST)
+
+
+def _oracle_total():
+    return dict(n=0, mismatches=0, ties=0, k9_rounding=0, unclassified=0)
+
+
+def _oracle_add(tot, c):
+    for k in tot:
+        tot[k] += c[k]
+
+
+def oracle_k1(srows, rw: int, rh: int, torch):
+    """K11a fat against rasterize16 (K1 + K2) on opaque setup rows."""
+    from awsm_renderer_tpu_torch.ops import raster as TR
+
+    fat = TR.plane_layout(True, True, True)
+    a = dense_padded(srows, None, None, width=rw, height=rh, torch=torch)
+    b = TR.rasterize16(srows, width=rw, height=rh)
+    b.pop("bins")
+    px, py = pixel_centres(rh, rw, srows.device, torch)
+    return hold_oracle(f"K11a fat vs K1 + K2 ({srows.shape[0]} setup rows, "
+                       f"{rw}x{rh})", srows, a, b, torch, px, py,
+                       planes=fat[2:])
+
+
+def oracle_k7(rows, zlo, zhi, kw7, torch, label: str):
+    """K11b against K7 on one peel's arguments (rows, zlo, zhi, and K7's
+    keywords kw7)."""
+    from awsm_renderer_tpu_torch.ops import raster as TR
+
+    w7, h7 = kw7["width"], kw7["height"]
+    lay = dict(has_uv1=kw7["has_uv1"], has_color=kw7["has_color"],
+               analytic_derivs=kw7["analytic_derivs"])
+    a = dense_padded(rows, zlo, zhi, width=w7, height=h7, torch=torch, **lay)
+    b = TR.rasterize_binned(rows, zlo, zhi, **kw7)
+    px, py = pixel_centres(h7, w7, rows.device, torch)
+    return hold_oracle(f"K11b vs K7 ({label}, {rows.shape[0]} rows, "
+                       f"{w7}x{h7})", rows, a, b, torch, px, py,
+                       zb=(zlo, zhi), planes=TR.plane_layout(**lay)[2:])
+
+
+def oracle_k8(rows, zlo_c, zhi_c, kw8, torch, label: str):
+    """K11b against K8 on one compacted peel's arguments, at K8's covered
+    32x32 tiles: the compact bounds go back to their tiles of the band
+    (0 elsewhere, which admits nothing), K11b runs over the band, and its
+    planes are compacted to the same tiles."""
+    from awsm_renderer_tpu_torch.ops import raster as TR
+
+    dev = rows.device
+    t_idx, n_tx = kw8["tile_idx"].long(), kw8["n_tx"]
+    n_ty = int(t_idx.max()) // n_tx + 1
+    W32, H32 = n_tx * TR.BT_W, n_ty * TR.BT_H
+
+    def band(zc):
+        z = torch.zeros((n_ty * n_tx, TR.BT_H * TR.BT_W), device=dev)
+        z[t_idx] = zc
+        return TR._deswizzle32(z, H32, W32)
+
+    lay = dict(has_uv1=kw8["has_uv1"], has_color=kw8["has_color"])
+    d = dense_padded(rows, band(zlo_c), band(zhi_c), width=W32, height=H32,
+                     torch=torch, **lay)
+    a = {k: TR._pad_swizzle32(v, H32, W32).index_select(0, t_idx)
+         for k, v in d.items()}
+    b = TR._rasterize_binned_compact(rows, zlo_c, zhi_c, **kw8)
+    px, py = TR._tile_pixels(t_idx, n_tx)
+    return hold_oracle(f"K11b vs K8 ({label}, {t_idx.numel()} covered 32x32 "
+                       f"tiles)", rows, a, b, torch, px.reshape(-1),
+                       py.reshape(-1), zb=(zlo_c, zhi_c),
+                       planes=TR.plane_layout(**lay)[2:])
+
+
+def oracle_k9(m_rows, w2: int, h2: int, torch, label: str):
+    """K11a slim at the supersampled size against K9: sample (i, j) of
+    display pixel (y, x) is the dense raster's pixel (2y + i, 2x + j);
+    K9's depth is the min over a pixel's four samples."""
+    from awsm_renderer_tpu_torch.ops import raster as TR
+    from awsm_renderer_tpu_torch.ops.vertex import S_ORIG_ID, S_ZA
+
+    dev = m_rows.device
+    samp, depth1, _bins = TR.rasterize16_msaa(m_rows, width2=w2, height2=h2)
+    d = TR.rasterize(m_rows, width=w2, height=h2, binned=False, slim=True)
+    H1, W1 = depth1.shape
+    orig = m_rows[:, S_ORIG_ID]
+    tot = _oracle_total()
+    agree = torch.ones((H1, W1), dtype=torch.bool, device=dev)
+    zmag = torch.zeros((H1, W1), device=dev)
+    zr = m_rows[:, S_ZA:S_ZA + 3]
+    for s_, (i, j) in enumerate(TR.MSAA_SAMPLES):
+        kid = torch.where(samp[s_] >= 0,
+                          orig[samp[s_].clamp(min=0).long()].to(torch.int32),
+                          -1)
+        did = d["tri_id"][i::2, j::2][:H1, :W1]
+        agree &= did == kid
+        px, py = pixel_centres(H1, W1, dev, torch, step=2, di=i, dj=j)
+        _oracle_add(tot, hold_oracle(
+            f"K11a slim {w2}x{h2} vs K9 sample {(i, j)} ({label}, "
+            f"{m_rows.shape[0]} rows)", m_rows, {"tri_id": did},
+            {"tri_id": kid}, torch, px, py, k9=True, depth=False))
+        # the z-plane terms' magnitude at the dense winners (the opaque
+        # pool's ids are its rows)
+        t = zr[did.reshape(-1).clamp(min=0).long()]
+        m = (t[:, 0] * px).abs() + (t[:, 1] * py).abs() + t[:, 2].abs()
+        zmag = torch.maximum(zmag, torch.where(did.reshape(-1) >= 0, m, 0.0)
+                             .reshape(H1, W1))
+    # K9 rounds its sample z as z00 (+ za) (+ zb), the dense kernel
+    # evaluates each sample's z directly
+    dz = d["depth"]
+    dmin = torch.minimum(torch.minimum(dz[0::2, 0::2], dz[0::2, 1::2]),
+                         torch.minimum(dz[1::2, 0::2], dz[1::2, 1::2]))
+    dmin = dmin[:H1, :W1]
+    diff = (dmin.view(torch.int32) != depth1.view(torch.int32)) & agree
+    far = ((dmin - depth1).abs() > ORACLE_ULPS * F32_EPS * zmag) & agree
+    log(f"  oracle K11a slim vs K9 depth ({label}): of {int(agree.sum())} "
+        f"pixels whose four sample ids agree, {int(diff.sum())} not "
+        f"bit-equal, {int(far.sum())} beyond {ORACLE_ULPS} ulps of the "
+        f"z-plane terms")
+    check(int(far.sum()) == 0, f"oracle K11a vs K9 ({label}): min-sample "
+                               f"depth within {ORACLE_ULPS} ulps where the "
+                               f"ids agree")
+    tot["depth_not_bit_equal"] = int(diff.sum())
+    return tot
+
+
+def phase_oracle(P, np, torch, cap_stress, calls_k8, calls_k7, msaa_in):
+    """K11a / K11b against K1 + K2, K7, K8 and K9 on the card's own 1080p
+    intermediates (the launch counts of these four comparisons are K11's
+    path); then K11a, K11b, K12 and K13 against their twins, timed."""
+    from awsm_renderer_tpu_torch.ops import kernels
+    from awsm_renderer_tpu_torch.ops import raster as TR
+    from awsm_renderer_tpu_torch.ops.relayout import (
+        channel_rows, channel_rows_reference, split_rows,
+        split_rows_reference,
+    )
+    from awsm_renderer_tpu_torch.passes.frame import _shift_rows_band
+
+    t_phase = time.perf_counter()
+    log("phase oracle: the dense raster K11a and dense peel K11b against "
+        "K1 + K2, K7, K8 and K9 on the frames' own intermediates")
+    dev = torch.device(DEVICE)
+    kernels.reset_launch_counts()
+    summary = {}
+
+    (srows,), kw = cap_stress["rasterize16_slim"]
+    rw, rh = kw["width"], kw["height"]
+    summary["K1"] = oracle_k1(srows, rw, rh, torch)
+    tot = _oracle_total()
+    for i, ((rows, zlo, zhi), kw7) in enumerate(calls_k7):
+        _oracle_add(tot, oracle_k7(rows, zlo, zhi, kw7, torch,
+                                   f"volume + HUD frame, peel {i}"))
+    check(len(calls_k7) >= 1, "the volume + HUD frame ran K7 peels")
+    summary["K7"] = tot
+    tot = _oracle_total()
+    for i, ((rows, zlo_c, zhi_c), kw8) in enumerate(calls_k8):
+        _oracle_add(tot, oracle_k8(rows, zlo_c, zhi_c, kw8, torch,
+                                   f"stress frame, peel {i}"))
+    check(len(calls_k8) >= 1, "the stress frame ran K8 peels")
+    summary["K8"] = tot
+    m_rows, w2, h2 = msaa_in
+    summary["K9"] = oracle_k9(m_rows, w2, h2, torch, "MSAA frame")
+    launches = dict(kernels.launch_counts)
+    for name in ("rasterize_dense", "rasterize_peel_dense"):
+        check(launches[name] >= 1, f"{name} launched on the oracle path "
+                                   f"({launches[name]} launches)")
+
+    # ---- K12 / K13, standalone at the reference's shapes ------------------
+    g = torch.Generator(device=dev).manual_seed(12)
+    tform = torch.rand((8, W * H), generator=g, device=dev)
+    texels = torch.rand((W * H, 4), generator=g, device=dev).to(
+        torch.bfloat16)
+    kernels.reset_launch_counts()
+    k12 = split_rows(tform)
+    k13 = channel_rows(texels)
+    launches.update((k, kernels.launch_counts[k]) for k in ("split_rows",
+                                                            "channel_rows"))
+    for name in ("split_rows", "channel_rows"):
+        check(launches[name] >= 1, f"{name} launched ({launches[name]})")
+    results = {}
+    n_bad = sum(bit_mismatches(x, y, torch)
+                for x, y in zip(k12, split_rows_reference(tform)))
+    log(f"  K12 split_rows (8, {W * H}) f32 -> 8 rows: {n_bad} mismatches")
+    check(n_bad == 0, "K12 bit-equal to the twin")
+    n_bad = bit_mismatches(k13, channel_rows_reference(texels), torch)
+    log(f"  K13 channel_rows ({W * H}, 4) bf16 -> (4, {W * H}) f32: "
+        f"{n_bad} mismatches")
+    check(n_bad == 0, "K13 bit-equal to the twin")
+    results["K12"] = dict(
+        err=0.0, ms=cuda_ms(lambda: split_rows(tform), 20),
+        plain_ms=cuda_ms(lambda: split_rows_reference(tform), 20),
+        bound=bound(2 * nbytes(tform), 0.0),
+        library_ms=cuda_ms(lambda: tform.float().clone().unbind(0), 20))
+    results["K13"] = dict(
+        err=0.0, ms=cuda_ms(lambda: channel_rows(texels), 20),
+        plain_ms=cuda_ms(lambda: channel_rows_reference(texels), 20),
+        bound=bound(nbytes(texels) + 4 * texels.numel(), 0.0),
+        library_ms=cuda_ms(lambda: texels.t().float().contiguous(), 20))
+    del tform, texels, k12, k13
+
+    # ---- K11a / K11b against their twins ----------------------------------
+    y0, bh = ORACLE_BAND
+    brows = _shift_rows_band(srows, y0)
+    for slim in (False, True):
+        kw11 = dict(width=rw, height=bh, slim=slim)
+        a = TR.rasterize(brows, binned=False, **kw11)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        b = TR.rasterize_dense_reference(brows, **kw11)
+        ev[1].record()
+        torch.cuda.synchronize()
+        label = "slim" if slim else "fat"
+        err = hold_planes(f"K11a {label}, rows {y0}..{y0 + bh} of the stress "
+                          f"setup ({rw}x{bh}, all {brows.shape[0] // 128} "
+                          f"chunks)", a, b, torch)
+        results[f"K11a_{label}"] = dict(
+            err=err, ms=cuda_ms(lambda: TR.rasterize(brows, binned=False,
+                                                     **kw11), 10),
+            plain_ms=ev[0].elapsed_time(ev[1]),
+            bound=dense_bound(brows, rw, bh, len(a), torch),
+            library_ms=None)
+    del a, b
+    (rows, zlo, zhi), kw7 = calls_k7[0]
+    w7, h7 = kw7["width"], kw7["height"]
+    lay = dict(has_uv1=kw7["has_uv1"], has_color=kw7["has_color"],
+               analytic_derivs=kw7["analytic_derivs"])
+    a = TR.rasterize_peel(rows, zlo, zhi, width=w7, height=h7, binned=False,
+                          **lay)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    b = TR.rasterize_peel_dense_reference(rows, zlo, zhi, width=w7,
+                                          height=h7, **lay)
+    ev[1].record()
+    torch.cuda.synchronize()
+    err = hold_planes(f"K11b (volume + HUD frame, peel 0, {w7}x{h7})", a, b,
+                      torch)
+    results["K11b"] = dict(
+        err=err, ms=cuda_ms(lambda: TR.rasterize_peel(
+            rows, zlo, zhi, width=w7, height=h7, binned=False, **lay), 10),
+        plain_ms=ev[0].elapsed_time(ev[1]),
+        bound=dense_bound(rows, w7, h7, len(a), torch, peel=True),
+        library_ms=None)
+    # the oracle's own calls, timed: the 1080p fat raster and the 2x slim
+    results["K11a_1080p_ms"] = cuda_ms(lambda: TR.rasterize(
+        srows, width=rw, height=rh, binned=False), 5)
+    results["K11a_1080p_bound"] = dense_bound(
+        srows, rw, rh, len(TR.plane_layout(True, True, True)), torch)
+    results["K11a_2x_ms"] = cuda_ms(lambda: TR.rasterize(
+        m_rows, width=w2, height=h2, binned=False, slim=True), 3)
+    results["K11a_2x_bound"] = dense_bound(m_rows, w2, h2, 2, torch)
+    for k in ("1080p", "2x"):
+        bd = results[f"K11a_{k}_bound"]
+        log(f"  K11a on the oracle's {k} frame: {results[f'K11a_{k}_ms']:.4f}"
+            f" ms, bound {bd[0]:.4f} ms ({bd[1]})")
+    results["launches"] = launches
+    results["summary"] = summary
+    kernels.reset_launch_counts()
+    secs = time.perf_counter() - t_phase
+    log(f"  phase oracle took {secs:.1f} s")
+    results["seconds"] = secs
     return results
 
 
@@ -1194,8 +1692,9 @@ def phase_temporal(P, np, torch):
     check(key == want and (key is None or key in keys),
           f"pick({x}, {y}) = {key} matches tri_id {t}")
     del seen, ages
-    temporal_camera(r, np, 3 + TEMPORAL_FRAMES + 1)
-    results["syncs"] = count_syncs(r, torch, "temporal (steady)")
+    results["syncs"] = count_syncs(
+        r, torch, "temporal (steady)", lambda i: temporal_camera(r, np, i),
+        3 + TEMPORAL_FRAMES + 1)
     results["frames"] = (med, wall, counts)
     del r
     check_convergence(P, np, torch)
@@ -1256,7 +1755,7 @@ def phase_gltf(P, np, torch):
     k45 = check_k4_k5(cap, "helmet", torch)
     img, med, wall, counts = orbit_frames(r, np, torch, camera, OPAQUE_PATH)
     check_image(img, np, torch)
-    count_syncs(r, torch, "glb-helmet (opaque only)")
+    count_syncs(r, torch, "glb-helmet (opaque only)", camera, N_FRAMES + 1)
     return med, wall, counts, k45
 
 
@@ -1504,10 +2003,17 @@ def phase_golden(P, np, torch):
         hold(name, r.render_u8())
 
     # tests/test_parity_golden.py _render_glb at 512x256, tight tolerance
-    for name, golden in (("glb-alpha-modes", "parity-glb-alpha-modes-512"),
-                         ("glb-ext-transmission",
-                          "parity-ext-transmission-512")):
+    # (test_parity_glb_512, test_parity_ext_512), with their coverage checks
+    exts = ("anisotropy", "clearcoat", "iridescence", "sheen", "specular",
+            "transmission", "unlit")
+    for name, golden in (
+            [("glb-helmet", "parity-glb-helmet-512"),
+             ("glb-alpha-modes", "parity-glb-alpha-modes-512")]
+            + [(f"glb-ext-{v}", f"parity-ext-{v}-512") for v in exts]):
+        glb, (eye, center) = SAMPLES[name]()
         path = os.path.join(out_dir, f"{name}.glb")
+        with open(path, "wb") as f:
+            f.write(glb)
         r = P.AwsmRendererTorch(P.RendererConfig(width=512, height=256),
                                 device=DEVICE)
         P.populate_gltf(r, P.load_gltf(path))
@@ -1515,10 +2021,20 @@ def phase_golden(P, np, torch):
                                             intensity=2.5))
         r.lights.insert(P.Light.point([2.0, 1.5, 2.0], color=(1.0, 0.9, 0.8),
                                       intensity=6.0))
-        eye, center = SAMPLES[name]()[1]
         r.update_all(0.0, m3.look_at(eye, center, (0, 1, 0)),
                      m3.perspective(np.pi / 3, 2.0, 0.05, 500.0))
-        hold(golden, r.render_u8(), tight=True)
+        img = r.render_u8()
+        hold(golden, img, tight=True)
+        if name.startswith("glb-ext-"):
+            bg = img[2, 2, :3].astype(np.int16)
+            cov = float((np.abs(img[..., :3].astype(np.int16) - bg)
+                         .max(axis=-1) > 8).mean())
+            check(cov > 0.05, f"{golden}: the sphere covers {cov:.3f} of "
+                              f"the frame (> 0.05)")
+        else:
+            cov = float((np.abs(np.diff(img[..., 0].astype(np.int16),
+                                        axis=1)) > 8).mean())
+            check(cov > 0.01, f"{golden}: edge coverage {cov:.3f} (> 0.01)")
 
 
 def main() -> int:
@@ -1559,13 +2075,18 @@ def main() -> int:
         f"{r.lights.count} lights, 3 base-colour textures, built in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    results, cap = phase_kernels(r, np, torch)
+    results, cap, k8_calls = phase_kernels(r, np, torch)
     med, wall, counts = phase_frame(r, keys, np, torch)
     ov = phase_overlay(P, np, torch, r, cap)
     results.update((k, ov[k]) for k in ("K7", "K8", "K6f32"))
+    cap_k1 = {"rasterize16_slim": cap["rasterize16_slim"]}
     del r, cap
     aa = phase_aa(P, np, torch)
     results["K9"] = aa["K9"]
+    orc = phase_oracle(P, np, torch, cap_k1, k8_calls, ov.pop("k7_calls"),
+                       aa.pop("msaa_in"))
+    del cap_k1, k8_calls
+    results.update((k, orc[k]) for k in ("K11a_fat", "K11b", "K12", "K13"))
     tm = phase_temporal(P, np, torch)
     results["K10"] = tm["K10"]
     h_med, h_wall, _h_counts, (h_k4, h_k5) = phase_gltf(P, np, torch)
@@ -1604,6 +2125,20 @@ def main() -> int:
     for label, v in aa["K2_msaa"].items():
         log(f"K2 [{label}] entry: kernel {v['ms']:.4f} ms, twin "
             f"{v['plain_ms']:.4f} ms ({card})")
+    sl = orc["K11a_slim"]
+    log(f"K11a slim on the oracle band: kernel {sl['ms']:.4f} ms, twin "
+        f"{sl['plain_ms']:.4f} ms, bound {sl['bound'][0]:.4f} ms "
+        f"({sl['bound'][1]}) ({card})")
+    for k in ("1080p", "2x"):
+        bd = orc[f"K11a_{k}_bound"]
+        log(f"K11a on the oracle's {k} frame: {orc[f'K11a_{k}_ms']:.4f} ms, "
+            f"bound {bd[0]:.4f} ms ({bd[1]}) ({card})")
+    for k, v in orc["summary"].items():
+        log(f"oracle vs {k}: {v['n']} pixels compared, {v['mismatches']} "
+            f"tri_id mismatches: {v['ties']} exact depth ties, "
+            f"{v['k9_rounding']} K9 sample-rounding flips, "
+            f"{v['unclassified']} unclassified")
+    log(f"phase oracle: {orc['seconds']:.1f} s ({card})")
     sources = {
         "K1": ("rasterize16_slim", "awsm_renderer_tpu_torch/csrc/raster16.cu",
                "awsm_renderer_tpu/ops/raster.py:1615"),
@@ -1634,15 +2169,27 @@ def main() -> int:
         "K10": ("reproject_history",
                 "awsm_renderer_tpu_torch/csrc/temporal.cu",
                 "awsm_renderer_tpu/ops/temporal.py:430"),
+        "K11a_fat": ("rasterize_dense",
+                     "awsm_renderer_tpu_torch/csrc/dense.cu",
+                     "awsm_renderer_tpu/ops/raster.py:807"),
+        "K11b": ("rasterize_peel_dense",
+                 "awsm_renderer_tpu_torch/csrc/dense.cu",
+                 "awsm_renderer_tpu/ops/raster.py:872"),
+        "K12": ("split_rows", "awsm_renderer_tpu_torch/csrc/relayout.cu",
+                "awsm_renderer_tpu/ops/relayout.py:106"),
+        "K13": ("channel_rows", "awsm_renderer_tpu_torch/csrc/relayout.cu",
+                "awsm_renderer_tpu/ops/relayout.py:188"),
     }
     out = []
     for k, (name, src, rep) in sources.items():
         res = results[k]
         # launches on the main path that runs the kernel: the stress
         # frames, or (K7, K6-f32) the volume + HUD frames, or (K9) the
-        # MSAA frames, or (K10) the temporal frames
+        # MSAA frames, or (K10) the temporal frames; K11-K13 run on no
+        # frame path: the oracle phase's comparisons (K11) and its
+        # standalone calls (K12, K13)
         n = (counts[name] or b_counts[name] or a_counts[name]
-             or t_counts[name])
+             or t_counts[name] or orc["launches"][name])
         bound_ms, bound_by = res["bound"]
         lib = res["library_ms"]
         log(f"  {k} {name}: kernel {res['ms']:.4f} ms, twin "

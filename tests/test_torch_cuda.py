@@ -7,8 +7,8 @@ without a CUDA device. Run on the card with:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-K1, K3, K5, K6 (both entries), K7, K8 and K9 are bit-equal to their
-twins; K2's ints are equal and
+K1, K3, K5, K6 (both entries), K7, K8, K9, K11a, K11b, K12 and K13 are
+bit-equal to their twins; K2's ints are equal and
 its floats within rtol 1e-5, atol 1e-6 (both round every product and sum
 separately, so they agree exactly in practice). K10 is bit-equal to its
 twin on the same unit scalars. K4's row indices equal
@@ -181,10 +181,11 @@ def test_card_frame_matches_cpu_frame(dev, scene):
     textured = scene == "box-textured"
     want["tap_plan_fused"] = want["filter_taps_fused"] = int(textured)
     # the overlay's kernels: no transparent or HUD content here; K9
-    # only with MSAA
+    # only with MSAA; K11-K13 on no frame path
     for name in ("rasterize_binned", "rasterize_binned_compact",
                  "gather_split_channels_f32", "rasterize16_msaa",
-                 "reproject_history"):
+                 "reproject_history", "rasterize_dense",
+                 "rasterize_peel_dense", "split_rows", "channel_rows"):
         want[name] = 0
     assert kernels.launch_counts == want
     img_cpu = cpu.render()
@@ -460,3 +461,88 @@ def test_card_temporal_frame_matches_cpu_frame(dev):
         assert torch.equal(_bits(h_card[3]), _bits(h_cpu[3]))
         torch.testing.assert_close(h_card[:3], h_cpu[:3], rtol=0, atol=1e-4)
     assert card.pick(T.W // 2, T.H // 2) == cpu.pick(T.W // 2, T.H // 2)
+
+
+def _dense_scene(dev):
+    """tests/test_torch_dense.py's scene (random triangles, three copies
+    of one flat triangle, a screen-filling one) on the card, with peel
+    bounds; and 2048 random triangles over 1024x512 (16 chunks)."""
+    from test_torch_binned import _setup, _tris
+    from test_torch_dense import _scene
+
+    _s, rows, zlo, zhi = _scene()
+    big = _setup(_tris(9, 2048, 1024, 512), seed=7)[1]
+    return ([torch.as_tensor(a).to(dev) for a in (rows, zlo, zhi)],
+            torch.as_tensor(big).to(dev))
+
+
+@pytest.mark.parametrize("slim, derivs", [(False, True), (False, False),
+                                          (True, True)],
+                         ids=["fat", "fat-noderivs", "slim"])
+def test_k11a_kernel_bit_equal_to_twin(dev, slim, derivs):
+    from awsm_renderer_tpu_torch.ops import kernels
+    from awsm_renderer_tpu_torch.ops import raster as TR
+
+    (rows, _zlo, _zhi), big = _dense_scene(dev)
+    for r, w, h in ((rows, T.W, T.H), (big, 1024, 512)):
+        kw = dict(width=w, height=h, slim=slim, analytic_derivs=derivs,
+                  has_uv1=not derivs)
+        n0 = kernels.launch_counts["rasterize_dense"]
+        a = TR.rasterize(r, binned=False, **kw)
+        assert kernels.launch_counts["rasterize_dense"] == n0 + 1
+        b = TR.rasterize_dense_reference(r, **kw)
+        torch.cuda.synchronize()
+        _all_bits_equal(a, b)
+        assert int((a["tri_id"] >= 0).sum()) > 1000
+
+
+@pytest.mark.parametrize("slim", [False, True], ids=["fat", "slim"])
+def test_k11b_kernel_bit_equal_to_twin(dev, slim):
+    from awsm_renderer_tpu_torch.ops import kernels
+    from awsm_renderer_tpu_torch.ops import raster as TR
+
+    (rows, zlo, zhi), big = _dense_scene(dev)
+    g = torch.Generator().manual_seed(8)
+    blo = (torch.rand(512, 1024, generator=g) * 0.3).to(dev)
+    bhi = (0.6 + torch.rand(512, 1024, generator=g) * 0.4).to(dev)
+    for r, zl, zh in ((rows, zlo, zhi), (big, blo, bhi)):
+        h, w = zl.shape
+        kw = dict(width=w, height=h, slim=slim, has_color=False)
+        n0 = kernels.launch_counts["rasterize_peel_dense"]
+        a = TR.rasterize_peel(r, zl, zh, binned=False, **kw)
+        assert kernels.launch_counts["rasterize_peel_dense"] == n0 + 1
+        b = TR.rasterize_peel_dense_reference(r, zl, zh, **kw)
+        torch.cuda.synchronize()
+        _all_bits_equal(a, b)
+        assert int((a["tri_id"] >= 0).sum()) > 1000
+
+
+def test_k12_k13_kernels_bit_equal_to_twins(dev):
+    from awsm_renderer_tpu_torch.ops import kernels
+    from awsm_renderer_tpu_torch.ops.relayout import (
+        channel_rows, channel_rows_reference, split_rows,
+        split_rows_reference,
+    )
+
+    g = torch.Generator().manual_seed(12)
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.randn(8, 70001, generator=g).to(dt).to(dev)
+        n0 = kernels.launch_counts["split_rows"]
+        got = split_rows(x)
+        assert kernels.launch_counts["split_rows"] == n0 + 1
+        want = split_rows_reference(x)
+        assert len(got) == 8
+        for a, b in zip(got, want):
+            assert a.dtype == torch.float32 and torch.equal(_bits(a),
+                                                            _bits(b))
+        for C in (4, 1, 37, 1024):
+            x = torch.randn(70001 if C < 1024 else 3001, C,
+                            generator=g).to(dt).to(dev)
+            n0 = kernels.launch_counts["channel_rows"]
+            a = channel_rows(x)
+            assert kernels.launch_counts["channel_rows"] == n0 + 1
+            assert torch.equal(_bits(a), _bits(channel_rows_reference(x)))
+    with pytest.raises(ValueError):
+        split_rows(torch.zeros(3, 5, dtype=torch.float64, device=dev))
+    with pytest.raises(ValueError):
+        channel_rows(torch.zeros(5, 1025, device=dev))

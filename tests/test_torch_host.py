@@ -331,6 +331,90 @@ def test_temporal_frame_that_raises_resets_the_next():
     assert bool((r._temporal["age"] == 0).all())
 
 
+def _move_camera(r, eye=(2.2, 1.6, 3.8)):
+    from awsm_renderer_tpu_torch.utils import math3d as m3
+
+    r.camera.update(m3.look_at(eye, (0, 0, 0), (0, 1, 0)),
+                    r.camera.projection)
+
+
+def test_bucket_masks_upload_once_across_camera_moves():
+    """After a camera move (the per-frame prep reruns) the renderer reuses
+    the opaque, transparent and HUD masks' device tensors and uploads
+    none of them again (reference: renderer.py _device_mask); a content
+    edit that changes a mask uploads it anew."""
+    import awsm_renderer_tpu_torch as P
+    from awsm_renderer_tpu_torch.geometry import box
+
+    r = T.torch_renderer("box")
+    _transparent(r)
+    r.add_mesh(box(0.2), r.materials.insert(P.UnlitMaterial()),
+               transform=P.Transform(translation=np.array(
+                   [0.6, 0.6, 0], np.float32)), hud=True)
+    r.render_device()
+    first = r._prep[1]
+    names = ("opaque_dev", "transparent_dev", "hud_dev")
+    assert all(first[n] is not None for n in names)
+    uploads = []
+    orig = r._tensor
+
+    def recording(a):
+        uploads.append(np.asarray(a))
+        return orig(a)
+
+    r._tensor = recording
+    _move_camera(r)
+    r.render_device()
+    second = r._prep[1]
+    assert second is not first                  # the prep did rerun
+    for n in names:
+        assert second[n] is first[n], n
+    n_meshes = first["masks"]["opaque"].shape[0]
+    assert not [a for a in uploads
+                if a.dtype == bool and a.shape == (n_meshes,)]
+    _transparent(r)                              # a second blend mesh
+    r.render_device()
+    third = r._prep[1]
+    assert third["transparent_dev"] is not first["transparent_dev"]
+    assert torch.equal(third["transparent_dev"].cpu(), torch.as_tensor(
+        third["masks"]["transparent"]))
+
+
+def test_pick_replays_the_last_render_call():
+    """With temporal AA on, a pick after a moved camera re-renders the
+    last call's debug view (the ordinary frame: a debug view turns
+    temporal reuse off), as the JAX renderer does (renderer.py:1205,
+    :1249-1255), not a jittered temporal frame: the picks agree at the
+    mesh edges, where the jitter would move them."""
+    from awsm_renderer_tpu import AntiAliasing as JAA
+    from awsm_renderer_tpu.utils import math3d as jm3
+
+    import awsm_renderer_tpu_torch as P
+
+    jr = T.jax_renderer("box", anti_aliasing=JAA(temporal=True))
+    tr = T.torch_renderer("box", anti_aliasing=P.AntiAliasing(temporal=True))
+    for r in (jr, tr):
+        r.render(debug_mode="normals")
+    eye = (2.2, 1.6, 3.8)
+    jr.camera.update(jm3.look_at(eye, (0, 0, 0), (0, 1, 0)),
+                     jr.camera.projection)
+    _move_camera(tr, eye)
+    assert tr._last_render_call == ("normals", None)
+    tr.pick(T.W // 2, T.H // 2)
+    jr.pick(T.W // 2, T.H // 2)
+    assert tr._temporal is None        # the replay was no temporal frame
+    tid = np.asarray(jr._last_tri_id)
+    edge = np.zeros(tid.shape, bool)
+    edge[:, 1:] |= tid[:, 1:] != tid[:, :-1]
+    edge[1:, :] |= tid[1:, :] != tid[:-1, :]
+    ys, xs = np.nonzero(edge)
+    assert len(ys) > 50
+    picks_j = [jr.pick(int(x), int(y)) for y, x in zip(ys, xs)]
+    picks_t = [tr.pick(int(x), int(y)) for y, x in zip(ys, xs)]
+    assert picks_t == picks_j
+    assert len(set(picks_j)) >= 2      # mesh and background (None)
+
+
 def test_msaa_with_supersample_is_refused():
     """One AA mode at a time, as the JAX frame's assert (frame.py:961)."""
     from awsm_renderer_tpu_torch.errors import ConfigError

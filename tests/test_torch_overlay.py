@@ -499,12 +499,8 @@ def test_effect_refraction_golden():
     _tight("effect-refraction", r.render_u8())
 
 
-@pytest.mark.parametrize("name, golden", [
-    ("glb-alpha-modes", "parity-glb-alpha-modes-512"),
-    ("glb-ext-transmission", "parity-ext-transmission-512"),
-])
-def test_parity_512_goldens(name, golden, tmp_path):
-    """tests/test_parity_golden.py _render_glb at 512x256, tight."""
+def _render_glb_512(name, tmp_path):
+    """tests/test_parity_golden.py _render_glb at 512x256 on the port."""
     import awsm_renderer_tpu_torch as P
     from awsm_renderer_tpu_torch.gltf.samples import SAMPLES
     from awsm_renderer_tpu_torch.utils import math3d as m3
@@ -520,4 +516,34 @@ def test_parity_512_goldens(name, golden, tmp_path):
                                   intensity=6.0))
     r.update_all(0.0, m3.look_at(eye, center, (0, 1, 0)),
                  m3.perspective(np.pi / 3, 2.0, 0.05, 500.0))
-    _tight(golden, r.render_u8())
+    return r.render_u8()
+
+
+@pytest.mark.parametrize("name, golden", [
+    ("glb-alpha-modes", "parity-glb-alpha-modes-512"),
+    ("glb-ext-transmission", "parity-ext-transmission-512"),
+])
+def test_parity_512_goldens(name, golden, tmp_path):
+    """tests/test_parity_golden.py _render_glb at 512x256, tight."""
+    _tight(golden, _render_glb_512(name, tmp_path))
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name, golden", [
+    ("glb-helmet", "parity-glb-helmet-512")] + [
+    (f"glb-ext-{v}", f"parity-ext-{v}-512") for v in (
+        "anisotropy", "clearcoat", "iridescence", "sheen", "specular",
+        "unlit")])
+def test_parity_512_goldens_slow(name, golden, tmp_path):
+    """The other seven 512x256 parity goldens (slow on the CPU, as JAX's
+    test_parity_glb_512 and test_parity_ext_512 are), tight, with their
+    coverage checks."""
+    img = _render_glb_512(name, tmp_path)
+    _tight(golden, img)
+    if name == "glb-helmet":
+        assert (np.abs(np.diff(img[..., 0].astype(np.int16), axis=1))
+                > 8).mean() > 0.01
+    else:
+        bg = img[2, 2, :3].astype(np.int16)
+        cov = np.abs(img[..., :3].astype(np.int16) - bg).max(axis=-1) > 8
+        assert cov.mean() > 0.05, cov.mean()

@@ -1,7 +1,9 @@
-"""PyTorch port, K3 material fetch and K6 env-tap gather-split: the plain
-twins (which the card run holds bit-equal to the CUDA kernels) vs the
-JAX functions in their CPU form, bit for bit, out-of-range rows and
-indices included; plus the cubemap tap planning that feeds K6."""
+"""PyTorch port, K3 material fetch, K6 env-tap gather-split, K12
+split_rows and K13 channel_rows: the plain twins (which the card run
+holds bit-equal to the CUDA kernels) vs the JAX functions in their CPU
+form, bit for bit, out-of-range rows and indices, bf16 input and sizes
+off the reference's 2048-value blocks included; plus the cubemap tap
+planning that feeds K6."""
 
 import jax.numpy as jnp
 import ml_dtypes
@@ -108,3 +110,54 @@ def test_env_batch_matches_jax(env_pool):
         for c in range(4):
             np.testing.assert_allclose(a[c].numpy(), np.asarray(b[c]),
                                        rtol=1e-5, atol=1e-6)
+
+
+def _bf16(x: np.ndarray):
+    """f32 -> (ml_dtypes bf16 array, torch bf16 tensor of the same bits)."""
+    b = x.astype(ml_dtypes.bfloat16)
+    return b, torch.from_numpy(b.view(np.int16).copy()).view(torch.bfloat16)
+
+
+# JAX's CPU route of split_rows and channel_rows is their plain branch
+# (relayout.py:96-97 and :180-181 return before the pallas_call when
+# interpret is set): the Pallas bodies are not reachable on the CPU.
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("C, P", [(8, 5000), (3, 2049)])
+def test_k12_split_rows_bit_equal_to_jax(dtype, C, P):
+    from awsm_renderer_tpu.ops.relayout import split_rows as jax_k12
+
+    from awsm_renderer_tpu_torch.ops.relayout import (
+        split_rows, split_rows_reference,
+    )
+
+    x = np.random.default_rng(P).standard_normal((C, P)).astype(np.float32)
+    xj, xt = (x, torch.as_tensor(x)) if dtype == "f32" else _bf16(x)
+    want = [np.asarray(r) for r in jax_k12(jnp.asarray(xj), interpret=True)]
+    got = split_rows(xt)
+    assert len(got) == C
+    for a, b in zip(got, want):
+        assert a.shape == (P,) and a.dtype == torch.float32
+        np.testing.assert_array_equal(a.numpy().view(np.uint32),
+                                      b.view(np.uint32))
+    assert all(torch.equal(a, b) for a, b in zip(got,
+                                                  split_rows_reference(xt)))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("P, C", [(5000, 4), (2049, 7)])
+def test_k13_channel_rows_bit_equal_to_jax(dtype, P, C):
+    from awsm_renderer_tpu.ops.relayout import channel_rows as jax_k13
+
+    from awsm_renderer_tpu_torch.ops.relayout import (
+        channel_rows, channel_rows_reference,
+    )
+
+    x = np.random.default_rng(C).standard_normal((P, C)).astype(np.float32)
+    xj, xt = (x, torch.as_tensor(x)) if dtype == "f32" else _bf16(x)
+    want = np.asarray(jax_k13(jnp.asarray(xj), interpret=True))
+    got = channel_rows(xt)
+    assert got.shape == (C, P) and got.dtype == torch.float32
+    assert got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  want.view(np.uint32))
+    assert torch.equal(got, channel_rows_reference(xt))
