@@ -21,8 +21,10 @@
 // bboxes (the reference's _chunk_bboxes), then dense_kernel runs one CTA
 // per 8x128 tile, one thread per pixel. The CTA walks the chunks in index
 // order, skips one whose bbox misses the tile (a uniform branch), stages
-// the chunk's edge and z planes (128 x 12 floats) in shared memory and
-// merges its 128 triangles. Slim output: tri_id (the winner's S_ORIG_ID,
+// the chunk's edge and z planes (128 x 12 floats) and its sixteen
+// 8-triangle subgroup bboxes in shared memory, and merges the triangles of
+// each subgroup whose bbox overlaps the tile (the reference's tile_xy
+// skip in _merge_subgroup, again uniform). Slim output: tri_id (the winner's S_ORIG_ID,
 // -1 on a miss) and depth (1.0 on a miss); fat: the winner's 64-float row
 // resolved at the pixel centre (tri_id from the row, -1 and zero planes on
 // a miss).
@@ -32,9 +34,9 @@
 // kept (no fast math), as the _FMIN threshold needs.
 //
 // What bounds it on the H100: the merge ALU, 16 operations per
-// triangle-pixel coverage test over the overlapping (tile, chunk) pairs,
-// 128 x 1024 tests each; the setup bytes are read once per overlapping
-// pair (6 KB staged) and are small next to that. Simple and right first:
+// triangle-pixel coverage test over the overlapping (tile, subgroup)
+// pairs, 8 x 1024 tests each; the setup bytes are read once per
+// overlapping (tile, chunk) pair (6 KB staged) and are small next to that. Simple and right first:
 // the serial bbox scan (n_chunks uniform tests per tile) and the
 // per-chunk __syncthreads pair are left as they are.
 
@@ -48,7 +50,7 @@ namespace {
 using awsm::NSETUP;
 
 constexpr int TILE_W = 128, TILE_H = 8, NPX = TILE_W * TILE_H;
-constexpr int CHUNK = 128;
+constexpr int CHUNK = 128, SUB = 8, NSUB = CHUNK / SUB;
 constexpr int NPL = 12;  // the three edge triples and the z plane, rows 0..11
 constexpr int S_BB_MINX = 15, S_BB_MINY = 16, S_BB_MAXX = 17, S_BB_MAXY = 18;
 constexpr float FMIN = 1.1754943508222875e-38f;
@@ -84,6 +86,10 @@ chunk_bbox_kernel(const float* __restrict__ setup, float4* __restrict__ bbox) {
   }
 }
 
+__device__ __forceinline__ bool overlaps(float4 b, float tx0, float ty0) {
+  return b.x < tx0 + TILE_W && b.z > tx0 && b.y < ty0 + TILE_H && b.w > ty0;
+}
+
 // a*px + (b*py + c), each step rounded
 __device__ __forceinline__ float affine(float a, float b, float c, float px,
                                         float py) {
@@ -96,6 +102,7 @@ dense_kernel(const float* __restrict__ setup, const float4* __restrict__ bbox,
              const float* __restrict__ zhi, int flags, int P,
              int* __restrict__ out_tid, float* __restrict__ out) {
   __shared__ float s[CHUNK * NPL];
+  __shared__ float4 sg[NSUB];  // the chunk's subgroup bboxes
   const int x = blockIdx.x * TILE_W + threadIdx.x % TILE_W;
   const int y = blockIdx.y * TILE_H + threadIdx.x / TILE_W;
   const float tx0 = (float)(blockIdx.x * TILE_W);
@@ -108,30 +115,44 @@ dense_kernel(const float* __restrict__ setup, const float4* __restrict__ bbox,
   float best_z = 1.f;  // the depth clear; LESS
   int best = -1;       // winner's setup row
   for (int c = 0; c < n_chunks; ++c) {
-    const float4 b = bbox[c];
-    if (!(b.x < tx0 + TILE_W && b.z > tx0 && b.y < ty0 + TILE_H && b.w > ty0))
-      continue;  // the same for every thread of the tile
-    __syncthreads();  // the previous chunk's merge has read its planes
+    if (!overlaps(bbox[c], tx0, ty0)) continue;  // the same for every thread
+    __syncthreads();  // the previous chunk's merge has read shared memory
     for (int i = threadIdx.x; i < CHUNK * NPL; i += NPX) {
       s[i] = setup[((size_t)c * CHUNK + i / NPL) * NSETUP + i % NPL];
     }
-    __syncthreads();
-    for (int k = 0; k < CHUNK; ++k) {
-      const float* t = s + k * NPL;
-      bool in = true;
-#pragma unroll
-      for (int e = 0; e < 3; ++e) {
-        const float a = t[3 * e], bb = t[3 * e + 1];
-        const float v = affine(a, bb, t[3 * e + 2], px, py);
-        // top-left rule: a left edge (a > 0) or a top edge (a == 0, b > 0)
-        // owns its exact zeros
-        in = in && v >= ((a > 0.f || (a == 0.f && bb > 0.f)) ? 0.f : FMIN);
+    if (threadIdx.x < NSUB) {
+      const float* r = setup + ((size_t)c * CHUNK + threadIdx.x * SUB) * NSETUP;
+      float4 q = make_float4(r[S_BB_MINX], r[S_BB_MINY], r[S_BB_MAXX],
+                             r[S_BB_MAXY]);
+      for (int k = 1; k < SUB; ++k) {
+        r += NSETUP;
+        q.x = fminf(q.x, r[S_BB_MINX]);
+        q.y = fminf(q.y, r[S_BB_MINY]);
+        q.z = fmaxf(q.z, r[S_BB_MAXX]);
+        q.w = fmaxf(q.w, r[S_BB_MAXY]);
       }
-      const float z = affine(t[9], t[10], t[11], px, py);
-      if (in && z >= 0.f && z <= 1.f && (!peel || (z > lo && z < hi)) &&
-          z < best_z) {
-        best_z = z;
-        best = c * CHUNK + k;
+      sg[threadIdx.x] = q;
+    }
+    __syncthreads();
+    for (int g = 0; g < NSUB; ++g) {
+      if (!overlaps(sg[g], tx0, ty0)) continue;  // uniform, as above
+      for (int k = g * SUB; k < (g + 1) * SUB; ++k) {
+        const float* t = s + k * NPL;
+        bool in = true;
+#pragma unroll
+        for (int e = 0; e < 3; ++e) {
+          const float a = t[3 * e], bb = t[3 * e + 1];
+          const float v = affine(a, bb, t[3 * e + 2], px, py);
+          // top-left rule: a left edge (a > 0) or a top edge (a == 0,
+          // b > 0) owns its exact zeros
+          in = in && v >= ((a > 0.f || (a == 0.f && bb > 0.f)) ? 0.f : FMIN);
+        }
+        const float z = affine(t[9], t[10], t[11], px, py);
+        if (in && z >= 0.f && z <= 1.f && (!peel || (z > lo && z < hi)) &&
+            z < best_z) {
+          best_z = z;
+          best = c * CHUNK + k;
+        }
       }
     }
   }

@@ -863,38 +863,38 @@ def rasterize(setup_rows, *, width: int, height: int, binned: bool = True,
               has_color: bool = True, analytic_derivs: bool = True):
     """One raster of row-major setup (T, NSETUP) f32 without a peel ->
     {name: (height, width)} (reference: rasterize). binned=True (the
-    default, the reference's hardware route) takes K7; the HUD pass takes
-    it over a compacted overlay pool, where tri_id must come from
-    S_ORIG_ID. binned=False takes the dense route K11a (the reference's
-    interpret-mode route; the port's on-card oracle for K1, K7, K8 and
-    K9). slim=True returns only tri_id and depth."""
+    default, the reference's hardware route) is a fat K7 raster; the HUD
+    pass takes it over a compacted overlay pool, where tri_id must come
+    from S_ORIG_ID. binned=False takes the dense route K11a (the
+    reference's interpret-mode route; the port's on-card oracle for K1,
+    K7, K8 and K9), where slim=True returns only tri_id and depth."""
     if not binned:
         return _rasterize_dense(setup_rows, None, None, width=width,
                                 height=height, slim=slim, has_uv1=has_uv1,
                                 has_color=has_color,
                                 analytic_derivs=analytic_derivs)
-    out = rasterize_binned(setup_rows, width=width, height=height,
-                           has_uv1=has_uv1, has_color=has_color,
-                           analytic_derivs=analytic_derivs)
-    return {k: out[k] for k in ("tri_id", "depth")} if slim else out
+    if slim:
+        raise ValueError("slim is the dense route's (binned=False); the "
+                         "slim binned raster is rasterize16_slim")
+    return rasterize_binned(setup_rows, width=width, height=height,
+                            has_uv1=has_uv1, has_color=has_color,
+                            analytic_derivs=analytic_derivs)
 
 
 def rasterize_peel(setup_rows, zlo, zhi, *, width: int, height: int,
-                   binned: bool = True, slim: bool = False,
+                   binned: bool = False, slim: bool = False,
                    has_uv1: bool = True, has_color: bool = True,
                    analytic_derivs: bool = True):
-    """One depth peel: the nearest fragment with zlo < z < zhi per pixel
-    (reference: rasterize_peel); zlo/zhi (height, width) f32. binned=True
-    takes K7, binned=False the dense peel K11b."""
-    if not binned:
-        return _rasterize_dense(setup_rows, zlo, zhi, width=width,
-                                height=height, slim=slim, has_uv1=has_uv1,
-                                has_color=has_color,
-                                analytic_derivs=analytic_derivs)
-    out = rasterize_binned(setup_rows, zlo, zhi, width=width, height=height,
-                           has_uv1=has_uv1, has_color=has_color,
-                           analytic_derivs=analytic_derivs)
-    return {k: out[k] for k in ("tri_id", "depth")} if slim else out
+    """One dense depth peel K11b: the nearest fragment with zlo < z < zhi
+    per pixel (reference: rasterize_peel(binned=False)); zlo/zhi (height,
+    width) f32. The binned peel is rasterize_binned(setup_rows, zlo,
+    zhi), which the frame's passes call; binned=True is refused."""
+    if binned:
+        raise ValueError("the binned peel is rasterize_binned(setup_rows, "
+                         "zlo, zhi)")
+    return _rasterize_dense(setup_rows, zlo, zhi, width=width, height=height,
+                            slim=slim, has_uv1=has_uv1, has_color=has_color,
+                            analytic_derivs=analytic_derivs)
 
 
 # ---- K11a / K11b: the dense raster and the dense peel -------------------
@@ -917,28 +917,35 @@ def _dense_untile(tiles: torch.Tensor, n_ty: int, n_tx: int) -> torch.Tensor:
             .reshape(n_ty * TILE_H, n_tx * TILE_W))
 
 
+# tiles merged at once by the twin: bounds its (tiles, 128, 1024)
+# temporaries near 0.5 GiB each, for a chunk that spans a 3840x2160 frame
+_DENSE_BATCH = 1024
+
+
 def _dense_walk(setup_rows, width: int, height: int, zbounds=None):
     """The K11 merge for every 8x128 tile: each tile takes, over the chunks
-    whose bbox overlaps it, the covering fragment of least z (0 <= z <= 1,
-    zlo < z < zhi under a peel), the lowest triangle index on ties, and
-    keeps it only if strictly nearer than what it holds (the reference's
-    subgroup merge, here one chunk at a time). Returns (best_z, best_col
-    (n_tiles, 1024), px, py)."""
+    whose bbox overlaps it and within them the 8-triangle subgroups whose
+    bbox does, the covering fragment of least z (0 <= z <= 1, zlo < z <
+    zhi under a peel), the lowest triangle index on ties, and keeps it
+    only if strictly nearer than what it holds (the reference's subgroup
+    merge, here one chunk at a time). Returns (best_z, best_col (n_tiles,
+    1024), px, py)."""
     dev = setup_rows.device
     n_chunks = setup_rows.shape[0] // CHUNK
     n_ty, n_tx = height // TILE_H, width // TILE_W
     n_tiles = n_ty * n_tx
     chunks = setup_rows.reshape(n_chunks, CHUNK, NSETUP)
-    minx = chunks[:, :, S_BB_MINX].amin(dim=1)
-    miny = chunks[:, :, S_BB_MINY].amin(dim=1)
-    maxx = chunks[:, :, S_BB_MAXX].amax(dim=1)
-    maxy = chunks[:, :, S_BB_MAXY].amax(dim=1)
+    subs = chunks.reshape(n_chunks, CHUNK // SUB, SUB, NSETUP)
+    sminx = subs[..., S_BB_MINX].amin(dim=2)       # (n_chunks, 16) each
+    sminy = subs[..., S_BB_MINY].amin(dim=2)
+    smaxx = subs[..., S_BB_MAXX].amax(dim=2)
+    smaxy = subs[..., S_BB_MAXY].amax(dim=2)
     tx0 = torch.arange(n_tx, device=dev).float() * TILE_W
     ty0 = torch.arange(n_ty, device=dev).float() * TILE_H
-    ox = (minx[None, :] < (tx0 + TILE_W)[:, None]) & (maxx[None, :]
-                                                      > tx0[:, None])
-    oy = (miny[None, :] < (ty0 + TILE_H)[:, None]) & (maxy[None, :]
-                                                      > ty0[:, None])
+    ox = (sminx.amin(dim=1)[None, :] < (tx0 + TILE_W)[:, None]) \
+        & (smaxx.amax(dim=1)[None, :] > tx0[:, None])
+    oy = (sminy.amin(dim=1)[None, :] < (ty0 + TILE_H)[:, None]) \
+        & (smaxy.amax(dim=1)[None, :] > ty0[:, None])
     overlap = (oy[:, None, :] & ox[None, :, :]).reshape(n_tiles, n_chunks)
     # (chunk, tile) pairs in chunk order, one host read for the whole walk
     pairs = overlap.T.nonzero().cpu()
@@ -947,11 +954,11 @@ def _dense_walk(setup_rows, width: int, height: int, zbounds=None):
 
     flat = torch.arange(TILE_H * TILE_W, device=dev)
     t = torch.arange(n_tiles, device=dev)
-    tx = (t % n_tx) * TILE_W
-    ty = torch.div(t, n_tx, rounding_mode="floor") * TILE_H
-    px = tx.float()[:, None] + (flat % TILE_W).float() + 0.5
-    py = ty.float()[:, None] + torch.div(flat, TILE_W,
-                                         rounding_mode="floor").float() + 0.5
+    tx = ((t % n_tx) * TILE_W).float()
+    ty = (torch.div(t, n_tx, rounding_mode="floor") * TILE_H).float()
+    px = tx[:, None] + (flat % TILE_W).float() + 0.5
+    py = ty[:, None] + torch.div(flat, TILE_W,
+                                 rounding_mode="floor").float() + 0.5
     zb = None
     if zbounds is not None:
         zb = tuple(_dense_tiles(z, n_ty, n_tx) for z in zbounds)
@@ -959,33 +966,37 @@ def _dense_walk(setup_rows, width: int, height: int, zbounds=None):
     best_col = torch.full((n_tiles, TILE_H * TILE_W), -1, dtype=torch.int32,
                           device=dev)
     lane = torch.arange(CHUNK, device=dev)[None, :, None]
-    for c, tl in enumerate(tiles_of):
-        if tl.numel() == 0:
+    for c, tiles in enumerate(tiles_of):
+        if tiles.numel() == 0:
             continue
-        tl = tl.to(dev)
-        x, y = px[tl][:, None, :], py[tl][:, None, :]      # (n, 1, 1024)
         P = chunks[c].T[:, None, :, None]                 # (64, 1, 128, 1)
-        cover = None
-        for ra in (S_E0A, S_E1A, S_E2A):
-            a, b, cc = P[ra], P[ra + 1], P[ra + 2]
-            e = a * x + (b * y + cc)
-            top_left = (a > 0) | ((a == 0) & (b > 0))
-            ok = e >= torch.where(top_left, 0.0, _FMIN)
-            cover = ok if cover is None else cover & ok
-        z = P[S_ZA] * x + (P[S_ZB] * y + P[S_ZC])         # (n, 128, 1024)
-        cover = cover & (z >= 0.0) & (z <= 1.0)
-        if zb is not None:
-            cover = cover & (z > zb[0][tl][:, None, :]) \
-                & (z < zb[1][tl][:, None, :])
-        zc = torch.where(cover, z, torch.full_like(z, _BIG))
-        zmin = zc.amin(dim=1, keepdim=True)
-        win = torch.where(zc == zmin, lane, CHUNK).amin(dim=1, keepdim=True)
-        zwin = zc.gather(1, win.clamp(max=CHUNK - 1))[:, 0]
-        cur_z, cur_c = best_z[tl], best_col[tl]
-        take = zwin < cur_z
-        best_z[tl] = torch.where(take, zwin, cur_z)
-        best_col[tl] = torch.where(take, (c * CHUNK + win[:, 0]).int(),
-                                   cur_c)
+        for tl in tiles.to(dev).split(_DENSE_BATCH):
+            x, y = px[tl][:, None, :], py[tl][:, None, :]  # (n, 1, 1024)
+            # the subgroups whose bbox overlaps each tile, per triangle
+            sx, sy = tx[tl][:, None], ty[tl][:, None]
+            hit = ((sminx[c] < sx + TILE_W) & (smaxx[c] > sx)
+                   & (sminy[c] < sy + TILE_H) & (smaxy[c] > sy))
+            cover = hit.repeat_interleave(SUB, dim=1)[:, :, None]
+            for ra in (S_E0A, S_E1A, S_E2A):
+                a, b, cc = P[ra], P[ra + 1], P[ra + 2]
+                e = a * x + (b * y + cc)
+                top_left = (a > 0) | ((a == 0) & (b > 0))
+                cover = cover & (e >= torch.where(top_left, 0.0, _FMIN))
+            z = P[S_ZA] * x + (P[S_ZB] * y + P[S_ZC])     # (n, 128, 1024)
+            cover = cover & (z >= 0.0) & (z <= 1.0)
+            if zb is not None:
+                cover = cover & (z > zb[0][tl][:, None, :]) \
+                    & (z < zb[1][tl][:, None, :])
+            zc = torch.where(cover, z, torch.full_like(z, _BIG))
+            zmin = zc.amin(dim=1, keepdim=True)
+            win = torch.where(zc == zmin, lane, CHUNK).amin(dim=1,
+                                                            keepdim=True)
+            zwin = zc.gather(1, win.clamp(max=CHUNK - 1))[:, 0]
+            cur_z, cur_c = best_z[tl], best_col[tl]
+            take = zwin < cur_z
+            best_z[tl] = torch.where(take, zwin, cur_z)
+            best_col[tl] = torch.where(take, (c * CHUNK + win[:, 0]).int(),
+                                       cur_c)
     return best_z, best_col, px, py
 
 

@@ -90,7 +90,7 @@ class AwsmRendererTorch:
         self._mesh_flush_gen = 0       # bumps on every mesh-pool flush
         self._ov_idx_cache = None      # (overlay mask, flush gen, tensor)
         self._mask_cache: Dict[str, tuple] = {}   # name -> (mask, tensor)
-        self._last_render_call = ("none", None)   # pick() replays it
+        self._last_debug_mode = "none"  # pick() replays the last frame's
         self.last_bins = None          # raster bins of the last frame
         self._content_epoch = 0        # non-camera store flush counter
         self._temporal = None          # TAA state: hist/age/prev_vp/epoch
@@ -756,7 +756,7 @@ class AwsmRendererTorch:
         self._rendered_sig = prep_key
         self.last_bins = bins
         # pick() re-renders THIS frame's configuration when it is stale
-        self._last_render_call = (debug_mode, hooks)
+        self._last_debug_mode = debug_mode
         return ldr
 
     def render(self, debug_mode: str = "none", hooks=None) -> np.ndarray:
@@ -779,16 +779,9 @@ class AwsmRendererTorch:
                 != self._scene_signature()):
             if self.meshes.count == 0:
                 return None
-            # replay the last render call (reference: renderer.py pick),
-            # without its host-side pre/post_render hooks
-            dm, hk = self._last_render_call
-            if hk is not None and (getattr(hk, "pre_render", None)
-                                   or getattr(hk, "post_render", None)):
-                import dataclasses
-
-                hk = dataclasses.replace(hk, pre_render=None,
-                                         post_render=None)
-            self.render_device(debug_mode=dm, hooks=hk)
+            # replay the last frame's debug mode (reference: renderer.py
+            # pick; render hooks are refused until M12)
+            self.render_device(debug_mode=self._last_debug_mode)
         h, w = self._last_tri_id.shape
         if not (0 <= x < w and 0 <= y < h):
             return None

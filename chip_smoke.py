@@ -57,10 +57,12 @@ back to the CPU). Phases:
            the two candidates' z lie within 4 ulps (K9's e00 + a + b
            rounding). Where the ids agree, depth is bit-equal (against
            K9, whose min-sample depth rounds the same way, within 4 ulps
-           of the z-plane terms) and the fat planes within 1e-4. Then
-           K11a (fat and slim, on rows 384..640 of the stress setup with
-           all its chunks), K11b (the volume + HUD frame's first peel),
-           K12 split_rows on an (8, 1920*1080) f32 table and K13
+           of the z-plane terms) and the fat planes within 1e-4 (both
+           flushes are K2's resolve_math.cuh; the twin check holds K11's
+           against the plain flush). Then K11a fat (the stress frame's
+           1080p setup) and slim (the MSAA frame's, at 3840x2160) and
+           K11b (the volume + HUD frame's first peel), the oracle's own
+           calls, K12 split_rows on an (8, 1920*1080) f32 table and K13
            channel_rows on a (1920*1080, 4) bf16 block against their
            twins, bit for bit, timed beside their bounds (K12 and K13
            also beside one torch call computing the same function);
@@ -1063,7 +1065,6 @@ def phase_aa(P, np, torch):
 
 ORACLE_ULPS = 4
 F32_EPS = 2.0 ** -23       # an ulp of x is at most F32_EPS * |x|
-ORACLE_BAND = (384, 256)   # (y0, rows) of the stress setup for the twins
 
 
 def _rows_of_ids(rows, ids, torch):
@@ -1176,7 +1177,10 @@ def hold_oracle(label, rows, a, b, torch, px, py, zb=None, k9=False,
         f"mismatches: {c['ties']} exact depth ties, {c['k9_rounding']} K9 "
         f"sample-rounding flips, {c['unclassified']} unclassified; depth "
         f"{'not compared' if not depth else f'{n_depth} not bit-equal'} "
-        f"where the ids agree; fat planes max |d| {err}")
+        f"where the ids agree"
+        + (f"; fat planes max |d| {err} (both flushes are K2's "
+           f"resolve_math.cuh: this holds the winners, the twin check holds "
+           f"K11's flush against the plain one)" if planes else ""))
     if c["unclassified"]:
         bad = idx[c["rest"]][:8]
         log(f"    unclassified at {bad.tolist()}: dense {ta[bad].tolist()}"
@@ -1216,13 +1220,16 @@ def dense_padded(rows, zlo, zhi, *, width: int, height: int, torch, **kw):
     return {k: v[:height, :width] for k, v in out.items()}
 
 
-def dense_pairs(rows, width: int, height: int, torch) -> int:
-    """(8x128 tile, 128-triangle chunk) pairs whose bboxes overlap: the
-    merges K11 runs on these inputs."""
+def dense_pairs(rows, width: int, height: int, group: int, torch) -> int:
+    """(8x128 tile, `group`-triangle group) pairs whose bboxes overlap."""
     from awsm_renderer_tpu_torch.ops import raster as TR
+    from awsm_renderer_tpu_torch.ops.vertex import (
+        S_BB_MAXX, S_BB_MAXY, S_BB_MINX, S_BB_MINY,
+    )
 
-    n_chunks = rows.shape[0] // TR.CHUNK
-    mnx, mny, mxx, mxy = TR._chunk_bboxes(rows, n_chunks)
+    g = rows.reshape(-1, group, rows.shape[1])
+    mnx, mny = g[..., S_BB_MINX].amin(1), g[..., S_BB_MINY].amin(1)
+    mxx, mxy = g[..., S_BB_MAXX].amax(1), g[..., S_BB_MAXY].amax(1)
     tx0 = torch.arange(width // TR.TILE_W, device=rows.device).float() \
         * TR.TILE_W
     ty0 = torch.arange(height // TR.TILE_H, device=rows.device).float() \
@@ -1237,10 +1244,13 @@ def dense_pairs(rows, width: int, height: int, torch) -> int:
 def dense_bound(rows, width: int, height: int, n_out_planes: int, torch,
                 peel=False):
     """K11's least time: setup (and peel bounds) read once, the planes
-    written once; OPS_PER_TEST per coverage test over the overlapping
-    (tile, chunk) pairs, 1024 pixels x 128 triangles each."""
+    written once; OPS_PER_TEST per coverage test over the (tile, 8-triangle
+    subgroup) pairs whose bboxes overlap (the reference merges no other
+    subgroup), 1024 pixels x 8 triangles each."""
+    from awsm_renderer_tpu_torch.ops import raster as TR
+
     n_px = width * height
-    tests = dense_pairs(rows, width, height, torch) * 1024 * 128
+    tests = dense_pairs(rows, width, height, TR.SUB, torch) * 1024 * TR.SUB
     return bound(nbytes(rows) + n_px * 4 * (n_out_planes + (2 if peel
                                                             else 0)),
                  tests * OPS_PER_TEST)
@@ -1370,14 +1380,14 @@ def oracle_k9(m_rows, w2: int, h2: int, torch, label: str):
 def phase_oracle(P, np, torch, cap_stress, calls_k8, calls_k7, msaa_in):
     """K11a / K11b against K1 + K2, K7, K8 and K9 on the card's own 1080p
     intermediates (the launch counts of these four comparisons are K11's
-    path); then K11a, K11b, K12 and K13 against their twins, timed."""
+    path); then K12 and K13, and K11a (fat at 1080p, slim at 2x) and K11b
+    on those comparisons' own inputs, against their twins, timed."""
     from awsm_renderer_tpu_torch.ops import kernels
     from awsm_renderer_tpu_torch.ops import raster as TR
     from awsm_renderer_tpu_torch.ops.relayout import (
         channel_rows, channel_rows_reference, split_rows,
         split_rows_reference,
     )
-    from awsm_renderer_tpu_torch.passes.frame import _shift_rows_band
 
     t_phase = time.perf_counter()
     log("phase oracle: the dense raster K11a and dense peel K11b against "
@@ -1441,60 +1451,48 @@ def phase_oracle(P, np, torch, cap_stress, calls_k8, calls_k7, msaa_in):
         library_ms=cuda_ms(lambda: texels.t().float().contiguous(), 20))
     del tform, texels, k12, k13
 
-    # ---- K11a / K11b against their twins ----------------------------------
-    y0, bh = ORACLE_BAND
-    brows = _shift_rows_band(srows, y0)
-    for slim in (False, True):
-        kw11 = dict(width=rw, height=bh, slim=slim)
-        a = TR.rasterize(brows, binned=False, **kw11)
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        b = TR.rasterize_dense_reference(brows, **kw11)
-        ev[1].record()
-        torch.cuda.synchronize()
-        label = "slim" if slim else "fat"
-        err = hold_planes(f"K11a {label}, rows {y0}..{y0 + bh} of the stress "
-                          f"setup ({rw}x{bh}, all {brows.shape[0] // 128} "
-                          f"chunks)", a, b, torch)
-        results[f"K11a_{label}"] = dict(
-            err=err, ms=cuda_ms(lambda: TR.rasterize(brows, binned=False,
-                                                     **kw11), 10),
-            plain_ms=ev[0].elapsed_time(ev[1]),
-            bound=dense_bound(brows, rw, bh, len(a), torch),
-            library_ms=None)
-    del a, b
+    # ---- K11a / K11b against their twins, on the oracle's own calls ------
+    n_fat = len(TR.plane_layout(True, True, True))
     (rows, zlo, zhi), kw7 = calls_k7[0]
     w7, h7 = kw7["width"], kw7["height"]
     lay = dict(has_uv1=kw7["has_uv1"], has_color=kw7["has_color"],
                analytic_derivs=kw7["analytic_derivs"])
-    a = TR.rasterize_peel(rows, zlo, zhi, width=w7, height=h7, binned=False,
-                          **lay)
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-    ev[0].record()
-    b = TR.rasterize_peel_dense_reference(rows, zlo, zhi, width=w7,
-                                          height=h7, **lay)
-    ev[1].record()
-    torch.cuda.synchronize()
-    err = hold_planes(f"K11b (volume + HUD frame, peel 0, {w7}x{h7})", a, b,
-                      torch)
-    results["K11b"] = dict(
-        err=err, ms=cuda_ms(lambda: TR.rasterize_peel(
-            rows, zlo, zhi, width=w7, height=h7, binned=False, **lay), 10),
-        plain_ms=ev[0].elapsed_time(ev[1]),
-        bound=dense_bound(rows, w7, h7, len(a), torch, peel=True),
-        library_ms=None)
-    # the oracle's own calls, timed: the 1080p fat raster and the 2x slim
-    results["K11a_1080p_ms"] = cuda_ms(lambda: TR.rasterize(
-        srows, width=rw, height=rh, binned=False), 5)
-    results["K11a_1080p_bound"] = dense_bound(
-        srows, rw, rh, len(TR.plane_layout(True, True, True)), torch)
-    results["K11a_2x_ms"] = cuda_ms(lambda: TR.rasterize(
-        m_rows, width=w2, height=h2, binned=False, slim=True), 3)
-    results["K11a_2x_bound"] = dense_bound(m_rows, w2, h2, 2, torch)
-    for k in ("1080p", "2x"):
-        bd = results[f"K11a_{k}_bound"]
-        log(f"  K11a on the oracle's {k} frame: {results[f'K11a_{k}_ms']:.4f}"
-            f" ms, bound {bd[0]:.4f} ms ({bd[1]})")
+    twins = (
+        ("K11a_fat", f"K11a fat on the stress frame's opaque setup ({rw}x"
+                     f"{rh}, {srows.shape[0] // TR.CHUNK} chunks)",
+         lambda: TR.rasterize(srows, width=rw, height=rh, binned=False),
+         lambda: TR.rasterize_dense_reference(srows, width=rw, height=rh),
+         dense_bound(srows, rw, rh, n_fat, torch), 5),
+        ("K11a_slim", f"K11a slim on the MSAA frame's setup ({w2}x{h2}, "
+                      f"{m_rows.shape[0] // TR.CHUNK} chunks)",
+         lambda: TR.rasterize(m_rows, width=w2, height=h2, binned=False,
+                              slim=True),
+         lambda: TR.rasterize_dense_reference(m_rows, width=w2, height=h2,
+                                              slim=True),
+         dense_bound(m_rows, w2, h2, 2, torch), 3),
+        ("K11b", f"K11b on the volume + HUD frame's peel 0 ({w7}x{h7})",
+         lambda: TR.rasterize_peel(rows, zlo, zhi, width=w7, height=h7,
+                                   binned=False, **lay),
+         lambda: TR.rasterize_peel_dense_reference(
+             rows, zlo, zhi, width=w7, height=h7, **lay),
+         dense_bound(rows, w7, h7, len(TR.plane_layout(**lay)), torch,
+                     peel=True), 10),
+    )
+    for key, label, kern, twin, bd, reps in twins:
+        a = kern()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        b = twin()
+        ev[1].record()
+        torch.cuda.synchronize()
+        err = hold_planes(label, a, b, torch)
+        del a, b
+        results[key] = dict(err=err, ms=cuda_ms(kern, reps),
+                            plain_ms=ev[0].elapsed_time(ev[1]), bound=bd,
+                            library_ms=None)
+        log(f"  {label}: kernel {results[key]['ms']:.4f} ms, twin "
+            f"{results[key]['plain_ms']:.4f} ms, bound {bd[0]:.4f} ms "
+            f"({bd[1]})")
     results["launches"] = launches
     results["summary"] = summary
     kernels.reset_launch_counts()
@@ -2126,13 +2124,9 @@ def main() -> int:
         log(f"K2 [{label}] entry: kernel {v['ms']:.4f} ms, twin "
             f"{v['plain_ms']:.4f} ms ({card})")
     sl = orc["K11a_slim"]
-    log(f"K11a slim on the oracle band: kernel {sl['ms']:.4f} ms, twin "
-        f"{sl['plain_ms']:.4f} ms, bound {sl['bound'][0]:.4f} ms "
+    log(f"K11a slim on the MSAA frame's setup at 2x: kernel {sl['ms']:.4f} "
+        f"ms, twin {sl['plain_ms']:.4f} ms, bound {sl['bound'][0]:.4f} ms "
         f"({sl['bound'][1]}) ({card})")
-    for k in ("1080p", "2x"):
-        bd = orc[f"K11a_{k}_bound"]
-        log(f"K11a on the oracle's {k} frame: {orc[f'K11a_{k}_ms']:.4f} ms, "
-            f"bound {bd[0]:.4f} ms ({bd[1]}) ({card})")
     for k, v in orc["summary"].items():
         log(f"oracle vs {k}: {v['n']} pixels compared, {v['mismatches']} "
             f"tri_id mismatches: {v['ties']} exact depth ties, "

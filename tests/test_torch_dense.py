@@ -118,7 +118,8 @@ def test_dense_twin_matches_jax(peel, slim, derivs):
 
 def test_dense_reference_entry_points():
     """rasterize(binned=False) on a CPU tensor is the named twin; the
-    default route is K7's (rasterize_binned); the dense grid refuses
+    default route is K7's (rasterize_binned), which has no slim form here
+    and no binned peel beside rasterize_binned; the dense grid refuses
     sizes off its 128 x 8 tiles and setup off whole chunks."""
     _s, rows, zlo, zhi = _scene()
     t = torch.as_tensor(rows)
@@ -136,9 +137,10 @@ def test_dense_reference_entry_points():
     binned = TR.rasterize(t, width=W, height=H)
     want = TR.rasterize_binned(t, width=W, height=H)
     assert all(torch.equal(binned[k], want[k]) for k in want)
-    slim = TR.rasterize(t, width=W, height=H, slim=True)
-    assert sorted(slim) == ["depth", "tri_id"]
-    assert torch.equal(slim["tri_id"], want["tri_id"])
+    with pytest.raises(ValueError, match="dense route"):
+        TR.rasterize(t, width=W, height=H, slim=True)
+    with pytest.raises(ValueError, match="rasterize_binned"):
+        TR.rasterize_peel(t, zl, zh, width=W, height=H, binned=True)
     with pytest.raises(ValueError, match="multiple"):
         TR.rasterize(t, width=W - 32, height=H, binned=False)
     with pytest.raises(ValueError, match="multiple"):

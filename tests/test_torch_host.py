@@ -382,7 +382,7 @@ def test_bucket_masks_upload_once_across_camera_moves():
 
 def test_pick_replays_the_last_render_call():
     """With temporal AA on, a pick after a moved camera re-renders the
-    last call's debug view (the ordinary frame: a debug view turns
+    last frame's debug view (the ordinary frame: a debug view turns
     temporal reuse off), as the JAX renderer does (renderer.py:1205,
     :1249-1255), not a jittered temporal frame: the picks agree at the
     mesh edges, where the jitter would move them."""
@@ -399,7 +399,7 @@ def test_pick_replays_the_last_render_call():
     jr.camera.update(jm3.look_at(eye, (0, 0, 0), (0, 1, 0)),
                      jr.camera.projection)
     _move_camera(tr, eye)
-    assert tr._last_render_call == ("normals", None)
+    assert tr._last_debug_mode == "normals"
     tr.pick(T.W // 2, T.H // 2)
     jr.pick(T.W // 2, T.H // 2)
     assert tr._temporal is None        # the replay was no temporal frame
