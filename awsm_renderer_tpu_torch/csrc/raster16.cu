@@ -4,26 +4,77 @@
 // Replaces the TPU kernel awsm_renderer_tpu/ops/raster.py::rasterize16_slim
 // (pallas_call at raster.py:1615, body _make_v5_kernel at raster.py:1402).
 //
-// One CTA per 32x32 tile, one thread per pixel. The CTA reads its own bin
-// (offsets[t], counts[t]) and walks the binned 16-triangle groups in entry
-// order (the binner's near-first order), staging each group's edge and
-// depth planes (16 x 12 floats) in shared memory, then walks the global
-// big-group list with the tile-bbox test. Per pixel:
+// The function. Each 32x32 tile walks its bin (offsets[t], counts[t]: the
+// binned 16-triangle groups in the binner's near-first order), then the
+// big groups whose tile box holds it, in big-list order. Per pixel:
 //   - edge test e = a*px + (b*py + c) >= (top-left ? 0 : FLT_MIN_NORMAL),
 //   - 0 <= z <= 1,
 //   - strict z < best: the triangle met first wins a depth tie, which is
 //     the TPU kernel's rule (nearest z, lowest index inside a subgroup;
 //     strict < across subgroups and groups).
-// The file is compiled with -fmad=false and the plane evaluations use
-// explicit __fmul_rn/__fadd_rn, so no FMA contraction changes a rounding
-// (contracted edge functions open pinholes along shared edges); the plain
-// twin in ops/raster.py gives bit-equal col/depth.
+// So the winner is the least z in [0, 1) (+0.0 and -0.0 equal), the
+// earliest walk position on equal z, with z's own bits; -1 and 1.0 where
+// nothing covers. The plain twin in ops/raster.py walks the same order.
 //
-// What bounds it on the H100: the per-pixel merge ALU (about 12 flops and
-// 4 compares per triangle-pixel test) and the serial walk of a tile's
-// groups, with a __syncthreads pair per group. Simple and right first;
-// speed (several groups per stage, warp-level early-out on empty group
-// bboxes, persistent CTAs) is later work.
+// What bounds it on the H100. The work is the coverage tests, 16 float
+// operations each: e = a*px + (b*py + c) for three edges and the z plane.
+// The bins vary a lot from tile to tile: on the 1080p stress frame most of
+// the 2,040 tiles hold a handful of groups and a few hold well over 127.
+// One CTA per tile walking its groups in turn (the first port of this
+// kernel) took the time of its heaviest tile on one SM while the others
+// idled. So the design spreads the walk:
+//   - Balance. The wrapper's plan (two small kernels below) cuts each
+//     tile's walk into slices of at most S = 16 groups (the fastest of 8,
+//     16 and 32 on the 1080p stress frame; ops/raster.py K1_SLICE mirrors
+//     it to size the plan's workspace) and lists them; a persistent grid
+//     takes slices from an atomic counter. The plan reads no count on the
+//     host: its sizes are upper bounds from the bins' shapes.
+//   - Merge. The plan writes a tile with nothing to walk (on the 1080p
+//     stress frame 869 of 2,040) and lists no slice for it. A tile of one
+//     slice writes its pixels directly. The slices of a split tile meet
+//     in a 64-bit atomicMin per pixel of (|z|'s bits, walk position) in a
+//     scratch plane (the plan sets a split tile's keys to all ones); the
+//     slice that finishes last (a per-tile counter) turns each position
+//     back into its column and recomputes z from the same rounded plane
+//     (a -0.0 winner keeps its bits).
+//   - Staging. One barrier per slice: each thread loads its triangles of
+//     the NEXT slice into registers while the CTA merges the current one
+//     from shared memory, then stores them (edge coefficients with their
+//     top-left threshold, the z plane, an 8-bit warp mask) to the other
+//     buffer. Registers, not cp.async or TMA (no such variant was built
+//     or timed): the thresholds and the mask are computed on the way in,
+//     which a raw async copy would leave to a second pass behind a second
+//     barrier, and at S = 16 a thread stages one triangle, 17 registers.
+//   - Work per thread and culling. 256 threads, 4 pixels each along a
+//     row, so b*py + c is formed once per edge for 4 tests and each
+//     shared-memory read serves 4 pixels. Warp w owns the 16x8 block (w %
+//     2, w / 2) of the tile. A triangle whose bbox, widened by one pixel,
+//     misses a warp's block is not tested by that warp: after the
+//     barrier each warp lists, in walk order, the slice's triangles whose
+//     mask names it (a ballot a 32 triangles), and walks only its list.
+//     The bbox holds every centre the rounded edge test can cover: the
+//     rounding error of e in pixels is about 2^-24 times the vertex
+//     coordinates, far below a pixel on screen (tests/test_torch_raster.py
+//     checks the rule on its cases).
+// Rounding stays exactly the twin's: the file is compiled with
+// -fmad=false and the planes use __fmul_rn/__fadd_rn, with no incremental
+// stepping of the edge functions. Under -fmad=false the f32 pipe issues
+// each multiply and add as two instructions, so the 67 TFLOP/s behind the
+// row's operation bound (an FMA counted as two) is reachable at half rate
+// only: twice that bound is this kernel's real ALU floor.
+//
+// What bounds it now. The walk is spread, so the time follows the summed
+// work, and the work is set by the cull's grain: a warp tests its 128
+// pixels against every triangle whose widened bbox reaches its block,
+// while the stress frame's triangles cover a few pixels each (the tests
+// inside the triangles' bboxes are under 1% of the walk's tests,
+// chip_smoke.py); the plan's two launches add a fixed cost. Rasterizing
+// pixel-sized triangles one thread a triangle over its bbox, into the
+// same (|z|, walk position) keys, is the step after this one.
+//
+// The plan (k1_count_kernel, k1_scan_kernel) and the slice walk take any
+// per-tile list of groups; K9 (raster_msaa.cu) and K7 (binned.cu) walk
+// their bins the same serial way and can reuse them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -33,101 +84,422 @@ namespace {
 constexpr int NSETUP = 64;
 constexpr int GROUP = 16;
 constexpr int BT = 32;
-constexpr int NPLANE = 12;  // edge triples (0..8) + z-plane (9..11)
+constexpr int NPX = BT * BT;
+constexpr int THREADS = 256;  // 8 warps x 32 lanes x 4 pixels
+constexpr int S = 16;  // groups a slice walks at most (K1_SLICE)
+constexpr int NT = S * GROUP;  // triangles a slice stages
+constexpr int TPT = (NT + THREADS - 1) / THREADS;  // of them a thread
+constexpr int NBIG_CAP = 512;  // ops/raster.py NBIG_CAP
+constexpr int S_BB_MINX = 15;  // then min y, max x, max y
 constexpr float FMIN = 1.1754943508222875e-38f;
+constexpr unsigned long long NO_HIT = ~0ull;
+
+// one work slice: tile t, walk positions [p0, p0 + n) of the tile's walk
+// (its cnt binned entries from entries[off], then its big groups), and
+// the tile's number of slices ns
+struct alignas(16) Slice {
+  int t, p0, off, cnt, n, ns, pad0, pad1;
+};
+
+// a staged triangle: per edge (a, b, c, threshold), then the z plane
+struct alignas(16) Tri {
+  float4 e[3];
+  float4 z;
+};
+
+// a triangle as loaded from its setup row, before staging
+struct Raw {
+  float4 e[3];
+  float bb[4];
+  int col;
+};
 
 __device__ __forceinline__ float plane(float a, float b, float c, float px,
                                        float py) {
   return __fadd_rn(__fmul_rn(a, px), __fadd_rn(__fmul_rn(b, py), c));
 }
 
-__device__ __forceinline__ void merge_group(const float* s, int col_base,
-                                            float px, float py, float& best_z,
-                                            int& best_col) {
-#pragma unroll 4
-  for (int k = 0; k < GROUP; ++k) {
-    const float* r = s + k * NPLANE;
-    bool cover = true;
+// (a, b, c, the top-left threshold): e >= threshold covers
+__device__ __forceinline__ float4 edge(float a, float b, float c) {
+  const bool tl = (a > 0.f) || (a == 0.f && b > 0.f);
+  return make_float4(a, b, c, tl ? 0.f : FMIN);
+}
+
+__device__ __forceinline__ bool touches(int bb, int tx, int ty) {
+  return (bb & 255) <= tx && tx <= ((bb >> 16) & 255) &&
+         ((bb >> 8) & 255) <= ty && ty <= ((bb >> 24) & 255);
+}
+
+// walk position b of tile t -> group id
+__device__ __forceinline__ int walk_group(const int* __restrict__ entries,
+                                          const int* __restrict__ tile_big,
+                                          int nb_max, int t, int off,
+                                          int cnt, int b) {
+  return b < cnt ? entries[off + b] : tile_big[(size_t)t * nb_max + b - cnt];
+}
+
+// ---- the plan ------------------------------------------------------------
+
+// one block per tile: the big groups whose tile box holds it, in
+// big-list order (a ballot a warp, warps in order), into tile_big[t *
+// nb_max ...]; its walk length; for a tile of more than S groups (one
+// that will split), its 1024 merge keys set to NO_HIT; and for a tile
+// with nothing to walk, its pixels (-1, 1.0), so that it needs no slice
+__global__ void __launch_bounds__(THREADS)
+k1_count_kernel(const int* __restrict__ counts,
+                const int* __restrict__ big_packed,
+                const int* __restrict__ big_ids, const int* __restrict__ n_big,
+                int n_tx, int nb_max, int width, int height,
+                int* __restrict__ tile_big, int* __restrict__ walk_len,
+                unsigned long long* __restrict__ scratch,
+                int* __restrict__ out_col, float* __restrict__ out_depth) {
+  __shared__ int warp_hits[THREADS / 32];
+  const int t = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tx = t % n_tx, ty = t / n_tx;
+  const int nb = min(n_big[0], nb_max);
+  int k = 0;  // big groups listed so far
+  for (int i0 = 0; i0 < nb; i0 += THREADS) {
+    const int i = i0 + threadIdx.x;
+    const bool hit = i < nb && touches(big_packed[i], tx, ty);
+    const unsigned bal = __ballot_sync(0xffffffffu, hit);
+    if (lane == 0) warp_hits[warp] = __popc(bal);
+    __syncthreads();
+    int at = k + __popc(bal & ((1u << lane) - 1));
+    for (int w = 0; w < THREADS / 32; ++w) {
+      at += w < warp ? warp_hits[w] : 0;
+      k += warp_hits[w];
+    }
+    if (hit) tile_big[(size_t)t * nb_max + at] = big_ids[i];
+    __syncthreads();
+  }
+  const int L = counts[t] + k;
+  if (threadIdx.x == 0) walk_len[t] = L;
+  if (L > S) {
+    unsigned long long* tp = scratch + (size_t)t * NPX;
+    for (int p = threadIdx.x; p < NPX; p += THREADS) tp[p] = NO_HIT;
+  } else if (L == 0) {
+    for (int p = threadIdx.x; p < NPX; p += THREADS) {
+      const int x = tx * BT + p % BT, y = ty * BT + p / BT;
+      if (x < width && y < height) {
+        out_col[(size_t)y * width + x] = -1;
+        out_depth[(size_t)y * width + x] = 1.f;
+      }
+    }
+  }
+}
+
+// one block of 1024 threads: an exclusive scan of the tiles' slice counts
+// ceil(L / S) writes the slice list in tile order; ctl = (0, the number
+// of slices), done[t] = 0
+__global__ void __launch_bounds__(1024)
+k1_scan_kernel(const int* __restrict__ counts, const int* __restrict__ offsets,
+               const int* __restrict__ walk_len, int n_tiles,
+               Slice* __restrict__ work, int* __restrict__ ctl,
+               int* __restrict__ done) {
+  __shared__ int warp_sums[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int carry = 0;
+  for (int base = 0; base < n_tiles; base += 1024) {
+    const int t = base + threadIdx.x;
+    const int L = t < n_tiles ? walk_len[t] : 0;
+    const int ns = t < n_tiles ? (L + S - 1) / S : 0;
+    int v = ns;
 #pragma unroll
-    for (int e = 0; e < 3; ++e) {
-      const float a = r[3 * e], b = r[3 * e + 1], c = r[3 * e + 2];
-      const float v = plane(a, b, c, px, py);
-      const bool tl = (a > 0.f) || (a == 0.f && b > 0.f);
-      cover = cover && (v >= (tl ? 0.f : FMIN));
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += u;
     }
-    const float z = plane(r[9], r[10], r[11], px, py);
-    if (cover && z >= 0.f && z <= 1.f && z < best_z) {
-      best_z = z;
-      best_col = col_base + k;
+    if (lane == 31) warp_sums[warp] = v;
+    __syncthreads();
+    if (warp == 0) {
+      int w = warp_sums[lane];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int u = __shfl_up_sync(0xffffffffu, w, o);
+        if (lane >= o) w += u;
+      }
+      warp_sums[lane] = w;
+    }
+    __syncthreads();
+    if (warp > 0) v += warp_sums[warp - 1];
+    const int start = carry + v - ns;
+    carry += warp_sums[31];
+    if (t < n_tiles) {
+      const int cnt = counts[t], off = offsets[t];
+      done[t] = 0;
+      for (int j = 0; j < ns; ++j) {
+        const int p0 = j * S;
+        work[start + j] = Slice{t, p0, off, cnt, min(S, L - p0), ns, 0, 0};
+      }
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    ctl[0] = 0;
+    ctl[1] = carry;
+  }
+}
+
+// ---- the slice walk --------------------------------------------------------
+
+__device__ __forceinline__ Slice load_slice(const Slice* __restrict__ work,
+                                            int s) {
+  const int4* w = reinterpret_cast<const int4*>(work + s);
+  const int4 a = __ldg(w), b = __ldg(w + 1);
+  return Slice{a.x, a.y, a.z, a.w, b.x, b.y, 0, 0};
+}
+
+// this thread's triangles q = tid + u * THREADS of slice `sl`
+__device__ __forceinline__ void load_raw(const float* __restrict__ setup,
+                                         const int* __restrict__ entries,
+                                         const int* __restrict__ tile_big,
+                                         int nb_max, const Slice& sl,
+                                         Raw* raw) {
+#pragma unroll
+  for (int u = 0; u < TPT; ++u) {
+    const int q = threadIdx.x + u * THREADS;
+    if (q < sl.n * GROUP) {
+      const int g = walk_group(entries, tile_big, nb_max, sl.t, sl.off,
+                               sl.cnt, sl.p0 + q / GROUP);
+      const int col = g * GROUP + q % GROUP;
+      const float* r = setup + (size_t)col * NSETUP;
+      const float4* r4 = reinterpret_cast<const float4*>(r);
+      raw[u].e[0] = __ldg(r4);
+      raw[u].e[1] = __ldg(r4 + 1);
+      raw[u].e[2] = __ldg(r4 + 2);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) raw[u].bb[k] = __ldg(r + S_BB_MINX + k);
+      raw[u].col = col;
     }
   }
 }
 
-__device__ __forceinline__ void stage_group(const float* __restrict__ setup,
-                                            int g, float* s) {
-  __syncthreads();
-  if (threadIdx.x < GROUP * NPLANE) {
-    const int k = threadIdx.x / NPLANE, j = threadIdx.x % NPLANE;
-    s[threadIdx.x] = setup[(size_t)(g * GROUP + k) * NSETUP + j];
+// raw -> shared memory: thresholds, and the warp blocks of tile (X, Y)
+// that the triangle's widened bbox reaches (bit w of smask)
+__device__ __forceinline__ void stage_raw(const Slice& sl, const Raw* raw,
+                                          float X, float Y, Tri* stage,
+                                          int* scol, int* smask) {
+#pragma unroll
+  for (int u = 0; u < TPT; ++u) {
+    const int q = threadIdx.x + u * THREADS;
+    if (q < sl.n * GROUP) {
+      // raw[u].e[0..2] hold floats 0..11 of the row: the three edges'
+      // (a, b, c), then the z plane (za, zb, zc)
+      const float4 r0 = raw[u].e[0], r1 = raw[u].e[1], r2 = raw[u].e[2];
+      Tri tri;
+      tri.e[0] = edge(r0.x, r0.y, r0.z);
+      tri.e[1] = edge(r0.w, r1.x, r1.y);
+      tri.e[2] = edge(r1.z, r1.w, r2.x);
+      // pixel centres of warp block (cx, ry): X + 16 cx + [0.5, 15.5],
+      // Y + 8 ry + [0.5, 7.5]; the bbox widened by one pixel
+      const float x0 = raw[u].bb[0] - 1.f, y0 = raw[u].bb[1] - 1.f;
+      const float x1 = raw[u].bb[2] + 1.f, y1 = raw[u].bb[3] + 1.f;
+      unsigned mask = 0;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) {
+        const float bx = X + (float)(16 * (w & 1));
+        const float by = Y + (float)(8 * (w >> 1));
+        if (x0 <= bx + 15.5f && x1 >= bx + 0.5f && y0 <= by + 7.5f &&
+            y1 >= by + 0.5f) {
+          mask |= 1u << w;
+        }
+      }
+      tri.z = make_float4(r2.y, r2.z, r2.w, 0.f);
+      stage[q] = tri;
+      scol[q] = raw[u].col;
+      smask[q] = (int)mask;
+    }
   }
-  __syncthreads();
 }
 
-__global__ void __launch_bounds__(BT * BT)
+__global__ void __launch_bounds__(THREADS, 3)
 raster16_kernel(const float* __restrict__ setup,
                 const int* __restrict__ entries,
-                const int* __restrict__ offsets,
-                const int* __restrict__ counts,
-                const int* __restrict__ big_packed,
-                const int* __restrict__ big_ids,
-                const int* __restrict__ n_big, int n_tx, int width,
-                int height, int* __restrict__ out_col,
+                const int* __restrict__ tile_big, int nb_max,
+                const Slice* __restrict__ work, int* __restrict__ ctl,
+                int* __restrict__ done,
+                unsigned long long* __restrict__ scratch, int n_tx,
+                int width, int height, int* __restrict__ out_col,
                 float* __restrict__ out_depth) {
-  __shared__ float s[GROUP * NPLANE];
-  const int t = blockIdx.x;
-  const int tile_x = t % n_tx, tile_y = t / n_tx;
-  const int lx = threadIdx.x % BT, ly = threadIdx.x / BT;
-  const float px = (float)(tile_x * BT) + (float)lx + 0.5f;
-  const float py = (float)(tile_y * BT) + (float)ly + 0.5f;
+  extern __shared__ float4 smem[];
+  Tri* stage = reinterpret_cast<Tri*>(smem);               // [2][NT]
+  int* scol = reinterpret_cast<int*>(stage + 2 * NT);      // [2][NT]
+  int* smask = scol + 2 * NT;                              // [2][NT]
+  short* wlist = reinterpret_cast<short*>(smask + 2 * NT)  // [8][NT]
+                 + (threadIdx.x >> 5) * NT;
+  __shared__ int s_next[2];
+  __shared__ int s_last;
 
-  float best_z = 1.f;
-  int best_col = -1;
-  const int cnt = counts[t], off = offsets[t];
-  for (int b = 0; b < cnt; ++b) {
-    const int g = entries[off + b];
-    stage_group(setup, g, s);
-    merge_group(s, g * GROUP, px, py, best_z, best_col);
-  }
-  const int nb = n_big[0];
-  for (int i = 0; i < nb; ++i) {
-    const int bb = big_packed[i];
-    const int gx0 = bb & 255, gy0 = (bb >> 8) & 255;
-    const int gx1 = (bb >> 16) & 255, gy1 = (bb >> 24) & 255;
-    if (gx0 <= tile_x && tile_x <= gx1 && gy0 <= tile_y && tile_y <= gy1) {
-      const int g = big_ids[i];
-      stage_group(setup, g, s);
-      merge_group(s, g * GROUP, px, py, best_z, best_col);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int lx0 = 16 * (warp & 1) + 4 * (lane & 3);  // 4 pixels from lx0
+  const int ly = 8 * (warp >> 1) + (lane >> 2);
+  const int total = ctl[1];
+
+  if (tid == 0) s_next[0] = atomicAdd(ctl, 1);
+  __syncthreads();
+  if (s_next[0] >= total) return;
+  Slice cur = load_slice(work, s_next[0]);
+  Raw raw[TPT];
+  load_raw(setup, entries, tile_big, nb_max, cur, raw);
+
+  for (int p = 0;; p ^= 1) {
+    const int tile_x = cur.t % n_tx, tile_y = cur.t / n_tx;
+    const float X = (float)(tile_x * BT), Y = (float)(tile_y * BT);
+    Tri* st = stage + p * NT;
+    int* sc = scol + p * NT;
+    const int* sm = smask + p * NT;
+    stage_raw(cur, raw, X, Y, st, sc, smask + p * NT);
+    if (tid == 0) s_next[p ^ 1] = atomicAdd(ctl, 1);
+    __syncthreads();
+    // the next slice's loads fly while this one merges
+    const int s2 = s_next[p ^ 1];
+    Slice nxt = cur;
+    if (s2 < total) {
+      nxt = load_slice(work, s2);
+      load_raw(setup, entries, tile_big, nb_max, nxt, raw);
     }
-  }
-  const int x = tile_x * BT + lx, y = tile_y * BT + ly;
-  if (x < width && y < height) {
-    out_col[(size_t)y * width + x] = best_col;
-    out_depth[(size_t)y * width + x] = best_z;
+
+    const float py = Y + (float)ly + 0.5f;
+    float px[4], bz[4];
+    int bi[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      px[i] = X + (float)(lx0 + i) + 0.5f;
+      bz[i] = 1.f;
+      bi[i] = -1;
+    }
+    // this warp's triangles, in walk order: those whose mask names it
+    const int ntri = cur.n * GROUP;
+    int nw = 0;
+    for (int b = 0; b < ntri; b += 32) {
+      const int q = b + lane;
+      const bool mine = q < ntri && ((sm[q] >> warp) & 1);
+      const unsigned bal = __ballot_sync(0xffffffffu, mine);
+      if (mine) wlist[nw + __popc(bal & ((1u << lane) - 1))] = (short)q;
+      nw += __popc(bal);
+    }
+    __syncwarp();
+    for (int j = 0; j < nw; ++j) {
+      const int q = wlist[j];
+      const float4 zq = st[q].z;
+      const float4 e0 = st[q].e[0], e1 = st[q].e[1], e2 = st[q].e[2];
+      const float h0 = __fadd_rn(__fmul_rn(e0.y, py), e0.z);
+      const float h1 = __fadd_rn(__fmul_rn(e1.y, py), e1.z);
+      const float h2 = __fadd_rn(__fmul_rn(e2.y, py), e2.z);
+      const float hz = __fadd_rn(__fmul_rn(zq.y, py), zq.z);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float v0 = __fadd_rn(__fmul_rn(e0.x, px[i]), h0);
+        const float v1 = __fadd_rn(__fmul_rn(e1.x, px[i]), h1);
+        const float v2 = __fadd_rn(__fmul_rn(e2.x, px[i]), h2);
+        const float z = __fadd_rn(__fmul_rn(zq.x, px[i]), hz);
+        // z < bz <= 1 implies the reference's z <= 1
+        if (v0 >= e0.w && v1 >= e1.w && v2 >= e2.w && z >= 0.f &&
+            z < bz[i]) {
+          bz[i] = z;
+          bi[i] = q;
+        }
+      }
+    }
+
+    const int y = tile_y * BT + ly;
+    const size_t row = (size_t)y * width;
+    if (cur.ns == 1) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int x = tile_x * BT + lx0 + i;
+        if (x < width && y < height) {
+          out_col[row + x] = bi[i] >= 0 ? sc[bi[i]] : -1;
+          out_depth[row + x] = bz[i];
+        }
+      }
+    } else {
+      unsigned long long* tp = scratch + (size_t)cur.t * NPX + ly * BT + lx0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (bi[i] >= 0) {
+          atomicMin(tp + i,
+                    (unsigned long long)__float_as_uint(fabsf(bz[i])) << 32 |
+                        (unsigned)(cur.p0 * GROUP + bi[i]));
+        }
+      }
+      __threadfence();
+      __syncthreads();
+      if (tid == 0) s_last = atomicAdd(done + cur.t, 1) == cur.ns - 1;
+      __syncthreads();
+      if (s_last) {
+        __threadfence();
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int x = tile_x * BT + lx0 + i;
+          if (x >= width || y >= height) continue;
+          const unsigned long long v = __ldcg(tp + i);
+          int col = -1;
+          float z = 1.f;
+          if (v != NO_HIT) {
+            const int pos = (int)(unsigned)v;
+            const int g = walk_group(entries, tile_big, nb_max, cur.t,
+                                     cur.off, cur.cnt, pos / GROUP);
+            col = g * GROUP + pos % GROUP;
+            const float* r = setup + (size_t)col * NSETUP;
+            z = plane(r[9], r[10], r[11], px[i], py);
+          }
+          out_col[row + x] = col;
+          out_depth[row + x] = z;
+        }
+      }
+    }
+    if (s2 >= total) break;
+    cur = nxt;
   }
 }
 
 }  // namespace
 
+// ws: the plan's int32 workspace, laid out as ctl[4] | done[n_tiles] |
+// walk_len[n_tiles] | tile_big[n_tiles * nb_max] | (16-byte aligned)
+// max_slices Slice records. scratch: n_tiles * 1024 u64, the merge keys
+// of split tiles (no value needed on entry).
 extern "C" int awsm_raster16(const float* setup, const int* entries,
                              const int* offsets, const int* counts,
                              const int* big_packed, const int* big_ids,
                              const int* n_big, int n_tiles, int n_tx,
-                             int width, int height, int* out_col,
+                             int width, int height, int nb_max,
+                             int max_slices, int* ws,
+                             unsigned long long* scratch, int* out_col,
                              float* out_depth, cudaStream_t stream) {
-  if (n_tiles > 0) {
-    raster16_kernel<<<n_tiles, BT * BT, 0, stream>>>(
-        setup, entries, offsets, counts, big_packed, big_ids, n_big, n_tx,
-        width, height, out_col, out_depth);
+  if (n_tiles <= 0) return (int)cudaGetLastError();
+  if (nb_max < 1 || nb_max > NBIG_CAP || max_slices < n_tiles) {
+    return (int)cudaErrorInvalidValue;
   }
+  int* ctl = ws;
+  int* done = ctl + 4;
+  int* walk_len = done + n_tiles;
+  int* tile_big = walk_len + n_tiles;
+  const size_t head = 4 + 2 * (size_t)n_tiles + (size_t)n_tiles * nb_max;
+  Slice* work = reinterpret_cast<Slice*>(ws + (head + 3) / 4 * 4);
+  k1_count_kernel<<<n_tiles, THREADS, 0, stream>>>(
+      counts, big_packed, big_ids, n_big, n_tx, nb_max, width, height,
+      tile_big, walk_len, scratch, out_col, out_depth);
+  k1_scan_kernel<<<1, 1024, 0, stream>>>(counts, offsets, walk_len, n_tiles,
+                                         work, ctl, done);
+  constexpr size_t SMEM =
+      2 * NT * (sizeof(Tri) + 2 * sizeof(int)) + 8 * NT * sizeof(short);
+  // resident blocks: a streaming multiprocessor's, times their number
+  static int resident = 0;
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaFuncSetAttribute(raster16_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)SMEM);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, raster16_kernel,
+                                                  THREADS, SMEM);
+    resident = max(per_sm, 1) * max(sms, 1);
+  }
+  raster16_kernel<<<min(resident, max_slices), THREADS, SMEM, stream>>>(
+      setup, entries, tile_big, nb_max, work, ctl, done, scratch, n_tx, width,
+      height, out_col, out_depth);
   return (int)cudaGetLastError();
 }

@@ -25,7 +25,18 @@
 // split_rows (pallas_call at relayout.py:106): a channel-major (C, P)
 // table, f32 or bf16, materialised as C separate f32 rows. On the card the
 // rows of one (C, P) f32 output are already separate contiguous arrays, so
-// this is a widening copy, four values a thread per step (16-byte stores).
+// this is a widening copy, bound by DRAM bandwidth: at (8, 1920*1080) f32
+// it reads and writes 66 MB each, more than the 50 MB L2 holds. The design
+// is a plain bandwidth copy: a one-shot grid of 256-thread blocks, each
+// copying 8 KB of 16-byte vectors; a thread has both of its loads in
+// flight (read-only path, L1 left alone) before its stores, which are
+// evict-first (__stcs: nothing here reads the rows back). On the H100
+// that matches cudaMemcpyAsync; persistent grid-stride grids (4 or 8
+// blocks an SM, 1-8 vectors in flight a thread, any load or store hint)
+// measured 2-5 us slower (scripts/bench_k12_copy.cu). A bf16 table loads
+// 8 values (16 bytes) and stores two float4s; bf16 -> f32 is the exact
+// 16-bit shift. A table that is not 16-byte aligned goes one value at a
+// time, and so do the values past the last whole vector.
 //
 // K13 awsm_channel_rows replaces relayout.py::channel_rows (pallas_call at
 // :188): (P, C) -> (C, P) f32, a shared-memory tile transpose. A block
@@ -37,8 +48,7 @@
 // (K3: 4 B read + 4*C B written per pixel, the table stays in L1/L2; K6:
 // a 32 B row read and 64 B written per tap; K6-f32: a 16 B row read and
 // 16 B written per refracted pixel; K12 and K13: each value read once
-// and written once as f32). Simple and right first; vectorised
-// 16 B loads and stores are later work.
+// and written once as f32). Only K12 is vectorised so far.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -87,29 +97,69 @@ __device__ __forceinline__ float load_f32(const void* x, size_t i, int bf16) {
               : ((const float*)x)[i];
 }
 
-// vec: x (and out) aligned for 4-value vector accesses; the tail past the
-// last whole group of 4, or everything when not aligned, goes one by one
-__global__ void split_rows_kernel(const void* __restrict__ x, int bf16,
-                                  int vec, size_t n, float* __restrict__ out) {
-  const size_t stride = (size_t)gridDim.x * blockDim.x;
-  const size_t i0 = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t n4 = vec ? n / 4 : 0;
-  float4* out4 = reinterpret_cast<float4*>(out);
-  if (bf16) {
-    const uint2* x4 = static_cast<const uint2*>(x);  // 4 bf16 values
-    for (size_t i = i0; i < n4; i += stride) {
-      const uint2 v = x4[i];
-      out4[i] = make_float4(__uint_as_float(v.x << 16),
-                            __uint_as_float(v.x & 0xffff0000u),
-                            __uint_as_float(v.y << 16),
-                            __uint_as_float(v.y & 0xffff0000u));
-    }
+__device__ __forceinline__ float4 widen_lo(uint2 v) {
+  return make_float4(__uint_as_float(v.x << 16),
+                     __uint_as_float(v.x & 0xffff0000u),
+                     __uint_as_float(v.y << 16),
+                     __uint_as_float(v.y & 0xffff0000u));
+}
+
+// a 16-byte load on the read-only path that leaves L1 alone
+__device__ __forceinline__ uint4 ld_stream(const uint4* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0,%1,%2,%3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+constexpr int SR_THREADS = 256, SR_VECS = 2;  // 16-byte vectors a thread
+
+// one 16-byte vector of x (4 f32 or 8 bf16 values) -> its f32 values
+template <bool BF16>
+__device__ __forceinline__ void copy_vec(uint4 v, float4* out4, size_t i) {
+  if (BF16) {
+    __stcs(out4 + 2 * i, widen_lo(make_uint2(v.x, v.y)));
+    __stcs(out4 + 2 * i + 1, widen_lo(make_uint2(v.z, v.w)));
   } else {
-    const float4* x4 = static_cast<const float4*>(x);
-    for (size_t i = i0; i < n4; i += stride) out4[i] = x4[i];
+    __stcs(out4 + i, make_float4(__uint_as_float(v.x), __uint_as_float(v.y),
+                                 __uint_as_float(v.z), __uint_as_float(v.w)));
   }
-  for (size_t i = 4 * n4 + i0; i < n; i += stride) {
-    out[i] = load_f32(x, i, bf16);
+}
+
+// block b copies the SR_THREADS * SR_VECS vectors from b * SR_THREADS *
+// SR_VECS, both loads of a thread in flight before its stores; block 0
+// also copies the values past the last whole vector. nv = 0 (x not
+// 16-byte aligned): the block copies as many values, one by one.
+template <bool BF16>
+__global__ void __launch_bounds__(SR_THREADS)
+split_rows_kernel(const void* __restrict__ x, size_t nv, size_t n,
+                  float* __restrict__ out) {
+  const size_t i = (size_t)blockIdx.x * SR_THREADS * SR_VECS + threadIdx.x;
+  if (nv == 0) {
+#pragma unroll
+    for (int u = 0; u < SR_VECS; ++u) {
+      const size_t j = i + u * SR_THREADS;
+      if (j < n) out[j] = load_f32(x, j, BF16);
+    }
+    return;
+  }
+  const uint4* xv = static_cast<const uint4*>(x);
+  float4* out4 = reinterpret_cast<float4*>(out);
+  uint4 v[SR_VECS];
+#pragma unroll
+  for (int u = 0; u < SR_VECS; ++u) {
+    if (i + u * SR_THREADS < nv) v[u] = ld_stream(xv + i + u * SR_THREADS);
+  }
+#pragma unroll
+  for (int u = 0; u < SR_VECS; ++u) {
+    if (i + u * SR_THREADS < nv) {
+      copy_vec<BF16>(v[u], out4, i + u * SR_THREADS);
+    }
+  }
+  const size_t tail = nv * (BF16 ? 8 : 4);
+  if (blockIdx.x == 0 && tail + threadIdx.x < n) {
+    out[tail + threadIdx.x] = load_f32(x, tail + threadIdx.x, BF16);
   }
 }
 
@@ -141,11 +191,16 @@ extern "C" int awsm_split_rows(const void* x, int bf16, int C, int P,
                                float* out, cudaStream_t stream) {
   const size_t n = (size_t)C * P;
   if (n > 0) {
-    const int vec = (uintptr_t)x % (bf16 ? 8 : 16) == 0;
-    const int block = 256;
-    const size_t want = (n / 4 + block - 1) / block;
-    const int grid = (int)(want < 1 ? 1 : want < 65535 ? want : 65535);
-    split_rows_kernel<<<grid, block, 0, stream>>>(x, bf16, vec, n, out);
+    const size_t nv = (uintptr_t)x % 16 == 0 ? n / (bf16 ? 8 : 4) : 0;
+    const size_t per_block = (size_t)SR_THREADS * SR_VECS;
+    const unsigned grid = (unsigned)(((nv > 0 ? nv : n) + per_block - 1) /
+                                     per_block);
+    if (bf16) {
+      split_rows_kernel<true><<<grid, SR_THREADS, 0, stream>>>(x, nv, n, out);
+    } else {
+      split_rows_kernel<false><<<grid, SR_THREADS, 0, stream>>>(x, nv, n,
+                                                                out);
+    }
   }
   return (int)cudaGetLastError();
 }

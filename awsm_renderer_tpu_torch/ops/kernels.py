@@ -44,7 +44,8 @@ _I = ctypes.c_int
 # C entry points: name -> argtypes, the stream last (every one returns
 # cudaError_t as int)
 _SIGNATURES = {
-    "awsm_raster16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "awsm_raster16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                      _P, _P, _P, _P],
     "awsm_resolve": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "awsm_onehot_split_rows": [_P, _P, _I, _I, _I, _P, _P],
     "awsm_gather_split_channels": [_P, _I, _I, _P, _I, _I, _P, _P],
@@ -170,8 +171,11 @@ def check_cuda(*tensors: torch.Tensor) -> None:
 
 def launch(name: str, entry: str, *args) -> None:
     """Call C entry point `entry` on the current stream; raise on a
-    non-zero cudaError_t, then count one launch of kernel `name`."""
-    stream = torch.cuda.current_stream().cuda_stream
+    non-zero cudaError_t, then count one launch of kernel `name`. The
+    stream handle comes from torch's raw accessor: torch.cuda.current_stream()
+    builds a Stream object on every call, host time that a frame of many
+    small launches pays each time."""
+    stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
     rc = getattr(lib(), entry)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{entry} failed: cudaError_t {rc}")

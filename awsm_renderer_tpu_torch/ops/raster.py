@@ -321,6 +321,20 @@ def rasterize16_slim_reference(setup_rows, bins, *, width: int,
     return deswizzle(best_col), deswizzle(best_z)
 
 
+# ---- K1 on the card: slices of a tile's walk --------------------------
+#
+# csrc/raster16.cu cuts each tile's walk (its binned entries, then the big
+# groups whose tile box holds it, in big-list order) into slices of at most
+# K1_SLICE groups, lists them with two small kernels (no count read on the
+# host) and hands them to a persistent grid; a tile of one slice writes its
+# pixels, the slices of a split tile meet in a 64-bit atomicMin per pixel
+# of (|z|'s bits, walk position), which the last of them turns back into
+# the winner (tests/test_torch_raster.py holds this merge, done with the
+# plain walk, bit-equal to the twin).
+
+K1_SLICE = 16   # raster16.cu's constant S; sizes the plan's workspace
+
+
 def rasterize16_slim(setup_rows: torch.Tensor, bins=None, *, width: int,
                      height: int, vis_cap: int | None = None,
                      stash_cap: int | None = None):
@@ -365,14 +379,27 @@ def rasterize16_slim(setup_rows: torch.Tensor, bins=None, *, width: int,
     n_tiles = (H32 // BT_H) * n_tx
     if counts.numel() != n_tiles or offsets.numel() != n_tiles:
         raise ValueError(f"bins hold {counts.numel()} tiles, not {n_tiles}")
-    col = torch.empty(height * width, dtype=torch.int32,
-                      device=setup_rows.device)
-    depth = torch.empty(height * width, dtype=torch.float32,
-                        device=setup_rows.device)
+    dev = setup_rows.device
+    col = torch.empty(height * width, dtype=torch.int32, device=dev)
+    depth = torch.empty(height * width, dtype=torch.float32, device=dev)
+    # the plan's workspace (raster16.cu's layout), sized from shapes alone:
+    # a tile has at most min(NBIG_CAP, G) big groups and sum(counts) <=
+    # entries.numel(), so sum(ceil(L / S)) <= n_tiles + sum(L) / S
+    nb_max = max(1, min(NBIG_CAP, setup_rows.shape[0] // GROUP))
+    max_slices = (n_tiles + (entries.numel() + n_tiles * nb_max) // K1_SLICE
+                  + 1)
+    head = 4 + 2 * n_tiles + n_tiles * nb_max
+    ws = torch.empty(-(-head // 4) * 4 + 8 * max_slices, dtype=torch.int32,
+                     device=dev)
+    # the split tiles' merge keys (the plan fills those it needs)
+    scratch = torch.empty(n_tiles * BT_H * BT_W, dtype=torch.int64,
+                          device=dev)
     ptrs = [t.data_ptr() for t in (setup_rows, entries, offsets, counts,
                                    big_packed, big_ids, n_big)]
     kernels.launch("rasterize16_slim", "awsm_raster16", *ptrs, n_tiles,
-                   n_tx, width, height, col.data_ptr(), depth.data_ptr())
+                   n_tx, width, height, nb_max, max_slices,
+                   ws.data_ptr(), scratch.data_ptr(), col.data_ptr(),
+                   depth.data_ptr())
     return col, depth, bins
 
 

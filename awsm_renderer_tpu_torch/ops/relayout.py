@@ -133,7 +133,7 @@ def split_rows(x: torch.Tensor):
     out = torch.empty((C, P), dtype=torch.float32, device=x.device)
     kernels.launch("split_rows", "awsm_split_rows", x.data_ptr(), bf16, C, P,
                    out.data_ptr())
-    return tuple(out.unbind(0))
+    return out.unbind(0)
 
 
 def channel_rows_reference(x: torch.Tensor) -> torch.Tensor:

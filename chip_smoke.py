@@ -134,9 +134,47 @@ def check(cond: bool, msg: str) -> None:
     log(f"  ok: {msg}")
 
 
+def kernel_ms(fn, n: int = 50) -> float:
+    """Device ms of one `fn()`: one pair of CUDA events around `n`
+    back-to-back calls (after two warm-up calls), elapsed / n. While the
+    host enqueues faster than the card runs, the wrapper's host cost
+    (allocation, the ctypes call) hides behind the launches before it;
+    events around a single call count it (cuda_ms)."""
+    import torch
+
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Host microseconds of one `fn()` (mean of `n` calls on the host's
+    clock, after a warm-up): what a launch costs before the card sees it.
+    Where it exceeds the kernel's time, kernel_ms reads host time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return t
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Median ms of `fn()` over `reps` runs (after one warm-up), timed
-    with CUDA events around each call."""
+    with CUDA events around each call (the plain twins, which take up to
+    seconds; a kernel's time is kernel_ms)."""
     import torch
 
     fn()
@@ -309,7 +347,7 @@ def capture_first_frame(r, names=KERNEL_SITES, calls=None):
 
     captured = {}
     # the modules whose global the main path calls each wrapper through
-    where = {"rasterize16_slim": (raster,),
+    where = {"rasterize16_slim": (raster, frame),
              "resolve_planes_fused": (shade, frame),
              "onehot_split_rows": (shade,), "tap_plan_fused": (texsample,),
              "filter_taps_fused": (texsample,),
@@ -354,6 +392,71 @@ def bit_mismatches(a, b, torch) -> int:
     return int((a != b).sum())
 
 
+def k1_big_touch(bins, n_tx: int, torch):
+    """(n_tiles, n_big) bool: big group i's tile box holds tile t."""
+    _e, _o, counts, _z, big_packed, _ids, n_big, _c = bins
+    t = torch.arange(counts.numel(), device=counts.device)
+    tx, ty = t % n_tx, torch.div(t, n_tx, rounding_mode="floor")
+    bb = big_packed[:int(n_big.item())].long()
+    return (((bb & 255)[None] <= tx[:, None])
+            & (tx[:, None] <= ((bb >> 16) & 255)[None])
+            & (((bb >> 8) & 255)[None] <= ty[:, None])
+            & (ty[:, None] <= ((bb >> 24) & 255)[None]))
+
+
+def k1_walk(srows, bins, n_tx: int, torch):
+    """K1's work on these bins: each tile's walk length (binned groups +
+    big groups whose box holds it), the (tile, group) pairs of those
+    walks, the coverage tests they need (pixel centres of the tile inside
+    each of the group's 16 triangle bboxes), and the bytes K1 must read:
+    floats 0..11 (three edges, the z plane) of every row those pairs
+    reach and the bins it walks, each once."""
+    entries, offsets, counts, _z, _bp, big_ids, _nb, _c = bins
+    dev = srows.device
+    touch = k1_big_touch(bins, n_tx, torch)
+    walk = counts.long() + touch.sum(dim=1)
+    cl = counts.long()
+    tile = torch.repeat_interleave(torch.arange(cl.numel(), device=dev), cl)
+    first = torch.cumsum(cl, 0) - cl
+    e = (offsets.long()[tile] + torch.arange(tile.numel(), device=dev)
+         - first[tile])
+    bt, bi = touch.nonzero(as_tuple=True)
+    tile = torch.cat([tile, bt])
+    grp = torch.cat([entries.long()[e], big_ids.long()[bi]])
+    bb = srows[:, 15:19].reshape(-1, 16, 4)[grp]          # (pairs, 16, 4)
+    X = ((tile % n_tx) * 32).float()[:, None]
+    Y = (torch.div(tile, n_tx, rounding_mode="floor") * 32).float()[:, None]
+
+    def centres(lo, hi, o):      # k in [0, 32) with lo <= o + k + 0.5 <= hi
+        k0 = torch.ceil(lo - o - 0.5).clamp(0, 32)
+        k1 = torch.floor(hi - o - 0.5).clamp(-1, 31) + 1
+        return (k1 - k0).clamp(min=0)
+
+    n = (centres(bb[..., 0], bb[..., 2], X)
+         * centres(bb[..., 1], bb[..., 3], Y))
+    n_big = int(bins[6].item())
+    in_bytes = (torch.unique(grp).numel() * 16 * 12 * 4
+                + 4 * (int(counts.sum()) + offsets.numel() + counts.numel()
+                       + 2 * n_big + 1))
+    return walk, int(tile.numel()), int(n.double().sum()), in_bytes
+
+
+def k1_bins_log(bins, walk, torch):
+    """Print the shape of K1's work: tiles, groups a tile, big groups."""
+    counts, n_big = bins[2].float(), int(bins[6].item())
+    q = torch.quantile(counts, torch.tensor([0.25, 0.5, 0.75],
+                                            device=counts.device))
+    wq = torch.quantile(walk.float(), torch.tensor([0.5, 0.99],
+                                                   device=walk.device))
+    log(f"  bins: {counts.numel()} tiles, groups a tile quartiles "
+        f"{q[0]:.0f} / {q[1]:.0f} / {q[2]:.0f}, max {int(counts.max())}, "
+        f"{int(counts.sum())} binned pairs, {n_big} big groups in "
+        f"{int(walk.sum() - counts.sum())} (tile, big group) pairs; walk a "
+        f"tile median {wq[0]:.0f}, 99th percentile {wq[1]:.0f}, max "
+        f"{int(walk.max())}, empty tiles {int((walk == 0).sum())}; clipped "
+        f"tiles {int(bins[7].item())}")
+
+
 def phase_kernels(r, np, torch):
     """First-frame intermediates -> each kernel vs its twin, timed.
     Returns (results, the first call's arguments per wrapper, the
@@ -392,9 +495,6 @@ def phase_kernels(r, np, torch):
     ccol, cdep = rasterize16_slim_reference(srows, bins, width=rw, height=rh)
     torch.cuda.synchronize()
     counts = bins[2]
-    log(f"  bins: {counts.numel()} tiles, max {int(counts.max())} groups per "
-        f"tile, {int(counts.sum())} pairs, {int(bins[6].item())} big groups, "
-        f"clipped tiles {int(bins[7].item())}")
     n_bad = bit_mismatches(col, ccol, torch) + bit_mismatches(depth, cdep,
                                                               torch)
     err = float((depth - cdep).abs().max())
@@ -403,19 +503,48 @@ def phase_kernels(r, np, torch):
         f"|ddepth| {err}")
     check(n_bad == 0, "K1 col and depth bit-equal to the plain twin")
     check(int((col >= 0).sum()) > 0, "K1 covers pixels")
-    # the coverage tests the bins ask for: every binned (tile, group)
-    # pair, big groups against every tile
+    n_tx = -(-rw // 32)
+    walk, n_pairs_bbox, n_tests_bbox, in_bytes = k1_walk(srows, bins, n_tx,
+                                                         torch)
+    k1_bins_log(bins, walk, torch)
+    # the function's tests: every binned (tile, group) pair, big groups
+    # against every tile (the reference's walk); the tests these inputs
+    # need: pixel centres inside each triangle's bbox over the binned and
+    # the big (tile, group) pairs
     n_tiles = counts.numel()
     tests = ((int(counts.sum()) + int(bins[6].item()) * n_tiles) * 16
              * 32 * 32)
+    k1_bytes = in_bytes + nbytes(col, depth)
+    walk_bound = bound(k1_bytes, tests * OPS_PER_TEST)
+    bbox_bound = bound(k1_bytes, n_tests_bbox * OPS_PER_TEST)
+
+    def k1_run(b):
+        return rasterize16_slim(srows, b, width=rw, height=rh)
+
     results["K1"] = dict(
-        err=err,
-        ms=cuda_ms(lambda: rasterize16_slim(srows, bins, width=rw,
-                                            height=rh), 20),
+        err=err, ms=kernel_ms(lambda: k1_run(bins)),
         plain_ms=cuda_ms(lambda: rasterize16_slim_reference(
             srows, bins, width=rw, height=rh), 2),
-        bound=bound(nbytes(srows, *bins, col, depth), tests * OPS_PER_TEST),
-        library_ms=None)
+        bound=min(walk_bound, bbox_bound), library_ms=None)
+    # the heaviest-tile test: the same bins, every tile cut to at most 16
+    # binned entries (the big groups stay)
+    cut = (bins[0], bins[1], counts.clamp(max=16), *bins[3:])
+    walk_cut = walk - counts.long() + counts.long().clamp(max=16)
+    ms, ms_call = results["K1"]["ms"], cuda_ms(lambda: k1_run(bins), 20)
+    ms_cut = kernel_ms(lambda: k1_run(cut))
+    log(f"  K1: {ms:.4f} ms ({ms_call:.4f} ms with events around each call)"
+        f"; bound {walk_bound[0]:.4f} ms ({walk_bound[1]}) over the "
+        f"reference's walk, {bbox_bound[0]:.4f} ms ({bbox_bound[1]}) over "
+        f"the {n_tests_bbox} tests inside the triangles' bboxes "
+        f"({n_pairs_bbox} (tile, group) pairs), both over the {k1_bytes} "
+        f"bytes K1 must move; share of the smaller "
+        f"{100 * min(walk_bound, bbox_bound)[0] / ms:.1f}%")
+    log(f"  K1 on the bins cut to <= 16 entries a tile: {ms_cut:.4f} ms; if "
+        f"time followed the heaviest tile: "
+        f"{ms * int(walk_cut.max()) / int(walk.max()):.4f} ms (max walk "
+        f"{int(walk.max())} -> {int(walk_cut.max())}); if it followed the "
+        f"sum of work: {ms * int(walk_cut.sum()) / int(walk.sum()):.4f} ms "
+        f"(walks {int(walk.sum())} -> {int(walk_cut.sum())})")
 
     # ---- K2 ---------------------------------------------------------------
     (tid, srows2), kw = cap["resolve_planes_fused"]
@@ -435,7 +564,7 @@ def phase_kernels(r, np, torch):
     n_win = unique_rows(tid[tid >= 0], srows2.shape[0])
     results["K2"] = dict(
         err=err,
-        ms=cuda_ms(lambda: resolve_planes_fused(tid, srows2, **kw), 20),
+        ms=kernel_ms(lambda: resolve_planes_fused(tid, srows2, **kw)),
         plain_ms=cuda_ms(lambda: resolve_planes_reference(tid, srows2, **kw),
                          5),
         bound=bound(n_win * 256 + tid.numel() * 4 * 22, 0.0),
@@ -464,11 +593,11 @@ def phase_kernels(r, np, torch):
     safe = mat_row.clamp(0, table.shape[0] - 1)
     results["K3"] = dict(
         err=err,
-        ms=cuda_ms(lambda: onehot_split_rows(mat_row, table), 20),
+        ms=kernel_ms(lambda: onehot_split_rows(mat_row, table)),
         plain_ms=cuda_ms(lambda: onehot_split_rows_reference(mat_row,
                                                              table), 20),
         bound=bound(nbytes(mat_row, table, a), 0.0),
-        library_ms=cuda_ms(lambda: torch.index_select(table_t, 1, safe), 20))
+        library_ms=kernel_ms(lambda: torch.index_select(table_t, 1, safe)))
 
     # ---- K6 ---------------------------------------------------------------
     (texels, idx, ncols), _ = cap["gather_split_channels"]
@@ -494,11 +623,11 @@ def phase_kernels(r, np, torch):
     n_rows = unique_rows(idx, texels.shape[0])
     results["K6"] = dict(
         err=err,
-        ms=cuda_ms(lambda: gather_split_channels(texels, idx, ncols), 20),
+        ms=kernel_ms(lambda: gather_split_channels(texels, idx, ncols)),
         plain_ms=cuda_ms(lambda: gather_split_channels_reference(
             texels, idx, ncols), 20),
         bound=bound(n_rows * ncols * 2 + nbytes(idx, a), 0.0),
-        library_ms=cuda_ms(lambda: torch.index_select(cols_t, 1, safe), 20))
+        library_ms=kernel_ms(lambda: torch.index_select(cols_t, 1, safe)))
     results["K4"], results["K5"] = check_k4_k5(cap, "stress", torch)
     for k, v in results.items():
         log(f"  {k}: kernel {v['ms']:.4f} ms, plain twin "
@@ -573,12 +702,11 @@ def check_k4_k5(cap, label, torch, timed=True):
     cols = 52 if fkw.get("mips") else 16
     n_rows = unique_rows(fidx, texq.shape[0])
     k4 = dict(err=err,
-              ms=cuda_ms(lambda: tap_plan_fused(*args, **kw), 20),
+              ms=kernel_ms(lambda: tap_plan_fused(*args, **kw)),
               plain_ms=cuda_ms(lambda: tap_plan_reference(*args, **kw), 5),
               bound=bound(nbytes(*ins, idx, w), 0.0), library_ms=None)
     k5 = dict(err=err5,
-              ms=cuda_ms(lambda: filter_taps_fused(texq, fidx, fw, **fkw),
-                         20),
+              ms=kernel_ms(lambda: filter_taps_fused(texq, fidx, fw, **fkw)),
               plain_ms=cuda_ms(lambda: filter_taps_reference(
                   texq, fidx, fw, **fkw), 5),
               bound=bound(n_rows * cols * 2 + nbytes(fidx, fw, a), 0.0),
@@ -759,8 +887,8 @@ def phase_overlay(P, np, torch, r_stress, cap_stress):
     err = hold_planes("K8 _rasterize_binned_compact (first peel)", a, b,
                       torch)
     results["K8"] = dict(
-        err=err, ms=cuda_ms(lambda: _rasterize_binned_compact(
-            rows, zlo_c, zhi_c, **kw), 20),
+        err=err, ms=kernel_ms(lambda: _rasterize_binned_compact(
+            rows, zlo_c, zhi_c, **kw)),
         plain_ms=cuda_ms(lambda: rasterize_binned_compact_reference(
             rows, zlo_c, zhi_c, **ref_kw), 2),
         bound=binned_bound(rows, kw["bins"], kw["tile_idx"], C * 1024,
@@ -799,8 +927,7 @@ def phase_overlay(P, np, torch, r_stress, cap_stress):
     n_tiles = (-(-kw["height"] // BT_H)) * (-(-kw["width"] // BT_W))
     all_tiles = torch.arange(n_tiles, device=rows.device)
     results["K7"] = dict(
-        err=err, ms=cuda_ms(lambda: rasterize_binned(rows, zlo, zhi, **kw),
-                            20),
+        err=err, ms=kernel_ms(lambda: rasterize_binned(rows, zlo, zhi, **kw)),
         plain_ms=cuda_ms(lambda: rasterize_binned_reference(
             rows, zlo, zhi, **ref_kw), 2),
         bound=binned_bound(rows, kw["bins"], all_tiles, zlo.numel(), names,
@@ -820,8 +947,8 @@ def phase_overlay(P, np, torch, r_stress, cap_stress):
                                    names=h_names)
     torch.cuda.synchronize()
     hold_planes("K7 rasterize_binned (HUD, no peel)", a, b, torch)
-    results["K7_nopeel_ms"] = cuda_ms(lambda: rasterize_binned(h_rows, **hkw),
-                                      20)
+    results["K7_nopeel_ms"] = kernel_ms(lambda: rasterize_binned(h_rows,
+                                                                **hkw))
 
     (table, idx, ncols), _ = cap["gather_split_channels_f32"]
     a = gather_split_channels_f32(table, idx, ncols)
@@ -835,12 +962,12 @@ def phase_overlay(P, np, torch, r_stress, cap_stress):
     safe = idx.clamp(0, table.shape[0] - 1)
     results["K6f32"] = dict(
         err=float((a - b).abs().max()),
-        ms=cuda_ms(lambda: gather_split_channels_f32(table, idx, ncols), 20),
+        ms=kernel_ms(lambda: gather_split_channels_f32(table, idx, ncols)),
         plain_ms=cuda_ms(lambda: gather_split_channels_f32_reference(
             table, idx, ncols), 20),
         bound=bound(unique_rows(idx, table.shape[0]) * ncols * 4
                     + nbytes(idx, a), 0.0),
-        library_ms=cuda_ms(lambda: torch.index_select(cols_t, 1, safe), 20))
+        library_ms=kernel_ms(lambda: torch.index_select(cols_t, 1, safe)))
     kernels.reset_launch_counts()
 
     img, med, wall, counts = orbit_frames(
@@ -947,8 +1074,8 @@ def phase_aa(P, np, torch):
     pairs = msaa_pixel_tris(bins, n_tx)
     results["K9"] = dict(
         err=err,
-        ms=cuda_ms(lambda: rasterize16_msaa(srows, bins, width2=w2,
-                                            height2=h2), 20),
+        ms=kernel_ms(lambda: rasterize16_msaa(srows, bins, width2=w2,
+                                            height2=h2)),
         plain_ms=ev[0].elapsed_time(ev[1]),
         bound=bound(nbytes(srows, *bins, *samp, depth),
                     pairs * OPS_PER_MSAA_PIXEL),
@@ -982,7 +1109,7 @@ def phase_aa(P, np, torch):
         check(bad == 0, f"K2 [{label}] within rtol 1e-5, atol 1e-6 of the "
                         f"twin")
         k2[label] = dict(
-            ms=cuda_ms(lambda: resolve_planes_fused(t, srows, **kw2), 20),
+            ms=kernel_ms(lambda: resolve_planes_fused(t, srows, **kw2)),
             plain_ms=cuda_ms(lambda: resolve_planes_reference(t, srows,
                                                               **kw2), 5))
     results["K2_msaa"] = k2
@@ -1439,16 +1566,36 @@ def phase_oracle(P, np, torch, cap_stress, calls_k8, calls_k7, msaa_in):
     log(f"  K13 channel_rows ({W * H}, 4) bf16 -> (4, {W * H}) f32: "
         f"{n_bad} mismatches")
     check(n_bad == 0, "K13 bit-equal to the twin")
+    def k12_fn():
+        return split_rows(tform)
+
+    def clone_fn():
+        return tform.float().clone().unbind(0)
+
+    # K12 against one clone, in turns (K12, clone, clone, K12): the two
+    # are within a microsecond, less than kernel_ms's spread between runs
+    turns = [kernel_ms(f) for f in (k12_fn, clone_fn, clone_fn, k12_fn)]
     results["K12"] = dict(
-        err=0.0, ms=cuda_ms(lambda: split_rows(tform), 20),
+        err=0.0, ms=(turns[0] + turns[3]) / 2,
         plain_ms=cuda_ms(lambda: split_rows_reference(tform), 20),
         bound=bound(2 * nbytes(tform), 0.0),
-        library_ms=cuda_ms(lambda: tform.float().clone().unbind(0), 20))
+        library_ms=(turns[1] + turns[2]) / 2)
+    r12 = results["K12"]
+    small = tform[:, :1024].contiguous()
+    log(f"  K12 {r12['ms']:.4f} ms, x.float().clone() "
+        f"{r12['library_ms']:.4f} ms (kernel_ms, one event pair around 50 "
+        f"calls, in turns K12 / clone / clone / K12: "
+        f"{' / '.join(f'{t:.4f}' for t in turns)}); with events around "
+        f"each call (cuda_ms): K12 {cuda_ms(k12_fn, 20):.4f} ms, clone "
+        f"{cuda_ms(clone_fn, 20):.4f} ms; bound {r12['bound'][0]:.4f} ms "
+        f"({r12['bound'][1]}); host time a call on an (8, 1024) table: "
+        f"K12 {host_us(lambda: split_rows(small)):.1f} us, clone "
+        f"{host_us(lambda: small.float().clone().unbind(0)):.1f} us")
     results["K13"] = dict(
-        err=0.0, ms=cuda_ms(lambda: channel_rows(texels), 20),
+        err=0.0, ms=kernel_ms(lambda: channel_rows(texels)),
         plain_ms=cuda_ms(lambda: channel_rows_reference(texels), 20),
         bound=bound(nbytes(texels) + 4 * texels.numel(), 0.0),
-        library_ms=cuda_ms(lambda: texels.t().float().contiguous(), 20))
+        library_ms=kernel_ms(lambda: texels.t().float().contiguous()))
     del tform, texels, k12, k13
 
     # ---- K11a / K11b against their twins, on the oracle's own calls ------
@@ -1487,7 +1634,7 @@ def phase_oracle(P, np, torch, cap_stress, calls_k8, calls_k7, msaa_in):
         torch.cuda.synchronize()
         err = hold_planes(label, a, b, torch)
         del a, b
-        results[key] = dict(err=err, ms=cuda_ms(kern, reps),
+        results[key] = dict(err=err, ms=kernel_ms(kern),
                             plain_ms=ev[0].elapsed_time(ev[1]), bound=bd,
                             library_ms=None)
         log(f"  {label}: kernel {results[key]['ms']:.4f} ms, twin "
@@ -1578,6 +1725,9 @@ def phase_temporal(P, np, torch):
     against its twin on a steady frame's own inputs, 24 timed orbit
     frames, host syncs, then the convergence check."""
     from awsm_renderer_tpu_torch.ops import kernels, temporal
+    from awsm_renderer_tpu_torch.ops.raster import (
+        rasterize16_slim, rasterize16_slim_reference,
+    )
     from awsm_renderer_tpu_torch.ops.temporal import (
         history_sources, reproject_history_planes,
         reproject_history_reference,
@@ -1592,7 +1742,8 @@ def phase_temporal(P, np, torch):
     r.render_device()              # the reset frame: every unit shaded
     for i in (1, 2):
         temporal_camera(r, np, i)
-        cap = capture_first_frame(r, ("reproject_history_planes",))
+        cap = capture_first_frame(r, ("reproject_history_planes",
+                                      "rasterize16_slim"))
         torch.cuda.synchronize()
         check("reproject_history_planes" in cap,
               f"temporal frame {i} called K10")
@@ -1607,6 +1758,21 @@ def phase_temporal(P, np, torch):
     log(f"  prep: DoF rings {prep['dof_rings']}, overlay tile cap "
         f"{prep['ov_tile_cap']}, crop {prep['ov_crop']}")
     results = {}
+
+    # ---- K1 on frame 2's own (jittered) setup ------------------------------
+    (srows,), kw = cap["rasterize16_slim"]
+    col, depth, bins = rasterize16_slim(srows, **kw)
+    ccol, cdep = rasterize16_slim_reference(srows, bins, width=kw["width"],
+                                            height=kw["height"])
+    torch.cuda.synchronize()
+    n_bad = bit_mismatches(col, ccol, torch) + bit_mismatches(depth, cdep,
+                                                              torch)
+    log(f"  K1 on temporal frame 2's jittered setup {tuple(srows.shape)}: "
+        f"{n_bad} mismatching values, {int((col >= 0).sum())} covered "
+        f"pixels, max {int(bins[2].max())} groups a tile")
+    check(n_bad == 0, "K1 bit-equal to the plain twin on the temporal "
+                      "frame")
+    del srows, col, depth, bins, ccol, cdep
 
     # ---- K10 on frame 2's own inputs ---------------------------------------
     args, _ = cap["reproject_history_planes"]
@@ -1638,11 +1804,11 @@ def phase_temporal(P, np, torch):
     hist2 = hist.reshape(5, -1)
     results["K10"] = dict(
         err=err,
-        ms=cuda_ms(lambda: reproject_history_planes(*args), 50),
+        ms=kernel_ms(lambda: reproject_history_planes(*args)),
         plain_ms=cuda_ms(lambda: reproject_history_reference(*args), 10),
         bound=bound(nbytes(off_x, off_y, exp_z, cur_tid, scal, *a)
                     + 4 * n_tid + 16 * n_col, 0.0),
-        library_ms=cuda_ms(lambda: torch.index_select(hist2, 1, src), 50))
+        library_ms=kernel_ms(lambda: torch.index_select(hist2, 1, src)))
     log(f"  K10: kernel {results['K10']['ms']:.4f} ms, twin "
         f"{results['K10']['plain_ms']:.4f} ms, bound "
         f"{results['K10']['bound'][0]:.4f} ms ({results['K10']['bound'][1]})"

@@ -7,8 +7,9 @@ without a CUDA device. Run on the card with:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-K1, K3, K5, K6 (both entries), K7, K8, K9, K11a, K11b, K12 and K13 are
-bit-equal to their twins; K2's ints are equal and
+K1 (on split tiles too), K3, K5, K6 (both
+entries), K7, K8, K9, K11a, K11b, K12 (on tails and unaligned views too)
+and K13 are bit-equal to their twins; K2's ints are equal and
 its floats within rtol 1e-5, atol 1e-6 (both round every product and sum
 separately, so they agree exactly in practice). K10 is bit-equal to its
 twin on the same unit scalars. K4's row indices equal
@@ -82,6 +83,36 @@ def test_k1_kernel_bit_equal_to_twin(dev, scene_rows, name):
     assert torch.equal(col, rcol)
     assert torch.equal(_bits(depth), _bits(rdepth))
     assert int((col >= 0).sum()) > 100
+
+
+@pytest.mark.parametrize("case", ["tie_across_slices", "neg_zero", "z_one",
+                                  "big_ties", "sliver"])
+def test_k1_split_tiles_bit_equal_to_twin(dev, case):
+    """tests/test_torch_raster.py's planted cases with more groups a tile
+    than a slice holds (exact depth ties across slices, -0.0 against
+    +0.0, a z = 1.0 plane, big groups): the slices of each split tile
+    merge bit-equal to the sequential twin, and a second call on the same
+    bins (the same scratch memory, likely) agrees."""
+    from awsm_renderer_tpu_torch.ops import kernels
+    from awsm_renderer_tpu_torch.ops import raster as TR
+    from test_torch_raster import planted_rows
+
+    slice_groups = TR.K1_SLICE
+    rows, w, h = planted_rows(case, copies=2 * slice_groups + 3)
+    rows = torch.as_tensor(rows).to(dev)
+    n0 = kernels.launch_counts["rasterize16_slim"]
+    col, depth, bins = TR.rasterize16_slim(rows, width=w, height=h)
+    assert kernels.launch_counts["rasterize16_slim"] == n0 + 1
+    rcol, rdepth = TR.rasterize16_slim_reference(rows, bins, width=w,
+                                                 height=h)
+    col2, depth2, _ = TR.rasterize16_slim(rows, bins, width=w, height=h)
+    torch.cuda.synchronize()
+    assert int(bins[2].max()) + int(bins[6]) > slice_groups
+    for c, d in ((col, depth), (col2, depth2)):
+        assert torch.equal(c, rcol)
+        assert torch.equal(_bits(d), _bits(rdepth))
+    # the slivers are 0.4 pixels wide
+    assert int((rcol >= 0).sum()) > (20 if case == "sliver" else 100)
 
 
 def test_k2_kernel_matches_twin(dev, scene_rows):
@@ -515,6 +546,30 @@ def test_k11b_kernel_bit_equal_to_twin(dev, slim):
         torch.cuda.synchronize()
         _all_bits_equal(a, b)
         assert int((a["tri_id"] >= 0).sum()) > 1000
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_k12_tails_and_unaligned_views_bit_equal(dev, dt):
+    """K12 at lengths that are no multiple of a 16-byte vector, on an
+    aligned view and on one offset by a value (the one-by-one path)."""
+    from awsm_renderer_tpu_torch.ops import kernels
+    from awsm_renderer_tpu_torch.ops.relayout import (
+        split_rows, split_rows_reference,
+    )
+
+    g = torch.Generator().manual_seed(13)
+    for C, P in ((8, 70001), (3, 5), (1, 7), (8, 1920 * 1080 // 8 + 3)):
+        buf = torch.randn(C * P + 1, generator=g).to(dt).to(dev)
+        for x in (buf[:C * P].view(C, P), buf[1:].view(C, P)):
+            n0 = kernels.launch_counts["split_rows"]
+            got = split_rows(x)
+            assert kernels.launch_counts["split_rows"] == n0 + 1
+            want = split_rows_reference(x)
+            assert len(got) == C
+            for a, b in zip(got, want):
+                assert a.dtype == torch.float32
+                assert torch.equal(_bits(a), _bits(b))
 
 
 def test_k12_k13_kernels_bit_equal_to_twins(dev):
