@@ -23,12 +23,13 @@
 // One CTA per tile walking its groups in turn (the first port of this
 // kernel) took the time of its heaviest tile on one SM while the others
 // idled. So the design spreads the walk:
-//   - Balance. The wrapper's plan (two small kernels below) cuts each
-//     tile's walk into slices of at most S = 16 groups (the fastest of 8,
-//     16 and 32 on the 1080p stress frame; ops/raster.py K1_SLICE mirrors
-//     it to size the plan's workspace) and lists them; a persistent grid
-//     takes slices from an atomic counter. The plan reads no count on the
-//     host: its sizes are upper bounds from the bins' shapes.
+//   - Balance. The wrapper's plan (two small kernels in tile_walk.cuh,
+//     shared with K9) cuts each tile's walk into slices of at most S = 16
+//     groups (the fastest of 8, 16 and 32 on the 1080p stress frame;
+//     ops/raster.py K1_SLICE mirrors it to size the plan's workspace)
+//     and lists them; a persistent grid takes slices from an atomic
+//     counter. The plan reads no count on the host: its sizes are upper
+//     bounds from the bins' shapes.
 //   - Merge. The plan writes a tile with nothing to walk (on the 1080p
 //     stress frame 869 of 2,040) and lists no slice for it. A tile of one
 //     slice writes its pixels directly. The slices of a split tile meet
@@ -72,34 +73,18 @@
 // pixel-sized triangles one thread a triangle over its bbox, into the
 // same (|z|, walk position) keys, is the step after this one.
 //
-// The plan (k1_count_kernel, k1_scan_kernel) and the slice walk take any
-// per-tile list of groups; K9 (raster_msaa.cu) and K7 (binned.cu) walk
-// their bins the same serial way and can reuse them.
+// The plan and the merge (tile_walk.cuh) take any per-tile list of
+// groups; K9 (raster_msaa.cu) walks its bins on them too, and K7
+// (binned.cu) walks its chunk lists the same serial way and can.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tile_walk.cuh"
 
 namespace {
 
-constexpr int NSETUP = 64;
-constexpr int GROUP = 16;
-constexpr int BT = 32;
-constexpr int NPX = BT * BT;
 constexpr int THREADS = 256;  // 8 warps x 32 lanes x 4 pixels
 constexpr int S = 16;  // groups a slice walks at most (K1_SLICE)
 constexpr int NT = S * GROUP;  // triangles a slice stages
 constexpr int TPT = (NT + THREADS - 1) / THREADS;  // of them a thread
-constexpr int NBIG_CAP = 512;  // ops/raster.py NBIG_CAP
-constexpr int S_BB_MINX = 15;  // then min y, max x, max y
-constexpr float FMIN = 1.1754943508222875e-38f;
-constexpr unsigned long long NO_HIT = ~0ull;
-
-// one work slice: tile t, walk positions [p0, p0 + n) of the tile's walk
-// (its cnt binned entries from entries[off], then its big groups), and
-// the tile's number of slices ns
-struct alignas(16) Slice {
-  int t, p0, off, cnt, n, ns, pad0, pad1;
-};
 
 // a staged triangle: per edge (a, b, c, threshold), then the z plane
 struct alignas(16) Tri {
@@ -114,140 +99,7 @@ struct Raw {
   int col;
 };
 
-__device__ __forceinline__ float plane(float a, float b, float c, float px,
-                                       float py) {
-  return __fadd_rn(__fmul_rn(a, px), __fadd_rn(__fmul_rn(b, py), c));
-}
-
-// (a, b, c, the top-left threshold): e >= threshold covers
-__device__ __forceinline__ float4 edge(float a, float b, float c) {
-  const bool tl = (a > 0.f) || (a == 0.f && b > 0.f);
-  return make_float4(a, b, c, tl ? 0.f : FMIN);
-}
-
-__device__ __forceinline__ bool touches(int bb, int tx, int ty) {
-  return (bb & 255) <= tx && tx <= ((bb >> 16) & 255) &&
-         ((bb >> 8) & 255) <= ty && ty <= ((bb >> 24) & 255);
-}
-
-// walk position b of tile t -> group id
-__device__ __forceinline__ int walk_group(const int* __restrict__ entries,
-                                          const int* __restrict__ tile_big,
-                                          int nb_max, int t, int off,
-                                          int cnt, int b) {
-  return b < cnt ? entries[off + b] : tile_big[(size_t)t * nb_max + b - cnt];
-}
-
-// ---- the plan ------------------------------------------------------------
-
-// one block per tile: the big groups whose tile box holds it, in
-// big-list order (a ballot a warp, warps in order), into tile_big[t *
-// nb_max ...]; its walk length; for a tile of more than S groups (one
-// that will split), its 1024 merge keys set to NO_HIT; and for a tile
-// with nothing to walk, its pixels (-1, 1.0), so that it needs no slice
-__global__ void __launch_bounds__(THREADS)
-k1_count_kernel(const int* __restrict__ counts,
-                const int* __restrict__ big_packed,
-                const int* __restrict__ big_ids, const int* __restrict__ n_big,
-                int n_tx, int nb_max, int width, int height,
-                int* __restrict__ tile_big, int* __restrict__ walk_len,
-                unsigned long long* __restrict__ scratch,
-                int* __restrict__ out_col, float* __restrict__ out_depth) {
-  __shared__ int warp_hits[THREADS / 32];
-  const int t = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int tx = t % n_tx, ty = t / n_tx;
-  const int nb = min(n_big[0], nb_max);
-  int k = 0;  // big groups listed so far
-  for (int i0 = 0; i0 < nb; i0 += THREADS) {
-    const int i = i0 + threadIdx.x;
-    const bool hit = i < nb && touches(big_packed[i], tx, ty);
-    const unsigned bal = __ballot_sync(0xffffffffu, hit);
-    if (lane == 0) warp_hits[warp] = __popc(bal);
-    __syncthreads();
-    int at = k + __popc(bal & ((1u << lane) - 1));
-    for (int w = 0; w < THREADS / 32; ++w) {
-      at += w < warp ? warp_hits[w] : 0;
-      k += warp_hits[w];
-    }
-    if (hit) tile_big[(size_t)t * nb_max + at] = big_ids[i];
-    __syncthreads();
-  }
-  const int L = counts[t] + k;
-  if (threadIdx.x == 0) walk_len[t] = L;
-  if (L > S) {
-    unsigned long long* tp = scratch + (size_t)t * NPX;
-    for (int p = threadIdx.x; p < NPX; p += THREADS) tp[p] = NO_HIT;
-  } else if (L == 0) {
-    for (int p = threadIdx.x; p < NPX; p += THREADS) {
-      const int x = tx * BT + p % BT, y = ty * BT + p / BT;
-      if (x < width && y < height) {
-        out_col[(size_t)y * width + x] = -1;
-        out_depth[(size_t)y * width + x] = 1.f;
-      }
-    }
-  }
-}
-
-// one block of 1024 threads: an exclusive scan of the tiles' slice counts
-// ceil(L / S) writes the slice list in tile order; ctl = (0, the number
-// of slices), done[t] = 0
-__global__ void __launch_bounds__(1024)
-k1_scan_kernel(const int* __restrict__ counts, const int* __restrict__ offsets,
-               const int* __restrict__ walk_len, int n_tiles,
-               Slice* __restrict__ work, int* __restrict__ ctl,
-               int* __restrict__ done) {
-  __shared__ int warp_sums[32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int carry = 0;
-  for (int base = 0; base < n_tiles; base += 1024) {
-    const int t = base + threadIdx.x;
-    const int L = t < n_tiles ? walk_len[t] : 0;
-    const int ns = t < n_tiles ? (L + S - 1) / S : 0;
-    int v = ns;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int u = __shfl_up_sync(0xffffffffu, v, o);
-      if (lane >= o) v += u;
-    }
-    if (lane == 31) warp_sums[warp] = v;
-    __syncthreads();
-    if (warp == 0) {
-      int w = warp_sums[lane];
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int u = __shfl_up_sync(0xffffffffu, w, o);
-        if (lane >= o) w += u;
-      }
-      warp_sums[lane] = w;
-    }
-    __syncthreads();
-    if (warp > 0) v += warp_sums[warp - 1];
-    const int start = carry + v - ns;
-    carry += warp_sums[31];
-    if (t < n_tiles) {
-      const int cnt = counts[t], off = offsets[t];
-      done[t] = 0;
-      for (int j = 0; j < ns; ++j) {
-        const int p0 = j * S;
-        work[start + j] = Slice{t, p0, off, cnt, min(S, L - p0), ns, 0, 0};
-      }
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    ctl[0] = 0;
-    ctl[1] = carry;
-  }
-}
-
 // ---- the slice walk --------------------------------------------------------
-
-__device__ __forceinline__ Slice load_slice(const Slice* __restrict__ work,
-                                            int s) {
-  const int4* w = reinterpret_cast<const int4*>(work + s);
-  const int4 a = __ldg(w), b = __ldg(w + 1);
-  return Slice{a.x, a.y, a.z, a.w, b.x, b.y, 0, 0};
-}
 
 // this thread's triangles q = tid + u * THREADS of slice `sl`
 __device__ __forceinline__ void load_raw(const float* __restrict__ setup,
@@ -328,7 +180,6 @@ raster16_kernel(const float* __restrict__ setup,
   short* wlist = reinterpret_cast<short*>(smask + 2 * NT)  // [8][NT]
                  + (threadIdx.x >> 5) * NT;
   __shared__ int s_next[2];
-  __shared__ int s_last;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int lx0 = 16 * (warp & 1) + 4 * (lane & 3);  // 4 pixels from lx0
@@ -418,17 +269,10 @@ raster16_kernel(const float* __restrict__ setup,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         if (bi[i] >= 0) {
-          atomicMin(tp + i,
-                    (unsigned long long)__float_as_uint(fabsf(bz[i])) << 32 |
-                        (unsigned)(cur.p0 * GROUP + bi[i]));
+          atomicMin(tp + i, merge_key(bz[i], cur.p0 * GROUP + bi[i]));
         }
       }
-      __threadfence();
-      __syncthreads();
-      if (tid == 0) s_last = atomicAdd(done + cur.t, 1) == cur.ns - 1;
-      __syncthreads();
-      if (s_last) {
-        __threadfence();
+      if (last_slice_of_tile(done, cur)) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int x = tile_x * BT + lx0 + i;
@@ -456,10 +300,8 @@ raster16_kernel(const float* __restrict__ setup,
 
 }  // namespace
 
-// ws: the plan's int32 workspace, laid out as ctl[4] | done[n_tiles] |
-// walk_len[n_tiles] | tile_big[n_tiles * nb_max] | (16-byte aligned)
-// max_slices Slice records. scratch: n_tiles * 1024 u64, the merge keys
-// of split tiles (no value needed on entry).
+// ws: the plan's int32 workspace and scratch: n_tiles * 1024 u64, the
+// merge keys of split tiles (tile_walk.cuh's layout).
 extern "C" int awsm_raster16(const float* setup, const int* entries,
                              const int* offsets, const int* counts,
                              const int* big_packed, const int* big_ids,
@@ -472,34 +314,15 @@ extern "C" int awsm_raster16(const float* setup, const int* entries,
   if (nb_max < 1 || nb_max > NBIG_CAP || max_slices < n_tiles) {
     return (int)cudaErrorInvalidValue;
   }
-  int* ctl = ws;
-  int* done = ctl + 4;
-  int* walk_len = done + n_tiles;
-  int* tile_big = walk_len + n_tiles;
-  const size_t head = 4 + 2 * (size_t)n_tiles + (size_t)n_tiles * nb_max;
-  Slice* work = reinterpret_cast<Slice*>(ws + (head + 3) / 4 * 4);
-  k1_count_kernel<<<n_tiles, THREADS, 0, stream>>>(
-      counts, big_packed, big_ids, n_big, n_tx, nb_max, width, height,
-      tile_big, walk_len, scratch, out_col, out_depth);
-  k1_scan_kernel<<<1, 1024, 0, stream>>>(counts, offsets, walk_len, n_tiles,
-                                         work, ctl, done);
+  const Plan p = plan_launch<S>(counts, offsets, big_packed, big_ids, n_big,
+                                n_tiles, n_tx, width, height, nb_max, 1, ws,
+                                scratch, out_col, out_depth, stream);
   constexpr size_t SMEM =
       2 * NT * (sizeof(Tri) + 2 * sizeof(int)) + 8 * NT * sizeof(short);
-  // resident blocks: a streaming multiprocessor's, times their number
-  static int resident = 0;
-  if (resident == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaFuncSetAttribute(raster16_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)SMEM);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, raster16_kernel,
-                                                  THREADS, SMEM);
-    resident = max(per_sm, 1) * max(sms, 1);
-  }
+  static const int resident =
+      resident_blocks(raster16_kernel, THREADS, SMEM);
   raster16_kernel<<<min(resident, max_slices), THREADS, SMEM, stream>>>(
-      setup, entries, tile_big, nb_max, work, ctl, done, scratch, n_tx, width,
-      height, out_col, out_depth);
+      setup, entries, p.tile_big, nb_max, p.work, p.ctl, p.done, scratch,
+      n_tx, width, height, out_col, out_depth);
   return (int)cudaGetLastError();
 }

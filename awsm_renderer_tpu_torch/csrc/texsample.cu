@@ -17,7 +17,7 @@
 //
 // K5 awsm_filter_taps replaces awsm_renderer_tpu/ops/texsample.py::
 // _filter_taps_fused (pallas_call at texsample.py:448) together with the
-// XLA texel gather that fed it: each thread clips its row index, loads
+// XLA texel gather that fed it: each thread clips its row index, takes
 // the 16 (no mips) or 52 (mips) bf16 columns of its 128-byte texel row,
 // widens them exactly to f32 and evaluates the filter. The TPU pair
 // materialised the gathered (N, 64) bf16 block (1.33 GB for the helmet's
@@ -30,10 +30,17 @@
 // propagate NaN like torch.maximum/minimum/clamp.
 //
 // What bounds them on the H100: K4 is ALU and bytes (24 B in, 48 B out
-// per tap, plus descriptor reads that hit cache); K5 is one scattered
-// 128-byte row read per tap (a DRAM sector gather when the pool exceeds
-// L2) plus 16 B of output. Simple and right first: shared-memory staging
-// of the tables and 16-byte vector loads are later work.
+// per tap, plus descriptor reads that hit cache). K5 moves the index and
+// the weight planes it reads (4 B + 16 B or 44 B a tap), 16 B of output a
+// tap and each distinct texel row once; the rows are a scattered gather
+// (from DRAM when the pool exceeds the 50 MB L2, as the helmet's five
+// 1024x1024 maps do). Its first form read a row as 52 two-byte loads, so
+// every warp load instruction touched 32 different rows, 52 times a tap.
+// Now a thread reads its row as 16-byte vectors on the read-only path (7
+// with mips), and the index and the weights stream in with evict-first
+// loads, so the L2 keeps the rows; on an NVIDIA H100 (700 W) it runs at
+// 76% of its bound on the 1080p stress frame and 86% on the helmet
+// (PERF.md).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -205,44 +212,69 @@ __global__ void tap_plan_kernel(
   for (int k = 0; k < NW; ++k) out_w[(size_t)k * N + i] = w[k];
 }
 
-__device__ __forceinline__ float bf16(uint16_t b) {
-  return __uint_as_float((uint32_t)b << 16);
+constexpr int TEXEL_COLS = 64;  // core/textures.py: 128-byte bf16 rows
+constexpr int ROW_VECS = TEXEL_COLS / 8;  // 16-byte vectors a row
+constexpr int K5_THREADS = 256;
+
+// the 8 bf16 columns of a 16-byte vector, widened exactly to f32 (the
+// lower address holds the lower half of each word)
+__device__ __forceinline__ void widen(const uint4& v, float* q) {
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    q[2 * k] = __uint_as_float(w[k] << 16);
+    q[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+  }
 }
 
-__global__ void filter_taps_kernel(const uint16_t* __restrict__ texq, int R,
-                                   int row_cols, const int* __restrict__ idx,
-                                   const float* __restrict__ w, int N,
-                                   int mips, float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+// one thread a tap. The texel rows are read on the read-only path as
+// 16-byte vectors (7 with mips: columns 0..55 of the 64, holding the 52
+// read; 2 without: the 16), the index and the weight planes once each
+// with evict-first loads, the output with streaming stores. Each thread
+// evaluates the twin's expressions in the twin's order. (A warp staging
+// its 32 taps' rows in shared memory, each 16-byte load instruction
+// fetching whole rows, was slower: scripts/k9_k5_variants.py.)
+template <bool MIPS>
+__global__ void __launch_bounds__(K5_THREADS)
+filter_taps_kernel(const uint4* __restrict__ texq, int R,
+                   const int* __restrict__ idx, const float* __restrict__ w,
+                   int N, float* __restrict__ out) {
+  constexpr int V = MIPS ? 7 : 2;  // vectors a tap reads
+  const int i = blockIdx.x * K5_THREADS + threadIdx.x;
   if (i >= N) return;
-  const uint16_t* row = texq + (size_t)min(max(idx[i], 0), R - 1) * row_cols;
-  const float w00 = w[i], w10 = w[(size_t)N + i];
-  const float w01 = w[2 * (size_t)N + i], w11 = w[3 * (size_t)N + i];
-  float q[52];
+  const int r = min(max(__ldcs(idx + i), 0), R - 1);
+  uint4 v[V];
 #pragma unroll
-  for (int k = 0; k < 16; ++k) q[k] = bf16(row[k]);
-  if (!mips) {
+  for (int k = 0; k < V; ++k) v[k] = __ldg(texq + (size_t)r * ROW_VECS + k);
+  float q[8 * V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) widen(v[k], q + 8 * k);
+  const float w00 = __ldcs(w + i), w10 = __ldcs(w + (size_t)N + i);
+  const float w01 = __ldcs(w + 2 * (size_t)N + i);
+  const float w11 = __ldcs(w + 3 * (size_t)N + i);
+  if constexpr (!MIPS) {
 #pragma unroll
     for (int c = 0; c < 4; ++c)
-      out[(size_t)c * N + i] =
+      __stcs(out + (size_t)c * N + i,
+             q[c] * w00 + q[4 + c] * w10 + q[8 + c] * w01 + q[12 + c] * w11);
+  } else {
+    const float wx0 = __ldcs(w + 4 * (size_t)N + i);
+    const float wx1 = __ldcs(w + 5 * (size_t)N + i);
+    const float wx2 = __ldcs(w + 6 * (size_t)N + i);
+    const float wy0 = __ldcs(w + 7 * (size_t)N + i);
+    const float wy1 = __ldcs(w + 8 * (size_t)N + i);
+    const float wy2 = __ldcs(w + 9 * (size_t)N + i);
+    const float blend = __ldcs(w + 10 * (size_t)N + i);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float quad =
           q[c] * w00 + q[4 + c] * w10 + q[8 + c] * w01 + q[12 + c] * w11;
-    return;
-  }
-#pragma unroll
-  for (int k = 16; k < 52; ++k) q[k] = bf16(row[k]);
-  const float wx0 = w[4 * (size_t)N + i], wx1 = w[5 * (size_t)N + i];
-  const float wx2 = w[6 * (size_t)N + i], wy0 = w[7 * (size_t)N + i];
-  const float wy1 = w[8 * (size_t)N + i], wy2 = w[9 * (size_t)N + i];
-  const float blend = w[10 * (size_t)N + i];
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const float quad =
-        q[c] * w00 + q[4 + c] * w10 + q[8 + c] * w01 + q[12 + c] * w11;
-    const float par =
-        (q[16 + c] * wx0 + q[20 + c] * wx1 + q[24 + c] * wx2) * wy0 +
-        (q[28 + c] * wx0 + q[32 + c] * wx1 + q[36 + c] * wx2) * wy1 +
-        (q[40 + c] * wx0 + q[44 + c] * wx1 + q[48 + c] * wx2) * wy2;
-    out[(size_t)c * N + i] = quad * (1.0f - blend) + par * blend;
+      const float par =
+          (q[16 + c] * wx0 + q[20 + c] * wx1 + q[24 + c] * wx2) * wy0 +
+          (q[28 + c] * wx0 + q[32 + c] * wx1 + q[36 + c] * wx2) * wy1 +
+          (q[40 + c] * wx0 + q[44 + c] * wx1 + q[48 + c] * wx2) * wy2;
+      __stcs(out + (size_t)c * N + i, quad * (1.0f - blend) + par * blend);
+    }
   }
 }
 
@@ -265,13 +297,19 @@ extern "C" int awsm_tap_plan(const int* tex_id, const int* tform_id,
   return (int)cudaGetLastError();
 }
 
-extern "C" int awsm_filter_taps(const uint16_t* texq, int R, int row_cols,
+extern "C" int awsm_filter_taps(const uint16_t* texq, int R,
                                 const int* idx, const float* w, int N,
                                 int mips, float* out, cudaStream_t stream) {
   if (N > 0) {
-    const int block = 256;
-    filter_taps_kernel<<<(N + block - 1) / block, block, 0, stream>>>(
-        texq, R, row_cols, idx, w, N, mips, out);
+    const uint4* rows = reinterpret_cast<const uint4*>(texq);
+    const int blocks = (N + K5_THREADS - 1) / K5_THREADS;
+    if (mips) {
+      filter_taps_kernel<true><<<blocks, K5_THREADS, 0, stream>>>(
+          rows, R, idx, w, N, out);
+    } else {
+      filter_taps_kernel<false><<<blocks, K5_THREADS, 0, stream>>>(
+          rows, R, idx, w, N, out);
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -52,11 +52,11 @@ _SIGNATURES = {
     "awsm_gather_split_channels_f32": [_P, _I, _I, _P, _I, _I, _P, _P],
     "awsm_tap_plan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I,
                       _I, _I, _I, _P, _P, _P],
-    "awsm_filter_taps": [_P, _I, _I, _P, _P, _I, _I, _P, _P],
+    "awsm_filter_taps": [_P, _I, _P, _P, _I, _I, _P, _P],
     "awsm_binned": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _I, _I,
                     _P, _P, _P],
-    "awsm_raster_msaa": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
-                         _P],
+    "awsm_raster_msaa": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _P, _P, _P, _P, _P],
     "awsm_reproject": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
     "awsm_dense": [_P, _I, _P, _I, _I, _P, _P, _I, _P, _P, _P],
     "awsm_split_rows": [_P, _I, _I, _I, _P, _P],

@@ -335,6 +335,20 @@ def rasterize16_slim_reference(setup_rows, bins, *, width: int,
 K1_SLICE = 16   # raster16.cu's constant S; sizes the plan's workspace
 
 
+def _plan_workspace(setup_rows, entries, n_tiles: int, slice_groups: int):
+    """The plan's int32 workspace (csrc/tile_walk.cuh's layout), sized
+    from shapes alone, with nb_max and max_slices: a tile has at most
+    min(NBIG_CAP, G) big groups and sum(counts) <= entries.numel(), so
+    sum(ceil(L / S)) <= n_tiles + sum(L) / S."""
+    nb_max = max(1, min(NBIG_CAP, setup_rows.shape[0] // GROUP))
+    max_slices = (n_tiles + (entries.numel() + n_tiles * nb_max)
+                  // slice_groups + 1)
+    head = 4 + 2 * n_tiles + n_tiles * nb_max
+    ws = torch.empty(-(-head // 4) * 4 + 8 * max_slices, dtype=torch.int32,
+                     device=setup_rows.device)
+    return ws, nb_max, max_slices
+
+
 def rasterize16_slim(setup_rows: torch.Tensor, bins=None, *, width: int,
                      height: int, vis_cap: int | None = None,
                      stash_cap: int | None = None):
@@ -382,15 +396,8 @@ def rasterize16_slim(setup_rows: torch.Tensor, bins=None, *, width: int,
     dev = setup_rows.device
     col = torch.empty(height * width, dtype=torch.int32, device=dev)
     depth = torch.empty(height * width, dtype=torch.float32, device=dev)
-    # the plan's workspace (raster16.cu's layout), sized from shapes alone:
-    # a tile has at most min(NBIG_CAP, G) big groups and sum(counts) <=
-    # entries.numel(), so sum(ceil(L / S)) <= n_tiles + sum(L) / S
-    nb_max = max(1, min(NBIG_CAP, setup_rows.shape[0] // GROUP))
-    max_slices = (n_tiles + (entries.numel() + n_tiles * nb_max) // K1_SLICE
-                  + 1)
-    head = 4 + 2 * n_tiles + n_tiles * nb_max
-    ws = torch.empty(-(-head // 4) * 4 + 8 * max_slices, dtype=torch.int32,
-                     device=dev)
+    ws, nb_max, max_slices = _plan_workspace(setup_rows, entries, n_tiles,
+                                             K1_SLICE)
     # the split tiles' merge keys (the plan fills those it needs)
     scratch = torch.empty(n_tiles * BT_H * BT_W, dtype=torch.int64,
                           device=dev)
@@ -427,7 +434,13 @@ def rasterize16(setup_rows, *, width: int, height: int,
 # SUPERSAMPLED coordinates (twice the display resolution), binned to
 # 64x64 supersampled tiles = 32x32 display tiles with per-subgroup
 # quadrant masks (build_bins16 pack_submask). Shading happens once per
-# display pixel afterwards (passes/frame.py _opaque_band_msaa).
+# display pixel afterwards (passes/frame.py _opaque_band_msaa). On the
+# card it walks K1's plan (csrc/tile_walk.cuh) in slices of at most
+# K9_SLICE groups, with four merge keys a pixel, one a sample
+# (tests/test_torch_msaa_slices.py holds this merge, done with the plain
+# walk, bit-equal to the twin).
+
+K9_SLICE = 48   # raster_msaa.cu's constant S; sizes the plan's workspace
 
 MSAA_SAMPLES = ((0, 0), (0, 1), (1, 0), (1, 1))   # (i, j): tl, tr, bl, br
 
@@ -568,14 +581,20 @@ def rasterize16_msaa(setup_rows: torch.Tensor, bins=None, *, width2: int,
     if counts.numel() != n_tiles or offsets.numel() != n_tiles:
         raise ValueError(f"bins hold {counts.numel()} tiles, not {n_tiles}")
     H1, W1 = height2 // 2, width2 // 2
-    samp = torch.empty((4, H1, W1), dtype=torch.int32,
-                       device=setup_rows.device)
-    depth = torch.empty((H1, W1), dtype=torch.float32,
-                        device=setup_rows.device)
+    dev = setup_rows.device
+    samp = torch.empty((4, H1, W1), dtype=torch.int32, device=dev)
+    depth = torch.empty((H1, W1), dtype=torch.float32, device=dev)
+    ws, nb_max, max_slices = _plan_workspace(setup_rows, entries, n_tiles,
+                                             K9_SLICE)
+    # the split tiles' merge keys, four a pixel (the plan fills those it
+    # needs)
+    scratch = torch.empty(n_tiles * 4 * BT_H * BT_W, dtype=torch.int64,
+                          device=dev)
     ptrs = [t.data_ptr() for t in (setup_rows, entries, offsets, counts,
                                    big_packed, big_ids, n_big)]
     kernels.launch("rasterize16_msaa", "awsm_raster_msaa", *ptrs, n_tiles,
-                   n_tx, W1, H1, samp.data_ptr(), depth.data_ptr())
+                   n_tx, W1, H1, nb_max, max_slices, ws.data_ptr(),
+                   scratch.data_ptr(), samp.data_ptr(), depth.data_ptr())
     return list(samp), depth, bins
 
 

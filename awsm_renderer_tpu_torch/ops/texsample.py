@@ -31,6 +31,7 @@ from ..core.textures import (
     TD_WIDTH,
     TD_WRAP_S,
     TD_WRAP_T,
+    TEXEL_COLS,
     WRAP_CLAMP,
     WRAP_MIRROR,
     WRAP_REPEAT,
@@ -308,9 +309,12 @@ def filter_taps_fused(texq, idx, w, *, mips: bool):
     read too (52 columns), else the bilinear quad only (16)."""
     if texq.device.type == "cpu":
         return filter_taps_reference(texq, idx, w, mips=mips)
+    # the kernel reads whole 128-byte rows as 16-byte vectors
     if texq.dtype != torch.bfloat16 or texq.dim() != 2 \
-            or texq.shape[1] < (52 if mips else 16):
-        raise ValueError("texq must be (R, >= 52) bf16 rows")
+            or texq.shape[1] != TEXEL_COLS:
+        raise ValueError(f"texq must be (R, {TEXEL_COLS}) bf16 rows")
+    if not texq.is_contiguous() or texq.data_ptr() % 16:
+        raise ValueError("texq must be contiguous and 16-byte aligned")
     N = idx.shape[0]
     if idx.dtype != torch.int32 or idx.dim() != 1:
         raise ValueError("idx must be (N,) int32")
@@ -319,9 +323,8 @@ def filter_taps_fused(texq, idx, w, *, mips: bool):
     kernels.check_cuda(texq, idx, w)
     out = torch.empty((4, N), dtype=torch.float32, device=idx.device)
     kernels.launch("filter_taps_fused", "awsm_filter_taps",
-                   texq.data_ptr(), texq.shape[0], texq.shape[1],
-                   idx.data_ptr(), w.data_ptr(), N, int(mips),
-                   out.data_ptr())
+                   texq.data_ptr(), texq.shape[0], idx.data_ptr(),
+                   w.data_ptr(), N, int(mips), out.data_ptr())
     return out
 
 

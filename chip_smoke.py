@@ -39,8 +39,10 @@ back to the CPU). Phases:
            stress scene, panes included, with MSAA-4x, bloom and depth of
            field (focus 16 m, f/1); K9 against its twin bit for bit on the
            first frame's own setup rows and bins, timed, with the bins'
-           entry count, n_big and the tiles the reference's caps would
-           clip; K2's coord_scale=2 and explicit-px/py entries against
+           shape (groups a tile, big groups, empty and split tiles,
+           slices), the tiles the reference's caps would clip and two
+           bounds (the reference's walk; the tests inside the triangles'
+           bboxes); K2's coord_scale=2 and explicit-px/py entries against
            the twin; 12 orbit frames with K9 (and K8 for the panes)
            launched on each, the image, pick() against the sample plane,
            host syncs; then 3 supersample frames (peak device memory) and
@@ -404,57 +406,125 @@ def k1_big_touch(bins, n_tx: int, torch):
             & (ty[:, None] <= ((bb >> 24) & 255)[None]))
 
 
-def k1_walk(srows, bins, n_tx: int, torch):
-    """K1's work on these bins: each tile's walk length (binned groups +
-    big groups whose box holds it), the (tile, group) pairs of those
-    walks, the coverage tests they need (pixel centres of the tile inside
-    each of the group's 16 triangle bboxes), and the bytes K1 must read:
-    floats 0..11 (three edges, the z plane) of every row those pairs
-    reach and the bins it walks, each once."""
+def walk_pairs(bins, n_tx: int, torch, packed: bool = False):
+    """The walks on `bins`: each tile's walk length (binned entries + big
+    groups whose box holds it), and the walk's (tile, group, quadrant
+    gate) pairs. packed: K9's entries (g << 8) | gates; a big group, and
+    every K1 entry, gates no quadrant out (0xFF)."""
     entries, offsets, counts, _z, _bp, big_ids, _nb, _c = bins
-    dev = srows.device
+    dev = counts.device
     touch = k1_big_touch(bins, n_tx, torch)
     walk = counts.long() + touch.sum(dim=1)
     cl = counts.long()
     tile = torch.repeat_interleave(torch.arange(cl.numel(), device=dev), cl)
     first = torch.cumsum(cl, 0) - cl
-    e = (offsets.long()[tile] + torch.arange(tile.numel(), device=dev)
-         - first[tile])
+    e = entries.long()[offsets.long()[tile]
+                       + torch.arange(tile.numel(), device=dev)
+                       - first[tile]]
     bt, bi = touch.nonzero(as_tuple=True)
     tile = torch.cat([tile, bt])
-    grp = torch.cat([entries.long()[e], big_ids.long()[bi]])
+    grp = torch.cat([e >> 8 if packed else e, big_ids.long()[bi]])
+    gate = torch.cat([e & 0xFF if packed else torch.full_like(e, 0xFF),
+                      torch.full_like(bi, 0xFF)])
+    return walk, tile, grp, gate
+
+
+def walk_bytes(srows, bins, grp, torch) -> int:
+    """What a walk must read: floats 0..11 (three edges, the z plane) of
+    every row its pairs reach and the bins, each once."""
+    counts, n_big = bins[2], int(bins[6].item())
+    return (torch.unique(grp).numel() * 16 * 12 * 4
+            + 4 * (int(counts.sum()) + 2 * counts.numel() + 2 * n_big + 1))
+
+
+def _centres(lo, hi, o, n: int, scale: int):
+    """Pixels k in [0, n) from pixel o with a (sample) centre in [lo, hi]:
+    pixel x holds the centres scale * x + s + 0.5, s < scale (scale 1:
+    pixel centres; 2: K9's samples in supersampled pixels)."""
+    import torch
+
+    m0 = torch.maximum(torch.ceil(lo - 0.5), scale * o)
+    m1 = torch.minimum(torch.floor(hi - 0.5), scale * (o + n) - 1)
+    c = torch.floor(m1 / scale) - torch.floor(m0 / scale) + 1
+    return torch.where(m1 >= m0, c, torch.zeros_like(c))
+
+
+def k1_walk(srows, bins, n_tx: int, torch):
+    """K1's work on these bins: each tile's walk length, the (tile,
+    group) pairs of those walks, the coverage tests they need (pixel
+    centres of the tile inside each of the group's 16 triangle bboxes),
+    and the bytes K1 must read (walk_bytes)."""
+    walk, tile, grp, _gate = walk_pairs(bins, n_tx, torch)
     bb = srows[:, 15:19].reshape(-1, 16, 4)[grp]          # (pairs, 16, 4)
     X = ((tile % n_tx) * 32).float()[:, None]
     Y = (torch.div(tile, n_tx, rounding_mode="floor") * 32).float()[:, None]
-
-    def centres(lo, hi, o):      # k in [0, 32) with lo <= o + k + 0.5 <= hi
-        k0 = torch.ceil(lo - o - 0.5).clamp(0, 32)
-        k1 = torch.floor(hi - o - 0.5).clamp(-1, 31) + 1
-        return (k1 - k0).clamp(min=0)
-
-    n = (centres(bb[..., 0], bb[..., 2], X)
-         * centres(bb[..., 1], bb[..., 3], Y))
-    n_big = int(bins[6].item())
-    in_bytes = (torch.unique(grp).numel() * 16 * 12 * 4
-                + 4 * (int(counts.sum()) + offsets.numel() + counts.numel()
-                       + 2 * n_big + 1))
-    return walk, int(tile.numel()), int(n.double().sum()), in_bytes
+    n = (_centres(bb[..., 0], bb[..., 2], X, 32, 1)
+         * _centres(bb[..., 1], bb[..., 3], Y, 32, 1))
+    return (walk, int(tile.numel()), int(n.double().sum()),
+            walk_bytes(srows, bins, grp, torch))
 
 
-def k1_bins_log(bins, walk, torch):
-    """Print the shape of K1's work: tiles, groups a tile, big groups."""
+# raster_msaa.cu: warp w owns the 16 x K9_BLOCK_ROWS display block (w % 2,
+# w / 2) of a tile
+K9_BLOCK_ROWS = 2
+
+
+def k9_walk(srows, bins, n_tx: int, torch):
+    """K9's work on its bins: each tile's walk length, the (tile, group)
+    pairs, the (display pixel, triangle) tests of the reference's walk
+    (each pair's 16 triangles against the 256 display pixels of each
+    quadrant its gate names), those the kernel's warps make (the pixels
+    of each warp block of those quadrants that a triangle's bbox, widened
+    by one supersampled pixel, reaches: raster_msaa.cu's cull), those
+    inside the triangles' bboxes (pixels of those quadrants one of whose
+    sample centres lies in the supersampled bbox), and the bytes K9 must
+    read (walk_bytes)."""
+    walk, tile, grp, gate = walk_pairs(bins, n_tx, torch, packed=True)
+    bb = srows[:, 15:19].reshape(-1, 16, 4)[grp]          # (pairs, 16, 4)
+    n = torch.zeros(bb.shape[:2], dtype=torch.float64, device=bb.device)
+    n_warp = torch.zeros_like(n)
+    n_walk = 0
+    rows = K9_BLOCK_ROWS
+    for q in range(4):
+        X = ((tile % n_tx) * 32 + 16 * (q & 1)).float()[:, None]
+        Y = (torch.div(tile, n_tx, rounding_mode="floor") * 32
+             + 16 * (q >> 1)).float()[:, None]
+        on = (((gate >> q) & 0x11) != 0)[:, None]
+        n_walk += int(on.sum()) * 16 * 256
+        n += torch.where(on, _centres(bb[..., 0], bb[..., 2], X, 16, 2)
+                         * _centres(bb[..., 1], bb[..., 3], Y, 16, 2),
+                         0.0).double()
+        # the quadrant's blocks r = 0 .. 16 / rows - 1, sample centres
+        # 2 X + [0.5, 31.5] and 2 (Y + rows r) + [0.5, 2 rows - 0.5]
+        x_ok = ((bb[..., 0] - 1 <= 2 * X + 31.5)
+                & (bb[..., 2] + 1 >= 2 * X + 0.5))
+        r0 = torch.ceil((bb[..., 1] - 1 - 2 * Y - 2 * rows + 0.5)
+                        / (2 * rows)).clamp(0, 16 // rows)
+        r1 = torch.floor((bb[..., 3] + 1 - 2 * Y - 0.5)
+                         / (2 * rows)).clamp(-1, 16 // rows - 1)
+        blocks = (r1 + 1 - r0).clamp(min=0)
+        n_warp += torch.where(on & x_ok, blocks * 16 * rows, 0.0).double()
+    return (walk, int(tile.numel()), n_walk, int(n_warp.sum()),
+            int(n.sum()), walk_bytes(srows, bins, grp, torch))
+
+
+def bins_log(label, bins, walk, slice_groups: int, torch):
+    """Print the shape of a sliced walk's work: tiles, groups a tile, big
+    groups, walk lengths, empty and split tiles, slices."""
     counts, n_big = bins[2].float(), int(bins[6].item())
     q = torch.quantile(counts, torch.tensor([0.25, 0.5, 0.75],
                                             device=counts.device))
     wq = torch.quantile(walk.float(), torch.tensor([0.5, 0.99],
                                                    device=walk.device))
-    log(f"  bins: {counts.numel()} tiles, groups a tile quartiles "
+    slices = int(((walk + slice_groups - 1) // slice_groups).sum())
+    log(f"  {label} bins: {counts.numel()} tiles, groups a tile quartiles "
         f"{q[0]:.0f} / {q[1]:.0f} / {q[2]:.0f}, max {int(counts.max())}, "
         f"{int(counts.sum())} binned pairs, {n_big} big groups in "
         f"{int(walk.sum() - counts.sum())} (tile, big group) pairs; walk a "
         f"tile median {wq[0]:.0f}, 99th percentile {wq[1]:.0f}, max "
-        f"{int(walk.max())}, empty tiles {int((walk == 0).sum())}; clipped "
-        f"tiles {int(bins[7].item())}")
+        f"{int(walk.max())}, empty tiles {int((walk == 0).sum())}, split "
+        f"tiles {int((walk > slice_groups).sum())}, {slices} slices of at "
+        f"most {slice_groups} groups; clipped tiles {int(bins[7].item())}")
 
 
 def phase_kernels(r, np, torch):
@@ -463,7 +533,7 @@ def phase_kernels(r, np, torch):
     arguments of every K8 peel)."""
     from awsm_renderer_tpu_torch.ops import kernels
     from awsm_renderer_tpu_torch.ops.raster import (
-        build_bins16, rasterize16_slim, rasterize16_slim_reference,
+        K1_SLICE, build_bins16, rasterize16_slim, rasterize16_slim_reference,
     )
     from awsm_renderer_tpu_torch.ops.relayout import (
         gather_split_channels, gather_split_channels_reference,
@@ -506,7 +576,7 @@ def phase_kernels(r, np, torch):
     n_tx = -(-rw // 32)
     walk, n_pairs_bbox, n_tests_bbox, in_bytes = k1_walk(srows, bins, n_tx,
                                                          torch)
-    k1_bins_log(bins, walk, torch)
+    bins_log("K1", bins, walk, K1_SLICE, torch)
     # the function's tests: every binned (tile, group) pair, big groups
     # against every tile (the reference's walk); the tests these inputs
     # need: pixel centres inside each triangle's bbox over the binned and
@@ -699,7 +769,8 @@ def check_k4_k5(cap, label, torch, timed=True):
     ins = [t for t in list(args) + list(kw.values())
            if isinstance(t, torch.Tensor)]
     ins += [t for t in (args[3] or ()) if isinstance(t, torch.Tensor)]
-    cols = 52 if fkw.get("mips") else 16
+    mips = bool(fkw.get("mips"))
+    cols, n_w = (52, 11) if mips else (16, 4)   # columns, weight planes
     n_rows = unique_rows(fidx, texq.shape[0])
     k4 = dict(err=err,
               ms=kernel_ms(lambda: tap_plan_fused(*args, **kw)),
@@ -709,8 +780,13 @@ def check_k4_k5(cap, label, torch, timed=True):
               ms=kernel_ms(lambda: filter_taps_fused(texq, fidx, fw, **fkw)),
               plain_ms=cuda_ms(lambda: filter_taps_reference(
                   texq, fidx, fw, **fkw), 5),
-              bound=bound(n_rows * cols * 2 + nbytes(fidx, fw, a), 0.0),
+              bound=bound(n_rows * cols * 2 + nbytes(fidx, fw[:n_w], a),
+                          0.0),
               library_ms=None)
+    for k, v in (("K4", k4), ("K5", k5)):
+        log(f"  {k} [{label}]: {v['ms']:.4f} ms, bound {v['bound'][0]:.4f} "
+            f"ms ({v['bound'][1]}), share {100 * v['bound'][0] / v['ms']:.1f}"
+            f"%")
     return k4, k5
 
 
@@ -990,26 +1066,6 @@ def phase_overlay(P, np, torch, r_stress, cap_stress):
     return results
 
 
-def msaa_pixel_tris(bins, n_tx: int) -> int:
-    """(display pixel, triangle) pairs K9 tests on `bins`: each entry in
-    the quadrants its mask names (256 display pixels each), each big group
-    in every tile its bbox reaches (1024 pixels), x 16 triangles."""
-    import torch
-
-    entries, _offsets, counts, _z, big_packed, _ids, n_big, _ = bins
-    n_tiles = counts.numel()
-    e = entries[:int(counts.sum())]    # unclipped bins: tile after tile
-    quads = sum(((e >> q) & 0x11) != 0 for q in range(4))
-    px = int(quads.sum()) * 256
-    t = torch.arange(n_tiles, device=entries.device)
-    tx, ty = t % n_tx, torch.div(t, n_tx, rounding_mode="floor")
-    bb = big_packed[:int(n_big.item())].long()[:, None]
-    hits = (((bb & 255) <= tx) & (tx <= ((bb >> 16) & 255))
-            & (((bb >> 8) & 255) <= ty) & (ty <= ((bb >> 24) & 255)))
-    px += int(hits.sum()) * 1024
-    return px * 16
-
-
 def phase_aa(P, np, torch):
     """bench.py's headline frame: the stress scene (panes included) with
     MSAA-4x, bloom and DoF at 1080p. K9 and K2's MSAA entries against
@@ -1017,7 +1073,8 @@ def phase_aa(P, np, torch):
     host syncs; then supersample and SMAA frames."""
     from awsm_renderer_tpu_torch.ops import kernels
     from awsm_renderer_tpu_torch.ops.raster import (
-        BT_W, build_bins16, rasterize16_msaa, rasterize16_msaa_reference,
+        BT_W, K9_SLICE, build_bins16, rasterize16_msaa,
+        rasterize16_msaa_reference,
     )
     from awsm_renderer_tpu_torch.ops.shade import (
         RESOLVE_NAMES, resolve_planes_fused, resolve_planes_reference,
@@ -1057,9 +1114,6 @@ def phase_aa(P, np, torch):
     counts = bins[2]
     log(f"  setup rows {tuple(srows.shape)} f32, supersampled raster "
         f"{w2}x{h2} -> display {tuple(depth.shape)}")
-    log(f"  K9 bins: {counts.numel()} display tiles, {int(counts.sum())} "
-        f"(tile, group) entries, max {int(counts.max())} a tile, "
-        f"n_big {int(bins[6].item())} (cap 512)")
     ref = build_bins16(srows, width=-(-w2 // 64) * 64,
                        height=-(-h2 // 64) * 64, vis_cap=65536,
                        stash_cap=4096, tile_h=64, tile_w=64,
@@ -1071,18 +1125,35 @@ def phase_aa(P, np, torch):
         f"mismatching values, max |ddepth| {err}")
     check(n_bad == 0, "K9 sample ids and depth bit-equal to the plain twin")
     check(int((samp[0] >= 0).sum()) > 0, "K9 covers samples")
-    pairs = msaa_pixel_tris(bins, n_tx)
+    # the function's tests: each entry in the quadrants its gate names,
+    # each big group in every tile its box holds (the reference's walk);
+    # the tests these inputs need: display pixels of those quadrants with
+    # a sample centre inside a triangle's bbox
+    walk, n_pairs_bbox, pairs, n_tests_warp, n_tests_bbox, in_bytes = \
+        k9_walk(srows, bins, n_tx, torch)
+    bins_log("K9", bins, walk, K9_SLICE, torch)
+    k9_bytes = in_bytes + nbytes(*samp, depth)
+    walk_bound = bound(k9_bytes, pairs * OPS_PER_MSAA_PIXEL)
+    bbox_bound = bound(k9_bytes, n_tests_bbox * OPS_PER_MSAA_PIXEL)
     results["K9"] = dict(
         err=err,
         ms=kernel_ms(lambda: rasterize16_msaa(srows, bins, width2=w2,
                                             height2=h2)),
         plain_ms=ev[0].elapsed_time(ev[1]),
-        bound=bound(nbytes(srows, *bins, *samp, depth),
-                    pairs * OPS_PER_MSAA_PIXEL),
-        library_ms=None)
-    log(f"  K9 bound: {pairs} pixel-triangle pairs x {OPS_PER_MSAA_PIXEL} "
-        f"operations, {results['K9']['bound'][0]:.4f} ms "
-        f"({results['K9']['bound'][1]})")
+        bound=min(walk_bound, bbox_bound), library_ms=None)
+    bounds = sorted([
+        (bbox_bound, f"over the {n_tests_bbox} (display pixel, triangle) "
+                     f"tests inside the triangles' bboxes ({n_pairs_bbox} "
+                     f"(tile, group) pairs)"),
+        (walk_bound, f"over the reference's walk ({pairs} tests)")])
+    log(f"  K9: {results['K9']['ms']:.4f} ms; bound "
+        + ", ".join(f"{b[0]:.4f} ms ({b[1]}) {what}" for b, what in bounds)
+        + f", both x {OPS_PER_MSAA_PIXEL} operations and over the {k9_bytes} "
+        f"bytes K9 must move; share of the smaller "
+        f"{100 * min(walk_bound, bbox_bound)[0] / results['K9']['ms']:.1f}"
+        f"%; the warps' cull leaves {n_tests_warp} tests, "
+        f"{n_tests_warp / max(n_tests_bbox, 1):.1f}x those inside the "
+        f"bboxes")
 
     # ---- K2's MSAA entries --------------------------------------------------
     rw1 = -(-W // 128) * 128
@@ -2271,7 +2342,9 @@ def main() -> int:
     log(f"frame glb-helmet: median {h_med:.3f} ms/frame (CUDA events), host "
         f"wall {h_wall:.3f} ms/frame, at {W}x{H} ({card})")
     log(f"helmet batch: K4 {h_k4['ms']:.4f} ms (twin {h_k4['plain_ms']:.4f}"
-        f"), K5 {h_k5['ms']:.4f} ms (twin {h_k5['plain_ms']:.4f}) ({card})")
+        f", bound {h_k4['bound'][0]:.4f} ms ({h_k4['bound'][1]})), K5 "
+        f"{h_k5['ms']:.4f} ms (twin {h_k5['plain_ms']:.4f}, bound "
+        f"{h_k5['bound'][0]:.4f} ms ({h_k5['bound'][1]})) ({card})")
     log(f"K7 without a peel (the HUD): {ov['K7_nopeel_ms']:.4f} ms ({card})")
     a_med, a_wall, a_counts = aa["frames"]
     log(f"frame Stress-1080p-msaa-bloom-dof: median {a_med:.3f} ms/frame "

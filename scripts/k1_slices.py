@@ -3,9 +3,10 @@
 groups a work slice walks at most) at 8, 16 and 32.
 
 Builds a copy of raster16.cu for each size (the constant replaced, the
-package's nvcc flags, one nvcc each, all started together) under
-build/k1_slices/, builds chip_smoke.py's stress scene
-(Stress-1080p-ibl-tex) at --width x --height, captures the first frame's
+package's nvcc flags, one nvcc each, all started together: build_variants,
+which scripts/k9_k5_variants.py also uses) under build/k1_slices/, builds
+chip_smoke.py's stress scene (Stress-1080p-ibl-tex) at --width x
+--height, captures the first frame's
 K1 inputs (setup rows and bins), and calls each build's awsm_raster16 on
 them with the workspace rasterize16_slim would size for that S. Each
 size's output is held bit-equal to the plain twin, then timed in turns
@@ -29,35 +30,61 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZES = (8, 16, 32)
 
 
-def build(kernels, sizes):
-    """{S: ctypes entry awsm_raster16 of raster16.cu built with S}."""
-    out_dir = os.path.join(REPO, "build", "k1_slices")
+def build_variants(kernels, source, entry, variants, out_name,
+                   patches=None):
+    """{label: the ctypes entry `entry` of a copy of csrc/`source` with
+    constants replaced}: variants maps a label to {NAME: value}, each
+    replacing the one `constexpr <type> NAME = ...;` of the source, and
+    patches a label to (old, new) pairs, each replacing the one `old`
+    text of the source. The copies build with the package's nvcc flags
+    (csrc/ on the include path), one nvcc each, all started together,
+    under build/<out_name>/; ptxas's register and spill lines are
+    printed."""
+    out_dir = os.path.join(REPO, "build", out_name)
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(kernels.CSRC, "raster16.cu")) as f:
+    with open(os.path.join(kernels.CSRC, source)) as f:
         src = f.read()
-    const = re.compile(r"constexpr int S = \d+;")
-    if len(const.findall(src)) != 1:
-        raise RuntimeError("raster16.cu: no single `constexpr int S`")
+    stem = os.path.splitext(source)[0]
     procs = {}
-    for s in sizes:
-        cu = os.path.join(out_dir, f"raster16_s{s}.cu")
+    for label, consts in variants.items():
+        text = src
+        for name, value in consts.items():
+            const = re.compile(rf"constexpr (\w+) {name} = [^;]+;")
+            if len(const.findall(text)) != 1:
+                raise RuntimeError(f"{source}: no single `constexpr ... "
+                                   f"{name}`")
+            text = const.sub(rf"constexpr \1 {name} = {value};", text)
+        for old, new in (patches or {}).get(label, ()):
+            if text.count(old) != 1:
+                raise RuntimeError(f"{source}: no single {old!r}")
+            text = text.replace(old, new)
+        cu = os.path.join(out_dir, f"{stem}_{label}.cu")
         with open(cu, "w") as f:
-            f.write(const.sub(f"constexpr int S = {s};", src))
-        procs[s] = subprocess.Popen(
-            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o",
-             cu[:-3] + ".so", cu], stdout=subprocess.PIPE,
+            f.write(text)
+        procs[label] = subprocess.Popen(
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", kernels.CSRC,
+             "-shared", "-o", cu[:-3] + ".so", cu], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)
     entries = {}
-    for s, p in procs.items():
+    for label, p in procs.items():
         log = p.communicate()[0]
         if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed at S = {s}:\n{log}")
-        fn = ctypes.CDLL(os.path.join(out_dir, f"raster16_s{s}.so")
-                         ).awsm_raster16
-        fn.argtypes = kernels._SIGNATURES["awsm_raster16"]
+            raise RuntimeError(f"nvcc failed on {stem}_{label}:\n{log}")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas [{stem}_{label}]: {line.strip()}")
+        fn = getattr(ctypes.CDLL(os.path.join(out_dir, f"{stem}_{label}.so")),
+                     entry)
+        fn.argtypes = kernels._SIGNATURES[entry]
         fn.restype = ctypes.c_int
-        entries[s] = fn
+        entries[label] = fn
     return entries
+
+
+def build(kernels, sizes):
+    """{S: ctypes entry awsm_raster16 of raster16.cu built with S}."""
+    return build_variants(kernels, "raster16.cu", "awsm_raster16",
+                          {s: {"S": s} for s in sizes}, "k1_slices")
 
 
 def raster16(fn, S, srows, bins, w, h, torch, TR):
@@ -68,11 +95,7 @@ def raster16(fn, S, srows, bins, w, h, torch, TR):
     dev = srows.device
     col = torch.empty(h * w, dtype=torch.int32, device=dev)
     depth = torch.empty(h * w, dtype=torch.float32, device=dev)
-    nb_max = max(1, min(TR.NBIG_CAP, srows.shape[0] // TR.GROUP))
-    max_slices = n_tiles + (entries.numel() + n_tiles * nb_max) // S + 1
-    head = 4 + 2 * n_tiles + n_tiles * nb_max
-    ws = torch.empty(-(-head // 4) * 4 + 8 * max_slices, dtype=torch.int32,
-                     device=dev)
+    ws, nb_max, max_slices = TR._plan_workspace(srows, entries, n_tiles, S)
     scratch = torch.empty(n_tiles * 1024, dtype=torch.int64, device=dev)
     ptrs = [t.data_ptr() for t in (srows, entries, offsets, counts,
                                    big_packed, big_ids, n_big)]

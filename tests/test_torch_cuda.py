@@ -7,12 +7,12 @@ without a CUDA device. Run on the card with:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-K1 (on split tiles too), K3, K5, K6 (both
-entries), K7, K8, K9, K11a, K11b, K12 (on tails and unaligned views too)
-and K13 are bit-equal to their twins; K2's ints are equal and
-its floats within rtol 1e-5, atol 1e-6 (both round every product and sum
-separately, so they agree exactly in practice). K10 is bit-equal to its
-twin on the same unit scalars. K4's row indices equal
+K1 (on split tiles too), K3, K5 (on warp tails and clipped rows too),
+K6 (both entries), K7, K8, K9 (on split tiles too), K11a, K11b, K12 (on
+tails and unaligned views too) and K13 are bit-equal to their twins; K2's
+ints are equal and its floats within rtol 1e-5, atol 1e-6 (both round
+every product and sum separately, so they agree exactly in practice).
+K10 is bit-equal to its twin on the same unit scalars. K4's row indices equal
 the twin's and its weights are within 1e-6, except at taps whose LOD lies
 within 1e-5 of an integer (log2f vs torch.log2 may floor to the other
 mip). The card frame's tri_id plane equals the CPU frame's, and its LDR
@@ -183,7 +183,33 @@ def test_k4_k5_kernels_match_twins(dev, mips, tform, nearest):
     assert torch.equal(_bits(a), _bits(b))
 
 
+@pytest.mark.parametrize("mips", [False, True], ids=["nomips", "mips"])
+@pytest.mark.parametrize("N", [1, 31, 33, 264])
+def test_k5_tails_and_clipped_rows_bit_equal(dev, N, mips):
+    """K5 on warp tails (N not a multiple of 32) and on row indices below
+    0 and at or above the pool (clipped): bit-equal to the twin."""
+    from awsm_renderer_tpu_torch.ops import kernels
+    from awsm_renderer_tpu_torch.ops import texsample as TS
+
+    g = torch.Generator().manual_seed(N)
+    R = 700
+    pool = torch.randn(R, 64, generator=g).to(torch.bfloat16).to(dev)
+    idx = torch.randint(-5, R + 5, (N,), generator=g, dtype=torch.int32)
+    idx[0] = -3 if N % 2 else R
+    idx[-1] = R + 2 if N % 2 else -1
+    w = torch.rand(TS.N_WEIGHTS, N, generator=g).to(dev)
+    idx = idx.to(dev)
+    n0 = kernels.launch_counts["filter_taps_fused"]
+    a = TS.filter_taps_fused(pool, idx, w, mips=mips)
+    assert kernels.launch_counts["filter_taps_fused"] == n0 + 1
+    b = TS.filter_taps_reference(pool, idx, w, mips=mips)
+    torch.cuda.synchronize()
+    assert a.shape == (4, N)
+    assert torch.equal(_bits(a), _bits(b))
+
+
 def test_wrappers_reject_bad_inputs(dev):
+    from awsm_renderer_tpu_torch.ops import texsample as TS
     from awsm_renderer_tpu_torch.ops.relayout import onehot_split_rows
 
     table = torch.zeros(4, 3, device=dev)
@@ -193,6 +219,16 @@ def test_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError):
         onehot_split_rows(torch.zeros(8, dtype=torch.int32, device=dev),
                           table.double())
+    # K5 reads whole 128-byte rows as 16-byte vectors: a column-sliced
+    # pool, one of 52 columns and one off 16-byte alignment are refused
+    idx = torch.zeros(8, dtype=torch.int32, device=dev)
+    w = torch.zeros(TS.N_WEIGHTS, 8, device=dev)
+    wide = torch.zeros(100, 128, dtype=torch.bfloat16, device=dev)
+    flat = torch.zeros(100 * 64 + 1, dtype=torch.bfloat16, device=dev)
+    for pool in (wide[:, :64], wide[:, :52].contiguous(),
+                 flat[1:].view(100, 64)):
+        with pytest.raises(ValueError):
+            TS.filter_taps_fused(pool, idx, w, mips=True)
 
 
 @pytest.mark.parametrize("scene", ["box", "env-ibl", "box-textured"])
@@ -343,6 +379,37 @@ def _msaa_rows(dev, case, monkeypatch):
     if case == "crop":
         w2, h2 = 456, 296
     return torch.as_tensor(rows).to(dev), w2, h2
+
+
+@pytest.mark.parametrize("case", ["tie_across_slices", "neg_zero", "z_one",
+                                  "big_ties", "sliver", "quadrants"])
+def test_k9_split_tiles_bit_equal_to_twin(dev, case):
+    """tests/test_torch_msaa_slices.py's planted cases with more groups a
+    tile than a slice holds (exact depth ties across slices, -0.0 against
+    +0.0, a z = 1.0 plane, big groups, slivers on warp-block borders,
+    entries gating two quadrants): the four sample keys of each split
+    tile merge bit-equal to the sequential twin, and a second call on
+    the same bins agrees."""
+    from awsm_renderer_tpu_torch.ops import kernels
+    from awsm_renderer_tpu_torch.ops import raster as TR
+    from test_torch_msaa_slices import msaa_rows
+
+    slice_groups = TR.K9_SLICE
+    rows, w2, h2 = msaa_rows(case, copies=2 * slice_groups + 3)
+    rows = torch.as_tensor(rows).to(dev)
+    n0 = kernels.launch_counts["rasterize16_msaa"]
+    samp, depth, bins = TR.rasterize16_msaa(rows, width2=w2, height2=h2)
+    assert kernels.launch_counts["rasterize16_msaa"] == n0 + 1
+    rsamp, rdepth = TR.rasterize16_msaa_reference(rows, bins, width2=w2,
+                                                  height2=h2)
+    samp2, depth2, _ = TR.rasterize16_msaa(rows, bins, width2=w2, height2=h2)
+    torch.cuda.synchronize()
+    assert int(bins[2].max()) + int(bins[6]) > slice_groups
+    for s, d in ((samp, depth), (samp2, depth2)):
+        for a, b in zip(s, rsamp):
+            assert torch.equal(a, b)
+        assert torch.equal(_bits(d), _bits(rdepth))
+    assert int((rsamp[0] >= 0).sum()) > (5 if case == "sliver" else 50)
 
 
 @pytest.mark.parametrize("case", ["scene", "big_groups", "crop"])

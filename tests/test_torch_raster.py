@@ -329,19 +329,22 @@ def k1_slices(bins, *, n_tiles: int, n_tx: int, slice_groups: int):
     return slices, tile_big
 
 
-def _warp_masks(P16, tile, n_tx):
+def _warp_masks(P16, tile, n_tx, scale=1, rows=8):
     """raster16.cu stage_raw's cull rule for triangles P16 (..., 64) of
     tiles `tile`: bit w is set iff the triangle's bbox, widened by one
-    pixel, reaches a pixel centre of warp w's 16x8 block (w % 2, w // 2)."""
-    X = ((tile % n_tx) * 32).float()
-    Y = (torch.div(tile, n_tx, rounding_mode="floor") * 32).float()
+    pixel, reaches a pixel centre of warp w's 16 x `rows` block (w % 2,
+    w // 2). scale 2 is raster_msaa.cu's rule: setup and bbox in
+    supersampled pixels, a block's sample centres from 2x + 0.5 to 2x +
+    1.5 (its blocks 16x2 display pixels, rows 2)."""
+    X = ((tile % n_tx) * 32 * scale).float()
+    Y = (torch.div(tile, n_tx, rounding_mode="floor") * 32 * scale).float()
     x0, y0 = P16[..., 15] - 1.0, P16[..., 16] - 1.0
     x1, y1 = P16[..., 17] + 1.0, P16[..., 18] + 1.0
     mask = torch.zeros(P16.shape[:-1], dtype=torch.int64)
-    for w in range(8):
-        bx, by = X + 16 * (w % 2), Y + 8 * (w // 2)
-        hit = ((x0 <= bx + 15.5) & (x1 >= bx + 0.5) & (y0 <= by + 7.5)
-               & (y1 >= by + 0.5))
+    for w in range(2 * (32 // rows)):
+        bx, by = X + 16 * scale * (w % 2), Y + rows * scale * (w // 2)
+        hit = ((x0 <= bx + 16 * scale - 0.5) & (x1 >= bx + 0.5)
+               & (y0 <= by + rows * scale - 0.5) & (y1 >= by + 0.5))
         mask |= hit.long() << w
     return mask
 
