@@ -15,11 +15,11 @@ _HOST = ("skybox", "irradiance", "prefiltered")
 
 
 def device_scene_from_jax(ds_numpy: Dict[str, object],
-                          device="cpu") -> Dict[str, object]:
+                          device="cuda") -> Dict[str, object]:
     """The JAX renderer's flushed `_device` dict, as numpy arrays (bf16 as
     uint16 bit patterns, the camera as a dict of arrays), -> the port's
-    device dict on `device`, so both implementations can shade identical
-    scene state."""
+    device dict on `device` (the card unless the caller asks for the
+    CPU), so both implementations can shade identical scene state."""
     device = torch.device(device)
     out: Dict[str, object] = {}
     for name in ("world", "normal_mat", "tri_mesh", "mesh_info",

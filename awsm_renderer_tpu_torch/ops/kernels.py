@@ -55,6 +55,7 @@ _SIGNATURES = {
     "awsm_filter_taps": [_P, _I, _P, _P, _I, _I, _P, _P],
     "awsm_binned": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _I, _I,
                     _P, _P, _P],
+    "awsm_binned_info": [_P, _P],
     "awsm_raster_msaa": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _P, _P, _P, _P, _P],
     "awsm_reproject": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],

@@ -766,6 +766,9 @@ def _binned_kernel(name: str, setup_rows, bins, *, tile_idx, n_tx: int,
     if setup_rows.shape[0] % CHUNK:
         raise ValueError(f"setup rows {setup_rows.shape[0]} not a multiple "
                          f"of {CHUNK}")
+    if setup_rows.data_ptr() % 16:
+        raise ValueError("setup rows must be 16-byte aligned (the kernel "
+                         "loads them as float4)")
     for b in (bin_idx, counts) + (() if tile_idx is None else (tile_idx,)):
         if b.dtype != torch.int32:
             raise ValueError("bins, counts and tile_idx must be int32")
@@ -798,8 +801,11 @@ def _binned_kernel(name: str, setup_rows, bins, *, tile_idx, n_tx: int,
         width, height, zlo.data_ptr() if peel else None,
         zhi.data_ptr() if peel else None, flags, P_out, tid.data_ptr(),
         planes.data_ptr())
-    out = {"tri_id": tid.reshape(out_shape)}
-    out.update((k, p.reshape(out_shape)) for k, p in zip(names[1:], planes))
+    # one view and unbind: a Python loop of per-plane reshapes cost more
+    # host time than the kernel takes on the card
+    out = {"tri_id": tid.view(out_shape)}
+    out.update(zip(names[1:], planes.view(len(names) - 1,
+                                          *out_shape).unbind(0)))
     return out
 
 

@@ -51,9 +51,10 @@ def pack_history(r, g, b, tid, depth, H: int, W: int) -> torch.Tensor:
     return torch.stack(planes).view(torch.float32)
 
 
-def reset_history(H: int, W: int, device="cpu") -> torch.Tensor:
-    """All-invalid history: tid plane = -2 (matches nothing, the -1 miss
-    id included), colours and depth zero."""
+def reset_history(H: int, W: int, device="cuda") -> torch.Tensor:
+    """All-invalid history on `device` (the card unless the caller asks
+    for the CPU): tid plane = -2 (matches nothing, the -1 miss id
+    included), colours and depth zero."""
     h = torch.zeros((N_HIST, H, W), dtype=torch.float32, device=device)
     h[3].view(torch.int32).fill_(-2)
     return h

@@ -34,7 +34,11 @@ back to the CPU). Phases:
            orbit frames with K7 (peel and non-peel) and K6's f32 entry
            launched on every frame, each held bit for bit against its twin
            on the first frame's intermediates and timed, and pick() at the
-           HUD box's centre returning its key;
+           HUD box's centre returning its key. K7 and K8 are timed three
+           ways (kernel_ms, the wrapper's host_us, device_ms: a CUDA graph
+           of 50 calls), beside their registers, CTAs an SM and waves, the
+           tests their warps' cull leaves and two bounds (the listed
+           tests; the tests inside the triangles' bboxes);
   aa       bench.py's headline frame "Stress-1080p-msaa-bloom-dof": the
            stress scene, panes included, with MSAA-4x, bloom and depth of
            field (focus 16 m, f/1); K9 against its twin bit for bit on the
@@ -171,6 +175,32 @@ def host_us(fn, n: int = 200) -> float:
     t = (time.perf_counter() - t0) / n * 1e6
     torch.cuda.synchronize()
     return t
+
+
+def device_ms(fn, n: int = 50) -> float:
+    """Device-only ms of one `fn()`: `n` calls captured in one CUDA graph,
+    replayed (after a warm-up replay) between one pair of CUDA events,
+    elapsed / n. A replay does no host work a call, so the wrapper's host
+    cost cannot show; what remains besides the kernels is the graph's gap
+    between two of its launches."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    g.replay()
+    b.record()
+    b.synchronize()
+    del g
+    return a.elapsed_time(b) / n
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -916,14 +946,99 @@ def hold_planes(label, a, b, torch):
     return err
 
 
-def binned_bound(rows, bins, tiles, n_px, planes, zb, torch):
-    """K7/K8's least time: the overlay setup, bins and peel bounds read
-    once and the planes written once; the coverage tests the bins ask for
-    (each listed chunk's 128 triangles against a tile's 1024 pixels)."""
-    bin_idx, counts, _B, zmin = bins
-    listed = int(counts.long().index_select(0, tiles.long()).sum())
-    return bound(nbytes(rows, bin_idx, counts, zmin, *zb)
-                 + n_px * 4 * len(planes), listed * 128 * 1024 * OPS_PER_TEST)
+def binned_info(kernels) -> dict:
+    """K7/K8's compiled kernel (csrc/binned.cu awsm_binned_info):
+    registers a thread, local (spill) bytes a thread, CTAs resident an
+    SM, threads a CTA and the rows of a warp's 16-pixel-wide cull block
+    (0: no per-warp cull)."""
+    import ctypes
+
+    out = (ctypes.c_int * 5)()
+    rc = kernels.lib().awsm_binned_info(ctypes.addressof(out), None)
+    if rc != 0:
+        raise RuntimeError(f"awsm_binned_info failed: cudaError_t {rc}")
+    return dict(zip(("regs", "local_bytes", "ctas_per_sm", "threads",
+                     "block_rows"), out))
+
+
+def binned_work(rows, bins, tiles, n_tx: int, n_px: int, planes, zb, torch,
+                block_rows: int = 0):
+    """K7/K8's work on these bins, over the (tile, chunk) pairs that the
+    tiles `tiles` list: the bytes the function must move (the overlay
+    setup, bins and peel bounds read once, the planes written once); the
+    reference's tests (each listed chunk's 128 triangles against the
+    tile's 1024 pixels); the tests binned.cu's warps make (the pixels of
+    each 16 x block_rows warp block that a triangle's bbox, widened by one
+    pixel, reaches; block_rows 0: no cull, every listed test); the tests
+    inside the triangles' bboxes; and two bounds, over the listed tests
+    and over the tests inside the bboxes, both with those bytes."""
+    bin_idx, counts, B, zmin = bins
+    tiles = tiles.long()
+    cnt = counts.long().index_select(0, tiles)
+    pair_tile = torch.repeat_interleave(tiles, cnt)
+    first = torch.repeat_interleave(torch.cumsum(cnt, 0) - cnt, cnt)
+    pos = torch.arange(pair_tile.numel(), device=tiles.device) - first
+    chunk = bin_idx.long()[pair_tile * B + pos]
+    bb = rows[:, 15:19].reshape(-1, 128, 4)[chunk]        # (pairs, 128, 4)
+    X = ((pair_tile % n_tx) * 32).float()[:, None]
+    Y = (torch.div(pair_tile, n_tx, rounding_mode="floor") * 32).float()[
+        :, None]
+    n_bbox = (_centres(bb[..., 0], bb[..., 2], X, 32, 1)
+              * _centres(bb[..., 1], bb[..., 3], Y, 32, 1))
+    listed = int(pair_tile.numel()) * 128 * 1024
+    if block_rows:
+        x0, x1 = bb[..., 0] - 1, bb[..., 2] + 1
+        cols = sum(((x0 <= X + 16 * c + 15.5) & (x1 >= X + 16 * c + 0.5))
+                   .double() for c in (0, 1))
+        # block rows r = 0 .. 32 / block_rows - 1, pixel centres Y +
+        # block_rows r + [0.5, block_rows - 0.5]
+        r0 = torch.ceil((bb[..., 1] - 1 - Y - block_rows + 0.5)
+                        / block_rows).clamp(0, 32 // block_rows)
+        r1 = torch.floor((bb[..., 3] + 1 - Y - 0.5)
+                         / block_rows).clamp(-1, 32 // block_rows - 1)
+        cull = int((cols * (r1 + 1 - r0).clamp(min=0)).sum()) * 16 \
+            * block_rows
+    else:
+        cull = listed
+    n_bytes = (nbytes(rows, bin_idx, counts, zmin, *zb)
+               + n_px * 4 * len(planes))
+    n_in = int(n_bbox.double().sum())
+    return dict(bytes=n_bytes, listed=listed, cull=cull, bbox=n_in,
+                pairs=int(pair_tile.numel()),
+                bound_listed=bound(n_bytes, listed * OPS_PER_TEST),
+                bound_bbox=bound(n_bytes, n_in * OPS_PER_TEST))
+
+
+def binned_times(label, fn, work, info, n_blocks: int, sms: int) -> dict:
+    """K7/K8's row of one call: kernel_ms, host_us and device_ms of `fn`,
+    the smaller of the two bounds, the registers, residency and waves,
+    and the tests the warps' cull leaves (binned_log prints them)."""
+    res = dict(ms=kernel_ms(fn), host_us=host_us(fn), device_ms=device_ms(fn),
+               bound=min(work["bound_listed"], work["bound_bbox"]),
+               library_ms=None, cull=work["cull"],
+               waves=binned_log(label, work, info, n_blocks, sms), **info)
+    log(f"  {label}: kernel_ms {res['ms']:.4f} ms (one event pair around 50 "
+        f"calls), host_us {res['host_us']:.1f} µs a call, device_ms "
+        f"{res['device_ms']:.4f} ms (50 calls in one CUDA graph)")
+    return res
+
+
+def binned_log(label, work, info, n_blocks: int, sms: int) -> int:
+    """Print K7/K8's work, bounds, registers and waves on one call;
+    returns the waves."""
+    waves = -(-n_blocks // max(info["ctas_per_sm"] * sms, 1))
+    bl, bb = work["bound_listed"], work["bound_bbox"]
+    lo, hi = sorted((("the tests inside the bboxes", bb),
+                     ("the listed tests", bl)), key=lambda v: v[1][0])
+    log(f"  {label}: {work['pairs']} listed (tile, chunk) pairs; tests: "
+        f"{work['listed']} listed, {work['cull']} left by the warps' cull, "
+        f"{work['bbox']} inside the triangles' bboxes; bound {lo[1][0]:.4f}"
+        f" ms ({lo[1][1]}) over {lo[0]}, {hi[1][0]:.4f} ms ({hi[1][1]}) "
+        f"over {hi[0]}, {work['bytes']} bytes; {info['regs']} registers, "
+        f"{info['local_bytes']} local bytes a thread, {info['threads']} "
+        f"threads, {info['ctas_per_sm']} CTAs an SM: {n_blocks} tiles in "
+        f"{waves} waves on {sms} SMs")
+    return waves
 
 
 def phase_overlay(P, np, torch, r_stress, cap_stress):
@@ -962,14 +1077,17 @@ def phase_overlay(P, np, torch, r_stress, cap_stress):
     torch.cuda.synchronize()
     err = hold_planes("K8 _rasterize_binned_compact (first peel)", a, b,
                       torch)
-    results["K8"] = dict(
-        err=err, ms=kernel_ms(lambda: _rasterize_binned_compact(
-            rows, zlo_c, zhi_c, **kw)),
-        plain_ms=cuda_ms(lambda: rasterize_binned_compact_reference(
-            rows, zlo_c, zhi_c, **ref_kw), 2),
-        bound=binned_bound(rows, kw["bins"], kw["tile_idx"], C * 1024,
-                           names, (zlo_c, zhi_c), torch),
-        library_ms=None)
+    info = binned_info(kernels)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    results["K8"] = binned_times(
+        "K8 (first peel)", lambda: _rasterize_binned_compact(
+            rows, zlo_c, zhi_c, **kw),
+        binned_work(rows, kw["bins"], kw["tile_idx"], kw["n_tx"], C * 1024,
+                    names, (zlo_c, zhi_c), torch, info["block_rows"]),
+        info, C, sms)
+    results["K8"].update(err=err, plain_ms=cuda_ms(
+        lambda: rasterize_binned_compact_reference(rows, zlo_c, zhi_c,
+                                                   **ref_kw), 2))
     results["syncs_a"] = count_syncs(
         r_stress, torch, "stress", lambda i: orbit_camera(r_stress, np, i),
         N_FRAMES + 1)
@@ -1000,15 +1118,16 @@ def phase_overlay(P, np, torch, r_stress, cap_stress):
     b = rasterize_binned_reference(rows, zlo, zhi, **ref_kw)
     torch.cuda.synchronize()
     err = hold_planes("K7 rasterize_binned (first peel)", a, b, torch)
-    n_tiles = (-(-kw["height"] // BT_H)) * (-(-kw["width"] // BT_W))
+    n_tx = -(-kw["width"] // BT_W)
+    n_tiles = (-(-kw["height"] // BT_H)) * n_tx
     all_tiles = torch.arange(n_tiles, device=rows.device)
-    results["K7"] = dict(
-        err=err, ms=kernel_ms(lambda: rasterize_binned(rows, zlo, zhi, **kw)),
-        plain_ms=cuda_ms(lambda: rasterize_binned_reference(
-            rows, zlo, zhi, **ref_kw), 2),
-        bound=binned_bound(rows, kw["bins"], all_tiles, zlo.numel(), names,
-                           (zlo, zhi), torch),
-        library_ms=None)
+    results["K7"] = binned_times(
+        "K7 (first peel)", lambda: rasterize_binned(rows, zlo, zhi, **kw),
+        binned_work(rows, kw["bins"], all_tiles, n_tx, zlo.numel(), names,
+                    (zlo, zhi), torch, info["block_rows"]),
+        info, n_tiles, sms)
+    results["K7"].update(err=err, plain_ms=cuda_ms(
+        lambda: rasterize_binned_reference(rows, zlo, zhi, **ref_kw), 2))
 
     (h_rows,), hkw = cap["rasterize_binned/nopeel"]
     w32 = -(-hkw["width"] // BT_W) * BT_W
@@ -1023,8 +1142,11 @@ def phase_overlay(P, np, torch, r_stress, cap_stress):
                                    names=h_names)
     torch.cuda.synchronize()
     hold_planes("K7 rasterize_binned (HUD, no peel)", a, b, torch)
-    results["K7_nopeel_ms"] = kernel_ms(lambda: rasterize_binned(h_rows,
-                                                                **hkw))
+    results["K7_nopeel"] = binned_times(
+        "K7 (the HUD, no peel)", lambda: rasterize_binned(h_rows, **hkw),
+        binned_work(h_rows, h_bins, all_tiles, n_tx, hkw["width"]
+                    * hkw["height"], h_names, (), torch, info["block_rows"]),
+        info, n_tiles, sms)
 
     (table, idx, ncols), _ = cap["gather_split_channels_f32"]
     a = gather_split_channels_f32(table, idx, ncols)
@@ -2345,7 +2467,15 @@ def main() -> int:
         f", bound {h_k4['bound'][0]:.4f} ms ({h_k4['bound'][1]})), K5 "
         f"{h_k5['ms']:.4f} ms (twin {h_k5['plain_ms']:.4f}, bound "
         f"{h_k5['bound'][0]:.4f} ms ({h_k5['bound'][1]})) ({card})")
-    log(f"K7 without a peel (the HUD): {ov['K7_nopeel_ms']:.4f} ms ({card})")
+    for k, label in (("K8", "K8 (the stress frame's first peel)"),
+                     ("K7", "K7 (the volume + HUD frame's first peel)"),
+                     ("K7_nopeel", "K7 without a peel (the HUD)")):
+        v = ov[k]
+        log(f"{label}: kernel_ms {v['ms']:.4f} ms, host_us {v['host_us']:.1f}"
+            f" µs a call, device_ms {v['device_ms']:.4f} ms, bound "
+            f"{v['bound'][0]:.4f} ms ({v['bound'][1]}); {v['regs']} "
+            f"registers, {v['ctas_per_sm']} CTAs an SM, {v['waves']} waves; "
+            f"{v['cull']} tests left by the warps' cull ({card})")
     a_med, a_wall, a_counts = aa["frames"]
     log(f"frame Stress-1080p-msaa-bloom-dof: median {a_med:.3f} ms/frame "
         f"(CUDA events), host wall {a_wall:.3f} ms/frame, {aa['syncs']} host"

@@ -31,23 +31,26 @@ SIZES = (8, 16, 32)
 
 
 def build_variants(kernels, source, entry, variants, out_name,
-                   patches=None):
+                   patches=None, paths=None, libs=None):
     """{label: the ctypes entry `entry` of a copy of csrc/`source` with
     constants replaced}: variants maps a label to {NAME: value}, each
     replacing the one `constexpr <type> NAME = ...;` of the source, and
     patches a label to (old, new) pairs, each replacing the one `old`
-    text of the source. The copies build with the package's nvcc flags
-    (csrc/ on the include path), one nvcc each, all started together,
-    under build/<out_name>/; ptxas's register and spill lines are
-    printed."""
+    text of the source. paths maps a label to another file to copy in
+    place of csrc/`source` (its directory then on the include path), and
+    libs, where given, receives each label's loaded library. The copies
+    build with the package's nvcc flags (the source's directory on the
+    include path), one nvcc each, all started together, under
+    build/<out_name>/; ptxas's register and spill lines are printed."""
     out_dir = os.path.join(REPO, "build", out_name)
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(kernels.CSRC, source)) as f:
-        src = f.read()
+    paths = paths or {}
     stem = os.path.splitext(source)[0]
     procs = {}
     for label, consts in variants.items():
-        text = src
+        path = paths.get(label, os.path.join(kernels.CSRC, source))
+        with open(path) as f:
+            text = f.read()
         for name, value in consts.items():
             const = re.compile(rf"constexpr (\w+) {name} = [^;]+;")
             if len(const.findall(text)) != 1:
@@ -62,7 +65,8 @@ def build_variants(kernels, source, entry, variants, out_name,
         with open(cu, "w") as f:
             f.write(text)
         procs[label] = subprocess.Popen(
-            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", kernels.CSRC,
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I",
+             os.path.dirname(path),
              "-shared", "-o", cu[:-3] + ".so", cu], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)
     entries = {}
@@ -73,8 +77,10 @@ def build_variants(kernels, source, entry, variants, out_name,
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas [{stem}_{label}]: {line.strip()}")
-        fn = getattr(ctypes.CDLL(os.path.join(out_dir, f"{stem}_{label}.so")),
-                     entry)
+        lib = ctypes.CDLL(os.path.join(out_dir, f"{stem}_{label}.so"))
+        if libs is not None:
+            libs[label] = lib
+        fn = getattr(lib, entry)
         fn.argtypes = kernels._SIGNATURES[entry]
         fn.restype = ctypes.c_int
         entries[label] = fn

@@ -326,6 +326,98 @@ def test_k8_kernel_bit_equal_to_twin(dev):
     assert int((a["tri_id"] >= 0).sum()) > 1000
 
 
+@pytest.mark.parametrize("case", ["ties", "zmin_at_worst_depth",
+                                  "peel_bounds_at_z", "neg_zero", "z_one",
+                                  "slivers", "touching", "all_culled"])
+def test_k7_planted_bit_equal_to_twin(dev, case):
+    """tests/test_torch_binned_walk.py's planted cases (exact ties inside
+    and across chunks and warp blocks, a z-min at the tile's worst depth,
+    peel bounds equal to z, -0.0 / +0.0, z = 1.0, block-border and
+    rounded slivers, bboxes touching a block, fully culled tiles): K7
+    bit-equal to its twin, launched twice on the same bins."""
+    from awsm_renderer_tpu_torch.ops import kernels
+    from awsm_renderer_tpu_torch.ops import raster as TR
+    from test_torch_binned_walk import NAMES, W, H, planted
+
+    rows, zlo, zhi = planted(case)
+    rows = torch.as_tensor(rows).to(dev)
+    zb = (zlo.to(dev), zhi.to(dev)) if zlo is not None else (None, None)
+    bins = TR.build_bins(rows, width=W, height=H)
+    n0 = kernels.launch_counts["rasterize_binned"]
+    outs = [TR.rasterize_binned(rows, *zb, width=W, height=H, bins=bins)
+            for _ in range(2)]
+    assert kernels.launch_counts["rasterize_binned"] == n0 + 2
+    b = TR.rasterize_binned_reference(rows, *zb, bins=bins, width=W,
+                                      height=H, names=NAMES)
+    torch.cuda.synchronize()
+    for a in outs:
+        _all_bits_equal(a, b)
+    assert int((b["tri_id"] >= 0).sum()) > 0
+
+
+@pytest.mark.parametrize("case", ["peel_bounds_at_z", "neg_zero", "slivers",
+                                  "all_culled"])
+def test_k8_planted_bit_equal_to_twin(dev, case):
+    """K8 on the planted cases over every tile, a tile listed twice and
+    two padding tiles (zhi = 0 admits nothing: planted_compact), launched
+    twice."""
+    from awsm_renderer_tpu_torch.ops import kernels
+    from awsm_renderer_tpu_torch.ops import raster as TR
+    from test_torch_binned_walk import NAMES, W, H, planted_compact
+
+    rows, zlo_c, zhi_c, tile_idx = (
+        torch.as_tensor(v).to(dev) for v in planted_compact(case))
+    bins = TR.build_bins(rows, width=W, height=H)
+    kw = dict(bins=bins, tile_idx=tile_idx, n_tx=W // 32)
+    n0 = kernels.launch_counts["rasterize_binned_compact"]
+    outs = [TR._rasterize_binned_compact(rows, zlo_c, zhi_c, has_uv1=True,
+                                         has_color=True, **kw)
+            for _ in range(2)]
+    assert kernels.launch_counts["rasterize_binned_compact"] == n0 + 2
+    b = TR.rasterize_binned_compact_reference(rows, zlo_c, zhi_c,
+                                              names=NAMES, **kw)
+    torch.cuda.synchronize()
+    for a in outs:
+        _all_bits_equal(a, b)
+    assert int((b["tri_id"] >= 0).sum()) > 0
+    assert not (b["tri_id"][8:10] >= 0).any()
+
+
+@pytest.mark.parametrize("width", [1920, 1918])
+@pytest.mark.parametrize("peel", [False, True], ids=["nopeel", "peel"])
+def test_k7_1080p_bit_equal_to_twin(dev, width, peel):
+    """K7 over a 1080-row band (a partial last tile row) whose triangles
+    sit in two clusters, so most tiles are empty: width 1920 takes the
+    16-byte stores of empty tiles, 1918 the plain ones."""
+    from awsm_renderer_tpu_torch.ops import raster as TR
+    from test_torch_binned import _setup, _tris
+
+    h = 1080
+    # one 128-triangle chunk a cluster
+    tris = (_tris(21, 128, 700, 400, 100.0, 80.0)
+            + _tris(22, 128, 1910, 1079, 1500.0, 900.0))
+    rows = torch.as_tensor(_setup(tris, seed=6)[1]).to(dev)
+    g = torch.Generator().manual_seed(7)
+    zb = ((torch.rand(h, width, generator=g) * 0.3).to(dev),
+          (0.6 + torch.rand(h, width, generator=g) * 0.4).to(dev)) \
+        if peel else (None, None)
+    layout = (True, True, True) if peel else (False, True, False)
+    names = TR.plane_layout(*layout)
+    bins = TR.build_bins(rows, width=1920, height=1088)
+    outs = [TR.rasterize_binned(rows, *zb, width=width, height=h, bins=bins,
+                                has_uv1=layout[0], has_color=layout[1],
+                                analytic_derivs=layout[2])
+            for _ in range(2)]
+    b = TR.rasterize_binned_reference(rows, *zb, bins=bins, width=width,
+                                      height=h, names=names)
+    torch.cuda.synchronize()
+    for a in outs:
+        _all_bits_equal(a, b)
+    hit = b["tri_id"] >= 0
+    assert int(hit.sum()) > 10000 and int(hit[1056:].sum()) > 0
+    assert int((bins[1] == 0).sum()) > 1000          # empty tiles
+
+
 def test_k6_f32_kernel_bit_equal_to_twin(dev):
     from awsm_renderer_tpu_torch.ops.relayout import (
         gather_split_channels_f32, gather_split_channels_f32_reference,

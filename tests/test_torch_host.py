@@ -463,6 +463,18 @@ def test_cpu_tensors_take_the_plain_twins():
     assert torch.cuda.is_available() or kernels._lib is None
 
 
+def test_entry_points_default_to_the_card():
+    """device_scene_from_jax and reset_history, like the renderer, run on
+    the card unless the caller asks for the CPU."""
+    import inspect
+
+    from awsm_renderer_tpu_torch import device_scene_from_jax
+    from awsm_renderer_tpu_torch.ops.temporal import reset_history
+
+    for fn in (device_scene_from_jax, reset_history):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
 def test_kernel_signatures_match_sources():
     """Every C entry point's ctypes argtypes (ops/kernels.py) follow its
     prototype in csrc/: a pointer or the stream is c_void_p, an int c_int

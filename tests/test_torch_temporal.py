@@ -67,8 +67,9 @@ def test_pack_and_reset_history_bit_equal():
     got = TT.pack_history(_t(r), _t(g), _t(b), _t(tid), _t(depth), H, W)
     np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
     np.testing.assert_array_equal(got.numpy()[3].view(np.int32), tid)
-    np.testing.assert_array_equal(_bits(TT.reset_history(H, W).numpy()),
-                                  _bits(reset_history(H, W)))
+    np.testing.assert_array_equal(
+        _bits(TT.reset_history(H, W, "cpu").numpy()),
+        _bits(reset_history(H, W)))
 
 
 def _cam(eye0, eye1, W, H):
