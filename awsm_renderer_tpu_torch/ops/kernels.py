@@ -60,6 +60,7 @@ _SIGNATURES = {
                          _P, _P, _P, _P, _P],
     "awsm_reproject": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
     "awsm_dense": [_P, _I, _P, _I, _I, _P, _P, _I, _P, _P, _P],
+    "awsm_dense_info": [_P, _I, _P],
     "awsm_split_rows": [_P, _I, _I, _I, _P, _P],
     "awsm_channel_rows": [_P, _I, _I, _I, _P, _P],
 }

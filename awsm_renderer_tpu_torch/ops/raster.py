@@ -1126,9 +1126,14 @@ def _rasterize_dense(setup_rows, zlo, zhi, *, width: int, height: int,
                 or zlo.numel() != P or zhi.numel() != P:
             raise ValueError(f"zlo/zhi must be f32 of {P} values")
     kernels.check_cuda(setup_rows, *((zlo, zhi) if peel else ()))
+    if setup_rows.data_ptr() % 16:
+        raise ValueError("setup rows must be 16-byte aligned (the kernel "
+                         "loads them as float4)")
     dev = setup_rows.device
     n_chunks = setup_rows.shape[0] // CHUNK
-    bbox = torch.empty((n_chunks, 4), dtype=torch.float32, device=dev)
+    # the chunks' bboxes, then their 8-triangle subgroups'
+    bbox = torch.empty((n_chunks * (1 + CHUNK // SUB), 4),
+                       dtype=torch.float32, device=dev)
     tid = torch.empty(P, dtype=torch.int32, device=dev)
     planes = torch.empty((len(names) - 1, P), dtype=torch.float32,
                          device=dev)
@@ -1140,9 +1145,10 @@ def _rasterize_dense(setup_rows, zlo, zhi, *, width: int, height: int,
                    zlo.data_ptr() if peel else None,
                    zhi.data_ptr() if peel else None, flags, tid.data_ptr(),
                    planes.data_ptr())
-    out = {"tri_id": tid.reshape(height, width)}
-    out.update((k, p.reshape(height, width)) for k, p in zip(names[1:],
-                                                             planes))
+    # one view and unbind, as K7/K8's wrapper
+    out = {"tri_id": tid.view(height, width)}
+    out.update(zip(names[1:], planes.view(len(names) - 1, height,
+                                          width).unbind(0)))
     return out
 
 

@@ -1540,8 +1540,10 @@ def dense_padded(rows, zlo, zhi, *, width: int, height: int, torch, **kw):
     return {k: v[:height, :width] for k, v in out.items()}
 
 
-def dense_pairs(rows, width: int, height: int, group: int, torch) -> int:
-    """(8x128 tile, `group`-triangle group) pairs whose bboxes overlap."""
+def _dense_overlaps(rows, width: int, height: int, group: int, torch):
+    """(x, y) overlaps of each `group`-triangle group's bbox with the
+    8x128 tiles' columns (width / 128, groups) and rows (height / 8,
+    groups): the tile test is separable."""
     from awsm_renderer_tpu_torch.ops import raster as TR
     from awsm_renderer_tpu_torch.ops.vertex import (
         S_BB_MAXX, S_BB_MAXY, S_BB_MINX, S_BB_MINY,
@@ -1554,26 +1556,98 @@ def dense_pairs(rows, width: int, height: int, group: int, torch) -> int:
         * TR.TILE_W
     ty0 = torch.arange(height // TR.TILE_H, device=rows.device).float() \
         * TR.TILE_H
-    ox = ((mnx[None] < (tx0 + TR.TILE_W)[:, None])
-          & (mxx[None] > tx0[:, None])).sum(0)
-    oy = ((mny[None] < (ty0 + TR.TILE_H)[:, None])
-          & (mxy[None] > ty0[:, None])).sum(0)
-    return int((ox * oy).sum())
+    ox = (mnx[None] < (tx0 + TR.TILE_W)[:, None]) & (mxx[None] > tx0[:, None])
+    oy = (mny[None] < (ty0 + TR.TILE_H)[:, None]) & (mxy[None] > ty0[:, None])
+    return ox, oy
 
 
-def dense_bound(rows, width: int, height: int, n_out_planes: int, torch,
-                peel=False):
-    """K11's least time: setup (and peel bounds) read once, the planes
-    written once; OPS_PER_TEST per coverage test over the (tile, 8-triangle
-    subgroup) pairs whose bboxes overlap (the reference merges no other
-    subgroup), 1024 pixels x 8 triangles each."""
+def dense_tile_counts(rows, width: int, height: int, group: int, torch):
+    """(height / 8, width / 128) counts of the `group`-triangle groups whose
+    bboxes overlap each 8x128 tile: with group 128 the chunks K11's scan
+    lists for the tile, with 8 the subgroups it merges."""
+    ox, oy = _dense_overlaps(rows, width, height, group, torch)
+    # float64: exact for any count
+    return oy.double() @ ox.double().T
+
+
+def dense_flush_columns(names) -> set:
+    """Setup columns K11's flush reads of a winner's row for output planes
+    `names`, beyond the edges, z and bbox: S_ORIG_ID for tri_id, the
+    attribute and the perspective weights (S_IW0..2) for each interpolated
+    plane (the uv0 derivatives read uv0's)."""
+    from awsm_renderer_tpu_torch.ops import vertex as V
+
+    single = {"tri_id": V.S_ORIG_ID, "mat_row": V.S_MAT_ROW,
+              "tangent_w": V.S_TANGENT_W, "depth": None}
+    spans = {"uv0": (V.S_UV0, 6), "du0": (V.S_UV0, 6),
+             "dv0": (V.S_UV0, 6), "uv1": (V.S_UV1, 6),
+             "color": (V.S_COLOR, 12), "normal": (V.S_NORMAL, 9),
+             "tangent": (V.S_TANGENT, 9)}
+    cols = set()
+    for n in names:
+        if n in single:
+            cols |= {single[n]} - {None}
+        else:
+            b, k = spans[n.split("_")[0]]
+            cols |= set(range(b, b + k)) | {V.S_IW0, V.S_IW1, V.S_IW2}
+    return cols - set(range(V.S_ZC + 1)) - set(range(V.S_BB_MINX,
+                                                     V.S_BB_MAXY + 1))
+
+
+def dense_info(lib, peel: bool) -> dict:
+    """K11's compiled kernel (csrc/dense.cu awsm_dense_info of `lib`,
+    kernels.lib() or a build with the same entry bound; the peel's where
+    `peel`): registers a thread, local (spill) bytes a thread, CTAs
+    resident an SM, threads a CTA, pixels a thread."""
+    import ctypes
+
+    out = (ctypes.c_int * 5)()
+    rc = lib.awsm_dense_info(ctypes.addressof(out), int(peel), None)
+    if rc != 0:
+        raise RuntimeError(f"awsm_dense_info failed: cudaError_t {rc}")
+    return dict(zip(("regs", "local_bytes", "ctas_per_sm", "threads", "px"),
+                    out))
+
+
+def dense_log(label, rows, width: int, height: int, info, sms: int, torch):
+    """Print K11's lists on one call (the chunks and the subgroups each
+    8x128 tile lists: mean and max), registers, residency and waves (a
+    CTA owns threads x px pixels of a tile); returns the waves."""
+    n_ctas = width * height // (info["threads"] * info["px"])
+    waves = -(-n_ctas // max(info["ctas_per_sm"] * sms, 1))
+    lists = [dense_tile_counts(rows, width, height, g, torch)
+             for g in (128, 8)]
+    log(f"  {label}: {rows.shape[0] // 128} chunks; chunks a tile lists: "
+        f"mean {float(lists[0].mean()):.2f}, max {int(lists[0].max())}; "
+        f"subgroups a tile merges: mean {float(lists[1].mean()):.2f}, max "
+        f"{int(lists[1].max())}; {info['regs']} registers, "
+        f"{info['local_bytes']} local bytes a thread, {info['threads']} "
+        f"threads of {info['px']} pixels, {info['ctas_per_sm']} CTAs an SM:"
+        f" {n_ctas} CTAs in {waves} waves on {sms} SMs")
+    return waves
+
+
+def dense_bound(rows, out, width: int, height: int, torch, peel=False):
+    """K11's least time on setup `rows` whose twin gave planes `out`.
+    Bytes: the bbox (4 floats) of every row; the edges and z (12 floats)
+    of the rows in 8-triangle subgroups whose bbox overlaps some tile (the
+    reference tests no other); the flush's columns (dense_flush_columns) of
+    each distinct winner (out's tri_id); the peel bounds read once; out's
+    planes written once. Operations: OPS_PER_TEST a coverage test over the
+    (tile, 8-triangle subgroup) pairs whose bboxes overlap (the reference
+    merges no other subgroup), 1024 pixels x 8 triangles each."""
     from awsm_renderer_tpu_torch.ops import raster as TR
 
     n_px = width * height
-    tests = dense_pairs(rows, width, height, TR.SUB, torch) * 1024 * TR.SUB
-    return bound(nbytes(rows) + n_px * 4 * (n_out_planes + (2 if peel
-                                                            else 0)),
-                 tests * OPS_PER_TEST)
+    ox, oy = _dense_overlaps(rows, width, height, TR.SUB, torch)
+    pairs = int((oy.double() @ ox.double().T).sum())
+    live = int((ox.any(0) & oy.any(0)).sum())
+    tid = out["tri_id"]
+    winners = int(torch.unique(tid[tid >= 0]).numel())
+    nb = 4 * (4 * rows.shape[0] + 12 * TR.SUB * live
+              + len(dense_flush_columns(out)) * winners
+              + n_px * (len(out) + (2 if peel else 0)))
+    return bound(nb, pairs * 1024 * TR.SUB * OPS_PER_TEST)
 
 
 def _oracle_total():
@@ -1792,7 +1866,6 @@ def phase_oracle(P, np, torch, cap_stress, calls_k8, calls_k7, msaa_in):
     del tform, texels, k12, k13
 
     # ---- K11a / K11b against their twins, on the oracle's own calls ------
-    n_fat = len(TR.plane_layout(True, True, True))
     (rows, zlo, zhi), kw7 = calls_k7[0]
     w7, h7 = kw7["width"], kw7["height"]
     lay = dict(has_uv1=kw7["has_uv1"], has_color=kw7["has_color"],
@@ -1802,23 +1875,23 @@ def phase_oracle(P, np, torch, cap_stress, calls_k8, calls_k7, msaa_in):
                      f"{rh}, {srows.shape[0] // TR.CHUNK} chunks)",
          lambda: TR.rasterize(srows, width=rw, height=rh, binned=False),
          lambda: TR.rasterize_dense_reference(srows, width=rw, height=rh),
-         dense_bound(srows, rw, rh, n_fat, torch), 5),
+         (srows, rw, rh, False)),
         ("K11a_slim", f"K11a slim on the MSAA frame's setup ({w2}x{h2}, "
                       f"{m_rows.shape[0] // TR.CHUNK} chunks)",
          lambda: TR.rasterize(m_rows, width=w2, height=h2, binned=False,
                               slim=True),
          lambda: TR.rasterize_dense_reference(m_rows, width=w2, height=h2,
                                               slim=True),
-         dense_bound(m_rows, w2, h2, 2, torch), 3),
+         (m_rows, w2, h2, False)),
         ("K11b", f"K11b on the volume + HUD frame's peel 0 ({w7}x{h7})",
          lambda: TR.rasterize_peel(rows, zlo, zhi, width=w7, height=h7,
                                    binned=False, **lay),
          lambda: TR.rasterize_peel_dense_reference(
              rows, zlo, zhi, width=w7, height=h7, **lay),
-         dense_bound(rows, w7, h7, len(TR.plane_layout(**lay)), torch,
-                     peel=True), 10),
+         (rows, w7, h7, True)),
     )
-    for key, label, kern, twin, bd, reps in twins:
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for key, label, kern, twin, (k_rows, kw, kh, peel) in twins:
         a = kern()
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
@@ -1826,13 +1899,19 @@ def phase_oracle(P, np, torch, cap_stress, calls_k8, calls_k7, msaa_in):
         ev[1].record()
         torch.cuda.synchronize()
         err = hold_planes(label, a, b, torch)
+        bd = dense_bound(k_rows, b, kw, kh, torch, peel)
         del a, b
-        results[key] = dict(err=err, ms=kernel_ms(kern),
-                            plain_ms=ev[0].elapsed_time(ev[1]), bound=bd,
-                            library_ms=None)
-        log(f"  {label}: kernel {results[key]['ms']:.4f} ms, twin "
-            f"{results[key]['plain_ms']:.4f} ms, bound {bd[0]:.4f} ms "
-            f"({bd[1]})")
+        info = dense_info(kernels.lib(), peel)
+        res = results[key] = dict(
+            err=err, ms=kernel_ms(kern), host_us=host_us(kern),
+            device_ms=device_ms(kern), plain_ms=ev[0].elapsed_time(ev[1]),
+            bound=bd, library_ms=None, **info)
+        res["waves"] = dense_log(label, k_rows, kw, kh, info, sms, torch)
+        log(f"  {label}: kernel_ms {res['ms']:.4f} ms (one event pair "
+            f"around 50 calls), host_us {res['host_us']:.1f} µs a call, "
+            f"device_ms {res['device_ms']:.4f} ms (50 calls in one CUDA "
+            f"graph), twin {res['plain_ms']:.4f} ms, bound {bd[0]:.4f} ms "
+            f"({bd[1]}; {bd[0] / res['device_ms']:.1%} of device_ms)")
     results["launches"] = launches
     results["summary"] = summary
     kernels.reset_launch_counts()
@@ -2492,10 +2571,16 @@ def main() -> int:
     for label, v in aa["K2_msaa"].items():
         log(f"K2 [{label}] entry: kernel {v['ms']:.4f} ms, twin "
             f"{v['plain_ms']:.4f} ms ({card})")
-    sl = orc["K11a_slim"]
-    log(f"K11a slim on the MSAA frame's setup at 2x: kernel {sl['ms']:.4f} "
-        f"ms, twin {sl['plain_ms']:.4f} ms, bound {sl['bound'][0]:.4f} ms "
-        f"({sl['bound'][1]}) ({card})")
+    for key, label in (("K11a_fat", "K11a fat on the stress frame's setup"),
+                       ("K11a_slim", "K11a slim on the MSAA frame's setup "
+                                     "at 2x"),
+                       ("K11b", "K11b on the volume + HUD frame's peel 0")):
+        v = orc[key]
+        log(f"{label}: kernel {v['ms']:.4f} ms, device {v['device_ms']:.4f}"
+            f" ms, host {v['host_us']:.1f} us, twin {v['plain_ms']:.4f} ms, "
+            f"bound {v['bound'][0]:.4f} ms ({v['bound'][1]}), "
+            f"{v['regs']} registers, {v['ctas_per_sm']} CTAs an SM, "
+            f"{v['waves']} waves ({card})")
     for k, v in orc["summary"].items():
         log(f"oracle vs {k}: {v['n']} pixels compared, {v['mismatches']} "
             f"tri_id mismatches: {v['ties']} exact depth ties, "

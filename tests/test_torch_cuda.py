@@ -8,8 +8,10 @@ without a CUDA device. Run on the card with:
     python -m pytest tests/test_torch_cuda.py -q
 
 K1 (on split tiles too), K3, K5 (on warp tails and clipped rows too),
-K6 (both entries), K7, K8, K9 (on split tiles too), K11a, K11b, K12 (on
-tails and unaligned views too) and K13 are bit-equal to their twins; K2's
+K6 (both entries), K7, K8, K9 (on split tiles too), K11a, K11b (on
+tests/test_torch_dense_walk.py's planted cases and at 1920x1080 with 1,100
+chunks too), K12 (on tails and unaligned views too) and K13 are bit-equal
+to their twins; K2's
 ints are equal and its floats within rtol 1e-5, atol 1e-6 (both round
 every product and sum separately, so they agree exactly in practice).
 K10 is bit-equal to its twin on the same unit scalars. K4's row indices equal
@@ -705,6 +707,83 @@ def test_k11b_kernel_bit_equal_to_twin(dev, slim):
         torch.cuda.synchronize()
         _all_bits_equal(a, b)
         assert int((a["tri_id"] >= 0).sum()) > 1000
+
+
+K11_MODES = {"fat": dict(slim=False, analytic_derivs=True),
+             "fat-noderivs": dict(slim=False, analytic_derivs=False,
+                                  has_uv1=False),
+             "slim": dict(slim=True), "peel-fat": dict(slim=False),
+             "peel-slim": dict(slim=True)}
+
+
+def _k11(dev, rows, zlo, zhi, w, h, kw):
+    """K11a (zlo None) or K11b on the card and its twin: (kernel, twin)."""
+    from awsm_renderer_tpu_torch.ops import kernels
+    from awsm_renderer_tpu_torch.ops import raster as TR
+
+    name = "rasterize_dense" if zlo is None else "rasterize_peel_dense"
+    n0 = kernels.launch_counts[name]
+    if zlo is None:
+        a = TR.rasterize(rows, width=w, height=h, binned=False, **kw)
+        b = TR.rasterize_dense_reference(rows, width=w, height=h, **kw)
+    else:
+        a = TR.rasterize_peel(rows, zlo, zhi, width=w, height=h,
+                              binned=False, **kw)
+        b = TR.rasterize_peel_dense_reference(rows, zlo, zhi, width=w,
+                                              height=h, **kw)
+    assert kernels.launch_counts[name] == n0 + 1
+    torch.cuda.synchronize()
+    return a, b
+
+
+@pytest.mark.parametrize("mode", list(K11_MODES))
+@pytest.mark.parametrize("case", ["windows", "empty_tile", "ties",
+                                  "slivers"])
+def test_k11_planted_bit_equal_to_twin(dev, case, mode):
+    """tests/test_torch_dense_walk.py's planted cases (more chunks than
+    three scan windows, a tile no chunk overlaps, exact ties across
+    chunks, subgroups and windows, slivers and bboxes ending at a tile
+    border): K11a fat, fat without derivatives and slim, K11b fat and slim
+    (its peel bounds), bit-equal to the twins."""
+    from test_torch_dense_walk import CASES, W, H, peel_bounds, planted
+
+    rows, _notes = planted(case)
+    zb = (None, None)
+    if mode.startswith("peel"):
+        zb = tuple(z.to(dev) for z in peel_bounds(CASES.index(case)))
+    a, b = _k11(dev, torch.as_tensor(rows).to(dev), *zb, W, H,
+                K11_MODES[mode])
+    _all_bits_equal(a, b)
+    assert int((b["tri_id"] >= 0).sum()) > 0
+
+
+def test_k11_1080p_many_chunks_bit_equal_to_twin(dev):
+    """1920x1080 with 1,100 chunks, each 128 small triangles around one
+    point, so the scan takes more than one window of even the widest CTA:
+    K11a fat and slim, K11b fat."""
+    from test_torch_dense_walk import random_tris, setup_rows
+
+    w, h, n_chunks = 1920, 1080, 1100
+    xy, z = [], []
+    rng = np.random.default_rng(31)
+    for c in range(n_chunks):
+        cx, cy = rng.uniform(0, w), rng.uniform(0, h)
+        txy, tz = random_tris(100 + c, 160, max(cx - 40, 0), max(cy - 30, 0),
+                              min(cx + 40, w), min(cy + 30, h), size=12.0)
+        xy.append(txy[:128])
+        z.append(tz[:128])
+    assert all(len(t) == 128 for t in xy)
+    rows = torch.as_tensor(setup_rows(np.concatenate(xy),
+                                      np.concatenate(z), seed=5)).to(dev)
+    g = torch.Generator().manual_seed(9)
+    zlo = (torch.rand(h, w, generator=g) * 0.3).to(dev)
+    zhi = (0.6 + torch.rand(h, w, generator=g) * 0.4).to(dev)
+    for zb, kw in (((None, None), dict(slim=False)),
+                   ((None, None), dict(slim=True)),
+                   ((zlo, zhi), dict(slim=False))):
+        a, b = _k11(dev, rows, *zb, w, h, kw)
+        _all_bits_equal(a, b)
+        assert int((b["tri_id"] >= 0).sum()) > 100000
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
