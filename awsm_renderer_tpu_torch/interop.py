@@ -24,7 +24,8 @@ def device_scene_from_jax(ds_numpy: Dict[str, object],
     out: Dict[str, object] = {}
     for name in ("world", "normal_mat", "tri_mesh", "mesh_info",
                  "mat_float", "mat_tex", "mat_flags", "lights",
-                 "tex_desc", "tex_transforms",
+                 "tex_desc", "tex_transforms", "c_morph_base",
+                 "morph_deltas", "morph_weights", "joint_matrices",
                  *[n for n, _ in _CORNERS]):
         out[name] = torch.tensor(np.asarray(ds_numpy[name]), device=device)
     out["lights_host"] = np.asarray(ds_numpy["lights"], np.float32)

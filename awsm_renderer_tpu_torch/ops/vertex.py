@@ -1,14 +1,19 @@
-"""Vertex stage: world -> clip -> near-plane clip -> plane-equation setup.
+"""Vertex stage: morph -> skin -> world -> clip -> near-plane clip ->
+plane-equation setup.
 
-Port of awsm_renderer_tpu/ops/vertex.py for static geometry (no morph
-targets, no skins): per-triangle mesh/transform fetches, corner transform,
-2-slot near-plane clipping and the v4 plane-equation setup rows. All math
-runs on flat (T,) component tensors; the camera matrix enters as Python
-floats (a uniform), the per-mesh tables through index_select.
+Port of awsm_renderer_tpu/ops/vertex.py: per-triangle mesh/transform
+fetches, morph targets (one gather of every target's deltas per corner
+and a weighted sum over the weights table's width), skins (one gather of
+every influence's joint matrix per corner and a weighted sum), corner
+transform, 2-slot near-plane clipping and the v4 plane-equation setup
+rows. All math runs on flat (T,) component tensors; the camera matrix
+enters as Python floats (a uniform), the per-mesh tables through
+index_select.
 
 Output: row-major (T, NSETUP) f32 setup — (2T, NSETUP) with clipping,
 where row t is triangle t's primary piece and row T+t its secondary clip
-piece. Row j carries S_ORIG_ID == j, the invariant the resolve relies on.
+piece. Row j carries S_ORIG_ID == j; a compacted pool (orig_ids) carries
+its pool ids instead, on the secondary pieces too.
 """
 
 from __future__ import annotations
@@ -16,7 +21,8 @@ from __future__ import annotations
 import torch
 
 from ..core.meshes import (
-    MESH_FLAG_DOUBLE_SIDED, MI_FLAGS, MI_MATERIAL_ROW, MI_TRANSFORM_ROW,
+    MESH_FLAG_DOUBLE_SIDED, MI_FLAGS, MI_MATERIAL_ROW, MI_MORPH_STRIDE,
+    MI_N_MORPH_TARGETS, MI_SKIN_SETS, MI_TRANSFORM_ROW,
 )
 
 # ---- setup row indices (row-major (T, NSETUP)) — see the JAX module's
@@ -183,19 +189,77 @@ def finish_setup(corners, attrs, act, mat_row, flags, width: int,
     return torch.stack(rows, dim=-1)                       # (T, NSETUP)
 
 
-def vertex_stage(c_pos, c_norm, c_tang, c_uv0, c_uv1, c_color, tri_mesh,
-                 mesh_info, world, normal_mat, view_proj, mesh_mask,
-                 orig_ids=None, *, width: int, height: int,
-                 needs_clip: bool = True) -> torch.Tensor:
-    """Static-geometry vertex stage -> (2T or T, NSETUP) setup rows.
+def _morph(pos, nrm, tan, c_morph_base, morph_deltas, morph_weights,
+           minfo, mesh):
+    """Add each corner's weighted morph deltas to its position, normal and
+    tangent xyz in place (reference: shared_wgsl/vertex/morph.wgsl).
+    Target m of a corner reads delta row base + m * stride, for m below
+    the mesh's target count and base >= 0; the weights table's width B
+    bounds m. One gather of (3, B, T) rows and one sum over B, whatever
+    B is. Tangent w is never morphed (the deltas carry xyz only)."""
+    T = mesh.shape[0]
+    B = morph_weights.shape[1]
+    dev = mesh.device
+    n_targets = minfo[:, MI_N_MORPH_TARGETS].long()
+    stride = minfo[:, MI_MORPH_STRIDE].long()
+    wts = onehot_gather(mesh, morph_weights)                      # (T, B)
+    m = torch.arange(B, device=dev)[None, :, None]                # (1, B, 1)
+    base = c_morph_base.long()[:, None, :]                        # (3, 1, T)
+    rows = (base + m * stride).clamp(0, max(morph_deltas.shape[0], 1) - 1)
+    delta = morph_deltas.index_select(0, rows.reshape(-1)).reshape(
+        3, B, T, morph_deltas.shape[1])
+    live = (m < n_targets) & (base >= 0)                          # (3, B, T)
+    wm = torch.where(live, wts.t()[None], torch.zeros((), device=dev))
+    acc = (wm[..., None] * delta).sum(dim=1)                      # (3, T, 10)
+    for c in range(3):
+        for k in range(3):
+            pos[c][k] = pos[c][k] + acc[c, :, k]
+            nrm[c][k] = nrm[c][k] + acc[c, :, 3 + k]
+            tan[c][k] = tan[c][k] + acc[c, :, 6 + k]
 
-    c_*: (3C, T) component-major corner pools; tri_mesh (T,) mesh row
-    (-1 = dead); mesh_info (M, K) int; world (TC, 4, 4); normal_mat
-    (TC, 3, 3); view_proj: 4x4 host matrix; mesh_mask (M,) bool — this
-    pass's meshes; orig_ids: (T,) int pool ids when the corner pools are a
-    compacted gather (frame.py _run_vertex_compact), or None. needs_clip
-    =False when the host proved every visible AABB lies in front of the
-    near plane (no secondary rows)."""
+
+def _skin(c_joints, c_weights, joint_matrices, skin_sets: int):
+    """Per-corner skin matrices (reference: skin.wgsl): the weighted sum
+    of the 4 * skin_sets influences' joint matrices, read at stride
+    c_joints.shape[0] // 3, joint rows clamped to [0, J - 1]. One gather
+    of (3, 4S, T) matrices and one sum over the influences -> (3, T,
+    16)."""
+    T = c_joints.shape[1]
+    n_inf = 4 * skin_sets
+    stride = c_joints.shape[0] // 3
+    jm = joint_matrices.reshape(-1, 16)
+    ji = c_joints.reshape(3, stride, T)[:, :n_inf].long().clamp(
+        0, jm.shape[0] - 1)
+    wi = c_weights.reshape(3, stride, T)[:, :n_inf]
+    mats = jm.index_select(0, ji.reshape(-1)).reshape(3, n_inf, T, 16)
+    return (mats * wi[..., None]).sum(dim=1)
+
+
+def _upper3(m):
+    """(T, 16) row-major 4x4 -> (T, 9) row-major upper-left 3x3."""
+    return torch.cat([m[:, 0:3], m[:, 4:7], m[:, 8:11]], dim=1)
+
+
+def vertex_stage(c_pos, c_norm, c_tang, c_uv0, c_uv1, c_color, c_joints,
+                 c_weights, c_morph_base, morph_deltas, tri_mesh, mesh_info,
+                 morph_weights, world, normal_mat, joint_matrices, view_proj,
+                 mesh_mask, orig_ids=None, *, width: int, height: int,
+                 has_morphs: bool = False, skin_sets: int = 0,
+                 needs_clip: bool = True) -> torch.Tensor:
+    """Vertex stage -> (2T or T, NSETUP) setup rows.
+
+    c_*: (3C, T) component-major corner pools (c_joints / c_weights: 4 *
+    the skin-set bucket rows a corner; c_morph_base (3, T) int, the row of
+    target 0 in morph_deltas, -1 none); morph_deltas (MD, 10); tri_mesh
+    (T,) mesh row (-1 = dead); mesh_info (M, K) int; morph_weights (M, B);
+    world (TC, 4, 4); normal_mat (TC, 3, 3); joint_matrices (J, 4, 4);
+    view_proj: 4x4 host matrix; mesh_mask (M,) bool — this pass's
+    meshes; orig_ids: (T,) int pool ids when the corner pools are a
+    compacted gather (frame.py), or None. has_morphs / skin_sets turn the
+    morph and skin branches on (skin_sets: the influence sets to read);
+    without them the animation tables are not read. needs_clip=False
+    when the host proved every visible AABB lies in front of the near
+    plane (no secondary rows)."""
     T = tri_mesh.shape[0]
     mesh = tri_mesh.clamp(0, mesh_info.shape[0] - 1)
     minfo = onehot_gather(mesh, torch.cat(
@@ -211,17 +275,32 @@ def vertex_stage(c_pos, c_norm, c_tang, c_uv0, c_uv1, c_color, tri_mesh,
     uv0 = _corner_comps(c_uv0, 2)
     uv1 = _corner_comps(c_uv1, 2)
     vcol = _corner_comps(c_color, 4)
+    if has_morphs:
+        _morph(pos, nrm, tan, c_morph_base, morph_deltas, morph_weights,
+               minfo, mesh)
 
-    model = onehot_gather(tf_row, world.reshape(-1, 16))          # (T, 16)
-    nmat = onehot_gather(tf_row, normal_mat.reshape(-1, 9))       # (T, 9)
-    m3 = torch.cat([model[:, 0:3], model[:, 4:7], model[:, 8:11]], dim=1)
+    node_world = onehot_gather(tf_row, world.reshape(-1, 16))     # (T, 16)
+    node_nmat = onehot_gather(tf_row, normal_mat.reshape(-1, 9))  # (T, 9)
+    if skin_sets > 0:
+        skin = _skin(c_joints, c_weights, joint_matrices, skin_sets)
+        skinned = (minfo[:, MI_SKIN_SETS] > 0)[:, None]
+        models = [torch.where(skinned, skin[c], node_world)
+                  for c in range(3)]
+        tmats = [_upper3(mc) for mc in models]
+        # the skinned normal matrix is the skin matrix's upper-left 3x3
+        # (the reference's shortcut)
+        nmats = [torch.where(skinned, tm, node_nmat) for tm in tmats]
+    else:
+        models = [node_world] * 3
+        tmats = [_upper3(node_world)] * 3
+        nmats = [node_nmat] * 3
     vp = [[float(v) for v in row] for row in view_proj]
 
     clip_c, attrs = [], []
     for c in range(3):
-        clip_c.append(_const_mat4(vp, _mat4_point(model, pos[c])))
-        wn = _mat3_vec(nmat, nrm[c])
-        wt = _mat3_vec(m3, tan[c][:3])
+        clip_c.append(_const_mat4(vp, _mat4_point(models[c], pos[c])))
+        wn = _mat3_vec(nmats[c], nrm[c])
+        wt = _mat3_vec(tmats[c], tan[c][:3])
         attrs.append([uv0[c][0], uv0[c][1], uv1[c][0], uv1[c][1],
                       vcol[c][0], vcol[c][1], vcol[c][2], vcol[c][3],
                       wn[0], wn[1], wn[2], wt[0], wt[1], wt[2], tan[c][3]])

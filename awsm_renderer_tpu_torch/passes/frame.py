@@ -1,11 +1,12 @@
-"""Frame pipeline of the port's slice: vertex -> raster (K1, or K9 at
-2x2 samples with MSAA) -> resolve (K2) -> deferred shade (K3 material
-fetch, K4 + K5 texture taps, K6 env taps; covered-tile compacted with
-MSAA) -> MSAA edge blend or supersample resolve -> transparent peel (K7
-or K8) + forward shade + composite -> HUD (K7) -> bloom, depth of field
--> display -> SMAA. The temporal frame swaps the opaque stage for a
-jittered K1 raster, history reprojection (K10) and a budgeted shade of
-the units the history cannot answer for.
+"""Frame pipeline of the port's slice: vertex (pool + instanced groups;
+morphs and skins on the animated subset) -> raster (K1, or K9 at 2x2
+samples with MSAA) -> resolve (K2) -> deferred shade (K3 material fetch,
+K4 + K5 texture taps, K6 env taps; covered-tile compacted with MSAA) ->
+MSAA edge blend or supersample resolve -> transparent peel (K7 or K8) +
+forward shade + composite -> HUD (K7, or K1 + K2 over the full pool) ->
+bloom, depth of field -> display -> SMAA. The temporal frame swaps the
+opaque stage for a jittered K1 raster, history reprojection (K10) and a
+budgeted shade of the units the history cannot answer for.
 
 Port of awsm_renderer_tpu/passes/frame.py: render_frame ->
 _opaque_band / _opaque_band_msaa -> _msaa_edge_blend /
@@ -42,17 +43,54 @@ from ..ops.vertex import (
     S_ZC, vertex_stage,
 )
 
-_CORNER_NAMES = ("c_pos", "c_norm", "c_tang", "c_uv0", "c_uv1", "c_color")
+_CORNER_NAMES = ("c_pos", "c_norm", "c_tang", "c_uv0", "c_uv1", "c_color",
+                 "c_joints", "c_weights", "c_morph_base")
 
 
 def _pad_to(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def _inst_gids(ds):
+    """Ids of the instanced groups in ds (keys inst{g}_*), ascending."""
+    return sorted({int(k[4:].split("_", 1)[0]) for k in ds
+                   if k.startswith("inst") and "_" in k
+                   and k[4:].split("_", 1)[0].isdigit()})
+
+
 def _combined_geometry(ds):
-    """The triangle pool's corner arrays and tri -> mesh rows (instanced
-    groups are not in the slice; the facade refuses them)."""
-    return {n: ds[n] for n in _CORNER_NAMES}, ds["tri_mesh"]
+    """Pool corners + instanced groups tiled across their instances.
+
+    An instanced group (core/meshes.py _InstGroup) holds its resource's
+    corners once in ds; here they are tiled I times after the pool, in
+    group-id order (which picking mirrors), and each triangle's mesh row
+    comes from the (I,) instance-row vector: where(live.repeat(I),
+    rows.repeat_interleave(Tp), -1)."""
+    gids = _inst_gids(ds)
+    if not gids:
+        return {n: ds[n] for n in _CORNER_NAMES}, ds["tri_mesh"]
+    parts = {n: [ds[n]] for n in _CORNER_NAMES}
+    tri = [ds["tri_mesh"]]
+    for g in gids:
+        rows = ds[f"inst{g}_rows"]          # (I,) int32 mesh rows
+        live = ds[f"inst{g}_live"]          # (Tp,) bool
+        n_inst = rows.shape[0]
+        for n in _CORNER_NAMES:
+            parts[n].append(ds[f"inst{g}_{n}"].repeat(1, n_inst))
+        tri.append(torch.where(live.repeat(n_inst),
+                               rows.repeat_interleave(live.shape[0]),
+                               torch.full((), -1, dtype=rows.dtype,
+                                          device=rows.device)))
+    return ({n: torch.cat(parts[n], dim=1) for n in _CORNER_NAMES},
+            torch.cat(tri))
+
+
+def _total_triangles(ds) -> int:
+    """Triangle count of the combined stream, pool + instanced groups (the
+    clip doubling and the picking modulo key off it)."""
+    return ds["tri_mesh"].shape[0] + sum(
+        ds[f"inst{g}_rows"].shape[0] * ds[f"inst{g}_live"].shape[0]
+        for g in _inst_gids(ds))
 
 
 def _shift_rows_band(rows: torch.Tensor, y0: int) -> torch.Tensor:
@@ -69,24 +107,20 @@ def _shift_rows_band(rows: torch.Tensor, y0: int) -> torch.Tensor:
     return s
 
 
-def _run_vertex(ds, mask, *, rw: int, rh_full: int, needs_clip: bool):
-    geo, tri_mesh = _combined_geometry(ds)
+def _stage(ds, geo, tri_mesh, mask, orig_ids=None, **kw):
+    """vertex_stage over corner pools `geo` with ds's per-mesh tables."""
     return vertex_stage(
-        geo["c_pos"], geo["c_norm"], geo["c_tang"], geo["c_uv0"],
-        geo["c_uv1"], geo["c_color"], tri_mesh, ds["mesh_info"],
-        ds["world"], ds["normal_mat"], ds["camera"]["view_proj"], mask,
-        width=rw, height=rh_full, needs_clip=needs_clip)
+        *(geo[n] for n in _CORNER_NAMES), ds["morph_deltas"], tri_mesh,
+        ds["mesh_info"], ds["morph_weights"], ds["world"], ds["normal_mat"],
+        ds["joint_matrices"], ds["camera"]["view_proj"], mask, orig_ids,
+        **kw)
 
 
-def _run_vertex_compact(ds, mask, tri_idx, *, rw: int, rh_full: int,
-                        needs_clip: bool, row_offset: int = 0,
-                        shift_rows: bool = False):
-    """Vertex stage over a compacted triangle set: tri_idx (Nc,) int32
-    pool indices, -1 = padding. The overlay buckets hold a few hundred
-    triangles of a pool of hundreds of thousands; the corner gather is
-    output-sized (flat row-major indices c*T + idx into each (C, T) pool)
-    and the rows carry their pool ids in S_ORIG_ID (vertex_stage
-    orig_ids), which the fat K7/K8 kernels emit as tri_id."""
+def _gather_cols(geo, tri_idx):
+    """Compacted corner pools: the columns tri_idx of each (C, T) pool in
+    `geo`, by flat row-major indices c*T + idx (the gather is
+    output-sized); -1 pads read column 0. Returns them and the clamped
+    int64 indices."""
     safe = tri_idx.clamp(min=0).long()
 
     def cols(a):
@@ -95,14 +129,63 @@ def _run_vertex_compact(ds, mask, tri_idx, *, rw: int, rh_full: int,
                 + safe[None, :])
         return a.reshape(cdim * t)[gidx.reshape(-1)].reshape(cdim, -1)
 
-    geo = {n: cols(ds[n]) for n in _CORNER_NAMES}
+    return {n: cols(a) for n, a in geo.items()}, safe
+
+
+def _run_vertex(ds, mask, *, rw: int, rh_full: int, needs_clip: bool,
+                has_morphs: bool = False, skin_sets: int = 0):
+    """Vertex stage over the combined stream (pool + instanced groups).
+
+    The animated-subset split: when the scene has morphs or skins and the
+    renderer shipped the animated triangle set (ds["anim_tri_idx"], pool
+    indices padded with -1 to a power of two, its live count in
+    ds["anim_tri_n"]), the whole pool runs the plain stage and only the
+    subset pays the morph and skin gathers; its rows overwrite the
+    pool's at anim_idx (and at T + anim_idx under clipping), so row j
+    stays triangle j's. The subset's rows carry their pool ids in
+    S_ORIG_ID, so a secondary row T + t written here carries t (as the
+    reference's). Only the live count is scattered: the pads are never
+    written."""
+    geo, tri_mesh = _combined_geometry(ds)
+    kw = dict(width=rw, height=rh_full, needs_clip=needs_clip)
+    anim_idx = ds.get("anim_tri_idx") if (has_morphs or skin_sets) else None
+    if anim_idx is None:
+        return _stage(ds, geo, tri_mesh, mask, has_morphs=has_morphs,
+                      skin_sets=skin_sets, **kw)
+    rows = _stage(ds, geo, tri_mesh, mask, **kw)
+    ageo, safe = _gather_cols(geo, anim_idx)
+    a_tri = torch.where(anim_idx >= 0, tri_mesh[safe],
+                        torch.full_like(anim_idx, -1))
+    rows_a = _stage(ds, ageo, a_tri, mask, anim_idx, has_morphs=has_morphs,
+                    skin_sets=skin_sets, **kw)
+    n, cap, T = ds["anim_tri_n"], anim_idx.shape[0], tri_mesh.shape[0]
+    live = safe[:n]
+    rows.index_copy_(0, live, rows_a[:n])
+    if needs_clip:
+        rows.index_copy_(0, live + T, rows_a[cap:cap + n])
+    return rows
+
+
+def _run_vertex_compact(ds, mask, tri_idx, *, rw: int, rh_full: int,
+                        needs_clip: bool, row_offset: int = 0,
+                        shift_rows: bool = False, has_morphs: bool = False,
+                        skin_sets: int = 0):
+    """Vertex stage over a compacted triangle set: tri_idx (Nc,) int32
+    pool indices, -1 = padding. The overlay buckets hold a few hundred
+    triangles of a pool of hundreds of thousands; the corner gather is
+    output-sized and the rows carry their pool ids in S_ORIG_ID
+    (vertex_stage orig_ids), which the fat K7/K8 kernels emit as tri_id.
+    Instanced geometry never reaches it (the renderer passes no index when
+    an overlay mesh is instanced)."""
+    # the joint, weight and morph-base pools are read only when animated
+    names = _CORNER_NAMES if (has_morphs or skin_sets) else _CORNER_NAMES[:6]
+    geo, safe = _gather_cols({n: ds[n] for n in names}, tri_idx)
+    geo = {n: geo.get(n, ds[n]) for n in _CORNER_NAMES}
     tri_mesh = torch.where(tri_idx >= 0, ds["tri_mesh"][safe],
                            torch.full_like(tri_idx, -1))
-    rows = vertex_stage(
-        geo["c_pos"], geo["c_norm"], geo["c_tang"], geo["c_uv0"],
-        geo["c_uv1"], geo["c_color"], tri_mesh, ds["mesh_info"],
-        ds["world"], ds["normal_mat"], ds["camera"]["view_proj"], mask,
-        tri_idx, width=rw, height=rh_full, needs_clip=needs_clip)
+    rows = _stage(ds, geo, tri_mesh, mask, tri_idx, width=rw,
+                  height=rh_full, needs_clip=needs_clip,
+                  has_morphs=has_morphs, skin_sets=skin_sets)
     return _shift_rows_band(rows, row_offset) if shift_rows else rows
 
 
@@ -113,14 +196,16 @@ def prep_setup_rows(rows: torch.Tensor) -> torch.Tensor:
 
 
 def _opaque_band(ds, opaque_mask, *, rw: int, rh: int, needs_clip: bool,
+                 has_morphs: bool = False, skin_sets: int = 0,
                  solid_env: bool, has_color: bool, has_uv1: bool,
                  use_mips: bool, slot_mask, has_nearest: bool, ext,
                  debug_mode: str):
     """Opaque geometry + deferred shade over the whole (rh, rw) padded
     framebuffer -> (hdr [r,g,b,a] (rh*rw,) planes, tri_id, depth
     (rh, rw), raster bins)."""
-    srows = prep_setup_rows(_run_vertex(ds, opaque_mask, rw=rw, rh_full=rh,
-                                        needs_clip=needs_clip))
+    srows = prep_setup_rows(_run_vertex(
+        ds, opaque_mask, rw=rw, rh_full=rh, needs_clip=needs_clip,
+        has_morphs=has_morphs, skin_sets=skin_sets))
     # uv1 / vertex-colour planes only when a material samples uv1 or a
     # mesh carries colours; no analytic derivatives: the mip gradients
     # are screen differences of the padded uv0 planes, as in the reference
@@ -134,7 +219,8 @@ def _opaque_band(ds, opaque_mask, *, rw: int, rh: int, needs_clip: bool,
 
 
 def _opaque_band_msaa(ds, opaque_mask, *, rw2: int, rh2: int, rw1: int,
-                      rh1: int, needs_clip: bool, solid_env: bool,
+                      rh1: int, needs_clip: bool, has_morphs: bool = False,
+                      skin_sets: int = 0, solid_env: bool,
                       use_mips: bool, slot_mask, has_nearest: bool, ext,
                       debug_mode: str, tile_cap: int | None = None):
     """MSAA-4x opaque stage: coverage and depth at 2x2 samples per display
@@ -147,8 +233,9 @@ def _opaque_band_msaa(ds, opaque_mask, *, rw2: int, rh2: int, rw1: int,
 
     Returns (hdr [r, g, b, a] (rh1*rw1,) planes, samp = 4x (rh1, rw1)
     sample-id planes [tl, tr, bl, br], depth1 (rh1, rw1), K9's bins)."""
-    srows = prep_setup_rows(_run_vertex(ds, opaque_mask, rw=rw2,
-                                        rh_full=rh2, needs_clip=needs_clip))
+    srows = prep_setup_rows(_run_vertex(
+        ds, opaque_mask, rw=rw2, rh_full=rh2, needs_clip=needs_clip,
+        has_morphs=has_morphs, skin_sets=skin_sets))
     samp_raw, depth1_raw, bins = rasterize16_msaa(srows, width2=rw2,
                                                   height2=rh2)
     w_half = rw2 // 2
@@ -241,6 +328,7 @@ def _resolve_supersample(hdr_ch, tri_id, depth, *, width: int, height: int,
 def _overlay_band(hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask, *,
                   rw: int, band_h: int, rh_full: int, row_offset: int = 0,
                   shift_rows: bool = False, needs_clip: bool,
+                  has_morphs: bool = False, skin_sets: int = 0,
                   solid_env: bool, has_color: bool, has_uv1: bool,
                   use_mips: bool, slot_mask, has_nearest: bool, ext,
                   n_transparent_layers: int, ov_tri_idx,
@@ -249,7 +337,8 @@ def _overlay_band(hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask, *,
     """Transparent forward peel + HUD over the shaded opaque band
     (reference: frame.py _overlay_band). slot_mask / ext are the overlay
     bucket's own; ov_tri_idx is the overlay's compacted triangle pool
-    (renderer._overlay_tri_idx). transparent_mask / hud_mask None skip
+    (renderer._overlay_tri_idx), or None for the full combined pool (an
+    overlay mesh is instanced). transparent_mask / hud_mask None skip
     their pass. Returns (hdr_ch, tri_id)."""
     # ---- row-band crop: the overlay runs only on the rows its geometry's
     # projected AABBs reach (renderer._overlay_crop); off with volume
@@ -263,7 +352,8 @@ def _overlay_band(hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask, *,
             hdr_c, tri_id[y0:y0 + crop_h], depth[y0:y0 + crop_h], ds,
             transparent_mask, hud_mask, rw=rw, band_h=crop_h,
             rh_full=rh_full, row_offset=y0, shift_rows=True,
-            needs_clip=needs_clip, solid_env=solid_env, has_color=has_color,
+            needs_clip=needs_clip, has_morphs=has_morphs,
+            skin_sets=skin_sets, solid_env=solid_env, has_color=has_color,
             has_uv1=has_uv1, use_mips=use_mips, slot_mask=slot_mask,
             has_nearest=has_nearest, ext=ext,
             n_transparent_layers=n_transparent_layers,
@@ -277,11 +367,17 @@ def _overlay_band(hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask, *,
         tri_id[y0:y0 + crop_h] = tri_c
         return out, tri_id
 
+    anim = dict(has_morphs=has_morphs, skin_sets=skin_sets)
+
     def run_vertex(mask):
-        return _run_vertex_compact(ds, mask, ov_tri_idx, rw=rw,
-                                   rh_full=rh_full, needs_clip=needs_clip,
-                                   row_offset=row_offset,
-                                   shift_rows=shift_rows)
+        if ov_tri_idx is not None:
+            return _run_vertex_compact(ds, mask, ov_tri_idx, rw=rw,
+                                       rh_full=rh_full, needs_clip=needs_clip,
+                                       row_offset=row_offset,
+                                       shift_rows=shift_rows, **anim)
+        rows = _run_vertex(ds, mask, rw=rw, rh_full=rh_full,
+                           needs_clip=needs_clip, **anim)
+        return _shift_rows_band(rows, row_offset) if shift_rows else rows
 
     shade_kw = dict(height_full=rh_full, row_offset=row_offset,
                     use_mips=use_mips, slot_mask=slot_mask,
@@ -319,12 +415,19 @@ def _overlay_band(hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask, *,
     # ---- HUD pass: its own cleared depth, composited on top -------------
     if hud_mask is not None:
         h_rows = prep_setup_rows(run_vertex(hud_mask))
-        # the compacted pool breaks K2's row index == pool id invariant, so
-        # the HUD takes K7, which reads the ids from S_ORIG_ID (the
-        # reference's K1 + K2 branch over the full pool serves instanced
-        # overlay meshes, which the port refuses until M2b)
-        h_vis = rasterize(h_rows, width=rw, height=band_h, has_uv1=has_uv1,
-                          has_color=has_color, analytic_derivs=False)
+        if ov_tri_idx is not None:
+            # the compacted pool breaks K2's row index == pool id
+            # invariant, so the HUD takes K7, which reads the ids from
+            # S_ORIG_ID
+            h_vis = rasterize(h_rows, width=rw, height=band_h,
+                              has_uv1=has_uv1, has_color=has_color,
+                              analytic_derivs=False)
+        else:
+            # the full pool keeps it: K1 + K2, as the opaque pass
+            h_vis = rasterize16(h_rows, width=rw, height=band_h,
+                                has_uv1=has_uv1, has_color=has_color,
+                                analytic_derivs=False)
+            del h_vis["bins"]
         P = rw * band_h
         h_planes = {k: v.reshape(P) for k, v in h_vis.items()}
         h_color, h_alpha, h_valid, _ = shade_surface(
@@ -366,7 +469,8 @@ def _finish_frame(hdr_ch, tri_id, depth, ds, *, rw: int, rh: int,
 def render_frame(ds, opaque_mask, transparent_mask=None, hud_mask=None, *,
                  width: int, height: int, tonemap: ToneMapping,
                  supersample: bool = False, msaa: bool = False,
-                 needs_clip: bool = True, solid_env: bool = False,
+                 needs_clip: bool = True, has_morphs: bool = False,
+                 skin_sets: int = 0, solid_env: bool = False,
                  has_color: bool = True, has_uv1: bool = False,
                  use_mips: bool = True, slot_mask=NO_SLOTS,
                  has_nearest: bool = True, ext=NO_EXT,
@@ -384,7 +488,11 @@ def render_frame(ds, opaque_mask, transparent_mask=None, hud_mask=None, *,
     buckets, or None when a bucket is empty; the overlay_* and
     opaque_tile_cap arguments are the host's per-frame specialization
     (renderer.py). The overlay runs over its compacted triangle pool,
-    overlay_tri_idx; None (no live overlay triangle) skips it. msaa: the
+    overlay_tri_idx, or over the full combined pool when it is None (an
+    overlay mesh is instanced). has_morphs / skin_sets: the scene's
+    animation specialization (the vertex stage's morph and skin
+    branches, split to ds["anim_tri_idx"] when the renderer ships it).
+    msaa: the
     opaque stage at 2x2 samples per pixel (K9), shaded once per pixel and
     edge-blended; supersample: the opaque stage at twice the resolution
     (K1), box-resolved before the overlay. The overlay always runs at
@@ -396,9 +504,10 @@ def render_frame(ds, opaque_mask, transparent_mask=None, hud_mask=None, *,
     if msaa:
         hdr_ch, samp, depth, bins = _opaque_band_msaa(
             ds, opaque_mask, rw2=_pad_to(width * 2, TILE_W), rh2=2 * rh1,
-            rw1=rw1, rh1=rh1, needs_clip=needs_clip, solid_env=solid_env,
-            use_mips=use_mips, slot_mask=slot_mask, has_nearest=has_nearest,
-            ext=ext, debug_mode=debug_mode, tile_cap=opaque_tile_cap)
+            rw1=rw1, rh1=rh1, needs_clip=needs_clip, has_morphs=has_morphs,
+            skin_sets=skin_sets, solid_env=solid_env, use_mips=use_mips,
+            slot_mask=slot_mask, has_nearest=has_nearest, ext=ext,
+            debug_mode=debug_mode, tile_cap=opaque_tile_cap)
         if debug_mode != "edges":         # keep the edge view crisp
             hdr_ch = _msaa_edge_blend(hdr_ch, samp, rh1, rw1)
         tri_id = samp[0]
@@ -407,7 +516,8 @@ def render_frame(ds, opaque_mask, transparent_mask=None, hud_mask=None, *,
         rw2 = _pad_to(width * scale, TILE_W)
         hdr_ch, tri_id, depth, bins = _opaque_band(
             ds, opaque_mask, rw=rw2, rh=_pad_to(height * scale, TILE_H),
-            needs_clip=needs_clip, solid_env=solid_env, has_color=has_color,
+            needs_clip=needs_clip, has_morphs=has_morphs,
+            skin_sets=skin_sets, solid_env=solid_env, has_color=has_color,
             has_uv1=has_uv1, use_mips=use_mips, slot_mask=slot_mask,
             has_nearest=has_nearest, ext=ext, debug_mode=debug_mode)
         if supersample:
@@ -416,11 +526,11 @@ def render_frame(ds, opaque_mask, transparent_mask=None, hud_mask=None, *,
             hdr_ch, tri_id, depth = _resolve_supersample(
                 hdr_ch, tri_id, depth, width=width, height=height, rw2=rw2,
                 rw1=rw1, rh1=rh1)
-    if overlay_tri_idx is not None and (transparent_mask is not None
-                                        or hud_mask is not None):
+    if transparent_mask is not None or hud_mask is not None:
         hdr_ch, tri_id = _overlay_band(
             hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask, rw=rw1,
             band_h=rh1, rh_full=rh1, needs_clip=needs_clip,
+            has_morphs=has_morphs, skin_sets=skin_sets,
             solid_env=solid_env, has_color=has_color, has_uv1=has_uv1,
             use_mips=use_mips,
             slot_mask=(slot_mask if overlay_slot_mask is None
@@ -435,7 +545,7 @@ def render_frame(ds, opaque_mask, transparent_mask=None, hud_mask=None, *,
         height=height, tonemap=tonemap, bloom=bloom, dof=dof, smaa=smaa,
         dof_rings=dof_rings)
     # picking ids in triangle-pool space (clipping doubles the rows)
-    T_pool = ds["tri_mesh"].shape[0]
+    T_pool = _total_triangles(ds)
     tri_id = torch.where(tri_id >= 0, tri_id % T_pool, -1)
     return ldr, tri_id, depth, bins
 
@@ -443,7 +553,8 @@ def render_frame(ds, opaque_mask, transparent_mask=None, hud_mask=None, *,
 def render_frame_temporal(ds, opaque_mask, transparent_mask, hud_mask, hist,
                           age, *, width: int, height: int,
                           tonemap: ToneMapping, shade_cap: int, alpha: float,
-                          needs_clip: bool = True, solid_env: bool = False,
+                          needs_clip: bool = True, has_morphs: bool = False,
+                          skin_sets: int = 0, solid_env: bool = False,
                           has_color: bool = True, has_uv1: bool = False,
                           use_mips: bool = True, slot_mask=NO_SLOTS,
                           has_nearest: bool = True, ext=NO_EXT,
@@ -479,8 +590,9 @@ def render_frame_temporal(ds, opaque_mask, transparent_mask, hud_mask, hist,
     n_units = (rh1 // OPAQUE_TILE_ROWS) * (rw1 // 128)
 
     # ---- 1. slim geometry (jittered camera) -------------------------------
-    srows = prep_setup_rows(_run_vertex(ds, opaque_mask, rw=rw1, rh_full=rh1,
-                                        needs_clip=needs_clip))
+    srows = prep_setup_rows(_run_vertex(
+        ds, opaque_mask, rw=rw1, rh_full=rh1, needs_clip=needs_clip,
+        has_morphs=has_morphs, skin_sets=skin_sets))
     col, depth, _bins = rasterize16_slim(srows, width=rw1, height=rh1)
 
     # ---- 2. reproject + validate (unjittered matrices) ---------------------
@@ -515,11 +627,11 @@ def render_frame_temporal(ds, opaque_mask, transparent_mask, hud_mask, hist,
     hdr_ch = merged + [cov]
     tri_id = col.reshape(rh1, rw1)
     depth2 = depth.reshape(rh1, rw1)
-    if overlay_tri_idx is not None and (transparent_mask is not None
-                                        or hud_mask is not None):
+    if transparent_mask is not None or hud_mask is not None:
         hdr_ch, tri_id = _overlay_band(
             hdr_ch, tri_id, depth2, ds, transparent_mask, hud_mask, rw=rw1,
             band_h=rh1, rh_full=rh1, needs_clip=needs_clip,
+            has_morphs=has_morphs, skin_sets=skin_sets,
             solid_env=solid_env, has_color=has_color, has_uv1=has_uv1,
             use_mips=use_mips,
             slot_mask=(slot_mask if overlay_slot_mask is None
@@ -533,6 +645,6 @@ def render_frame_temporal(ds, opaque_mask, transparent_mask, hud_mask, hist,
         hdr_ch, tri_id, depth2, ds, rw=rw1, rh=rh1, width=width,
         height=height, tonemap=tonemap, bloom=bloom, dof=dof, smaa=smaa,
         dof_rings=dof_rings)
-    T_pool = ds["tri_mesh"].shape[0]
+    T_pool = _total_triangles(ds)
     tri_id = torch.where(tri_id >= 0, tri_id % T_pool, -1)
     return ldr, tri_id, depth2, new_hist, new_age

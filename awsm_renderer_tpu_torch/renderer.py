@@ -6,8 +6,10 @@ KHR_texture_transform, the material extensions (clearcoat, sheen,
 iridescence, anisotropy, specular, transmission, volume), the debug
 views, the transparent overlay (BLEND / MASK / transmission meshes in a
 K-layer depth peel, the editor grid kind) and HUD meshes, under a solid
-or image environment, at most 8 punctual lights, MSAA-4x / supersample /
-SMAA / temporal (TAA) anti-aliasing, bloom and depth of field. The
+or image environment, at most 8 punctual lights, morph targets, skins and
+instanced groups (the animated vertex stage, split to the animated
+triangles), MSAA-4x / supersample / SMAA / temporal (TAA) anti-aliasing,
+bloom and depth of field. The
 temporal frame keeps its history across frames (self._temporal); any
 content flush or resize resets it. The key-based stores, the
 per-frame dirty flush to device tensors and the host-side cull, pass
@@ -44,18 +46,32 @@ from .errors import ConfigError
 from .ops.shade import OPAQUE_TILE_ROWS
 from .ops.raster import TILE_H, TILE_W
 from .ops.temporal import reset_history
-from .passes.frame import _pad_to, render_frame, render_frame_temporal
+from .passes.frame import (
+    _inst_gids, _pad_to, render_frame, render_frame_temporal,
+)
 
 MAX_DENSE_LIGHTS = 8
-# component-major corner pools the static vertex stage reads: name -> comps
+# component-major corner pools the vertex stage reads: name -> components
+# (None: the pool's own width, the skin-set bucket's 4 * S); c_morph_base,
+# one int a corner, uploads beside them as (3, T)
 _CORNERS = (("c_pos", 3), ("c_norm", 3), ("c_tang", 4), ("c_uv0", 2),
-            ("c_uv1", 2), ("c_color", 4))
+            ("c_uv1", 2), ("c_color", 4), ("c_joints", None),
+            ("c_weights", None))
 
 
 def _unsupported(what: str, milestone: str):
     return NotImplementedError(
         f"{what} is not ported to the PyTorch renderer yet "
         f"(ROADMAP.md queue 1, {milestone})")
+
+
+def _pad_ids(sel: np.ndarray):
+    """Triangle ids -> (ids padded with -1 to a power of two, at least
+    128, the live count)."""
+    cap = max(128, 1 << (int(sel.size) - 1).bit_length())
+    out = np.full(cap, -1, np.int32)
+    out[:sel.size] = sel
+    return out, int(sel.size)
 
 
 def _bf16_tensor(u16: np.ndarray, device) -> torch.Tensor:
@@ -87,8 +103,10 @@ class AwsmRendererTorch:
         self._last_tri_id = None       # device plane kept for picking
         self._mesh_row_to_key: Dict[int, int] = {}
         self._tri_mesh_device_order = None
-        self._mesh_flush_gen = 0       # bumps on every mesh-pool flush
+        self._mesh_flush_gen = 0       # bumps when the device layout changes
+        self._inst_tri_mesh = []       # instanced groups' tri -> mesh rows
         self._ov_idx_cache = None      # (overlay mask, flush gen, tensor)
+        self._anim_idx_cache = None    # (flush gen, (tensor, live) or None)
         self._mask_cache: Dict[str, tuple] = {}   # name -> (mask, tensor)
         self._last_debug_mode = "none"  # pick() replays the last frame's
         self.last_bins = None          # raster bins of the last frame
@@ -130,8 +148,9 @@ class AwsmRendererTorch:
 
     def add_instanced_mesh(self, geometry: MeshGeometry, material_key: int,
                            transforms) -> list:
-        """Insert one geometry resource under many transforms (host store
-        only: rendering instanced groups is milestone M2b)."""
+        """Insert one geometry resource rendered under many transforms
+        (reference: instances.rs + EXT_mesh_gpu_instancing): one shared
+        resource, uploaded once, one mesh record per instance."""
         rk = self.meshes.insert_resource(geometry)
         mat = self.materials.get(material_key)
         tks = [self.transforms.insert(tr) for tr in transforms]
@@ -184,23 +203,23 @@ class AwsmRendererTorch:
     def _flush(self, jitter_px=None, prev_view_proj=None) -> Dict[str, object]:
         """Upload the dirty host stores. jitter_px / prev_view_proj (the
         temporal frame's) repack the camera with the Halton jitter and
-        the previous frame's unjittered view-projection."""
+        the previous frame's unjittered view-projection. The stores an
+        animated scene dirties every frame (world and normal matrices,
+        joint matrices, morph weights, mesh info) go through _upload, so
+        the host never waits for the device."""
         d = self._device
         self.skins.flush_pending(self.transforms)
         # content epoch: bumped whenever a non-camera store reaches the
-        # device; the temporal history is valid only while it holds.
-        # Skinning is refused (M2b), so nothing uploads the skins' joint
-        # matrices: their flag only feeds the epoch, and is consumed here
+        # device; the temporal history is valid only while it holds
         if (self.transforms.gpu_dirty or self.meshes.gpu_dirty
                 or self.materials.gpu_dirty or self.lights.gpu_dirty
                 or self.textures.gpu_dirty or self.environment.gpu_dirty
                 or self.skins.gpu_dirty):
             self._content_epoch += 1
-        self.skins.gpu_dirty = False
         t = self.transforms
         if t.gpu_dirty:
-            d["world"] = self._tensor(t.world)
-            d["normal_mat"] = self._tensor(t.normal)
+            d["world"] = self._upload(t.world)
+            d["normal_mat"] = self._upload(t.normal)
             t.gpu_dirty = False
 
         m = self.meshes
@@ -208,14 +227,27 @@ class AwsmRendererTorch:
             def _slice_cm(name, c, rows):
                 """(cnt,) host rows -> component-major (3c, cnt) block."""
                 arr = getattr(m, name)
+                c = arr.shape[1] if c is None else c
                 return (arr.reshape(-1, 3, c)[rows].transpose(1, 2, 0)
                         .reshape(3 * c, rows.size))
 
+            def _morph_base(rows):
+                return m.c_morph_base.reshape(-1, 3)[rows].T
+
             plan = m.device_updates()
+            # the triangle-layout generation bumps only when the device
+            # layout changes (full re-upload, append, tombstone, instanced
+            # group edits): a morph-weight or flag edit also sets
+            # gpu_dirty, and bumping for it would rebuild the overlay and
+            # animated index caches (an isin scan over the pool) on every
+            # animated frame
+            if plan[0] == "full" or plan[1] or m.inst_groups_changed:
+                self._mesh_flush_gen += 1
             if plan[0] == "full":
                 _, idx, dead = plan
                 for name, c in _CORNERS:
                     d[name] = self._tensor(_slice_cm(name, c, idx))
+                d["c_morph_base"] = self._tensor(_morph_base(idx))
                 tri_mesh_c = m.tri_mesh[idx].copy()
                 tri_mesh_c[dead] = -1
                 self._tri_mesh_device_order = tri_mesh_c
@@ -230,13 +262,44 @@ class AwsmRendererTorch:
                     for name, c in _CORNERS:
                         d[name][:, s:s + rows.size] = self._tensor(
                             _slice_cm(name, c, rows))
+                    d["c_morph_base"][:, s:s + rows.size] = self._tensor(
+                        _morph_base(rows))
                     tri_mesh_c = m.tri_mesh[rows].copy()
                     tri_mesh_c[dead] = -1
                     self._tri_mesh_device_order[s:s + rows.size] = tri_mesh_c
                     d["tri_mesh"][s:s + rows.size] = self._tensor(tri_mesh_c)
-            d["mesh_info"] = self._tensor(m.mesh_info)
+            if m.morph_pool_dirty or "morph_deltas" not in d:
+                d["morph_deltas"] = self._tensor(m.morph_deltas)
+                m.morph_pool_dirty = False
+            d["mesh_info"] = self._upload(m.mesh_info)
+            d["morph_weights"] = self._upload(m.morph_weights)
+
+            # instanced groups: one corner upload per group and its (I,)
+            # instance mesh rows; the frame tiles them
+            # (passes/frame.py _combined_geometry)
+            if m.inst_groups_changed:      # drop the removed groups' keys
+                gone = {f"inst{g}_" for g in set(_inst_gids(d))
+                        - {g for g, _ in m.inst_group_items()}}
+                for k in [k for k in d
+                          if any(k.startswith(p) for p in gone)]:
+                    del d[k]
+                m.inst_groups_changed = False
+            self._inst_tri_mesh = []
+            for gid, grp in m.inst_group_items():
+                rows = np.array([m._mesh_alloc.row_of(k)
+                                 for k in grp.mesh_keys], np.int32)
+                if grp.dirty or f"inst{gid}_rows" not in d:
+                    for name, arr in grp.corners.items():
+                        d[f"inst{gid}_{name}"] = self._tensor(arr)
+                    d[f"inst{gid}_live"] = self._tensor(grp.livemask)
+                    d[f"inst{gid}_rows"] = self._tensor(rows)
+                    grp.dirty = False
+                # host mirror for picking: the device order appends the
+                # groups after the pool, instances in row order
+                self._inst_tri_mesh.append(np.where(
+                    np.tile(grp.livemask, rows.size),
+                    np.repeat(rows, grp.livemask.size), -1).astype(np.int32))
             m.gpu_dirty = False
-            self._mesh_flush_gen += 1
             self._mesh_row_to_key = {row: key
                                      for key, row in m._mesh_alloc.items()}
 
@@ -246,6 +309,10 @@ class AwsmRendererTorch:
             d["mat_tex"] = self._tensor(mats.tex_slots)
             d["mat_flags"] = self._tensor(mats.flags)
             mats.gpu_dirty = False
+
+        if self.skins.gpu_dirty or "joint_matrices" not in d:
+            d["joint_matrices"] = self._upload(self.skins.joint_matrices)
+            self.skins.gpu_dirty = False
 
         if self.lights.gpu_dirty or "lights" not in d:
             cap = max(8, 1 << (max(self.lights.count, 1) - 1).bit_length())
@@ -396,28 +463,53 @@ class AwsmRendererTorch:
     def _overlay_tri_idx(self, masks):
         """Compacted overlay triangle ids: pool indices of every triangle
         of a transparent/HUD mesh, power-of-2 padded with -1 (at least
-        128). None when nothing is live, and the frame then skips the
-        overlay: it runs only over this pool. Cached by mask content and mesh
-        flush (the isin scan over the pool costs milliseconds). Instanced
-        groups, which the reference excludes here, are refused by
-        _prepare."""
+        128). None = run the overlay over the full combined pool: an
+        overlay mesh lives in an instanced group, whose triangles have no
+        pool index. An empty tensor = no live overlay triangle (the frame
+        then skips the overlay). Cached by mask content and the mesh
+        layout generation (the isin scan over the pool costs
+        milliseconds)."""
         mask = masks["transparent"] | masks["hud"]
         tm = self._tri_mesh_device_order
         if tm is None or not mask.any():
+            return self._upload(np.zeros(0, np.int32))
+        rows = np.where(mask)[0]
+        if any(np.isin(g, rows).any() for g in self._inst_tri_mesh):
             return None
         cached = self._ov_idx_cache
         if (cached is not None and cached[1] == self._mesh_flush_gen
                 and np.array_equal(cached[0], mask)):
             return cached[2]
-        sel = np.where(np.isin(tm, np.where(mask)[0]))[0].astype(np.int32)
-        if sel.size == 0:
-            return None
-        cap = max(128, 1 << (int(sel.size) - 1).bit_length())
-        out = np.full(cap, -1, np.int32)
-        out[: sel.size] = sel
-        dev = self._upload(out)
+        sel = np.where(np.isin(tm, rows))[0].astype(np.int32)
+        dev = self._upload(_pad_ids(sel)[0] if sel.size else sel)
         self._ov_idx_cache = (mask.copy(), self._mesh_flush_gen, dev)
         return dev
+
+    def _anim_tri_idx(self):
+        """Pool indices of every triangle of a mesh with morph targets or
+        a skin, power-of-2 padded with -1 (at least 128), and their live
+        count: the animated-subset split of the vertex stage
+        (passes/frame.py _run_vertex), so only the subset pays the morph
+        and skin gathers. None when nothing is animated, there is no
+        device layout yet, or an animated mesh lives in an instanced
+        group (whose corners have no pool index). Cached per mesh-layout
+        generation: weight and pose edits do not change the set."""
+        cached = self._anim_idx_cache
+        if cached is not None and cached[0] == self._mesh_flush_gen:
+            return cached[1]
+        info = self.meshes.mesh_info
+        anim_rows = np.where((info[:, 3] > 0) | (info[:, 5] > 0))[0]
+        tm = self._tri_mesh_device_order
+        out = None
+        if (anim_rows.size and tm is not None
+                and not any(np.isin(g, anim_rows).any()
+                            for g in self._inst_tri_mesh)):
+            sel = np.where(np.isin(tm, anim_rows))[0].astype(np.int32)
+            if sel.size:
+                padded, n = _pad_ids(sel)
+                out = (self._upload(padded), n)
+        self._anim_idx_cache = (self._mesh_flush_gen, out)
+        return out
 
     def _projected_corners(self, masks, bucket_mask):
         """World AABB corners of the bucket's visible meshes projected
@@ -599,16 +691,11 @@ class AwsmRendererTorch:
     def _prepare(self):
         """Cull + bucket, each bucket's shading specialization (slot_mask,
         ext), the overlay's crop band, compacted pool, tile cap and layer
-        clamp, the MSAA frame's opaque tile cap, the DoF ring set, and
-        refuse content outside the slice."""
+        clamp, the MSAA frame's opaque tile cap, the DoF ring set, the
+        animation specialization (has_morphs, skin_sets: the most skin
+        sets a mesh reads), and refuse content outside the slice."""
         masks = self._mesh_masks()
         info = self.meshes.mesh_info
-        if (info[:, 3] > 0).any() or (info[:, 5] > 0).any():
-            raise _unsupported("morph targets / skins",
-                               "M2b animated vertex stage")
-        if any(True for _ in self.meshes.inst_group_items()):
-            raise _unsupported("instanced groups",
-                               "M2b animated vertex stage and instancing")
         if self.lights.count > MAX_DENSE_LIGHTS:
             raise _unsupported(f"more than {MAX_DENSE_LIGHTS} lights "
                                "(tiled light lists)", "M12 passes and hooks")
@@ -626,16 +713,23 @@ class AwsmRendererTorch:
                         if self.config.anti_aliasing.msaa else None),
                     dof_rings=(self._dof_ring_set(masks)
                                if self.config.post_processing.dof
-                               else None))
+                               else None),
+                    has_morphs=bool((info[:, 3] > 0).any()),
+                    skin_sets=(int(info[:, 5].max())
+                               if self.meshes.count else 0))
         has_transparent = bool(masks["transparent"].any())
         has_hud = bool(masks["hud"].any())
         if has_transparent or has_hud:
-            ov_rows = self._bucket_mat_rows(masks["transparent"]
-                                            | masks["hud"])
-            prep.update(ov_slot_mask=self._slot_mask(ov_rows),
-                        ov_ext=self._ext_mask(ov_rows),
-                        ov_crop=self._overlay_crop(masks),
-                        ov_idx=self._overlay_tri_idx(masks))
+            ov_idx = self._overlay_tri_idx(masks)
+            if ov_idx is not None and ov_idx.shape[0] == 0:
+                # no live overlay triangle: the frame skips the overlay
+                has_transparent = has_hud = False
+            else:
+                ov_rows = self._bucket_mat_rows(masks["transparent"]
+                                                | masks["hud"])
+                prep.update(ov_slot_mask=self._slot_mask(ov_rows),
+                            ov_ext=self._ext_mask(ov_rows),
+                            ov_crop=self._overlay_crop(masks), ov_idx=ov_idx)
         if has_transparent:
             prep["transparent_dev"] = self._device_mask(
                 "transparent", masks["transparent"])
@@ -720,7 +814,17 @@ class AwsmRendererTorch:
             overlay_crop_y0=ov_crop[0] if ov_crop else None,
             overlay_crop_h=ov_crop[1] if ov_crop else None,
             overlay_tri_idx=prep["ov_idx"],
-            overlay_tile_cap=prep["ov_tile_cap"])
+            overlay_tile_cap=prep["ov_tile_cap"],
+            has_morphs=prep["has_morphs"], skin_sets=prep["skin_sets"])
+        # the animated-subset split: ship the (cached) animated triangle
+        # set while the scene has morphs or skins
+        anim = (self._anim_tri_idx()
+                if prep["has_morphs"] or prep["skin_sets"] else None)
+        if anim is not None:
+            ds["anim_tri_idx"], ds["anim_tri_n"] = anim
+        else:
+            ds.pop("anim_tri_idx", None)
+            ds.pop("anim_tri_n", None)
         bucket_masks = (prep["opaque_dev"], prep["transparent_dev"],
                         prep["hud_dev"])
         if use_temporal:
@@ -787,6 +891,12 @@ class AwsmRendererTorch:
             return None
         tid = int(self._last_tri_id[y, x])
         tm = self._tri_mesh_device_order
-        if tid < 0 or tm is None or tid >= tm.size:
+        if tid < 0 or tm is None:
+            return None
+        # the device order appends the instanced groups after the pool, in
+        # group-id order (passes/frame.py _combined_geometry)
+        if tid >= tm.size and self._inst_tri_mesh:
+            tm = np.concatenate([tm] + self._inst_tri_mesh)
+        if tid >= tm.size:
             return None
         return self._mesh_row_to_key.get(int(tm[tid]))

@@ -51,6 +51,21 @@ back to the CPU). Phases:
            launched on each, the image, pick() against the sample plane,
            host syncs; then 3 supersample frames (peak device memory) and
            one SMAA frame of the stress scene;
+  animated bench.py's animated probe "Stress-1080p-animated-msaa-bloom-dof"
+           (build_stress_scene(animated=True), bench.py:180-201 and
+           add_animation): the headline frame plus six morph-target
+           spheres, rotation players on every tenth grid node and one
+           2-joint skinned pillar. First the checks: the animated
+           subset's setup rows of the split vertex stage against the
+           whole pool's morph/skin stage (integer columns bit-equal,
+           floats within tests/test_torch_animated.py's tolerance), K9,
+           K2's MSAA entries, K3, K4, K5, K6 and K8 against their twins on
+           this frame's own intermediates, the image finite and moving
+           with time; then 12 static frames and 12 with update_all(1/60)
+           before each (median ms by CUDA events, host wall ms, launches
+           of every kernel of the path on each frame), the host syncs of
+           an animated frame (no more than the MSAA orbit's) and the
+           subset's triangle count;
   oracle   the dense raster K11a and dense peel K11b (no frame path runs
            them) as an independent check of the binned kernels on the
            frames' own 1080p intermediates: K11a fat against K1 + K2 on
@@ -90,15 +105,19 @@ back to the CPU). Phases:
            under the same environment, render 12 orbit frames and check
            launches and the image;
   golden   render the 128x64 "box", "env-ibl", "box-textured",
-           "alpha-blend", "effect-refraction", "effect-bloom",
+           "alpha-blend", "morph-cube", "rigged-simple", "instanced",
+           "effect-refraction", "effect-bloom",
            "effect-dof", "effect-smaa" and "effect-msaa" probes, the
            1024x512 "parity-production-msaa-1024", the 256x128 glTF
            goldens "glb-helmet", "glb-texture-transform", "glb-multi-uv",
            "glb-ext-clearcoat", "glb-alpha-modes", "glb-ext-transmission"
-           and "glb-sponza-lite", and the nine 512x256 parity goldens
+           "glb-sponza-lite", "glb-fox", "glb-instanced",
+           "glb-many-influences", "glb-morph-stress", "glb-morphed",
+           "glb-recursive-skeletons", "glb-skinned" and "glb-two-skins",
+           and the nine 512x256 parity goldens
            "parity-glb-helmet-512", "parity-glb-alpha-modes-512" and
            "parity-ext-{anisotropy,clearcoat,iridescence,sheen,specular,
-           transmission,unlit}-512" on the card (26 goldens), each at the
+           transmission,unlit}-512" on the card (37 goldens), each at the
            tolerance of the JAX test that owns it.
 
 Prints one line per check, then a JSON line of per-kernel results (time,
@@ -267,7 +286,7 @@ def env_ibl_equirect(np):
 
 def build_stress_scene(P, np, device, textured=True, panes=True,
                        volume=False, hud=False, effects=False,
-                       temporal=False):
+                       temporal=False, animated=False):
     """bench.py build_stress_scene — geometry, textures, the ring of 12
     alpha-blended glass panes and lights — through the port's API, with
     effects=False unless `effects`: then bench.py's headline
@@ -279,7 +298,9 @@ def build_stress_scene(P, np, device, textured=True, panes=True,
     opaque-only scene of earlier runs); volume=True gives the panes'
     glass KHR transmission and volume (transmission 1, thickness 0.5, ior
     1.5: screen-space refraction); hud=True adds one HUD box above the
-    ring. Returns (renderer, opaque mesh keys, HUD key or None)."""
+    ring; animated=True adds bench.py's animated probe content
+    (add_stress_animation). Returns (renderer, opaque mesh keys, HUD key
+    or None)."""
     from awsm_renderer_tpu_torch.core.materials import TS_BASE_COLOR
     from awsm_renderer_tpu_torch.geometry import (
         box, checker_texture, uv_sphere,
@@ -314,7 +335,7 @@ def build_stress_scene(P, np, device, textured=True, panes=True,
     box_res = r.meshes.insert_resource(box(0.8))
     sph_res = r.meshes.insert_resource(uv_sphere(0.45, rings=24, sectors=48))
     pane_res = r.meshes.insert_resource(box(0.9))
-    keys = []
+    keys, grid_tks = [], []
     for gx in range(-STRESS_GRID, STRESS_GRID + 1):
         for gz in range(-STRESS_GRID, STRESS_GRID + 1):
             res = box_res if (gx + gz) % 2 == 0 else sph_res
@@ -325,6 +346,7 @@ def build_stress_scene(P, np, device, textured=True, panes=True,
             r.transforms.update_world()
             keys.append(r.meshes.insert(res, r.transforms.row_of(tk),
                                         r.materials.row_of(mat), tk, mat))
+            grid_tks.append(tk)
     for i in range(12 if panes else 0):
         a = 2 * np.pi * i / 12
         tk = r.transforms.insert(P.Transform(translation=np.array(
@@ -345,9 +367,82 @@ def build_stress_scene(P, np, device, textured=True, panes=True,
         r.lights.insert(P.Light.point(
             [np.cos(i) * 6, 2.0, np.sin(i) * 6],
             color=tuple(rng.uniform(0.4, 1, 3)), intensity=10.0, range=15.0))
+    if animated:
+        add_stress_animation(P, np, r, mats, grid_tks)
     r.environment.set_environment_from_equirect(env_ibl_equirect(np),
                                                 size=128)
     return r, keys, hud_key
+
+
+def add_stress_animation(P, np, r, mats, grid_tks):
+    """bench.py build_stress_scene(animated=True) through the port's API
+    (bench.py:180-201 and add_animation, :27-92): six morph spheres
+    (uv_sphere(0.4, 12, 24), a bulge and a squash target) on a ring of
+    radius 2.5 with weight players, rotation players (a full turn about y
+    over 4 s) on every tenth grid node (grid_tks[::10][:24]), and one
+    2-joint skinned box pillar whose top joint sways about z."""
+    from awsm_renderer_tpu_torch.core.animation import (
+        AnimationChannel, AnimationClip, AnimationPlayer, AnimationSampler,
+        TargetPath,
+    )
+    from awsm_renderer_tpu_torch.geometry import box, uv_sphere
+
+    F = np.float32
+    morph_keys = []
+    for i in range(6):
+        g = uv_sphere(0.4, rings=12, sectors=24)
+        V = g.positions.shape[0]
+        bulge = (g.positions * 0.35).reshape(1, V, 3)
+        squash = np.zeros((1, V, 3), F)
+        squash[0, :, 1] = -0.6 * g.positions[:, 1]
+        geo = P.MeshGeometry(
+            positions=g.positions, indices=g.indices, normals=g.normals,
+            uv0=g.uv0,
+            morph_positions=np.concatenate([bulge, squash]).astype(F),
+            morph_normals=np.zeros((2, V, 3), F))
+        a = 2 * np.pi * i / 6
+        morph_keys.append(r.add_mesh(geo, mats[i % 12], P.Transform(
+            translation=np.array([np.cos(a) * 2.5, 2.2, np.sin(a) * 2.5],
+                                 F))))
+    times = np.array([0.0, 1.0, 2.0, 3.0, 4.0], F)
+    quats = np.array([[0, np.sin(a / 2), 0, np.cos(a / 2)]
+                      for a in np.linspace(0, 2 * np.pi, 5)], F)
+    for tk in grid_tks[::10][:24]:
+        r.animations.insert(AnimationPlayer(clip=AnimationClip(channels=[
+            AnimationChannel(sampler=AnimationSampler(times=times,
+                                                      values=quats),
+                             path=TargetPath.ROTATION, transform_key=tk)]),
+            speed=1.0))
+    wvals = np.array([[0.0, 1.0], [1.0, 0.0], [0.0, 1.0]], F)
+    for mk in morph_keys:
+        r.animations.insert(AnimationPlayer(clip=AnimationClip(channels=[
+            AnimationChannel(sampler=AnimationSampler(
+                times=np.array([0.0, 1.0, 2.0], F), values=wvals),
+                path=TargetPath.WEIGHTS, mesh_key=mk)]), speed=1.3))
+    g = box(0.5)
+    V = g.positions.shape[0]
+    joints = np.zeros((V, 4), F)
+    joints[:, 0] = (g.positions[:, 1] > 0).astype(F)   # joint 1 on top
+    weights = np.zeros((V, 4), F)
+    weights[:, 0] = 1.0
+    root = r.transforms.insert(P.Transform(
+        translation=np.array([0.0, 2.5, 0.0], F)))
+    j1 = r.transforms.insert(P.Transform(), parent=root)
+    r.transforms.update_world()
+    skin = r.skins.insert([root, j1], np.tile(np.eye(4, dtype=F), (2, 1, 1)))
+    mat = r.materials.insert(P.PbrMaterial(
+        base_color_factor=np.array([0.9, 0.8, 0.2, 1.0], F)))
+    r.add_mesh(P.MeshGeometry(positions=g.positions, indices=g.indices,
+                              normals=g.normals, uv0=g.uv0, joints=joints,
+                              weights=weights),
+               mat, transform_key=root, skin_key=skin)
+    sway = np.array([[0, 0, np.sin(a / 2), np.cos(a / 2)]
+                     for a in (np.pi / 6) * np.sin(
+                         np.linspace(0, 2 * np.pi, 5))], F)
+    r.animations.insert(AnimationPlayer(clip=AnimationClip(channels=[
+        AnimationChannel(sampler=AnimationSampler(times=times, values=sway),
+                         path=TargetPath.ROTATION, transform_key=j1)])))
+    r.meshes.update_world(r.transforms)
 
 
 def orbit_camera(r, np, i: int, rad=None, height=7.0):
@@ -1372,6 +1467,181 @@ def phase_aa(P, np, torch):
     return results
 
 
+ANIM_PATH = ("rasterize16_msaa", "resolve_planes_fused", "onehot_split_rows",
+             "tap_plan_fused", "filter_taps_fused", "gather_split_channels",
+             "rasterize_binned_compact")
+
+
+def hold_split(label, split, whole, idx, n_rows: int, torch):
+    """The animated subset's rows of the split stage against the whole
+    pool's morph/skin stage: validity equal; material row and tangent
+    handedness bit-equal; S_ORIG_ID equal on the primaries (a secondary
+    row T + t of the subset carries t); the other columns within 3e-5 of
+    max(|v|, 1), the z-plane within 1e-4 / min(2*area in px^2, 1) (the
+    CPU test's tolerance, tests/test_torch_animated.py)."""
+    from awsm_renderer_tpu_torch.ops.vertex import (
+        NSETUP, S_BB_MINX, S_MAT_ROW, S_ORIG_ID, S_TANGENT_W, S_ZA, S_ZC,
+    )
+
+    T = n_rows
+    rows = torch.cat([idx, idx + T]) if split.shape[0] == 2 * T else idx
+    a, b = split.index_select(0, rows), whole.index_select(0, rows)
+    va, vb = a[:, S_BB_MINX] < 1e37, b[:, S_BB_MINX] < 1e37
+    n_valid = int(va.sum())
+    check(bool(torch.equal(va, vb)) and n_valid > 0,
+          f"{label}: the same {n_valid} of {rows.numel()} subset rows valid")
+    a, b = a[va], b[va]
+    n_int = sum(bit_mismatches(a[:, c].contiguous(), b[:, c].contiguous(),
+                               torch) for c in (S_MAT_ROW, S_TANGENT_W))
+    prim = rows[va] < T
+    n_int += int((a[prim, S_ORIG_ID] != b[prim, S_ORIG_ID]).sum())
+    err = (a - b).abs() / b.abs().clamp(min=1.0)
+    zc = torch.zeros(NSETUP, dtype=torch.bool, device=a.device)
+    zc[S_ZA:S_ZC + 1] = True
+    area = (b[:, 2] + b[:, 5] + b[:, 8]).abs().clamp(max=1.0)
+    e_rest = float(err[:, ~zc].max())
+    e_z = float((err[:, zc].max(dim=1).values * area).max())
+    log(f"  {label}: {n_int} integer mismatches; max relative error "
+        f"{e_rest:.3g} (limit 3e-5), z-plane {e_z:.3g} (limit 1e-4)")
+    check(n_int == 0 and e_rest <= 3e-5 and e_z <= 1e-4,
+          f"{label}: integer columns bit-equal, floats within tolerance")
+    return max(e_rest, e_z)
+
+
+def phase_animated(P, np, torch, aa_syncs: int):
+    """bench.py's animated probe (_animated_probe, bench.py:449-479): the
+    stress scene with its animated content, MSAA-4x, bloom and DoF at
+    1080p. The split against the whole-pool morph/skin stage; the
+    frame's kernels against their twins on its own intermediates; the
+    image moves with time; static and animated (update_all(1/60) before
+    each frame) timed frames; host syncs."""
+    from awsm_renderer_tpu_torch.ops import kernels
+    from awsm_renderer_tpu_torch.ops.raster import (
+        _rasterize_binned_compact, plane_layout, rasterize16_msaa,
+        rasterize16_msaa_reference, rasterize_binned_compact_reference,
+    )
+    from awsm_renderer_tpu_torch.ops.relayout import (
+        gather_split_channels, gather_split_channels_reference,
+        onehot_split_rows, onehot_split_rows_reference,
+    )
+    from awsm_renderer_tpu_torch.ops.shade import (
+        RESOLVE_NAMES, resolve_planes_fused, resolve_planes_reference,
+    )
+    from awsm_renderer_tpu_torch.passes.frame import _run_vertex
+
+    t0 = time.perf_counter()
+    r, _keys, _ = build_stress_scene(P, np, DEVICE, effects=True,
+                                     animated=True)
+    orbit_camera(r, np, 0)
+    info = r.meshes.mesh_info
+    n_tris = int((r.meshes.tri_mesh >= 0).sum())
+    log(f"phase animated: Stress-1080p-animated-msaa-bloom-dof (bench.py's "
+        f"animated probe: {sum(1 for _ in r.animations.items())} players, "
+        f"{int((info[:, 3] > 0).sum())} morphed meshes, "
+        f"{int((info[:, 5] > 0).sum())} skinned), {r.meshes.count} meshes, "
+        f"{n_tris} triangles, built in {time.perf_counter() - t0:.1f} s")
+    names = ("rasterize16_msaa", "resolve_planes_fused", "onehot_split_rows",
+             "tap_plan_fused", "filter_taps_fused", "gather_split_channels",
+             "_rasterize_binned_compact")
+    cap = capture_first_frame(r, names)
+    torch.cuda.synchronize()
+    prep, ds = r._prep[1], r._device
+    check(prep["has_morphs"] and prep["skin_sets"] == 1
+          and "anim_tri_idx" in ds,
+          f"the prep specializes morphs and {prep['skin_sets']} skin set and "
+          f"ships the animated set")
+    n_anim = ds["anim_tri_n"]
+    log(f"  animated subset: {n_anim} triangles in {ds['anim_tri_idx'].shape[0]}"
+        f" slots, of {ds['tri_mesh'].shape[0]} pool rows; morph bucket "
+        f"{ds['morph_weights'].shape[1]}")
+    res = {"n_anim": n_anim, "players": sum(1 for _ in r.animations.items())}
+
+    # ---- the split against the whole pool's morph/skin stage ------------
+    (srows,), kw9 = cap["rasterize16_msaa"]
+    w2, h2 = kw9["width2"], kw9["height2"]
+    vkw = dict(rw=w2, rh_full=h2, needs_clip=prep["masks"]["needs_clip"],
+               has_morphs=True, skin_sets=prep["skin_sets"])
+    split = _run_vertex(ds, prep["opaque_dev"], **vkw)
+    check(bool(torch.equal(split, srows[:split.shape[0]])),
+          "the frame's setup rows are the split stage's")
+    whole = _run_vertex({k: v for k, v in ds.items()
+                         if k not in ("anim_tri_idx", "anim_tri_n")},
+                        prep["opaque_dev"], **vkw)
+    torch.cuda.synchronize()
+    res["split_err"] = hold_split(
+        "split vs whole-pool morph/skin stage", split, whole,
+        ds["anim_tri_idx"][:n_anim].long(), ds["tri_mesh"].shape[0], torch)
+    del whole
+
+    # ---- the frame's kernels against their twins -------------------------
+    samp, depth, bins = rasterize16_msaa(srows, width2=w2, height2=h2)
+    rsamp, rdepth = rasterize16_msaa_reference(srows, bins, width2=w2,
+                                               height2=h2)
+    torch.cuda.synchronize()
+    n_bad = sum(bit_mismatches(a, b, torch) for a, b in zip(samp, rsamp))
+    n_bad += bit_mismatches(depth, rdepth, torch)
+    check(n_bad == 0, "K9 sample ids and depth bit-equal to the twin")
+    rw1 = -(-W // 128) * 128
+    entries = [("coord_scale", samp[0][:, :rw1].contiguous().reshape(-1),
+                srows, dict(width=rw1, coord_scale=2))]
+    if "resolve_planes_fused/xy" in cap:
+        (t_c, rows_c), kw_c = cap["resolve_planes_fused/xy"]
+        entries.append(("explicit_xy", t_c, rows_c, kw_c))
+    for label, t, rows_k, kw2 in entries:
+        a = resolve_planes_fused(t, rows_k, **kw2)
+        b = resolve_planes_reference(t, rows_k, **kw2)
+        bad = int((a["tri_id"] != b["tri_id"]).sum()) + sum(
+            int((~torch.isclose(a[k], b[k], rtol=1e-5, atol=1e-6)).sum())
+            for k in RESOLVE_NAMES[1:])
+        check(bad == 0, f"K2 [{label}] tri_id equal, planes within rtol "
+                        f"1e-5, atol 1e-6 of the twin")
+    (mat_row, table), _ = cap["onehot_split_rows"]
+    check(bit_mismatches(onehot_split_rows(mat_row, table),
+                         onehot_split_rows_reference(mat_row, table),
+                         torch) == 0, "K3 bit-equal to the twin")
+    (texels, idx, ncols), _ = cap["gather_split_channels"]
+    check(bit_mismatches(gather_split_channels(texels, idx, ncols),
+                         gather_split_channels_reference(texels, idx, ncols),
+                         torch) == 0, "K6 bit-equal to the twin")
+    check_k4_k5(cap, "animated", torch, timed=False)
+    (rows, zlo_c, zhi_c), kw8 = cap["_rasterize_binned_compact"]
+    hold_planes("K8 _rasterize_binned_compact (first peel)",
+                _rasterize_binned_compact(rows, zlo_c, zhi_c, **kw8),
+                rasterize_binned_compact_reference(
+                    rows, zlo_c, zhi_c, bins=kw8["bins"],
+                    tile_idx=kw8["tile_idx"], n_tx=kw8["n_tx"],
+                    names=plane_layout(kw8["has_uv1"], kw8["has_color"])),
+                torch)
+    del cap, samp, depth, bins, rsamp, rdepth, split
+
+    # ---- the image moves with time -----------------------------------------
+    img0 = r.render_device().clone()
+    r.update_all(0.5)
+    img1 = r.render_device()
+    check_image(img1, np, torch)
+    moved = int((img0 != img1).any(dim=-1).sum())
+    check(bool(torch.isfinite(img0).all()) and moved > 0,
+          f"the image moves with time: {moved} pixels differ after "
+          f"update_all(0.5)")
+
+    # ---- timed frames, host syncs -------------------------------------------
+    kernels.reset_launch_counts()
+    log(f"  static: {N_FRAMES} frames, no update")
+    res["static"] = orbit_frames(r, np, torch, lambda i: None, ANIM_PATH)[1:]
+    log(f"  animated: {N_FRAMES} frames, update_all(1/60) before each")
+    res["animated"] = orbit_frames(
+        r, np, torch, lambda i: r.update_all(1.0 / 60.0), ANIM_PATH)[1:]
+    res["syncs"] = count_syncs(r, torch, "animated MSAA + bloom + DoF",
+                               lambda i: r.update_all(1.0 / 60.0), 0)
+    check(res["syncs"] <= aa_syncs,
+          f"animated frame host syncs {res['syncs']} <= the MSAA orbit's "
+          f"{aa_syncs}")
+    check(ds["anim_tri_n"] == n_anim and r._anim_tri_idx()[1] == n_anim,
+          "the animated set stayed cached across animated frames")
+    kernels.reset_launch_counts()
+    return res
+
+
 # ---- the oracle: K11 against the binned kernels ----------------------------
 #
 # The dense raster (K11a) and dense peel (K11b) walk every chunk in index
@@ -2201,6 +2471,7 @@ def phase_golden(P, np, torch):
     more than 4/255)."""
     from PIL import Image
 
+    from awsm_renderer_tpu_torch.core import animation as A
     from awsm_renderer_tpu_torch.geometry import box, uv_sphere
     from awsm_renderer_tpu_torch.utils import math3d as m3
 
@@ -2280,15 +2551,94 @@ def phase_golden(P, np, torch):
         check(frac < 0.005, f"{name}: {frac:.4%} of channel values off "
                             f"by > 4/255 (limit 0.5%)")
 
-    log("phase golden: 128x64 probes and effect goldens, 256x128 glTF "
-        "goldens, 512x256 and 1024x512 parity goldens on the card")
+    def scene_morph_cube(r):
+        """demo/scenes.py scene_morph_cube: a box whose +y half stretches
+        by one morph target under a looping weight clip."""
+        geo = box()
+        deltas = np.zeros((1, geo.vertex_count, 3), np.float32)
+        deltas[0, :, 1] = np.where(geo.positions[:, 1] > 0, 1.0, 0.0)
+        geo.morph_positions = deltas
+        key = r.add_mesh(geo, r.materials.insert(P.PbrMaterial(
+            base_color_factor=np.array([0.3, 0.5, 0.9, 1], np.float32))))
+        r.animations.insert(A.AnimationPlayer(A.AnimationClip([
+            A.AnimationChannel(A.AnimationSampler(
+                times=[0, 1, 2], values=[[0.0], [1.0], [0.0]]),
+                A.TargetPath.WEIGHTS, mesh_key=key)])))
+        r.lights.insert(P.Light.directional([-0.5, -1.0, -0.3],
+                                            intensity=2.5))
+        return [2, 1.5, 3], [0, 0.3, 0]
+
+    def scene_rigged_simple(r):
+        """demo/scenes.py scene_rigged_simple: a 2-joint skinned column
+        that bends."""
+        h, seg = 2.0, 8
+        pos, idx = [], []
+        for yi, y in enumerate(np.linspace(0, h, seg + 1)):
+            pos += [[-0.25, y, 0], [0.25, y, 0]]
+            if yi:
+                a = (yi - 1) * 2
+                idx += [[a, a + 1, a + 2], [a + 2, a + 1, a + 3]]
+        pos = np.array(pos, np.float32)
+        V = len(pos)
+        w1 = np.clip(pos[:, 1] / h, 0, 1)
+        joints = np.zeros((V, 4), np.int32)
+        joints[:, 1] = 1
+        weights = np.zeros((V, 4), np.float32)
+        weights[:, 0] = 1 - w1
+        weights[:, 1] = w1
+        geo = P.MeshGeometry(
+            positions=pos, indices=np.array(idx, np.int32),
+            normals=np.tile(np.array([[0, 0, 1]], np.float32), (V, 1)),
+            joints=joints, weights=weights)
+        j0 = r.transforms.insert(P.Transform())
+        j1 = r.transforms.insert(P.Transform(
+            translation=np.array([0, h / 2, 0], np.float32)), parent=j0)
+        r.transforms.update_world()
+        ibm = np.stack([np.eye(4, dtype=np.float32)] * 2)
+        ibm[1, 1, 3] = -h / 2
+        skin = r.skins.insert([j0, j1], ibm)
+        r.add_mesh(geo, r.materials.insert(P.PbrMaterial(
+            base_color_factor=np.array([0.9, 0.6, 0.3, 1], np.float32),
+            double_sided=True)), skin_key=skin)
+        q0 = m3.quat_identity()
+        q1 = m3.quat_from_axis_angle([0, 0, 1], np.pi / 3)
+        r.animations.insert(A.AnimationPlayer(A.AnimationClip([
+            A.AnimationChannel(A.AnimationSampler(times=[0, 1, 2],
+                                                  values=[q0, q1, q0]),
+                               A.TargetPath.ROTATION, transform_key=j1)])))
+        r.lights.insert(P.Light.directional([-0.5, -1.0, -0.3],
+                                            intensity=2.5))
+        return [1.5, 1.4, 3.5], [0, 1, 0]
+
+    def scene_instanced(r):
+        """demo/scenes.py scene_instanced: one box resource, a ring of 12
+        instances."""
+        mat = r.materials.insert(P.PbrMaterial(
+            base_color_factor=np.array([0.4, 0.7, 0.9, 1], np.float32),
+            roughness_factor=0.5))
+        r.add_instanced_mesh(box(0.5), mat, [P.Transform(
+            translation=np.array([np.cos(a) * 2.2, 0, np.sin(a) * 2.2],
+                                 np.float32))
+            for a in 2 * np.pi * np.arange(12) / 12])
+        r.lights.insert(P.Light.directional([-0.5, -1.0, -0.3],
+                                            intensity=2.5))
+        return [0, 3.5, 5.0], [0, 0, 0]
+
+    log("phase golden: 128x64 probes (morph-cube, rigged-simple and "
+        "instanced included) and effect goldens, 256x128 glTF goldens "
+        "(the skinned, morphed and instanced entries included), 512x256 "
+        "and 1024x512 parity goldens on the card")
     for name, fn in (("box", scene_box), ("env-ibl", scene_env_ibl),
                      ("box-textured", scene_box_textured),
-                     ("alpha-blend", scene_alpha_blend)):
+                     ("alpha-blend", scene_alpha_blend),
+                     ("morph-cube", scene_morph_cube),
+                     ("rigged-simple", scene_rigged_simple),
+                     ("instanced", scene_instanced)):
         r = P.AwsmRendererTorch(P.RendererConfig(width=128, height=64),
                                 device=DEVICE)
-        eye = fn(r)
-        r.update_all(0.35, m3.look_at(eye, [0, 0, 0], [0, 1, 0]),
+        view = fn(r)        # the eye, or (eye, centre)
+        eye, center = view if isinstance(view, tuple) else (view, [0, 0, 0])
+        r.update_all(0.35, m3.look_at(eye, center, [0, 1, 0]),
                      m3.perspective(np.pi / 3, 2.0, 0.05, 500.0))
         hold(name, r.render_u8())
 
@@ -2426,7 +2776,10 @@ def phase_golden(P, np, torch):
 
     for name in ("glb-helmet", "glb-texture-transform", "glb-multi-uv",
                  "glb-ext-clearcoat", "glb-alpha-modes",
-                 "glb-ext-transmission", "glb-sponza-lite"):
+                 "glb-ext-transmission", "glb-sponza-lite", "glb-fox",
+                 "glb-instanced", "glb-many-influences", "glb-morph-stress",
+                 "glb-morphed", "glb-recursive-skeletons", "glb-skinned",
+                 "glb-two-skins"):
         glb, (eye, center) = SAMPLES[name]()
         path = os.path.join(out_dir, f"{name}.glb")
         with open(path, "wb") as f:
@@ -2519,6 +2872,7 @@ def main() -> int:
     del r, cap
     aa = phase_aa(P, np, torch)
     results["K9"] = aa["K9"]
+    an = phase_animated(P, np, torch, aa["syncs"])
     orc = phase_oracle(P, np, torch, cap_k1, k8_calls, ov.pop("k7_calls"),
                        aa.pop("msaa_in"))
     del cap_k1, k8_calls
@@ -2559,6 +2913,16 @@ def main() -> int:
     log(f"frame Stress-1080p-msaa-bloom-dof: median {a_med:.3f} ms/frame "
         f"(CUDA events), host wall {a_wall:.3f} ms/frame, {aa['syncs']} host"
         f" syncs/frame, at {W}x{H} ({card})")
+    for label in ("static", "animated"):
+        m_, w_, c_ = an[label]
+        log(f"frame Stress-1080p-animated-msaa-bloom-dof, {label}: median "
+            f"{m_:.3f} ms/frame (CUDA events), host wall {w_:.3f} ms/frame, "
+            f"{sum(c_.values())} kernel launches over {N_FRAMES} frames, at "
+            f"{W}x{H} ({card})")
+    log(f"frame Stress-1080p-animated-msaa-bloom-dof: {an['syncs']} host "
+        f"syncs/frame with update_all before each frame, {an['players']} "
+        f"players, {an['n_anim']} triangles in the animated subset, split "
+        f"vs whole-pool max relative error {an['split_err']:.3g} ({card})")
     t_med, t_wall, t_counts = tm["frames"]
     log(f"frame Stress-1080p-temporal-orbit: median {t_med:.3f} ms/frame "
         f"(CUDA events), host wall {t_wall:.3f} ms/frame, {tm['syncs']} "

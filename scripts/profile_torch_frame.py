@@ -10,8 +10,12 @@ HUD box, chip_smoke.py's overlay (b) scene; --scene stress-msaa: the
 stress scene in bench.py's headline configuration, MSAA + bloom + DoF,
 chip_smoke.py's aa scene; --scene stress-temporal: the stress scene in
 bench.py's temporal headline configuration, temporal AA + bloom + DoF on
-bench.py's orbit arc, chip_smoke.py's temporal scene; --scene helmet:
-the glTF catalog's helmet),
+bench.py's orbit arc, chip_smoke.py's temporal scene; --scene
+stress-animated: bench.py's animated probe, the stress-msaa scene plus
+its morph spheres, rotating nodes and skinned pillar under a static
+camera, with update_all(1/60) before each frame, chip_smoke.py's
+animated scene; --scene stress-animated-static: the same scene without
+the updates; --scene helmet: the glTF catalog's helmet),
 warms up, then:
   1. renders --frames orbit frames with the profiler off: median ms/frame
      from CUDA events around each frame, and host wall ms/frame;
@@ -23,7 +27,8 @@ warms up, then:
 Usage (repo root, one card):
     python3 scripts/profile_torch_frame.py
         [--scene stress|stress-untextured|stress-volume|stress-msaa|
-                 stress-temporal|helmet]
+                 stress-temporal|stress-animated|stress-animated-static|
+                 helmet]
         [--width 1920 --height 1080]
 """
 
@@ -46,7 +51,8 @@ def main() -> int:
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--scene", choices=("stress", "stress-untextured",
                                         "stress-volume", "stress-msaa",
-                                        "stress-temporal", "helmet"),
+                                        "stress-temporal", "stress-animated",
+                                        "stress-animated-static", "helmet"),
                     default="stress")
     args = ap.parse_args()
 
@@ -67,13 +73,18 @@ def main() -> int:
             P, np, "cuda", textured=args.scene != "stress-untextured",
             volume=args.scene == "stress-volume",
             hud=args.scene == "stress-volume",
-            effects=args.scene in ("stress-msaa", "stress-temporal"),
-            temporal=args.scene == "stress-temporal")
+            effects=args.scene not in ("stress", "stress-untextured",
+                                       "stress-volume"),
+            temporal=args.scene == "stress-temporal",
+            animated=args.scene.startswith("stress-animated"))
+        CS.orbit_camera(r, np, 0)
 
         def camera(i):
             if args.scene == "stress-temporal":
                 CS.temporal_camera(r, np, i)
-            else:
+            elif args.scene == "stress-animated":
+                r.update_all(1.0 / 60.0)
+            elif args.scene != "stress-animated-static":
                 CS.orbit_camera(r, np, i)
     else:
         r, camera, _ = CS.build_helmet_scene(P, np, "cuda")

@@ -37,12 +37,31 @@ def camera(scene_info):
             m3.perspective(np.pi / 3, W / H, 0.05, 500.0))
 
 
+# demo/scenes.py's animation classes: a port renderer's players must be
+# the port's own (its sampler and channel code compare the port's enums)
+_ANIMATION = ("AnimationChannel", "AnimationClip", "AnimationPlayer",
+              "AnimationSampler", "TargetPath")
+
+
 def build(renderer, scene: str):
     """Populate `renderer` with demo scene `scene` and the golden-test
-    camera (tests/test_golden.py), advancing animations by 0.35 s."""
-    from demo.scenes import SCENES
+    camera (tests/test_golden.py), advancing animations by 0.35 s. For a
+    port renderer the scene is built with the port's animation classes
+    in place of the JAX package's."""
+    from demo import scenes
 
-    view, proj = camera(SCENES[scene](renderer))
+    saved = {n: getattr(scenes, n) for n in _ANIMATION}
+    if type(renderer).__module__.startswith("awsm_renderer_tpu_torch"):
+        from awsm_renderer_tpu_torch.core import animation
+
+        for n in _ANIMATION:
+            setattr(scenes, n, getattr(animation, n))
+    try:
+        info = scenes.SCENES[scene](renderer)
+    finally:
+        for n, v in saved.items():
+            setattr(scenes, n, v)
+    view, proj = camera(info)
     renderer.update_all(0.35, view, proj)
     return renderer
 

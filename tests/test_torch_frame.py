@@ -19,7 +19,7 @@ import pytest
 import _torch_port as T
 
 GOLDENS = ("triangle", "box", "metal-rough-spheres", "env-ibl",
-           "box-textured")
+           "box-textured", "morph-cube", "rigged-simple", "instanced")
 FRAMES = ("box", "metal-rough-spheres", "env-ibl", "box-textured")
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 

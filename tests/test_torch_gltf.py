@@ -4,11 +4,10 @@ environment loaders against the JAX package's (packed maps bit for bit),
 and the whole generated glTF catalog through load_gltf -> populate_gltf
 -> AwsmRendererTorch.render_u8() against the checked-in goldens.
 
-Every catalog entry either renders and matches its golden at
+Every catalog entry renders and matches its golden at
 tests/test_gltf_golden.py's tolerance (< 0.5% of channel values off by
-more than 4/255, same camera, 256x128, Khronos PBR Neutral), or raises
-NotImplementedError naming the ROADMAP milestone that ports its content
-(M2b skins / morphs / instancing)."""
+more than 4/255, same camera, 256x128, Khronos PBR Neutral): the skinned,
+morphed and instanced entries included."""
 
 import os
 
@@ -20,24 +19,22 @@ from awsm_renderer_tpu_torch.gltf.samples import SAMPLES
 F = np.float32
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 W, H = 256, 128
-# catalog entries the port renders; every other entry raises
+# catalog entries the port renders (all of them); RAISES maps an entry
+# the port refuses to the ROADMAP milestone its refusal names (none)
 RENDERED = (
     "glb-alpha-modes", "glb-box-animated", "glb-cameras",
     "glb-ext-anisotropy", "glb-ext-clearcoat", "glb-ext-iridescence",
     "glb-ext-sheen", "glb-ext-specular", "glb-ext-transmission",
-    "glb-ext-unlit", "glb-extensions-compare", "glb-helmet",
-    "glb-interleaved", "glb-metal-rough-spheres", "glb-mirrored-tangent",
-    "glb-multi-uv", "glb-negative-scale", "glb-non-indexed",
+    "glb-ext-unlit", "glb-extensions-compare", "glb-fox", "glb-helmet",
+    "glb-instanced", "glb-interleaved", "glb-many-influences",
+    "glb-metal-rough-spheres", "glb-mirrored-tangent", "glb-morph-stress",
+    "glb-morphed", "glb-multi-uv", "glb-negative-scale", "glb-non-indexed",
     "glb-normalized-attrs", "glb-npot-texture", "glb-orientation",
-    "glb-sparse-displaced", "glb-sponza-lite", "glb-strip-fan",
-    "glb-texture-settings", "glb-texture-transform", "glb-unlit",
+    "glb-recursive-skeletons", "glb-skinned", "glb-sparse-displaced",
+    "glb-sponza-lite", "glb-strip-fan", "glb-texture-settings",
+    "glb-texture-transform", "glb-two-skins", "glb-unlit",
 )
-RAISES = {
-    "glb-fox": "M2b", "glb-instanced": "M2b", "glb-many-influences": "M2b",
-    "glb-morph-stress": "M2b", "glb-morphed": "M2b",
-    "glb-recursive-skeletons": "M2b", "glb-skinned": "M2b",
-    "glb-two-skins": "M2b",
-}
+RAISES = {}
 
 
 def _golden_frac(name, img):

@@ -18,13 +18,14 @@ import _torch_port as T
 
 SCENES = ("triangle", "box", "metal-rough-spheres", "env-ibl",
           "box-textured")
-# device-dict entries both renderers upload for the static, untextured
-# slice (the JAX side also carries skin/morph pools and the BRDF LUT)
+# device-dict entries both renderers upload (the JAX side also carries
+# the BRDF LUT)
 COMPARED = ("world", "normal_mat", "c_pos", "c_norm", "c_tang", "c_uv0",
-            "c_uv1", "c_color", "tri_mesh", "mesh_info", "mat_float",
-            "mat_tex", "mat_flags", "lights", "n_lights", "tex_desc",
-            "tex_transforms", "texels", "skybox", "irradiance",
-            "prefiltered")
+            "c_uv1", "c_color", "c_joints", "c_weights", "c_morph_base",
+            "tri_mesh", "mesh_info", "morph_deltas", "morph_weights",
+            "joint_matrices", "mat_float", "mat_tex", "mat_flags", "lights",
+            "n_lights", "tex_desc", "tex_transforms", "texels", "skybox",
+            "irradiance", "prefiltered")
 
 
 @pytest.fixture(scope="module")
@@ -241,10 +242,6 @@ def _transmission(r):
             translation=np.array([0, 0.9, 0], np.float32)))
 
 
-def _skinned_gltf(r):
-    T.gltf_scene(r, "glb-skinned")
-
-
 def _supersample(r):
     from dataclasses import replace
 
@@ -261,9 +258,6 @@ def _temporal(r):
 
 @pytest.mark.parametrize("scene, edit, milestone", [
     ("box", _many_lights, "M12"),
-    ("box", _skinned_gltf, "M2b"),
-    ("morph-cube", None, "M2b"),
-    ("instanced", None, "M2b"),
 ])
 def test_out_of_slice_content_raises(scene, edit, milestone):
     r = T.torch_renderer(scene)
