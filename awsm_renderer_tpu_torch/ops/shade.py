@@ -6,9 +6,12 @@ Port of the opaque path of awsm_renderer_tpu/ops/shade.py: every texture
 slot, KHR_texture_transform, normal mapping, the opaque material
 extensions (clearcoat, sheen, iridescence, anisotropy, specular), the
 debug views, a solid or image environment, the dense punctual-light
-loop. Transmission and volume act only in the transparent pass, which is
-not ported. All shading math runs on flat (P,) channel planes
-(ops/cvec.py lists); camera and light parameters enter as Python floats.
+loop and the tiled light lists (passes/light_culling.py); the
+transparent pass's forward shade and composite, band-wide, compacted
+over 8x128 tiles or rasterized compacted over 32x32 tiles. All shading
+math runs on flat (P,) channel planes (ops/cvec.py lists); camera
+parameters and the dense loop's light rows enter as Python floats, the
+tiled loop's light rows as the device table.
 """
 
 from __future__ import annotations
@@ -119,17 +122,113 @@ def _one_light(row, n_pos, n, v, base_diffuse, f0, alpha_rough, n_dot_v,
     return total
 
 
-def _punctual_lights(lights_host, n_lights: int, n_pos, n, v, base_diffuse,
-                     f0, alpha_rough):
-    """Dense punctual loop over the live lights (rows >= n_lights would
-    add exact zeros in the reference's masked capacity loop)."""
+def _one_light_listed(row, active, n_pos, n, v, base_diffuse, f0,
+                      alpha_rough, n_dot_v, total):
+    """Shade one slot of the tiled lists into `total`: row(j) gives the
+    (n_units, 1) column of light field j, one light a unit, broadcasting
+    against (n_units, 128) pixel planes; `active` (n_units, 1) marks the
+    units whose slot holds a light. The kind, range and spot branches of
+    _one_light are selects here, in the reference's factor order (its
+    _one_light, the form both of its loops share)."""
+    kind = row(L_KIND)
+    lrange = row(L_RANGE)
+    is_dir = kind == 0.0
+    tl = [torch.where(is_dir, -row(L_DIRECTION + k),
+                      row(L_POSITION + k) - n_pos[k]) for k in range(3)]
+    dist = torch.sqrt(dot3(tl, tl))
+    inv_d = 1.0 / torch.clamp(dist, min=_EPS)
+    l = v_scale(tl, inv_d)
+    atten = torch.where(is_dir, 1.0,
+                        1.0 / torch.clamp(dist * dist, min=_EPS))
+    window = torch.where(
+        (lrange > 0.0) & ~is_dir,
+        torch.clamp(1.0 - (dist / torch.clamp(lrange, min=_EPS)) ** 4,
+                    0.0, 1.0) ** 2, 1.0)
+    cd = -(l[0] * row(L_DIRECTION) + l[1] * row(L_DIRECTION + 1)
+           + l[2] * row(L_DIRECTION + 2))
+    spot = torch.where(
+        kind == 2.0,
+        torch.clamp((cd - row(L_OUTER_COS))
+                    / torch.clamp(row(L_INNER_COS) - row(L_OUTER_COS),
+                                  min=1e-4), 0.0, 1.0), 1.0)
+    n_dot_l = torch.clamp(dot3(n, l), min=0.0)
+    h = norm3(v_add(l, v))
+    n_dot_h = torch.clamp(dot3(n, h), min=0.0)
+    v_dot_h = torch.clamp(dot3(v, h), min=0.0)
+    f = brdf.f_schlick3(v_dot_h, f0)
+    spec_s = brdf.specular_ggx(n_dot_l, n_dot_v, n_dot_h, alpha_rough)
+    rad = atten * window * spot * n_dot_l * row(4)
+    gated = torch.where(active, rad, 0.0)
+    inv_pi = 1.0 / math.pi
+    for c in range(3):
+        lobe = base_diffuse[c] * inv_pi * (1.0 - f[c]) + spec_s * f[c]
+        total[c] = total[c] + (row(L_COLOR + c) * gated) * lobe
+    return total
+
+
+def _punctual_lights(ds, n_pos, n, v, base_diffuse, f0, alpha_rough,
+                     light_tiles: bool, valid):
+    """Punctual lighting: the dense loop over the live lights (rows >=
+    n_lights would add exact zeros in the reference's masked capacity
+    loop), or with light_tiles the tiled-list loop over the covered
+    (`valid`) pixels' unit boxes."""
+    if light_tiles:
+        return _punctual_lights_tiled(ds, n_pos, n, v, base_diffuse, f0,
+                                      alpha_rough, valid)
     n_dot_v = torch.clamp(dot3(n, v), min=_EPS)
     total = [torch.zeros_like(alpha_rough) for _ in range(3)]
-    for li in range(n_lights):
-        row = [float(x) for x in lights_host[li]]
+    for li in range(ds["n_lights"]):
+        row = [float(x) for x in ds["lights_host"][li]]
         total = _one_light(row, n_pos, n, v, base_diffuse, f0, alpha_rough,
                            n_dot_v, total)
     return total
+
+
+def _punctual_lights_tiled(ds, n_pos, n, v, base_diffuse, f0, alpha_rough,
+                           valid):
+    """Tiled-light-list punctual lighting (reference: shade.py
+    _punctual_lights_tiled). The (P,) planes cut into units of 128
+    consecutive pixels, the same pixels as the reference's in every shade
+    layout; each unit's world AABB over its covered (`valid`) pixels
+    (miss pixels reconstruct at the far plane and would stretch the box)
+    selects up to MAX_LIGHTS_PER_TILE lights
+    (passes/light_culling.py), and the loop runs the list's K slots with
+    one light row a unit. Equal to the dense loop up to summation order
+    whenever at most MAX_LIGHTS_PER_TILE lights reach any unit; beyond
+    that a unit drops its faintest lights by estimated contribution."""
+    from ..passes import light_culling as LC
+
+    lights = ds["lights"]                   # (L, 16) device rows
+    K = min(LC.MAX_LIGHTS_PER_TILE, lights.shape[0])
+    P = alpha_rough.shape[0]
+    U = 128
+    n_units = P // U
+
+    def units(x):
+        return x.reshape(n_units, U)
+
+    pos_u = [units(p) for p in n_pos]
+    v_u = units(valid)
+    mn = [torch.where(v_u, p, 3e38).amin(dim=1) for p in pos_u]
+    mx = [torch.where(v_u, p, -3e38).amax(dim=1) for p in pos_u]
+    lidx, listed = LC.light_lists_from_bounds(mn, mx, lights,
+                                              ds["n_lights"], K)
+
+    n_dot_v = units(torch.clamp(dot3(n, v), min=_EPS))
+    args = ([units(x) for x in n], [units(x) for x in v],
+            [units(x) for x in base_diffuse], [units(x) for x in f0],
+            units(alpha_rough), n_dot_v)
+    total = [torch.zeros((n_units, U), device=lights.device)
+             for _ in range(3)]
+    for k in range(K):
+        params = lights.index_select(0, lidx[:, k])   # (n_units, 16)
+
+        def row(j):
+            return params[:, j:j + 1]
+
+        total = _one_light_listed(row, listed[:, k:k + 1], pos_u, *args,
+                                  total)
+    return [t.reshape(P) for t in total]
 
 
 def _material_table(ds) -> torch.Tensor:
@@ -317,7 +416,8 @@ def shade_surface(planes, ds, *, width: int, height: int, solid_env: bool,
                   has_nearest: bool = True, ext=NO_EXT,
                   debug_mode: str = "none", height_full: int | None = None,
                   row_offset: int = 0, transparent_pass: bool = False,
-                  want_sky: bool = False, n_layer_tiles: int = 1):
+                  want_sky: bool = False, n_layer_tiles: int = 1,
+                  light_tiles: bool = False):
     """Fragment shading shared by the opaque, transparent and HUD passes
     -> (rgb [3 planes], alpha, valid, n_final [3 planes]), plus the miss
     path's sky colour [3 planes or floats] with want_sky, or the
@@ -335,11 +435,14 @@ def shade_surface(planes, ds, *, width: int, height: int, solid_env: bool,
     compiles to constants, as the reference's shader-template variables
     do). alpha is 1 / the mask cutoff test / base alpha per alpha mode (the
     editor grid's line alpha in the transparent pass). debug_mode: none |
-    ibl | punctual | material | channel:<name>."""
+    ibl | punctual | material | channel:<name>. light_tiles: punctual
+    lights through per-unit tiled lists (_punctual_lights_tiled) instead
+    of the dense loop."""
     P = width * height
     H_full = height if height_full is None else height_full
     dev = planes["tri_id"].device
     miss = planes["tri_id"] < 0
+    valid = ~miss
     depth = planes["depth"]
     uv0 = (planes["uv0_u"], planes["uv0_v"])
     uv1 = (planes["uv1_u"], planes["uv1_v"]) if "uv1_u" in planes else uv0
@@ -499,8 +602,9 @@ def shade_surface(planes, ds, *, width: int, height: int, solid_env: bool,
         transmission = torch.zeros_like(metallic)
 
     # ---- punctual + IBL -----------------------------------------------------
-    direct = _punctual_lights(ds["lights_host"], ds["n_lights"], world_pos,
-                              n_final, v, c_diff, f0, alpha_rough)
+    direct = _punctual_lights(ds, world_pos, n_final, v, c_diff, f0,
+                              alpha_rough, light_tiles=light_tiles,
+                              valid=valid)
     n_dot_v = torch.clamp(dot3(n_final, v), min=_EPS)
 
     # KHR_materials_anisotropy: bend the IBL lobe along the tangent or
@@ -714,16 +818,17 @@ def shade_surface(planes, ds, *, width: int, height: int, solid_env: bool,
     color = v_where(is_unlit, base[:3], pbr_color)
     if transparent_pass:
         color = v_where(is_grid, base[:3], color)
-        return color, alpha, ~miss, n_final, trans_factor, refr_info
+        return color, alpha, valid, n_final, trans_factor, refr_info
     if want_sky:
-        return color, alpha, ~miss, n_final, sky
-    return color, alpha, ~miss, n_final
+        return color, alpha, valid, n_final, sky
+    return color, alpha, valid, n_final
 
 
 def shade_deferred_c(vis, ds, *, width: int, height: int,
                      solid_env: bool = False, use_mips: bool = True,
                      slot_mask=NO_SLOTS, has_nearest: bool = True,
-                     ext=NO_EXT, debug_mode: str = "none"):
+                     ext=NO_EXT, debug_mode: str = "none",
+                     light_tiles: bool = False):
     """Deferred opaque shade -> HDR linear [r, g, b, a] (P,) planes: the
     shaded surface where covered, the skybox on a miss, alpha = coverage.
     debug_mode "normals" shows the shading normal; ibl | punctual |
@@ -735,7 +840,8 @@ def shade_deferred_c(vis, ds, *, width: int, height: int,
     color, _alpha, valid, n_final, sky = shade_surface(
         planes, ds, width=width, height=height, solid_env=solid_env,
         use_mips=use_mips, slot_mask=slot_mask, has_nearest=has_nearest,
-        ext=ext, debug_mode=surf_mode, want_sky=True)
+        ext=ext, debug_mode=surf_mode, want_sky=True,
+        light_tiles=light_tiles)
     if debug_mode == "normals":
         color = [n_final[c] * 0.5 + 0.5 for c in range(3)]
     out = [torch.where(valid, color[c], sky[c]) for c in range(3)]
@@ -764,7 +870,8 @@ def _tile_unswizzle(t: torch.Tensor, H: int, W: int):
 
 def shade_units_c(tid_c, dep_c, idx, setup_rows, ds, *, width: int,
                   height: int, coord_scale: int, use_mips: bool, slot_mask,
-                  solid_env: bool, has_nearest: bool, ext, debug_mode: str):
+                  solid_env: bool, has_nearest: bool, ext, debug_mode: str,
+                  light_tiles: bool = False):
     """Shade an explicit set of C compacted (th, 128) units (th =
     OPAQUE_TILE_ROWS; reference: shade.py shade_units_c) of a height-row
     frame: the MSAA frame's covered units and the temporal frame's
@@ -801,7 +908,7 @@ def shade_units_c(tid_c, dep_c, idx, setup_rows, ds, *, width: int,
         planes, ds, width=128, height=C * th, height_full=height,
         solid_env=solid_env, use_mips=use_mips, slot_mask=slot_mask,
         has_nearest=has_nearest, ext=ext, debug_mode=surf_mode,
-        want_sky=True)
+        want_sky=True, light_tiles=light_tiles)
     if debug_mode == "normals":
         color = [n_final[c] * 0.5 + 0.5 for c in range(3)]
     return [torch.where(valid, color[c], sky[c]) for c in range(3)], valid
@@ -810,7 +917,8 @@ def shade_units_c(tid_c, dep_c, idx, setup_rows, ds, *, width: int,
 def shade_deferred_compact_c(tid_flat, setup_rows, depth_flat, ds, *,
                              width: int, height: int, use_mips: bool,
                              slot_mask, solid_env: bool, has_nearest: bool,
-                             ext, debug_mode: str, tile_cap: int):
+                             ext, debug_mode: str, tile_cap: int,
+                             light_tiles: bool = False):
     """Covered-tile-compacted deferred opaque shade (reference: shade.py
     shade_deferred_compact_c; the MSAA frame's, whose ids come from the
     top-left samples of a 2x raster).
@@ -837,7 +945,8 @@ def shade_deferred_compact_c(tid_flat, setup_rows, depth_flat, ds, *,
     out_c, valid = shade_units_c(
         tid_c, dep_c, idx, setup_rows, ds, width=W, height=H, coord_scale=2,
         use_mips=use_mips, slot_mask=slot_mask, solid_env=solid_env,
-        has_nearest=has_nearest, ext=ext, debug_mode=debug_mode)
+        has_nearest=has_nearest, ext=ext, debug_mode=debug_mode,
+        light_tiles=light_tiles)
 
     R = n_tiles - C
     rest_sky = None
@@ -914,11 +1023,11 @@ def shade_transparent_layers_c(layers, opaque_ch, ds, *, width: int,
                                row_offset: int = 0, use_mips: bool = True,
                                slot_mask=NO_SLOTS, solid_env: bool = False,
                                has_nearest: bool = True, ext=NO_EXT,
-                               n_layers: int = 4):
+                               n_layers: int = 4, tile_cap: int | None = None,
+                               light_tiles: bool = False):
     """Forward-shade K depth-peeled transparent layers and composite them
     back to front over the opaque band (reference: shade.py
-    shade_transparent_layers_c without a tile cap, which the frame never
-    passes).
+    shade_transparent_layers_c).
 
     layers: {name: (K, P)} from rasterize_layers_rows; opaque_ch [r, g, b,
     a] (P,) planes. Layers shade in batched calls on stacked (Kg*P,)
@@ -928,12 +1037,24 @@ def shade_transparent_layers_c(layers, opaque_ch, ds, *, width: int,
     pre-transparent opaque image: at the fragment's own pixel, or with
     KHR_materials_volume at the refracted exit pixel, gathered by K6's
     f32 entry (offscreen exits take the prefiltered IBL colour).
+
+    tile_cap: covered-tile compaction over (8, 128) tiles
+    (_shade_transparent_compact), taken when the cap leaves part of the
+    band out and the planes are fat; no frame path passes it (the frame
+    compacts at the raster instead, shade_transparent_compact32).
     Returns [r, g, b, a] (P,) planes."""
     from .relayout import gather_split_channels_f32
 
     H, W, K = height, width, n_layers
     H_full = height if height_full is None else height_full
     P = H * W
+    if (tile_cap is not None and H % OPAQUE_TILE_ROWS == 0 and W % 128 == 0
+            and tile_cap * OPAQUE_TILE_ROWS * 128 < P and "uv0_u" in layers):
+        return _shade_transparent_compact(
+            layers, opaque_ch, ds, width=W, height=H, height_full=H_full,
+            row_offset=row_offset, use_mips=use_mips, slot_mask=slot_mask,
+            solid_env=solid_env, has_nearest=has_nearest, ext=ext,
+            n_layers=K, tile_cap=tile_cap, light_tiles=light_tiles)
 
     def shade_group(k0, Kg, out_rgb):
         flat = {k: v[k0:k0 + Kg].reshape(Kg * P) for k, v in layers.items()}
@@ -941,7 +1062,7 @@ def shade_transparent_layers_c(layers, opaque_ch, ds, *, width: int,
             flat, ds, width=W, height=Kg * H, height_full=H_full,
             row_offset=row_offset, use_mips=use_mips, slot_mask=slot_mask,
             solid_env=solid_env, has_nearest=has_nearest, ext=ext,
-            transparent_pass=True, n_layer_tiles=Kg)
+            transparent_pass=True, n_layer_tiles=Kg, light_tiles=light_tiles)
         if refr is not None:
             idx, use_fb, fb = refr
             got = gather_split_channels_f32(torch.stack(opaque_ch, dim=-1),
@@ -956,13 +1077,78 @@ def shade_transparent_layers_c(layers, opaque_ch, ds, *, width: int,
     return out + [opaque_ch[3]]
 
 
+def _shade_transparent_compact(layers, opaque_ch, ds, *, width: int,
+                               height: int, height_full: int,
+                               row_offset: int, use_mips: bool, slot_mask,
+                               solid_env: bool, has_nearest: bool, ext,
+                               n_layers: int, tile_cap: int,
+                               light_tiles: bool = False):
+    """Covered-tile-compacted K-layer transparent shade + composite
+    (reference: shade.py _shade_transparent_compact, reached through
+    shade_transparent_layers_c(tile_cap=...)). The band planes cut into
+    (8, 128) tiles; the tiles layer 0 covers come first (a stable
+    argsort: a peel's coverage lies inside layer 0's) and the first C =
+    min(tile_cap, n_tiles) are shaded with their NDC coordinates and uv
+    gradients riding as planes (screen differences taken band-wide first
+    when the raster emitted none); only the composited rgb scatters back.
+    Equal to the band path whenever the cap covers every tile layer 0
+    touches. Not valid with KHR_materials_volume."""
+    if ext[EXT_VOLUME]:
+        raise ValueError("refraction needs band-space planes")
+    H, W, K, th = height, width, n_layers, OPAQUE_TILE_ROWS
+    P = H * W
+    U = th * 128
+    n_tiles = (H // th) * (W // 128)
+    C = min(tile_cap, n_tiles)
+    planes = dict(layers)
+    if "du0_dx" not in planes:
+        u, v = (planes[k].reshape(K * P) for k in ("uv0_u", "uv0_v"))
+        for name, ch, vert in (("du0_dx", u, False), ("dv0_dx", v, False),
+                               ("du0_dy", u, True), ("dv0_dy", v, True)):
+            planes[name] = _screen_gradient(ch, W, K * H, vertical=vert,
+                                            layers=K).reshape(K, P)
+    sw = {k: _tile_swizzle(v, H, W) for k, v in planes.items()}
+    cov = (sw["tri_id"][0] >= 0).any(dim=-1)
+    idx = torch.argsort((~cov).to(torch.int8), stable=True)[:C]
+    comp = {k: v.index_select(1, idx) for k, v in sw.items()}
+
+    ntx = W // 128
+    q = torch.arange(U, dtype=torch.float32, device=idx.device)
+    gx = (idx % ntx).float()[:, None] * 128.0 + (q % 128)[None, :]
+    gy = (torch.div(idx, ntx, rounding_mode="floor").float()[:, None]
+          * float(th) + torch.floor(q / 128)[None, :] + float(row_offset))
+    Pc = C * U
+    ndc_x = ((gx + 0.5) / W * 2.0 - 1.0).reshape(Pc)
+    ndc_y = (1.0 - (gy + 0.5) / height_full * 2.0).reshape(Pc)
+    ob_full = [_tile_swizzle(opaque_ch[c], H, W) for c in range(3)]
+    ob = [f.index_select(0, idx).reshape(Pc) for f in ob_full]
+
+    def shade_group(k0, Kg, out_rgb):
+        flat = {k: v[k0:k0 + Kg].reshape(Kg * Pc) for k, v in comp.items()}
+        flat["ndc_x"] = ndc_x.repeat(Kg)
+        flat["ndc_y"] = ndc_y.repeat(Kg)
+        color, alpha, valid, _n, trans, _refr = shade_surface(
+            flat, ds, width=128, height=Kg * C * th, height_full=height_full,
+            use_mips=use_mips, slot_mask=slot_mask, solid_env=solid_env,
+            has_nearest=has_nearest, ext=ext, transparent_pass=True,
+            light_tiles=light_tiles)
+        bg = [o.expand(Kg, Pc) for o in ob]
+        return _composite(color, alpha, valid, trans, bg, out_rgb)
+
+    out = _shade_deep_then_front(comp, K, shade_group, ob)
+    out_full = [_tile_unswizzle(ob_full[c].index_copy(
+        0, idx, out[c].reshape(C, U)), H, W) for c in range(3)]
+    return out_full + [opaque_ch[3]]
+
+
 def shade_transparent_compact32(layers, tile_idx, opaque_ch, ds, *,
                                 width: int, height: int, height_full: int,
                                 row_offset: int, n_tx: int,
                                 use_mips: bool = True, slot_mask=NO_SLOTS,
                                 solid_env: bool = False,
                                 has_nearest: bool = True, ext=NO_EXT,
-                                n_layers: int = 4):
+                                n_layers: int = 4,
+                                light_tiles: bool = False):
     """Shade + composite K peels rasterized in covered-tile-compacted
     space (rasterize_layers_compact; reference: shade.py
     shade_transparent_compact32).
@@ -1012,7 +1198,8 @@ def shade_transparent_compact32(layers, tile_idx, opaque_ch, ds, *,
         color, alpha, valid, _n, trans, _refr = shade_surface(
             flat, ds, width=128, height=Kg * C * 8, height_full=height_full,
             use_mips=use_mips, slot_mask=slot_mask, solid_env=solid_env,
-            has_nearest=has_nearest, ext=ext, transparent_pass=True)
+            has_nearest=has_nearest, ext=ext, transparent_pass=True,
+            light_tiles=light_tiles)
         bg = [o.expand(Kg, Pc) for o in ob]
         return _composite(color, alpha, valid, trans, bg, out_rgb)
 

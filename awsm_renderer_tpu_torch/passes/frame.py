@@ -6,7 +6,9 @@ MSAA edge blend or supersample resolve -> transparent peel (K7 or K8) +
 forward shade + composite -> HUD (K7, or K1 + K2 over the full pool) ->
 bloom, depth of field -> display -> SMAA. The temporal frame swaps the
 opaque stage for a jittered K1 raster, history reprojection (K10) and a
-budgeted shade of the units the history cannot answer for.
+budgeted shade of the units the history cannot answer for. Every shade
+takes the tiled light lists when light_tiles is set, and RenderHooks
+callbacks run at the reference's seven points.
 
 Port of awsm_renderer_tpu/passes/frame.py: render_frame ->
 _opaque_band / _opaque_band_msaa -> _msaa_edge_blend /
@@ -16,6 +18,9 @@ tensors' device.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Optional
 
 import torch
 
@@ -49,6 +54,50 @@ _CORNER_NAMES = ("c_pos", "c_norm", "c_tang", "c_uv0", "c_uv1", "c_color",
 
 def _pad_to(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+@dataclass(frozen=True)
+class RenderHooks:
+    """The reference's seven hook points (reference: frame.py
+    RenderHooks). The five in-frame hooks are torch functions that the
+    frame calls eagerly; pre_render / post_render are host callbacks
+    around the frame.
+
+    Signatures:
+      pre_render(renderer) -> None       [host, before the config is read
+                                          and the scene flushed]
+      first_pass(ds) -> ds               [before the vertex stage; gets a
+                                          copy of the device dict]
+      after_geometry(vis, ds) -> vis     [after raster + resolve of the
+                                          opaque stage]
+      before_transparent(hdr, depth, ds) -> hdr   [(rh, rw, 4) padded]
+      after_transparent(hdr, ds) -> hdr           [(rh, rw, 4) padded]
+      last_pass(ldr, ds) -> ldr          [(H, W, 4) display image, after
+                                          SMAA]
+      post_render(renderer) -> None      [host, after the frame]
+
+    Draw user geometry mid-frame with passes/extra.py
+    extra_geometry_pass."""
+
+    pre_render: Optional[Callable] = None
+    first_pass: Optional[Callable] = None
+    after_geometry: Optional[Callable] = None
+    before_transparent: Optional[Callable] = None
+    after_transparent: Optional[Callable] = None
+    last_pass: Optional[Callable] = None
+    post_render: Optional[Callable] = None
+
+
+def _first_pass(ds, hooks):
+    """Run the first_pass hook on a copy of ds and of its camera dict: the
+    renderer keeps ds across frames and the flush updates it in place, so
+    an entry the hook sets must not outlive this frame (the reference's
+    hook gets a fresh dict from jit's flattening). The shade's column
+    cache (ds["mat_columns"]) stays shared."""
+    fn = getattr(hooks, "first_pass", None)
+    if fn is None:
+        return ds
+    return fn({**ds, "camera": dict(ds["camera"])})
 
 
 def _inst_gids(ds):
@@ -199,10 +248,12 @@ def _opaque_band(ds, opaque_mask, *, rw: int, rh: int, needs_clip: bool,
                  has_morphs: bool = False, skin_sets: int = 0,
                  solid_env: bool, has_color: bool, has_uv1: bool,
                  use_mips: bool, slot_mask, has_nearest: bool, ext,
-                 debug_mode: str):
+                 debug_mode: str, light_tiles: bool = False, hooks=None):
     """Opaque geometry + deferred shade over the whole (rh, rw) padded
     framebuffer -> (hdr [r,g,b,a] (rh*rw,) planes, tri_id, depth
-    (rh, rw), raster bins)."""
+    (rh, rw), raster bins). An after_geometry hook gets the raster's
+    planes (without the bins) and returns the planes that are shaded and
+    whose tri_id and depth the frame keeps."""
     srows = prep_setup_rows(_run_vertex(
         ds, opaque_mask, rw=rw, rh_full=rh, needs_clip=needs_clip,
         has_morphs=has_morphs, skin_sets=skin_sets))
@@ -211,25 +262,33 @@ def _opaque_band(ds, opaque_mask, *, rw: int, rh: int, needs_clip: bool,
     # are screen differences of the padded uv0 planes, as in the reference
     vis = rasterize16(srows, width=rw, height=rh, has_uv1=has_uv1,
                       has_color=has_color, analytic_derivs=False)
+    bins = vis.pop("bins")
+    if getattr(hooks, "after_geometry", None):
+        vis = hooks.after_geometry(vis, ds)
     hdr_ch = shade_deferred_c(vis, ds, width=rw, height=rh,
                               solid_env=solid_env, use_mips=use_mips,
                               slot_mask=slot_mask, has_nearest=has_nearest,
-                              ext=ext, debug_mode=debug_mode)
-    return hdr_ch, vis["tri_id"], vis["depth"], vis["bins"]
+                              ext=ext, debug_mode=debug_mode,
+                              light_tiles=light_tiles)
+    return hdr_ch, vis["tri_id"], vis["depth"], bins
 
 
 def _opaque_band_msaa(ds, opaque_mask, *, rw2: int, rh2: int, rw1: int,
                       rh1: int, needs_clip: bool, has_morphs: bool = False,
                       skin_sets: int = 0, solid_env: bool,
                       use_mips: bool, slot_mask, has_nearest: bool, ext,
-                      debug_mode: str, tile_cap: int | None = None):
+                      debug_mode: str, tile_cap: int | None = None,
+                      light_tiles: bool = False, hooks=None):
     """MSAA-4x opaque stage: coverage and depth at 2x2 samples per display
     pixel (K9 over the vertex stage at twice the resolution, rw2 x rh2),
     shading once per display pixel at its top-left sample (K2 with
     coord_scale 2), covered-tile compacted when the host cap tile_cap
     bounds the covered (OPAQUE_TILE_ROWS, 128) units below the band. The
     "edges" view skips shading: white where a pixel's 4 samples disagree,
-    dim grey on interior coverage, black on a miss.
+    dim grey on interior coverage, black on a miss. An after_geometry
+    hook gets the resolved planes of the shading samples, with depth, and
+    turns the compaction off (it sees full-frame planes); the sample
+    planes stay the raster's.
 
     Returns (hdr [r, g, b, a] (rh1*rw1,) planes, samp = 4x (rh1, rw1)
     sample-id planes [tl, tr, bl, br], depth1 (rh1, rw1), K9's bins)."""
@@ -262,21 +321,26 @@ def _opaque_band_msaa(ds, opaque_mask, *, rw2: int, rh2: int, rw1: int,
     # rh1 and rw1 are TILE_H- and TILE_W-multiples (8, 128), so the
     # reference's layout conditions (frame.py:751-756) reduce to this gate
     if (tile_cap is not None and (solid_env or "env_pool_base" in ds)
-            and tile_cap * OPAQUE_TILE_ROWS * 128 < P):
+            and tile_cap * OPAQUE_TILE_ROWS * 128 < P
+            and not getattr(hooks, "after_geometry", None)):
         hdr_ch = shade_deferred_compact_c(
             rep, srows, depth1.reshape(P), ds, width=rw1, height=rh1,
             use_mips=use_mips, slot_mask=slot_mask,
             solid_env=solid_env, has_nearest=has_nearest, ext=ext,
-            debug_mode=debug_mode, tile_cap=tile_cap)
+            debug_mode=debug_mode, tile_cap=tile_cap,
+            light_tiles=light_tiles)
         return hdr_ch, samp, depth1, bins
 
     vis = resolve_planes_fused(rep, srows, width=rw1, coord_scale=2)
     vis = {k: vis[k] for k in RESOLVE_NAMES}
     vis["depth"] = depth1.reshape(P)
+    if getattr(hooks, "after_geometry", None):
+        vis = hooks.after_geometry(vis, ds)
     hdr_ch = shade_deferred_c(vis, ds, width=rw1, height=rh1,
                               solid_env=solid_env, use_mips=use_mips,
                               slot_mask=slot_mask, has_nearest=has_nearest,
-                              ext=ext, debug_mode=debug_mode)
+                              ext=ext, debug_mode=debug_mode,
+                              light_tiles=light_tiles)
     return hdr_ch, samp, depth1, bins
 
 
@@ -333,18 +397,24 @@ def _overlay_band(hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask, *,
                   use_mips: bool, slot_mask, has_nearest: bool, ext,
                   n_transparent_layers: int, ov_tri_idx,
                   crop_y0: int | None = None, crop_h: int | None = None,
-                  tile_cap: int | None = None):
+                  tile_cap: int | None = None, light_tiles: bool = False,
+                  hooks=None):
     """Transparent forward peel + HUD over the shaded opaque band
     (reference: frame.py _overlay_band). slot_mask / ext are the overlay
     bucket's own; ov_tri_idx is the overlay's compacted triangle pool
     (renderer._overlay_tri_idx), or None for the full combined pool (an
     overlay mesh is instanced). transparent_mask / hud_mask None skip
-    their pass. Returns (hdr_ch, tri_id)."""
+    their pass. The before_transparent / after_transparent hooks run
+    before and after the transparent pass on the (band_h, rw, 4) image.
+    Returns (hdr_ch, tri_id)."""
     # ---- row-band crop: the overlay runs only on the rows its geometry's
     # projected AABBs reach (renderer._overlay_crop); off with volume
-    # refraction, which gathers the opaque image outside the band
+    # refraction, which gathers the opaque image outside the band, and
+    # with the overlay hooks, which see the whole image
     if (crop_h is not None and not shift_rows and crop_h < band_h
-            and not ext[EXT_VOLUME]):
+            and not ext[EXT_VOLUME]
+            and not (getattr(hooks, "before_transparent", None)
+                     or getattr(hooks, "after_transparent", None))):
         y0 = crop_y0
         hdr_c = [c.reshape(band_h, rw)[y0:y0 + crop_h].reshape(-1)
                  for c in hdr_ch]
@@ -357,7 +427,8 @@ def _overlay_band(hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask, *,
             has_uv1=has_uv1, use_mips=use_mips, slot_mask=slot_mask,
             has_nearest=has_nearest, ext=ext,
             n_transparent_layers=n_transparent_layers,
-            ov_tri_idx=ov_tri_idx, tile_cap=tile_cap)
+            ov_tri_idx=ov_tri_idx, tile_cap=tile_cap,
+            light_tiles=light_tiles)
         out = []
         for full, band in zip(hdr_ch, hdr_c):
             full = full.reshape(band_h, rw).clone()
@@ -381,7 +452,18 @@ def _overlay_band(hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask, *,
 
     shade_kw = dict(height_full=rh_full, row_offset=row_offset,
                     use_mips=use_mips, slot_mask=slot_mask,
-                    solid_env=solid_env, has_nearest=has_nearest, ext=ext)
+                    solid_env=solid_env, has_nearest=has_nearest, ext=ext,
+                    light_tiles=light_tiles)
+
+    def stack(ch):
+        return torch.stack(ch, dim=-1).reshape(band_h, rw, 4)
+
+    def unstack(img):
+        flat = img.reshape(band_h * rw, 4)
+        return [flat[:, c].contiguous() for c in range(4)]
+
+    if getattr(hooks, "before_transparent", None):
+        hdr_ch = unstack(hooks.before_transparent(stack(hdr_ch), depth, ds))
 
     # ---- transparent forward pass: K-layer depth peel under the shared,
     # read-only opaque depth; back-to-front composite ---------------------
@@ -411,6 +493,9 @@ def _overlay_band(hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask, *,
             hdr_ch = shade_transparent_layers_c(
                 layers, hdr_ch, ds, width=rw, height=band_h,
                 n_layers=n_transparent_layers, **shade_kw)
+
+    if getattr(hooks, "after_transparent", None):
+        hdr_ch = unstack(hooks.after_transparent(stack(hdr_ch), ds))
 
     # ---- HUD pass: its own cleared depth, composited on top -------------
     if hud_mask is not None:
@@ -445,11 +530,12 @@ def _overlay_band(hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask, *,
 def _finish_frame(hdr_ch, tri_id, depth, ds, *, rw: int, rh: int,
                   width: int, height: int, tonemap: ToneMapping,
                   bloom: bool = False, dof: bool = False, smaa: bool = False,
-                  dof_rings=None):
+                  dof_rings=None, hooks=None):
     """Crop the padding, then the effects chain at display resolution on
     channel planes: bloom, depth of field (dof_rings: the host-proven
     active ring subset, () = the identity), the tonemap + sRGB display
-    pass, SMAA on the display image; stack to (H, W, 4)."""
+    pass, SMAA on the display image; stack to (H, W, 4); the last_pass
+    hook."""
     hdr_ch = [c.reshape(rh, rw)[:height, :width] for c in hdr_ch]
     tri_id = tri_id[:height, :width]
     depth = depth[:height, :width]
@@ -463,7 +549,18 @@ def _finish_frame(hdr_ch, tri_id, depth, ds, *, rw: int, rh: int,
     ldr_ch = display_pass_c(list(rgb) + hdr_ch[3:], tonemap)
     if smaa:
         ldr_ch = smaa_c(ldr_ch[:3]) + ldr_ch[3:]
-    return torch.stack(ldr_ch, dim=-1), tri_id, depth
+    ldr = torch.stack(ldr_ch, dim=-1)
+    if getattr(hooks, "last_pass", None):
+        ldr = hooks.last_pass(ldr, ds)
+    return ldr, tri_id, depth
+
+
+def _runs_overlay(transparent_mask, hud_mask, hooks) -> bool:
+    """The overlay stage runs when a bucket has content or an overlay
+    hook is set (the hooks fire on a frame without overlay content)."""
+    return (transparent_mask is not None or hud_mask is not None
+            or bool(getattr(hooks, "before_transparent", None))
+            or bool(getattr(hooks, "after_transparent", None)))
 
 
 def render_frame(ds, opaque_mask, transparent_mask=None, hud_mask=None, *,
@@ -480,7 +577,8 @@ def render_frame(ds, opaque_mask, transparent_mask=None, hud_mask=None, *,
                  overlay_crop_h: int | None = None, overlay_tri_idx=None,
                  overlay_tile_cap: int | None = None,
                  opaque_tile_cap: int | None = None, bloom: bool = False,
-                 dof: bool = False, smaa: bool = False, dof_rings=None):
+                 dof: bool = False, smaa: bool = False, dof_rings=None,
+                 light_tiles: bool = False, hooks=None):
     """Returns (display rgba (H, W, 4) f32 in [0, 1], tri_id (H, W) int32
     in triangle-pool space (-1 = miss), depth (H, W) f32, raster bins).
 
@@ -496,9 +594,12 @@ def render_frame(ds, opaque_mask, transparent_mask=None, hud_mask=None, *,
     opaque stage at 2x2 samples per pixel (K9), shaded once per pixel and
     edge-blended; supersample: the opaque stage at twice the resolution
     (K1), box-resolved before the overlay. The overlay always runs at
-    display resolution over the resolved depth."""
+    display resolution over the resolved depth. light_tiles: every shade
+    takes the tiled light lists. hooks: a RenderHooks whose in-frame
+    callbacks run here (pre_render / post_render are the renderer's)."""
     if supersample and msaa:
         raise ValueError("pick one AA mode: supersample or msaa")
+    ds = _first_pass(ds, hooks)
     rw1 = _pad_to(width, TILE_W)
     rh1 = _pad_to(height, TILE_H)
     if msaa:
@@ -507,7 +608,8 @@ def render_frame(ds, opaque_mask, transparent_mask=None, hud_mask=None, *,
             rw1=rw1, rh1=rh1, needs_clip=needs_clip, has_morphs=has_morphs,
             skin_sets=skin_sets, solid_env=solid_env, use_mips=use_mips,
             slot_mask=slot_mask, has_nearest=has_nearest, ext=ext,
-            debug_mode=debug_mode, tile_cap=opaque_tile_cap)
+            debug_mode=debug_mode, tile_cap=opaque_tile_cap,
+            light_tiles=light_tiles, hooks=hooks)
         if debug_mode != "edges":         # keep the edge view crisp
             hdr_ch = _msaa_edge_blend(hdr_ch, samp, rh1, rw1)
         tri_id = samp[0]
@@ -519,14 +621,15 @@ def render_frame(ds, opaque_mask, transparent_mask=None, hud_mask=None, *,
             needs_clip=needs_clip, has_morphs=has_morphs,
             skin_sets=skin_sets, solid_env=solid_env, has_color=has_color,
             has_uv1=has_uv1, use_mips=use_mips, slot_mask=slot_mask,
-            has_nearest=has_nearest, ext=ext, debug_mode=debug_mode)
+            has_nearest=has_nearest, ext=ext, debug_mode=debug_mode,
+            light_tiles=light_tiles, hooks=hooks)
         if supersample:
             # resolve BEFORE the overlay: the peel and HUD then run at
             # display resolution, over the resolved depth
             hdr_ch, tri_id, depth = _resolve_supersample(
                 hdr_ch, tri_id, depth, width=width, height=height, rw2=rw2,
                 rw1=rw1, rh1=rh1)
-    if transparent_mask is not None or hud_mask is not None:
+    if _runs_overlay(transparent_mask, hud_mask, hooks):
         hdr_ch, tri_id = _overlay_band(
             hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask, rw=rw1,
             band_h=rh1, rh_full=rh1, needs_clip=needs_clip,
@@ -539,11 +642,12 @@ def render_frame(ds, opaque_mask, transparent_mask=None, hud_mask=None, *,
             ext=ext if overlay_ext is None else overlay_ext,
             n_transparent_layers=n_transparent_layers,
             crop_y0=overlay_crop_y0, crop_h=overlay_crop_h,
-            ov_tri_idx=overlay_tri_idx, tile_cap=overlay_tile_cap)
+            ov_tri_idx=overlay_tri_idx, tile_cap=overlay_tile_cap,
+            light_tiles=light_tiles, hooks=hooks)
     ldr, tri_id, depth = _finish_frame(
         hdr_ch, tri_id, depth, ds, rw=rw1, rh=rh1, width=width,
         height=height, tonemap=tonemap, bloom=bloom, dof=dof, smaa=smaa,
-        dof_rings=dof_rings)
+        dof_rings=dof_rings, hooks=hooks)
     # picking ids in triangle-pool space (clipping doubles the rows)
     T_pool = _total_triangles(ds)
     tri_id = torch.where(tri_id >= 0, tri_id % T_pool, -1)
@@ -565,7 +669,8 @@ def render_frame_temporal(ds, opaque_mask, transparent_mask, hud_mask, hist,
                           overlay_tri_idx=None,
                           overlay_tile_cap: int | None = None,
                           bloom: bool = False, dof: bool = False,
-                          smaa: bool = False, dof_rings=None):
+                          smaa: bool = False, dof_rings=None,
+                          light_tiles: bool = False, hooks=None):
     """Temporal-reuse frame (TAA; reference: frame.py
     render_frame_temporal): shade only what the previous frame cannot
     answer for. hist (5, rh1, rw1) f32 history [r, g, b, tid bits,
@@ -583,7 +688,13 @@ def render_frame_temporal(ds, opaque_mask, transparent_mask, hud_mask, hist,
       5. the overlay, effects and display as render_frame.
 
     C comes from the host, so no step reads a device value on the host.
+    hooks: the overlay hooks and last_pass run as in render_frame; the
+    opaque-stage hooks (first_pass, after_geometry) are refused, and the
+    renderer sends such a frame to render_frame.
     Returns (ldr, tri_id, depth, new_hist, new_age)."""
+    if (getattr(hooks, "first_pass", None)
+            or getattr(hooks, "after_geometry", None)):
+        raise ValueError("the temporal frame takes no opaque-stage hooks")
     rw1 = _pad_to(width, TILE_W)
     rh1 = _pad_to(height, TILE_H)
     U = OPAQUE_TILE_ROWS * 128
@@ -610,7 +721,8 @@ def render_frame_temporal(ds, opaque_mask, transparent_mask, hud_mask, hist,
     out_c, _valid_c = shade_units_c(
         tid_c, dep_c, idx, srows, ds, width=rw1, height=rh1, coord_scale=1,
         use_mips=use_mips, slot_mask=slot_mask, solid_env=solid_env,
-        has_nearest=has_nearest, ext=ext, debug_mode="none")
+        has_nearest=has_nearest, ext=ext, debug_mode="none",
+        light_tiles=light_tiles)
     new_ch = [_tile_unswizzle(
         torch.zeros((n_units, U), device=col.device).index_copy(
             0, idx, out_c[c].reshape(C, U)), rh1, rw1) for c in range(3)]
@@ -627,7 +739,7 @@ def render_frame_temporal(ds, opaque_mask, transparent_mask, hud_mask, hist,
     hdr_ch = merged + [cov]
     tri_id = col.reshape(rh1, rw1)
     depth2 = depth.reshape(rh1, rw1)
-    if transparent_mask is not None or hud_mask is not None:
+    if _runs_overlay(transparent_mask, hud_mask, hooks):
         hdr_ch, tri_id = _overlay_band(
             hdr_ch, tri_id, depth2, ds, transparent_mask, hud_mask, rw=rw1,
             band_h=rh1, rh_full=rh1, needs_clip=needs_clip,
@@ -640,11 +752,12 @@ def render_frame_temporal(ds, opaque_mask, transparent_mask, hud_mask, hist,
             ext=ext if overlay_ext is None else overlay_ext,
             n_transparent_layers=n_transparent_layers,
             crop_y0=overlay_crop_y0, crop_h=overlay_crop_h,
-            ov_tri_idx=overlay_tri_idx, tile_cap=overlay_tile_cap)
+            ov_tri_idx=overlay_tri_idx, tile_cap=overlay_tile_cap,
+            light_tiles=light_tiles, hooks=hooks)
     ldr, tri_id, depth2 = _finish_frame(
         hdr_ch, tri_id, depth2, ds, rw=rw1, rh=rh1, width=width,
         height=height, tonemap=tonemap, bloom=bloom, dof=dof, smaa=smaa,
-        dof_rings=dof_rings)
+        dof_rings=dof_rings, hooks=hooks)
     T_pool = _total_triangles(ds)
     tri_id = torch.where(tri_id >= 0, tri_id % T_pool, -1)
     return ldr, tri_id, depth2, new_hist, new_age

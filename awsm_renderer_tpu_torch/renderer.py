@@ -6,23 +6,23 @@ KHR_texture_transform, the material extensions (clearcoat, sheen,
 iridescence, anisotropy, specular, transmission, volume), the debug
 views, the transparent overlay (BLEND / MASK / transmission meshes in a
 K-layer depth peel, the editor grid kind) and HUD meshes, under a solid
-or image environment, at most 8 punctual lights, morph targets, skins and
-instanced groups (the animated vertex stage, split to the animated
-triangles), MSAA-4x / supersample / SMAA / temporal (TAA) anti-aliasing,
-bloom and depth of field. The
+or image environment, any number of punctual lights (tiled light lists
+above 8, passes/light_culling.py), morph targets, skins and instanced
+groups (the animated vertex stage, split to the animated triangles),
+MSAA-4x / supersample / SMAA / temporal (TAA) anti-aliasing, bloom and
+depth of field, and the seven RenderHooks points (passes/frame.py; user
+geometry through passes/extra.py). The
 temporal frame keeps its history across frames (self._temporal); any
 content flush or resize resets it. The key-based stores, the
 per-frame dirty flush to device tensors and the host-side cull, pass
 bucketing and per-pass specialization (overlay crop, compacted overlay
 pool, tile caps, proven layer bound, DoF ring set) mirror the
 reference; the frame runs eagerly on `device` (passes/frame.py).
-
-Content or configuration outside the slice raises NotImplementedError
-naming its ROADMAP.md milestone instead of rendering it wrongly.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional
 
 import numpy as np
@@ -50,19 +50,12 @@ from .passes.frame import (
     _inst_gids, _pad_to, render_frame, render_frame_temporal,
 )
 
-MAX_DENSE_LIGHTS = 8
 # component-major corner pools the vertex stage reads: name -> components
 # (None: the pool's own width, the skin-set bucket's 4 * S); c_morph_base,
 # one int a corner, uploads beside them as (3, T)
 _CORNERS = (("c_pos", 3), ("c_norm", 3), ("c_tang", 4), ("c_uv0", 2),
             ("c_uv1", 2), ("c_color", 4), ("c_joints", None),
             ("c_weights", None))
-
-
-def _unsupported(what: str, milestone: str):
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch renderer yet "
-        f"(ROADMAP.md queue 1, {milestone})")
 
 
 def _pad_ids(sel: np.ndarray):
@@ -109,6 +102,10 @@ class AwsmRendererTorch:
         self._anim_idx_cache = None    # (flush gen, (tensor, live) or None)
         self._mask_cache: Dict[str, tuple] = {}   # name -> (mask, tensor)
         self._last_debug_mode = "none"  # pick() replays the last frame's
+        self._last_hooks = None        # debug mode and in-frame hooks
+        # the reference's legacy switch to the dense light loop (scripts
+        # that compare the two set it; config.light_tiles wins over it)
+        self._force_dense_lights = False
         self.last_bins = None          # raster bins of the last frame
         self._content_epoch = 0        # non-camera store flush counter
         self._temporal = None          # TAA state: hist/age/prev_vp/epoch
@@ -457,8 +454,6 @@ class AwsmRendererTorch:
         if aa.msaa and aa.supersample:
             raise ConfigError("pick one AA mode: AntiAliasing(msaa=True) "
                               "and supersample=True are exclusive")
-        if cfg.light_tiles:
-            raise _unsupported("tiled light lists", "M12 passes and hooks")
 
     def _overlay_tri_idx(self, masks):
         """Compacted overlay triangle ids: pool indices of every triangle
@@ -691,14 +686,11 @@ class AwsmRendererTorch:
     def _prepare(self):
         """Cull + bucket, each bucket's shading specialization (slot_mask,
         ext), the overlay's crop band, compacted pool, tile cap and layer
-        clamp, the MSAA frame's opaque tile cap, the DoF ring set, the
+        clamp, the MSAA frame's opaque tile cap, the DoF ring set and the
         animation specialization (has_morphs, skin_sets: the most skin
-        sets a mesh reads), and refuse content outside the slice."""
+        sets a mesh reads)."""
         masks = self._mesh_masks()
         info = self.meshes.mesh_info
-        if self.lights.count > MAX_DENSE_LIGHTS:
-            raise _unsupported(f"more than {MAX_DENSE_LIGHTS} lights "
-                               "(tiled light lists)", "M12 passes and hooks")
         op_rows = self._bucket_mat_rows(masks["opaque"])
         prep = dict(masks=masks, slot_mask=self._slot_mask(op_rows),
                     ext=self._ext_mask(op_rows),
@@ -761,9 +753,12 @@ class AwsmRendererTorch:
 
     def render_device(self, debug_mode: str = "none", hooks=None):
         """Render one frame; returns the (H, W, 4) f32 sRGB display image as
-        a tensor on the renderer's device (no host readback)."""
-        if hooks is not None:
-            raise _unsupported("render hooks", "M12 passes and hooks")
+        a tensor on the renderer's device (no host readback). hooks: a
+        passes.frame.RenderHooks; pre_render runs first, before the
+        config is read and the scene flushed, so what it changes lands in
+        this frame; post_render runs after the frame."""
+        if hooks is not None and hooks.pre_render:
+            hooks.pre_render(self)
         cfg = self.config
         if debug_mode == "edges" and not cfg.anti_aliasing.msaa:
             raise ConfigError(
@@ -776,12 +771,15 @@ class AwsmRendererTorch:
             # a material's debug bitmask switches to the per-material view
             debug_mode = "material"
         aa, pp = cfg.anti_aliasing, cfg.post_processing
-        # temporal reuse engages unless a debug view or another AA mode
-        # reshapes the opaque stage; those fall back to the ordinary frame.
-        # The history leaves self._temporal until this frame returns, so a
-        # frame that raises makes the next one reset
+        # temporal reuse engages unless a debug view, another AA mode or an
+        # opaque-stage hook reshapes the opaque stage; those fall back to
+        # the ordinary frame. The history leaves self._temporal until this
+        # frame returns, so a frame that raises makes the next one reset
         use_temporal = (aa.temporal and debug_mode == "none"
-                        and not aa.supersample and not aa.msaa)
+                        and not aa.supersample and not aa.msaa
+                        and not (hooks is not None
+                                 and (hooks.first_pass
+                                      or hooks.after_geometry)))
         st, self._temporal = self._temporal, None
         if use_temporal:
             ds = self._flush(
@@ -815,7 +813,12 @@ class AwsmRendererTorch:
             overlay_crop_h=ov_crop[1] if ov_crop else None,
             overlay_tri_idx=prep["ov_idx"],
             overlay_tile_cap=prep["ov_tile_cap"],
-            has_morphs=prep["has_morphs"], skin_sets=prep["skin_sets"])
+            has_morphs=prep["has_morphs"], skin_sets=prep["skin_sets"],
+            # tiled light lists above 8 lights unless config says
+            light_tiles=(cfg.light_tiles if cfg.light_tiles is not None
+                         else (self.lights.count > 8
+                               and not self._force_dense_lights)),
+            hooks=hooks)
         # the animated-subset split: ship the (cached) animated triangle
         # set while the scene has morphs or skins
         anim = (self._anim_tri_idx()
@@ -861,6 +864,9 @@ class AwsmRendererTorch:
         self.last_bins = bins
         # pick() re-renders THIS frame's configuration when it is stale
         self._last_debug_mode = debug_mode
+        self._last_hooks = hooks
+        if hooks is not None and hooks.post_render:
+            hooks.post_render(self)
         return ldr
 
     def render(self, debug_mode: str = "none", hooks=None) -> np.ndarray:
@@ -883,9 +889,15 @@ class AwsmRendererTorch:
                 != self._scene_signature()):
             if self.meshes.count == 0:
                 return None
-            # replay the last frame's debug mode (reference: renderer.py
-            # pick; render hooks are refused until M12)
-            self.render_device(debug_mode=self._last_debug_mode)
+            # replay the last frame's debug mode and in-frame hooks (they
+            # are frame content), without its host hooks: a pick must not
+            # fire the caller's side effects (reference: renderer.py pick)
+            hooks = self._last_hooks
+            if hooks is not None:
+                hooks = dataclasses.replace(hooks, pre_render=None,
+                                            post_render=None)
+            self.render_device(debug_mode=self._last_debug_mode,
+                               hooks=hooks)
         h, w = self._last_tri_id.shape
         if not (0 <= x < w and 0 <= y < h):
             return None

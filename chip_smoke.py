@@ -100,6 +100,27 @@ back to the CPU). Phases:
            tests/test_temporal.py's
            convergence check (the 128x32 box, 8 static temporal frames
            against the ordinary frame) on the card;
+  lights   bench.py's 64-light probe "Stress-1080p-64-lights"
+           (_lights_probe, bench.py:482-518): the stress scene's 7 lights
+           plus 57 point lights on rings of radius 3-11 (rng seed 9,
+           intensity 4, range 4), tiled light lists by the renderer's
+           rule. K1-K6 and K8 against their twins on its intermediates;
+           each shade's list lengths, the units more than 16 lights reach
+           (overflow) and cull_lights(tile_h=1, tile_w=128) on the frame's
+           depth plane; the tiled image against the dense loop's (within
+           1e-4 off the overflowing units, whose error is printed); 12
+           orbit frames tiled and 12 dense (ms/frame, host wall, kernels
+           a frame under torch.profiler), host syncs no more than the
+           stress frame's;
+  hooks    the stress frame with a full RenderHooks set: pre_render /
+           post_render counters, an identity first_pass, a
+           before_transparent drawing a 200-triangle world-space grid
+           through extra_geometry_pass with the depth test, a last_pass
+           stamping a pixel. Each hook fires once, the image differs from
+           the hookless frame only under the grid and the stamp, pick()
+           after a camera move replays the in-frame hooks without the host
+           ones; ms/frame with and without hooks, the extra pass's ms a
+           triangle;
   gltf     build the glTF catalog's helmet (five 1024x1024 maps) with the
            port's gltf/samples.py, load_gltf + populate_gltf it at 1080p
            under the same environment, render 12 orbit frames and check
@@ -2826,6 +2847,393 @@ def phase_golden(P, np, torch):
             check(cov > 0.01, f"{golden}: edge coverage {cov:.3f} (> 0.01)")
 
 
+# ---- M12: the 64-light probe and the hooks frame ----------------------------
+
+LIGHTS_PATH = OPAQUE_PATH + ("rasterize_binned_compact",)
+MAX_LIST = 16            # passes/light_culling.py MAX_LIGHTS_PER_TILE
+# tiled against dense on the display image, off the overflowing units: the
+# CPU tests hold 12 lights at 1e-6; here up to 64 terms a pixel sum in
+# other orders (the tiled lists by priority, the dense loop by index)
+LIGHTS_ATOL = 1e-4
+
+
+def add_probe_lights(P, np, r):
+    """bench.py _lights_probe's lights (bench.py:492-500): point lights on
+    rings of radius 3-11 (rng seed 9, intensity 4, range 4) until the
+    scene holds 64."""
+    rng = np.random.default_rng(9)
+    for i in range(64 - r.lights.count):
+        a = 2 * np.pi * i / 57.0
+        rad = 3.0 + (i % 5) * 2.0
+        r.lights.insert(P.Light.point(
+            [np.cos(a) * rad, 0.5 + (i % 3), np.sin(a) * rad],
+            color=tuple(rng.uniform(0.3, 1.0, 3)), intensity=4.0,
+            range=4.0))
+    check(r.lights.count == 64, "the probe scene holds 64 lights")
+
+
+def check_path_kernels(cap, label, torch):
+    """K1, K2, K3, K4, K5, K6 and K8 against their twins on a frame's
+    captured first calls (capture_first_frame(KERNEL_SITES + K8))."""
+    from awsm_renderer_tpu_torch.ops.raster import (
+        _rasterize_binned_compact, plane_layout, rasterize16_slim,
+        rasterize16_slim_reference, rasterize_binned_compact_reference,
+    )
+    from awsm_renderer_tpu_torch.ops.relayout import (
+        gather_split_channels, gather_split_channels_reference,
+        onehot_split_rows, onehot_split_rows_reference,
+    )
+    from awsm_renderer_tpu_torch.ops.shade import (
+        RESOLVE_NAMES, resolve_planes_fused, resolve_planes_reference,
+    )
+
+    (srows,), kw = cap["rasterize16_slim"]
+    col, depth, bins = rasterize16_slim(srows, **kw)
+    ccol, cdep = rasterize16_slim_reference(srows, bins, **kw)
+    check(bit_mismatches(col, ccol, torch) + bit_mismatches(depth, cdep, torch)
+          == 0, f"K1 [{label}] col and depth bit-equal to the twin")
+    (tid, rows2), kw2 = cap["resolve_planes_fused"]
+    a = resolve_planes_fused(tid, rows2, **kw2)
+    b = resolve_planes_reference(tid, rows2, **kw2)
+    bad = int((a["tri_id"] != b["tri_id"]).sum()) + sum(
+        int((~torch.isclose(a[k], b[k], rtol=1e-5, atol=1e-6)).sum())
+        for k in RESOLVE_NAMES[1:])
+    check(bad == 0, f"K2 [{label}] tri_id equal, planes within rtol 1e-5, "
+                    f"atol 1e-6 of the twin")
+    (mat_row, table), _ = cap["onehot_split_rows"]
+    check(bit_mismatches(onehot_split_rows(mat_row, table),
+                         onehot_split_rows_reference(mat_row, table),
+                         torch) == 0, f"K3 [{label}] bit-equal to the twin")
+    check_k4_k5(cap, label, torch, timed=False)
+    (texels, idx, ncols), _ = cap["gather_split_channels"]
+    check(bit_mismatches(gather_split_channels(texels, idx, ncols),
+                         gather_split_channels_reference(texels, idx, ncols),
+                         torch) == 0, f"K6 [{label}] bit-equal to the twin")
+    (rows, zlo_c, zhi_c), kw8 = cap["_rasterize_binned_compact"]
+    hold_planes(f"K8 [{label}] _rasterize_binned_compact (first peel)",
+                _rasterize_binned_compact(rows, zlo_c, zhi_c, **kw8),
+                rasterize_binned_compact_reference(
+                    rows, zlo_c, zhi_c, bins=kw8["bins"],
+                    tile_idx=kw8["tile_idx"], n_tx=kw8["n_tx"],
+                    names=plane_layout(kw8["has_uv1"], kw8["has_color"])),
+                torch)
+    return depth
+
+
+def kernels_a_frame(r, camera, torch, n: int = 3):
+    """Device kernels a frame and device ms a frame over n frames under
+    torch.profiler (CPU + CUDA activities), or (None, None) when the
+    profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            camera(i)
+            r.render_device()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    n_kern = sum(e.count for e in kern)
+    if not n_kern:
+        return None, None
+    return (n_kern / n,
+            sum(e.self_device_time_total for e in kern) / 1e3 / n)
+
+
+def record_lists(r, torch):
+    """Render one frame recording every light_lists_from_bounds call of
+    its shades: [(the call's unit->pixel map, its arguments, (lidx,
+    valid))], the map a (n_units, 128) int64 tensor of flat (rh1 * rw1)
+    pixel indices (rh1 * rw1: a pad row). The opaque shade's units are
+    band rows; the compacted
+    peel's (shade_transparent_compact32) are 4-row groups of its 32x32
+    blocks, the same pixels in every stacked layer."""
+    from awsm_renderer_tpu_torch.passes import frame, light_culling as LC
+
+    calls, ctx = [], {}
+    orig_lists = LC.light_lists_from_bounds
+    orig_c32 = frame.shade_transparent_compact32
+    rw1 = -(-W // 128) * 128
+    rh1 = -(-H // 8) * 8
+
+    def lists(mn, mx, lights, n, K):
+        out = orig_lists(mn, mx, lights, n, K)
+        n_units = mn[0].shape[0]
+        flat = torch.arange(n_units * 128, device=mn[0].device)
+        if ctx:
+            t_idx, n_tx, y0 = ctx["tiles"]
+            within = flat % (t_idx.shape[0] * 1024)
+            tile = t_idx.long()[torch.div(within, 1024, rounding_mode="floor")]
+            p = within % 1024
+            y = (y0 + torch.div(tile, n_tx, rounding_mode="floor") * 32
+                 + torch.div(p, 32, rounding_mode="floor"))
+            x = (tile % n_tx) * 32 + p % 32
+            # the 32-row blocks' pad rows below the frame: index rh1 * rw1
+            flat = torch.where(y < rh1, y * rw1 + x, rh1 * rw1)
+        calls.append((flat.reshape(n_units, 128), (mn, mx, lights, n, K),
+                      out))
+        return out
+
+    def c32(layers, tile_idx, opaque_ch, ds, **kw):
+        ctx["tiles"] = (tile_idx, kw["n_tx"], kw["row_offset"])
+        try:
+            return orig_c32(layers, tile_idx, opaque_ch, ds, **kw)
+        finally:
+            ctx.clear()
+
+    LC.light_lists_from_bounds = lists
+    frame.shade_transparent_compact32 = c32
+    try:
+        r.render_device()
+    finally:
+        LC.light_lists_from_bounds = orig_lists
+        frame.shade_transparent_compact32 = orig_c32
+    return calls
+
+
+def phase_lights(P, np, torch, stress_syncs: int):
+    """bench.py's 64-light probe (_lights_probe, bench.py:482-518) on the
+    stress frame: the kernels against their twins on its intermediates,
+    the lists (lengths, overflowing units, the standalone cull_lights on
+    the frame's depth plane), the tiled image against the dense one,
+    N_FRAMES orbit frames each way, kernels a frame and host syncs."""
+    from awsm_renderer_tpu_torch.passes.light_culling import (
+        cull_lights, light_lists_from_bounds,
+    )
+
+    t0 = time.perf_counter()
+    r, _keys, _ = build_stress_scene(P, np, DEVICE)
+    add_probe_lights(P, np, r)
+    orbit_camera(r, np, 0)
+    log(f"phase lights: Stress-1080p-64-lights (bench.py's lights probe: "
+        f"the stress scene's 7 lights + 57 point lights), {r.meshes.count} "
+        f"meshes, built in {time.perf_counter() - t0:.1f} s")
+    cap = capture_first_frame(r, KERNEL_SITES + ("_rasterize_binned_compact",))
+    torch.cuda.synchronize()
+    depth = check_path_kernels(cap, "64 lights", torch)
+    del cap
+
+    # ---- the lists ---------------------------------------------------------
+    calls = record_lists(r, torch)
+    check(len(calls) >= 2, f"the frame's shades built {len(calls)} list sets "
+                           f"(the opaque shade and the panes' peel)")
+    rh1, rw1 = -(-H // 8) * 8, -(-W // 128) * 128
+    over_px = torch.zeros(rh1 * rw1 + 1, dtype=torch.bool,
+                          device=depth.device)
+    res = {"lists": []}
+    for i, (pix, (mn, mx, lights, n, K), (lidx, valid)) in enumerate(calls):
+        lengths = valid.sum(dim=1)
+        _all, reach = light_lists_from_bounds(mn, mx, lights, n,
+                                              lights.shape[0])
+        n_reach = reach.sum(dim=1)
+        over = n_reach > MAX_LIST
+        over_px[pix[over].reshape(-1)] = True
+        res["lists"].append((float(lengths.float().mean()),
+                             int(lengths.max()), int(over.sum()),
+                             int(over.numel())))
+        log(f"  shade {i}: {over.numel()} units, list length mean "
+            f"{float(lengths.float().mean()):.3f}, max {int(lengths.max())}"
+            f"; lights reaching a unit mean "
+            f"{float(n_reach.float().mean()):.3f}, max {int(n_reach.max())}"
+            f"; {int(over.sum())} units overflow (> {MAX_LIST} lights)")
+    op_pix, (mn, mx, lights, n, K), (lidx, valid) = calls[0]
+    cl, counts = cull_lights(lights, n, depth, r._device["camera"], width=rw1,
+                             height=rh1, tile_h=1, tile_w=128)
+    same = int((counts == valid.sum(dim=1)).sum())
+    log(f"  cull_lights(tile_h=1, tile_w=128) on the frame's depth plane: "
+        f"{counts.numel()} tiles, length mean "
+        f"{float(counts.float().mean()):.3f}"
+        f", max {int(counts.max())}; {same} of {counts.numel()} tiles list as "
+        f"many lights as the opaque shade's units")
+    res["cull"] = (float(counts.float().mean()), int(counts.max()), same,
+                   counts.numel())
+
+    # ---- tiled against dense ----------------------------------------------
+    tiled = r.render_device().clone()
+    r._force_dense_lights = True
+    dense = r.render_device()
+    r._force_dense_lights = False
+    torch.cuda.synchronize()
+    over_img = over_px[:-1].reshape(rh1, rw1)[:H, :W]
+    err = (tiled - dense).abs().amax(dim=-1)
+    e_in = float(err[~over_img].max()) if bool((~over_img).any()) else 0.0
+    e_over = float(err[over_img].max()) if bool(over_img.any()) else 0.0
+    log(f"  tiled against dense: max |d| {e_in:.3g} on the "
+        f"{int((~over_img).sum())} pixels of units that do not overflow, "
+        f"{e_over:.3g} on the {int(over_img.sum())} pixels of overflowing units (not held)")
+    check(e_in <= LIGHTS_ATOL, f"tiled equals dense within {LIGHTS_ATOL} off "
+                               f"the overflowing units")
+    res["err"] = (e_in, e_over, int(over_img.sum()))
+
+    # ---- timed frames, kernels a frame, host syncs -------------------------
+    from awsm_renderer_tpu_torch.ops import kernels
+
+    def cam(i):
+        orbit_camera(r, np, i)
+
+    for label, dense_loop in (("tiled", False), ("dense", True)):
+        r._force_dense_lights = dense_loop
+        log(f"  {label}: {N_FRAMES} orbit frames")
+        img, med, wall, counts_ = orbit_frames(r, np, torch, cam,
+                                               LIGHTS_PATH)
+        check_image(img, np, torch)
+        n_k, dev_ms = kernels_a_frame(r, cam, torch)
+        log(f"  {label}: {'not measured' if n_k is None else f'{n_k:.0f}'} "
+            f"kernels a frame, device "
+            f"{'not measured' if dev_ms is None else f'{dev_ms:.3f}'} ms a "
+            f"frame (torch.profiler, 3 frames)")
+        res[label] = (med, wall, n_k, dev_ms)
+    r._force_dense_lights = False
+    res["syncs"] = count_syncs(r, torch, "64-light tiled", cam, N_FRAMES + 2)
+    check(res["syncs"] <= stress_syncs,
+          f"64-light frame host syncs {res['syncs']} <= the stress frame's "
+          f"{stress_syncs}")
+    kernels.reset_launch_counts()
+    return res
+
+
+GRID_LINES = 50          # per direction: 2 x 50 quads, 200 triangles
+GRID_Y = -0.55           # under the colonnade's boxes and spheres
+
+
+def grid_triangles(np, torch, device):
+    """A world-space editor grid on the plane y = GRID_Y: GRID_LINES
+    thin quads along x and as many along z over [-12, 12], two triangles
+    each -> ((T, 3, 3) corners, (T, 4) colours) on `device`."""
+    half, w = 12.0, 0.04
+    quads = []
+    for v in np.linspace(-half, half, GRID_LINES):
+        quads.append([[-half, v - w], [half, v - w], [half, v + w],
+                      [-half, v + w]])
+        quads.append([[v - w, -half], [v + w, -half], [v + w, half],
+                      [v - w, half]])
+    q = np.array(quads, np.float32)                   # (Q, 4, 2): (x, z)
+    xyz = np.stack([q[..., 0], np.full(q.shape[:2], GRID_Y, np.float32),
+                    q[..., 1]], axis=-1)
+    tris = np.concatenate([xyz[:, [0, 1, 2]], xyz[:, [0, 2, 3]]])
+    cols = np.tile(np.array([[0.9, 0.9, 0.2, 0.8]], np.float32),
+                   (tris.shape[0], 1))
+    return (torch.tensor(tris, device=device),
+            torch.tensor(cols, device=device))
+
+
+def phase_hooks(P, np, torch):
+    """The stress frame at 1080p with a full hook set: pre_render /
+    post_render counters, an identity first_pass, a before_transparent
+    that draws a 200-triangle world-space grid through
+    extra_geometry_pass with the depth test, and a last_pass that stamps
+    a pixel. Each hook fires once; the image differs from the hookless
+    frame only where the grid and the stamp land; pick() after a camera
+    move replays the in-frame hooks without the host ones; the frame's
+    ms with and without hooks and the extra pass's ms per triangle."""
+    from awsm_renderer_tpu_torch.passes.extra import extra_geometry_pass
+    from awsm_renderer_tpu_torch.passes.frame import RenderHooks
+
+    r, _keys, _ = build_stress_scene(P, np, DEVICE)
+    orbit_camera(r, np, 0)
+    tris, cols = grid_triangles(np, torch, r.device)
+    log(f"phase hooks: Stress-1080p-ibl-tex with a full hook set, a "
+        f"{tris.shape[0]}-triangle grid through extra_geometry_pass")
+    calls = {}
+
+    def count(name):
+        calls[name] = calls.get(name, 0) + 1
+
+    def first_pass(ds):
+        count("first_pass")
+        return ds
+
+    def before_transparent(hdr, depth, ds):
+        count("before_transparent")
+        return extra_geometry_pass(hdr, depth, ds["camera"], tris, cols,
+                                   depth_test=True)[0]
+
+    stamp = (7, 5)
+
+    def last_pass(ldr, ds):
+        count("last_pass")
+        out = ldr.clone()
+        out[stamp] = torch.tensor([1.0, 0.0, 1.0, 1.0], device=ldr.device)
+        return out
+
+    hooks = RenderHooks(pre_render=lambda _r: count("pre_render"),
+                        post_render=lambda _r: count("post_render"),
+                        first_pass=first_pass,
+                        before_transparent=before_transparent,
+                        last_pass=last_pass)
+    base = r.render_device().clone()
+    img = r.render_device(hooks=hooks)
+    torch.cuda.synchronize()
+    check(calls == {k: 1 for k in ("pre_render", "post_render", "first_pass",
+                                   "before_transparent", "last_pass")},
+          f"each hook fired once: {calls}")
+    # where the grid can land: its triangles' coverage without a depth test
+    probe = torch.zeros((H, W, 4), device=r.device)
+    cover = extra_geometry_pass(probe, None, r._device["camera"], tris,
+                                torch.ones_like(cols),
+                                depth_test=False)[0][..., 3] > 0
+    cover[stamp] = True
+    diff = (img - base).abs().amax(dim=-1) > 2.0 / 255.0
+    outside = int((diff & ~cover).sum())
+    log(f"  hooked against hookless: {int(diff.sum())} pixels differ by more "
+        f"than 2/255, {int((diff & cover).sum())} of them under the grid or "
+        f"the stamp, {outside} elsewhere; the grid covers "
+        f"{int(cover.sum())} pixels without the depth test")
+    check(outside == 0 and int(diff.sum()) > 1000,
+          "the image differs from the hookless frame only where the grid "
+          "and the stamp land")
+    check(bool((img[stamp] == torch.tensor([1.0, 0.0, 1.0, 1.0],
+                                           device=r.device)).all()),
+          "last_pass stamped its pixel")
+
+    orbit_camera(r, np, 1)
+    before = dict(calls)
+    key = r.pick(W // 2, H // 2)
+    check(calls["pre_render"] == before["pre_render"]
+          and calls["post_render"] == before["post_render"]
+          and all(calls[k] == before[k] + 1 for k in (
+              "first_pass", "before_transparent", "last_pass")),
+          f"pick() after a camera move ({key}) replayed the in-frame hooks "
+          f"without the host ones: {calls}")
+
+    res = {}
+    for label, hk in (("hookless", None), ("hooks", hooks)):
+        ev = []
+        r.render_device(hooks=hk)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(N_FRAMES):
+            orbit_camera(r, np, i + 2)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            r.render_device(hooks=hk)
+            b.record()
+            ev.append((a, b))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / N_FRAMES
+        med = statistics.median(a.elapsed_time(b) for a, b in ev)
+        log(f"  {label}: median {med:.3f} ms/frame (CUDA events), host wall "
+            f"{wall:.3f} ms/frame over {N_FRAMES} orbit frames")
+        res[label] = (med, wall)
+    hdr = torch.rand((H, W, 4), device=r.device)
+    dep = torch.full((H, W), 0.999, device=r.device)
+    cam = r._device["camera"]
+    pass_ms = cuda_ms(lambda: extra_geometry_pass(hdr, dep, cam, tris, cols,
+                                                  depth_test=True), 5)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        extra_geometry_pass(hdr, dep, cam, tris, cols, depth_test=True)
+    torch.cuda.synchronize()
+    pass_wall = (time.perf_counter() - t0) * 1e3 / 3
+    log(f"  extra_geometry_pass, {tris.shape[0]} triangles at {W}x{H}: "
+        f"{pass_ms:.3f} ms (CUDA events), host wall {pass_wall:.3f} ms; "
+        f"{pass_ms / tris.shape[0]:.4f} ms a triangle")
+    res["pass"] = (pass_ms, pass_wall, int(tris.shape[0]))
+    return res
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2879,6 +3287,12 @@ def main() -> int:
     results.update((k, orc[k]) for k in ("K11a_fat", "K11b", "K12", "K13"))
     tm = phase_temporal(P, np, torch)
     results["K10"] = tm["K10"]
+    t0 = time.perf_counter()
+    li = phase_lights(P, np, torch, ov["syncs_a"])
+    t1 = time.perf_counter()
+    hk = phase_hooks(P, np, torch)
+    log(f"phases lights and hooks: {t1 - t0:.1f} s and "
+        f"{time.perf_counter() - t1:.1f} s")
     h_med, h_wall, _h_counts, (h_k4, h_k5) = phase_gltf(P, np, torch)
     phase_golden(P, np, torch)
 
@@ -2927,6 +3341,27 @@ def main() -> int:
     log(f"frame Stress-1080p-temporal-orbit: median {t_med:.3f} ms/frame "
         f"(CUDA events), host wall {t_wall:.3f} ms/frame, {tm['syncs']} "
         f"host syncs/frame, over {TEMPORAL_FRAMES} orbit frames at {W}x{H} "
+        f"({card})")
+    for label in ("tiled", "dense"):
+        m_, w_, n_k, d_ms = li[label]
+        log(f"frame Stress-1080p-64-lights, {label}: median {m_:.3f} "
+            f"ms/frame (CUDA events), host wall {w_:.3f} ms/frame, "
+            f"{'not measured' if n_k is None else f'{n_k:.0f}'} kernels a "
+            f"frame, device "
+            f"{'not measured' if d_ms is None else f'{d_ms:.3f}'} ms a frame "
+            f"(profiler), at {W}x{H} ({card})")
+    log(f"frame Stress-1080p-64-lights: {li['syncs']} host syncs/frame "
+        f"(tiled); lists mean/max/overflowing units/units per shade "
+        f"{li['lists']}; cull_lights(1x128) mean/max/agreeing/tiles "
+        f"{li['cull']}; tiled vs dense max |d| {li['err'][0]:.3g} off "
+        f"overflow, {li['err'][1]:.3g} on {li['err'][2]} overflow pixels "
+        f"({card})")
+    log(f"frame Stress-1080p-ibl-tex with hooks: median "
+        f"{hk['hooks'][0]:.3f} ms/frame (host wall {hk['hooks'][1]:.3f}), "
+        f"hookless {hk['hookless'][0]:.3f} (host wall "
+        f"{hk['hookless'][1]:.3f}); extra_geometry_pass {hk['pass'][2]} "
+        f"triangles {hk['pass'][0]:.3f} ms, "
+        f"{hk['pass'][0] / hk['pass'][2]:.4f} ms a triangle, at {W}x{H} "
         f"({card})")
     for label in ("supersample", "smaa"):
         ms, peak = aa[label]

@@ -15,7 +15,10 @@ stress-animated: bench.py's animated probe, the stress-msaa scene plus
 its morph spheres, rotating nodes and skinned pillar under a static
 camera, with update_all(1/60) before each frame, chip_smoke.py's
 animated scene; --scene stress-animated-static: the same scene without
-the updates; --scene helmet: the glTF catalog's helmet),
+the updates; --scene stress-lights: bench.py's 64-light probe, the
+stress scene plus 57 point lights with tiled light lists, chip_smoke.py's
+lights scene; --scene stress-lights-dense: the same through the dense
+loop; --scene helmet: the glTF catalog's helmet),
 warms up, then:
   1. renders --frames orbit frames with the profiler off: median ms/frame
      from CUDA events around each frame, and host wall ms/frame;
@@ -28,7 +31,7 @@ Usage (repo root, one card):
     python3 scripts/profile_torch_frame.py
         [--scene stress|stress-untextured|stress-volume|stress-msaa|
                  stress-temporal|stress-animated|stress-animated-static|
-                 helmet]
+                 stress-lights|stress-lights-dense|helmet]
         [--width 1920 --height 1080]
 """
 
@@ -52,7 +55,9 @@ def main() -> int:
     ap.add_argument("--scene", choices=("stress", "stress-untextured",
                                         "stress-volume", "stress-msaa",
                                         "stress-temporal", "stress-animated",
-                                        "stress-animated-static", "helmet"),
+                                        "stress-animated-static",
+                                        "stress-lights",
+                                        "stress-lights-dense", "helmet"),
                     default="stress")
     args = ap.parse_args()
 
@@ -74,9 +79,13 @@ def main() -> int:
             volume=args.scene == "stress-volume",
             hud=args.scene == "stress-volume",
             effects=args.scene not in ("stress", "stress-untextured",
-                                       "stress-volume"),
+                                       "stress-volume", "stress-lights",
+                                       "stress-lights-dense"),
             temporal=args.scene == "stress-temporal",
             animated=args.scene.startswith("stress-animated"))
+        if args.scene.startswith("stress-lights"):
+            CS.add_probe_lights(P, np, r)
+            r._force_dense_lights = args.scene == "stress-lights-dense"
         CS.orbit_camera(r, np, 0)
 
         def camera(i):

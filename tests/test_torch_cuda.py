@@ -22,7 +22,12 @@ image is within 1e-5 (torch's CUDA pow/exp2 may differ from the CPU's by
 an ulp; a textured frame within 1e-4, for the same reason in its LOD;
 the MSAA / supersample / effects frames within 1e-4). The temporal
 card frames choose the same units as the CPU frames, and their images
-and history colours agree within 1e-4."""
+and history colours agree within 1e-4. The 12-light frame's tiled lists
+on the card equal the CPU's, its image is within 1e-4 of the CPU's and
+within 1e-5 of the card's dense loop (12 lights summed in two orders);
+the hook frames (a world-space extra pass, a display overlay, host and
+first_pass hooks) are within 1e-4 of the CPU's and fire the host hooks
+once."""
 
 import numpy as np
 import pytest
@@ -839,3 +844,53 @@ def test_k12_k13_kernels_bit_equal_to_twins(dev):
         split_rows(torch.zeros(3, 5, dtype=torch.float64, device=dev))
     with pytest.raises(ValueError):
         channel_rows(torch.zeros(5, 1025, device=dev))
+
+
+def test_card_tiled_lights_frame(dev, monkeypatch):
+    """tests/test_torch_lights.py's 12-light scene on the card: the tiled
+    lists equal the CPU's, the image is within 1e-4 of the CPU frame's
+    and within 1e-5 of the card's dense loop."""
+    from awsm_renderer_tpu_torch.passes import light_culling as LC
+    from test_torch_lights import _scene
+
+    logs = {"cpu": [], "cuda": []}
+    orig = LC.light_lists_from_bounds
+    where = []
+
+    def logged(*args):
+        out = orig(*args)
+        logs[where[-1]].append([t.cpu() for t in out])
+        return out
+
+    monkeypatch.setattr(LC, "light_lists_from_bounds", logged)
+    imgs = {}
+    for device in ("cpu", "cuda"):
+        where.append(device)
+        imgs[device] = _scene(False, 12, device=device).render()
+    assert len(logs["cuda"]) == len(logs["cpu"]) == 1
+    for (ci, cv), (gi, gv) in zip(logs["cpu"], logs["cuda"]):
+        assert torch.equal(cv, gv)
+        assert torch.equal(torch.where(cv, ci, -1), torch.where(gv, gi, -1))
+    np.testing.assert_allclose(imgs["cuda"], imgs["cpu"], rtol=0, atol=1e-4)
+    card = _scene(False, 12, device="cuda")
+    card._force_dense_lights = True
+    np.testing.assert_allclose(card.render(), imgs["cuda"], rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["world_pass", "display_overlay",
+                                  "host_first_pass"])
+def test_card_hook_frame(dev, name):
+    """tests/test_torch_hooks.py's hook frames on the card against the
+    same frames on the CPU."""
+    from test_torch_hooks import _case
+
+    out = {}
+    for device in ("cpu", "cuda"):
+        r, hooks, calls = _case(False, name, device)
+        out[device] = (r.render(hooks=hooks), calls)
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=0,
+                               atol=1e-4)
+    assert out["cuda"][1] == out["cpu"][1]
+    if name == "host_first_pass":
+        assert out["cuda"][1] == {"pre": 1, "post": 1}

@@ -217,13 +217,6 @@ def _bloom(r):
         r.config.post_processing, bloom=True))
 
 
-def _many_lights(r):
-    import awsm_renderer_tpu_torch as P
-
-    for i in range(9):
-        r.lights.insert(P.Light.point([i, 1, 0], intensity=1.0))
-
-
 def _transparent(r):
     import awsm_renderer_tpu_torch as P
     from awsm_renderer_tpu_torch.geometry import box
@@ -254,17 +247,6 @@ def _temporal(r):
 
     r.config = replace(r.config, anti_aliasing=replace(
         r.config.anti_aliasing, temporal=True))
-
-
-@pytest.mark.parametrize("scene, edit, milestone", [
-    ("box", _many_lights, "M12"),
-])
-def test_out_of_slice_content_raises(scene, edit, milestone):
-    r = T.torch_renderer(scene)
-    if edit is not None:
-        edit(r)
-    with pytest.raises(NotImplementedError, match=milestone):
-        r.render_device()
 
 
 @pytest.mark.parametrize("scene, edit", [("box", _msaa),
@@ -434,17 +416,14 @@ def test_overlay_content_renders(edit):
     assert not np.array_equal(img, base)
 
 
-def test_debug_modes_and_hooks_raise():
+def test_edges_view_needs_msaa():
     """The MSAA edge view needs MSAA (a ConfigError, as in the JAX
-    renderer); hooks are milestone M12. Every other debug view renders
-    (tests/test_torch_frame.py)."""
+    renderer). Every other debug view renders (tests/test_torch_frame.py)."""
     from awsm_renderer_tpu_torch.errors import ConfigError
 
     r = T.torch_renderer("box")
     with pytest.raises(ConfigError, match="msaa"):
         r.render_device(debug_mode="edges")
-    with pytest.raises(NotImplementedError, match="M12"):
-        r.render_device(hooks=object())
 
 
 def test_cpu_tensors_take_the_plain_twins():
