@@ -7,6 +7,10 @@ no JAX and nothing of the JAX package. See README.md ("PyTorch port").
 """
 
 from .config import AntiAliasing, PostProcessing, RendererConfig, ToneMapping
+from .core.animation import (
+    AnimationChannel, AnimationClip, AnimationPlayer, AnimationSampler,
+    Interpolation, LoopStyle, TargetPath,
+)
 from .core.lights import Light, LightKind
 from .core.materials import (
     AlphaMode, PbrDebug, PbrMaterial, TextureRef, UnlitMaterial,
@@ -25,7 +29,9 @@ __all__ = [
     "AwsmRendererTorch", "RendererConfig", "AntiAliasing", "PostProcessing",
     "ToneMapping", "Transform", "MeshGeometry", "PbrMaterial",
     "UnlitMaterial", "AlphaMode", "PbrDebug", "TextureRef", "Light",
-    "LightKind", "Sampler", "MipmapKind", "device_scene_from_jax",
+    "LightKind", "Sampler", "MipmapKind", "AnimationPlayer",
+    "AnimationClip", "AnimationChannel", "AnimationSampler",
+    "Interpolation", "LoopStyle", "TargetPath", "device_scene_from_jax",
     "errors", "AwsmError", "load_gltf", "populate_gltf",
 ]
 

@@ -27,14 +27,16 @@ def save_scene(renderer, path: str) -> None:
         pickle.dump(state, f, protocol=pickle.HIGHEST_PROTOCOL)
 
 
-def load_scene(path: str, config=None):
-    from ..renderer import AwsmRendererTorch as AwsmRendererTpu
+def load_scene(path: str, config=None, *, device="cuda"):
+    """A renderer on `device` holding the saved scene (the snapshot is a
+    pickle: load only files this program wrote)."""
+    from ..renderer import AwsmRendererTorch
 
     with open(path, "rb") as f:
         state = pickle.load(f)
     if state.get("magic") != _MAGIC:
         raise ValueError(f"{path} is not an awsm_renderer_tpu snapshot")
-    r = AwsmRendererTpu(config or state["config"])
+    r = AwsmRendererTorch(config or state["config"], device=device)
     for name in _STORES:
         setattr(r, name, state[name])
     # force full device re-upload on next render (the pickled Meshes

@@ -11,8 +11,10 @@ above 8, passes/light_culling.py), morph targets, skins and instanced
 groups (the animated vertex stage, split to the animated triangles),
 MSAA-4x / supersample / SMAA / temporal (TAA) anti-aliasing, bloom and
 depth of field, and the seven RenderHooks points (passes/frame.py; user
-geometry through passes/extra.py). The
-temporal frame keeps its history across frames (self._temporal); any
+geometry through passes/extra.py); and the reference's tool members:
+the runtime setters, warmup, the timings spans and the 'retrace:' note,
+the mega-texture atlas and the BRDF LUT built once at the first flush.
+The temporal frame keeps its history across frames (self._temporal); any
 content flush or resize resets it. The key-based stores, the
 per-frame dirty flush to device tensors and the host-side cull, pass
 bucketing and per-pass specialization (overlay crop, compacted overlay
@@ -43,12 +45,14 @@ from .core.skins import Skins
 from .core.textures import TEXEL_COLS, Textures, f32_to_bf16_bits
 from .core.transforms import Transform, Transforms
 from .errors import ConfigError
+from .ops.brdf_lut import generate_brdf_lut
 from .ops.shade import OPAQUE_TILE_ROWS
 from .ops.raster import TILE_H, TILE_W
 from .ops.temporal import reset_history
 from .passes.frame import (
     _inst_gids, _pad_to, render_frame, render_frame_temporal,
 )
+from .utils.profiling import RenderTimings
 
 # component-major corner pools the vertex stage reads: name -> components
 # (None: the pool's own width, the skin-set bucket's 4 * S); c_morph_base,
@@ -65,6 +69,16 @@ def _pad_ids(sel: np.ndarray):
     out = np.full(cap, -1, np.int32)
     out[:sel.size] = sel
     return out, int(sel.size)
+
+
+def _shapes(x):
+    """Shapes of a (nested) device dict's arrays, its other values as
+    they are, in key order; the shade's column-index cache, which the
+    frame itself adds to the dict, left out."""
+    if isinstance(x, dict):
+        return tuple((k, _shapes(x[k])) for k in sorted(x)
+                     if k != "mat_columns")
+    return tuple(x.shape) if hasattr(x, "shape") else x
 
 
 def _bf16_tensor(u16: np.ndarray, device) -> torch.Tensor:
@@ -109,8 +123,38 @@ class AwsmRendererTorch:
         self.last_bins = None          # raster bins of the last frame
         self._content_epoch = 0        # non-camera store flush counter
         self._temporal = None          # TAA state: hist/age/prev_vp/epoch
+        self._mega = None              # lazy MegaTexture atlas collection
+        self._last_trace_sig = None    # the last frame's specialization
+        # per-pass spans gated like the reference's AwsmRendererLogging
+        # { render_timings } (debug.rs:9-12; spans in render.rs:56-356)
+        self.timings = RenderTimings(enabled=False, device=device)
 
     # ---- content helpers (host stores, as the reference) -----------------
+
+    @property
+    def mega_texture(self):
+        """Atlas collection over the shared texel pool (reference:
+        renderer-core texture/mega_texture.rs). Batch adds go through
+        this directly (add_image ... then finalize()); one-off adds can
+        use add_atlas_image below."""
+        if self._mega is None:
+            from .core.mega_texture import MegaTexture
+
+            self._mega = MegaTexture(self.textures)
+        return self._mega
+
+    def add_atlas_image(self, image, ttype=None, wrap: bool = True):
+        """Pack an image into the mega-texture atlas and return a
+        TextureRef usable in any material texture slot (the entry's UV
+        offset/scale ride the KHR-transform table; `wrap` keeps REPEAT
+        semantics inside the sub-rect)."""
+        from .core.mega_texture import TextureType
+
+        entry = self.mega_texture.add_image(
+            image, ttype if ttype is not None else TextureType.ALBEDO,
+            wrap=wrap)
+        self.mega_texture.finalize()
+        return entry.texture_ref
 
     def add_mesh(self, geometry: MeshGeometry, material_key: int,
                  transform: Optional[Transform] = None,
@@ -160,7 +204,27 @@ class AwsmRendererTorch:
         self.meshes.update_world(self.transforms)
         return keys
 
+    # ---- runtime reconfiguration (reference: anti_alias.rs
+    # set_anti_aliasing, post_process.rs set_post_processing)
+
+    def set_anti_aliasing(self, aa) -> None:
+        self.config = dataclasses.replace(self.config, anti_aliasing=aa)
+
+    def set_post_processing(self, pp) -> None:
+        self.config = dataclasses.replace(self.config, post_processing=pp)
+
+    @property
+    def logging_timings(self) -> bool:
+        return self.timings.enabled
+
+    @logging_timings.setter
+    def logging_timings(self, v: bool) -> None:
+        self.timings.enabled = bool(v)
+
     def remove_all(self) -> None:
+        """Clear the whole scene and rebuild renderer state (reference:
+        lib.rs:117-128 remove_all); the device tensors are rebuilt on the
+        next flush."""
         self.__init__(self.config, self.device)
 
     def update_all(self, dt: float, view=None, projection=None) -> None:
@@ -213,92 +277,22 @@ class AwsmRendererTorch:
                 or self.textures.gpu_dirty or self.environment.gpu_dirty
                 or self.skins.gpu_dirty):
             self._content_epoch += 1
+        if "brdf_lut" not in d:
+            # the split-sum LUT, built once (cached per size and device) as
+            # the reference builds it; no frame path reads it
+            small = self.device.type == "cpu"
+            d["brdf_lut"] = generate_brdf_lut(64 if small else 256,
+                                              64 if small else 512,
+                                              self.device)
         t = self.transforms
         if t.gpu_dirty:
             d["world"] = self._upload(t.world)
             d["normal_mat"] = self._upload(t.normal)
             t.gpu_dirty = False
 
-        m = self.meshes
-        if m.gpu_dirty:
-            def _slice_cm(name, c, rows):
-                """(cnt,) host rows -> component-major (3c, cnt) block."""
-                arr = getattr(m, name)
-                c = arr.shape[1] if c is None else c
-                return (arr.reshape(-1, 3, c)[rows].transpose(1, 2, 0)
-                        .reshape(3 * c, rows.size))
-
-            def _morph_base(rows):
-                return m.c_morph_base.reshape(-1, 3)[rows].T
-
-            plan = m.device_updates()
-            # the triangle-layout generation bumps only when the device
-            # layout changes (full re-upload, append, tombstone, instanced
-            # group edits): a morph-weight or flag edit also sets
-            # gpu_dirty, and bumping for it would rebuild the overlay and
-            # animated index caches (an isin scan over the pool) on every
-            # animated frame
-            if plan[0] == "full" or plan[1] or m.inst_groups_changed:
-                self._mesh_flush_gen += 1
-            if plan[0] == "full":
-                _, idx, dead = plan
-                for name, c in _CORNERS:
-                    d[name] = self._tensor(_slice_cm(name, c, idx))
-                d["c_morph_base"] = self._tensor(_morph_base(idx))
-                tri_mesh_c = m.tri_mesh[idx].copy()
-                tri_mesh_c[dead] = -1
-                self._tri_mesh_device_order = tri_mesh_c
-                d["tri_mesh"] = self._tensor(tri_mesh_c)
-            else:
-                # dirty-range updates in place (buffer/helpers.rs semantics)
-                for s, rows, dead in plan[1]:
-                    if rows is None:       # tombstone: mask the stale rows
-                        self._tri_mesh_device_order[s:s + dead] = -1
-                        d["tri_mesh"][s:s + dead] = -1
-                        continue
-                    for name, c in _CORNERS:
-                        d[name][:, s:s + rows.size] = self._tensor(
-                            _slice_cm(name, c, rows))
-                    d["c_morph_base"][:, s:s + rows.size] = self._tensor(
-                        _morph_base(rows))
-                    tri_mesh_c = m.tri_mesh[rows].copy()
-                    tri_mesh_c[dead] = -1
-                    self._tri_mesh_device_order[s:s + rows.size] = tri_mesh_c
-                    d["tri_mesh"][s:s + rows.size] = self._tensor(tri_mesh_c)
-            if m.morph_pool_dirty or "morph_deltas" not in d:
-                d["morph_deltas"] = self._tensor(m.morph_deltas)
-                m.morph_pool_dirty = False
-            d["mesh_info"] = self._upload(m.mesh_info)
-            d["morph_weights"] = self._upload(m.morph_weights)
-
-            # instanced groups: one corner upload per group and its (I,)
-            # instance mesh rows; the frame tiles them
-            # (passes/frame.py _combined_geometry)
-            if m.inst_groups_changed:      # drop the removed groups' keys
-                gone = {f"inst{g}_" for g in set(_inst_gids(d))
-                        - {g for g, _ in m.inst_group_items()}}
-                for k in [k for k in d
-                          if any(k.startswith(p) for p in gone)]:
-                    del d[k]
-                m.inst_groups_changed = False
-            self._inst_tri_mesh = []
-            for gid, grp in m.inst_group_items():
-                rows = np.array([m._mesh_alloc.row_of(k)
-                                 for k in grp.mesh_keys], np.int32)
-                if grp.dirty or f"inst{gid}_rows" not in d:
-                    for name, arr in grp.corners.items():
-                        d[f"inst{gid}_{name}"] = self._tensor(arr)
-                    d[f"inst{gid}_live"] = self._tensor(grp.livemask)
-                    d[f"inst{gid}_rows"] = self._tensor(rows)
-                    grp.dirty = False
-                # host mirror for picking: the device order appends the
-                # groups after the pool, instances in row order
-                self._inst_tri_mesh.append(np.where(
-                    np.tile(grp.livemask, rows.size),
-                    np.repeat(rows, grp.livemask.size), -1).astype(np.int32))
-            m.gpu_dirty = False
-            self._mesh_row_to_key = {row: key
-                                     for key, row in m._mesh_alloc.items()}
+        if self.meshes.gpu_dirty:
+            with self.timings.span("write_gpu/meshes"):
+                self._flush_meshes(d)
 
         mats = self.materials
         if mats.gpu_dirty:
@@ -374,6 +368,91 @@ class AwsmRendererTorch:
             d["camera"] = cam
             self.camera.gpu_dirty = False
         return d
+
+    def _flush_meshes(self, d) -> None:
+        """Upload the dirty mesh store: the live triangles' corner pools
+        component-major, the morph pool and weights, the mesh table and
+        the instanced groups."""
+        m = self.meshes
+
+        def _slice_cm(name, c, rows):
+            """(cnt,) host rows -> component-major (3c, cnt) block."""
+            arr = getattr(m, name)
+            c = arr.shape[1] if c is None else c
+            return (arr.reshape(-1, 3, c)[rows].transpose(1, 2, 0)
+                    .reshape(3 * c, rows.size))
+
+        def _morph_base(rows):
+            return m.c_morph_base.reshape(-1, 3)[rows].T
+
+        plan = m.device_updates()
+        # the triangle-layout generation bumps only when the device
+        # layout changes (full re-upload, append, tombstone, instanced
+        # group edits): a morph-weight or flag edit also sets
+        # gpu_dirty, and bumping for it would rebuild the overlay and
+        # animated index caches (an isin scan over the pool) on every
+        # animated frame
+        if plan[0] == "full" or plan[1] or m.inst_groups_changed:
+            self._mesh_flush_gen += 1
+        if plan[0] == "full":
+            _, idx, dead = plan
+            for name, c in _CORNERS:
+                d[name] = self._tensor(_slice_cm(name, c, idx))
+            d["c_morph_base"] = self._tensor(_morph_base(idx))
+            tri_mesh_c = m.tri_mesh[idx].copy()
+            tri_mesh_c[dead] = -1
+            self._tri_mesh_device_order = tri_mesh_c
+            d["tri_mesh"] = self._tensor(tri_mesh_c)
+        else:
+            # dirty-range updates in place (buffer/helpers.rs semantics)
+            for s, rows, dead in plan[1]:
+                if rows is None:       # tombstone: mask the stale rows
+                    self._tri_mesh_device_order[s:s + dead] = -1
+                    d["tri_mesh"][s:s + dead] = -1
+                    continue
+                for name, c in _CORNERS:
+                    d[name][:, s:s + rows.size] = self._tensor(
+                        _slice_cm(name, c, rows))
+                d["c_morph_base"][:, s:s + rows.size] = self._tensor(
+                    _morph_base(rows))
+                tri_mesh_c = m.tri_mesh[rows].copy()
+                tri_mesh_c[dead] = -1
+                self._tri_mesh_device_order[s:s + rows.size] = tri_mesh_c
+                d["tri_mesh"][s:s + rows.size] = self._tensor(tri_mesh_c)
+        if m.morph_pool_dirty or "morph_deltas" not in d:
+            d["morph_deltas"] = self._tensor(m.morph_deltas)
+            m.morph_pool_dirty = False
+        d["mesh_info"] = self._upload(m.mesh_info)
+        d["morph_weights"] = self._upload(m.morph_weights)
+
+        # instanced groups: one corner upload per group and its (I,)
+        # instance mesh rows; the frame tiles them
+        # (passes/frame.py _combined_geometry)
+        if m.inst_groups_changed:      # drop the removed groups' keys
+            gone = {f"inst{g}_" for g in set(_inst_gids(d))
+                    - {g for g, _ in m.inst_group_items()}}
+            for k in [k for k in d
+                      if any(k.startswith(p) for p in gone)]:
+                del d[k]
+            m.inst_groups_changed = False
+        self._inst_tri_mesh = []
+        for gid, grp in m.inst_group_items():
+            rows = np.array([m._mesh_alloc.row_of(k)
+                             for k in grp.mesh_keys], np.int32)
+            if grp.dirty or f"inst{gid}_rows" not in d:
+                for name, arr in grp.corners.items():
+                    d[f"inst{gid}_{name}"] = self._tensor(arr)
+                d[f"inst{gid}_live"] = self._tensor(grp.livemask)
+                d[f"inst{gid}_rows"] = self._tensor(rows)
+                grp.dirty = False
+            # host mirror for picking: the device order appends the
+            # groups after the pool, instances in row order
+            self._inst_tri_mesh.append(np.where(
+                np.tile(grp.livemask, rows.size),
+                np.repeat(rows, grp.livemask.size), -1).astype(np.int32))
+        m.gpu_dirty = False
+        self._mesh_row_to_key = {row: key
+                                 for key, row in m._mesh_alloc.items()}
 
     # ---- pass bucketing (reference: renderer.py _mesh_masks) -------------
 
@@ -689,7 +768,8 @@ class AwsmRendererTorch:
         clamp, the MSAA frame's opaque tile cap, the DoF ring set and the
         animation specialization (has_morphs, skin_sets: the most skin
         sets a mesh reads)."""
-        masks = self._mesh_masks()
+        with self.timings.span("collect_renderables"):
+            masks = self._mesh_masks()
         info = self.meshes.mesh_info
         op_rows = self._bucket_mat_rows(masks["opaque"])
         prep = dict(masks=masks, slot_mask=self._slot_mask(op_rows),
@@ -749,6 +829,88 @@ class AwsmRendererTorch:
             cfg if cfg is not None else self.config,
         )
 
+    def _log_retrace(self, frame_kw: dict, bucket_masks, ds) -> None:
+        """Note 'retrace: <names>' in the timings when the frame's
+        specialization changed from the last frame's: the names are the
+        reference's, so a consumer of `timings` reads the same note. In
+        the reference the note means the next dispatch stalls on an XLA
+        compile; the port compiles nothing per variant, so here it means
+        the per-frame prep reran and the variant's first frame runs
+        (first use of its kernels, the caching allocator grown to its
+        sizes). The specialization is every argument of render_frame /
+        render_frame_temporal but the tensors and the overlay band's
+        first row (a traced value in the reference), which buckets are
+        present, the overlay index's shape, the device dict's shapes and
+        the in-frame hooks (swapping only pre/post_render notes
+        nothing)."""
+        sig = {k: v for k, v in frame_kw.items()
+               if k not in ("overlay_tri_idx", "overlay_crop_y0", "hooks")}
+        sig["has_transparent"] = bucket_masks[1] is not None
+        sig["has_hud"] = bucket_masks[2] is not None
+        ov_idx = frame_kw["overlay_tri_idx"]
+        sig["overlay_tri_idx_shape"] = (None if ov_idx is None
+                                        else tuple(ov_idx.shape))
+        sig["ds_shapes"] = _shapes(ds)
+        hooks = frame_kw["hooks"]
+        if hooks is not None:
+            hooks = dataclasses.replace(hooks, pre_render=None,
+                                        post_render=None)
+            if all(getattr(hooks, f.name) is None
+                   for f in dataclasses.fields(hooks)):
+                hooks = None
+        sig["hooks"] = hooks
+        prev, self._last_trace_sig = self._last_trace_sig, sig
+        if prev is None:
+            return      # the first frame is not a change
+        changed = sorted(k for k in sig if prev.get(k, "<missing>") != sig[k])
+        if changed:
+            self.timings.note("retrace: " + ", ".join(changed))
+
+    def warmup(self, variants: Optional[list] = None) -> int:
+        """Render frame variants once each so runtime toggles don't
+        stall the render loop: the analog of the reference compiling its
+        shader template variants at init (shaders.rs:42-69). On the port
+        each render builds the kernel library on first use and grows the
+        caching allocator to the variant's peak; nothing is compiled per
+        variant.
+
+        variants: list of dicts of config overrides; keys may name any
+        field of RendererConfig, AntiAliasing or PostProcessing (e.g.
+        [{}, {"bloom": True}, {"msaa": False, "smaa": True}]). Each
+        variant is rendered once on the device (no host readback). The
+        current config renders first; the config is restored afterwards,
+        also when a variant raises. Returns the number of frames
+        rendered."""
+        cfg0 = self.config
+        aa_fields = {f.name for f in dataclasses.fields(cfg0.anti_aliasing)}
+        pp_fields = {f.name for f in dataclasses.fields(cfg0.post_processing)}
+        top_fields = {f.name for f in dataclasses.fields(cfg0)}
+        n = 0
+        try:
+            for over in [{}] + list(variants or []):
+                aa = {k: v for k, v in over.items() if k in aa_fields}
+                pp = {k: v for k, v in over.items() if k in pp_fields}
+                top = {k: v for k, v in over.items()
+                       if k in top_fields and k not in ("anti_aliasing",
+                                                        "post_processing")}
+                unknown = set(over) - aa_fields - pp_fields - top_fields
+                if unknown:
+                    raise ConfigError(
+                        f"warmup: unknown config fields {sorted(unknown)}")
+                self.config = dataclasses.replace(
+                    cfg0,
+                    anti_aliasing=dataclasses.replace(cfg0.anti_aliasing,
+                                                      **aa),
+                    post_processing=dataclasses.replace(
+                        cfg0.post_processing, **pp),
+                    **top,
+                )
+                self.render_device()
+                n += 1
+        finally:
+            self.config = cfg0
+        return n
+
     # ---- render (reference: renderer.py render_device / render / pick) ---
 
     def render_device(self, debug_mode: str = "none", hooks=None):
@@ -781,14 +943,15 @@ class AwsmRendererTorch:
                                  and (hooks.first_pass
                                       or hooks.after_geometry)))
         st, self._temporal = self._temporal, None
-        if use_temporal:
-            ds = self._flush(
-                jitter_px=get_halton_jitter((self.camera.frame_count % 8)
-                                            + 1),
-                prev_view_proj=(st["prev_vp"] if st is not None
-                                else self.camera.view_projection))
-        else:
-            ds = self._flush()
+        with self.timings.span("write_gpu"):
+            if use_temporal:
+                ds = self._flush(
+                    jitter_px=get_halton_jitter((self.camera.frame_count % 8)
+                                                + 1),
+                    prev_view_proj=(st["prev_vp"] if st is not None
+                                    else self.camera.view_projection))
+            else:
+                ds = self._flush()
         prep_key = self._scene_signature(cfg)
         if self._prep is None or self._prep[0] != prep_key:
             self._prep = (prep_key, self._prepare())
@@ -847,18 +1010,24 @@ class AwsmRendererTorch:
                 hist, age = st["hist"], st["age"]
                 cap = max(1, min(n_units, int(round(cfg.temporal.cap_frac
                                                     * n_units))))
-            ldr, tri_id, _depth, hist, age = render_frame_temporal(
-                ds, *bucket_masks, hist, age, shade_cap=cap,
-                alpha=cfg.temporal.alpha, **kw)
+            mode_kw = dict(shade_cap=cap, alpha=cfg.temporal.alpha)
+            self._log_retrace({**kw, **mode_kw}, bucket_masks, ds)
+            with self.timings.span("render_frame/dispatch"):
+                ldr, tri_id, _depth, hist, age = render_frame_temporal(
+                    ds, *bucket_masks, hist, age, **mode_kw, **kw)
             self._temporal = dict(
                 hist=hist, age=age, prev_vp=self.camera.view_projection,
                 epoch=self._content_epoch, shape=(rh1, rw1))
             bins = None
         else:
-            ldr, tri_id, _depth, bins = render_frame(
-                ds, *bucket_masks, supersample=aa.supersample, msaa=aa.msaa,
-                opaque_tile_cap=prep["op_tile_cap"], debug_mode=debug_mode,
-                **kw)
+            mode_kw = dict(supersample=aa.supersample, msaa=aa.msaa,
+                           opaque_tile_cap=prep["op_tile_cap"],
+                           debug_mode=debug_mode)
+            self._log_retrace({**kw, **mode_kw}, bucket_masks, ds)
+            with self.timings.span("render_frame/dispatch"):
+                ldr, tri_id, _depth, bins = render_frame(
+                    ds, *bucket_masks, **mode_kw, **kw)
+        self.timings.end_frame()
         self._last_tri_id = tri_id
         self._rendered_sig = prep_key
         self.last_bins = bins

@@ -121,6 +121,30 @@ back to the CPU). Phases:
            after a camera move replays the in-frame hooks without the host
            ones; ms/frame with and without hooks, the extra pass's ms a
            triangle;
+  tools    the facade's tool members and the tools on the stress scene at
+           1080p: warmup([bloom], [msaa]) (3 frames, the config restored,
+           also when a variant raises ConfigError) and the first bloom
+           frame cold (a fresh renderer) against after warmup; an
+           InteractiveSession(editor=True, grid=True) driven by scripted
+           events: a pointer-down on a colonnade pixel (found from the
+           tri_id plane) selects its mesh and attaches the gizmo, a drag
+           on a translate handle (found the same way) moves the target
+           along that axis only, an empty-sky drag orbits, a wheel zooms,
+           "set" turns bloom on, then MSAA (K9 launches), then the grid, a
+           resize to 1280x720 and back; every image finite and of its
+           shape; 12 pointer-free steps on a moving camera with timings
+           off, on, on and off (ms/step by CUDA events and host wall,
+           launches a step; then the host syncs of two more by source
+           line, no more than the stress frame's; the same syncs and
+           launches both ways), kernels a step under torch.profiler,
+           the spans' host and device ms; the host
+           syncs of a pointer-down step; the host time a frame gains
+           (_log_retrace, a span with timings off); check_compatibility
+           beside the step's peak allocated memory; export_image read
+           back with PIL equal to the tensor's u8, export_depth;
+           save_scene + load_scene(device="cuda") rendering bit-equal;
+           two add_atlas_image entries as distinct quads;
+           generate_brdf_lut(256, 512) timed and held against the CPU's;
   gltf     build the glTF catalog's helmet (five 1024x1024 maps) with the
            port's gltf/samples.py, load_gltf + populate_gltf it at 1080p
            under the same environment, render 12 orbit frames and check
@@ -3234,6 +3258,435 @@ def phase_hooks(P, np, torch):
     return res
 
 
+# the card's generate_brdf_lut(256, 512) against the CPU's, off the
+# grazing NdotV column 0: f32 rounding, amplified by 1 / n_dot_v, puts the
+# CPU table up to 9.1e-4 from a float64 evaluation of the same sums there
+# (3.0e-3 on column 0, 5.4e-7 in mean); the card's table may round
+# another way as far, so twice that
+TOOLS_LUT_ATOL = 2e-3
+
+
+def first_frame_ms(r, torch):
+    """(CUDA-event ms, host wall ms) of one render_device() call started
+    on an idle card."""
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    r.render_device()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b), (time.perf_counter() - t0) * 1e3
+
+
+def syncs_of(fn, torch):
+    """(fn()'s result, host syncs while it ran, their source lines): torch's
+    sync debug mode warns at every call that waits for the device."""
+    import collections
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    sites = collections.Counter(
+        f"{os.path.relpath(w.filename, REPO)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    return out, sum(sites.values()), dict(sites.most_common())
+
+
+def key_plane(r, np):
+    """(H, W) mesh keys of the last frame's tri_id plane (-1: sky), read
+    back once."""
+    tid = r._last_tri_id.cpu().numpy()
+    tm = r._tri_mesh_device_order
+    row_key = np.full(int(tm.max()) + 2, -1, np.int64)
+    for row, key in r._mesh_row_to_key.items():
+        if row < row_key.size:
+            row_key[row] = key
+    rows = np.where(tid >= 0, tm[np.clip(tid, 0, tm.size - 1)], -1)
+    return np.where(rows >= 0, row_key[rows], -1)
+
+
+def pick_pixel(plane, wanted, np, r=3):
+    """The pixel nearest the plane's centre whose (2r+1)^2 window shows a
+    single key of `wanted`: (x, y, key), or None."""
+    h, w = plane.shape
+    ys, xs = np.nonzero(np.isin(plane, np.fromiter(wanted, np.int64)))
+    keep = (ys >= r) & (ys < h - r) & (xs >= r) & (xs < w - r)
+    ys, xs = ys[keep], xs[keep]
+    for i in np.argsort((xs - w / 2) ** 2 + (ys - h / 2) ** 2):
+        x, y = int(xs[i]), int(ys[i])
+        if (plane[y - r:y + r + 1, x - r:x + r + 1] == plane[y, x]).all():
+            return x, y, int(plane[y, x])
+    return None
+
+
+def atlas_scene(P, np):
+    """tests/test_mega_texture.py's atlas scene on the card: a red and a
+    green image packed into one atlas page through add_atlas_image, on
+    two quads at 128x64."""
+    from awsm_renderer_tpu_torch.core.materials import TS_BASE_COLOR
+    from awsm_renderer_tpu_torch.core.mega_texture import TextureType
+    from awsm_renderer_tpu_torch.geometry import plane
+    from awsm_renderer_tpu_torch.utils import math3d as m3
+
+    F = np.float32
+    r = P.AwsmRendererTorch(P.RendererConfig(width=128, height=64),
+                            device=DEVICE)
+    refs = []
+    for ch, n in ((0, 16), (1, 24)):
+        img = np.zeros((n, n, 4), F)
+        img[..., ch] = 1.0
+        img[..., 3] = 1.0
+        refs.append(r.add_atlas_image(img, TextureType.ALBEDO))
+    check(refs[0].texture_id == refs[1].texture_id
+          and refs[0].transform_id != refs[1].transform_id,
+          "two add_atlas_image entries share one atlas page")
+    for ref, x in zip(refs, (-1.1, 1.1)):
+        mat = r.materials.insert(P.UnlitMaterial(
+            base_color_factor=np.ones(4, F), textures={TS_BASE_COLOR: ref}))
+        r.add_mesh(plane(2.0), mat, transform=P.Transform(
+            translation=np.array([x, 0, 0], F),
+            rotation=m3.quat_from_axis_angle([1, 0, 0], np.pi / 2)))
+    r.camera.update(m3.look_at([0, 0, 3.2], [0, 0, 0], [0, 1, 0]),
+                    m3.perspective(np.pi / 3, 2.0, 0.1, 100.0))
+    return r
+
+
+def phase_tools(P, np, torch, stress_syncs: int):
+    """The facade's tool members and the tools on bench.py's stress scene
+    at 1080p: warmup (a toggled variant's first frame cold, on a fresh
+    renderer, and after warmup), an InteractiveSession(editor=True,
+    grid=True) driven by a scripted event list (select a box, drag a
+    translate handle, orbit from the sky, wheel, the bloom / MSAA / grid
+    toggles, a resize to 1280x720 and back), its steps' ms, host syncs
+    and launches, timings on against off, check_compatibility beside the
+    measured peak, the exporter, a snapshot round trip, the atlas scene
+    and the BRDF LUT against the CPU's."""
+    import dataclasses
+
+    from PIL import Image
+
+    from awsm_renderer_tpu_torch.core.snapshot import load_scene, save_scene
+    from awsm_renderer_tpu_torch.editor import GizmoMode
+    from awsm_renderer_tpu_torch.errors import ConfigError
+    from awsm_renderer_tpu_torch.ops import kernels
+    from awsm_renderer_tpu_torch.ops.brdf_lut import _lut
+    from awsm_renderer_tpu_torch.passes.frame import RenderHooks
+    from awsm_renderer_tpu_torch.session import InteractiveSession, OrbitCamera
+    from awsm_renderer_tpu_torch.utils.compatibility import (
+        check_compatibility,
+    )
+    from awsm_renderer_tpu_torch.utils.exporter import (
+        export_depth, export_image,
+    )
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(REPO, "build", "chip_smoke", "tools")
+    os.makedirs(out_dir, exist_ok=True)
+    res = {}
+
+    def pp(r, **kw):
+        return dataclasses.replace(r.config.post_processing, **kw)
+
+    def aa(r, **kw):
+        return dataclasses.replace(r.config.anti_aliasing, **kw)
+
+    # warmup: a toggled variant's first frame, cold and after warmup
+    cold_r = build_stress_scene(P, np, DEVICE)[0]
+    orbit_camera(cold_r, np, 0)
+    cold_r.set_post_processing(pp(cold_r, bloom=True))
+    res["cold"] = first_frame_ms(cold_r, torch)
+    del cold_r
+    r, keys, _ = build_stress_scene(P, np, DEVICE)
+    orbit_camera(r, np, 0)
+    log(f"phase tools: Stress-1080p-ibl-tex through InteractiveSession("
+        f"editor=True, grid=True), {r.meshes.count} meshes before the "
+        f"editor's")
+    cfg0 = r.config
+    n = r.warmup([{"bloom": True}, {"msaa": True}])
+    check(n == 3 and r.config is cfg0,
+          "warmup([bloom], [msaa]) rendered 3 frames and restored the config")
+    try:
+        r.warmup([{"msaa": True, "supersample": True}])
+        raised = False
+    except ConfigError:
+        raised = True
+    check(raised and r.config is cfg0,
+          "a variant that raises (MSAA + supersample) leaves the config as "
+          "it was")
+    r.set_post_processing(pp(r, bloom=True))
+    res["warm"] = first_frame_ms(r, torch)
+    r.set_post_processing(pp(r, bloom=False))
+    log(f"  first bloom frame: cold (a fresh renderer, uploads included) "
+        f"{res['cold'][0]:.3f} ms (CUDA events), {res['cold'][1]:.3f} ms "
+        f"host wall; after warmup {res['warm'][0]:.3f} ms, "
+        f"{res['warm'][1]:.3f} ms host wall")
+
+    rad = float(np.sqrt(10.0 ** 2 * 2 + 7.0 ** 2))
+    s = InteractiveSession(r, editor=True, grid=True, camera=OrbitCamera(
+        center=(0.0, 0.0, 0.0), radius=rad, yaw=float(np.pi / 4),
+        pitch=float(np.arcsin(7.0 / rad)), near=0.1, far=200.0))
+    tk_of = {k: r.meshes.get(k).transform_key for k in keys}
+
+    def hold(img, w=W, h=H):
+        check(tuple(img.shape) == (h, w, 4) and bool(torch.isfinite(img)
+                                                     .all()),
+              f"step image finite, shape {tuple(img.shape)}")
+        return img
+
+    hold(s.step(0.0, [("set", "grid", False)]))
+    plane = key_plane(r, np)
+    box = pick_pixel(plane, set(keys), np)
+    check(box is not None, f"a colonnade mesh pixel found: {box}")
+    bx, by, bkey = box
+    _img, n_down, down_sites = syncs_of(lambda: hold(s.step(0.0, [
+        ("pointer_down", bx, by), ("pointer_up",)])), torch)
+    check(s.selected == bkey and s.controller.target == tk_of[bkey]
+          and bool(r._mesh_masks()["hud"].any()),
+          f"pointer_down at ({bx}, {by}) selected mesh {bkey} and attached "
+          f"the gizmo (HUD handles visible)")
+    log(f"  host syncs of a pointer-down step (two picks: the gizmo's and "
+        f"the session's): {n_down}; by source line: {down_sites}")
+
+    parts = s.controller._parts
+    handles = {k for k, (m, _a) in parts.items()
+               if m == GizmoMode.TRANSLATE}
+    plane = key_plane(r, np)
+    hnd = (pick_pixel(plane, handles, np, r=1)
+           or pick_pixel(plane, handles, np, r=0))
+    check(hnd is not None, f"a translate-handle pixel found: {hnd}")
+    hx, hy, hkey = hnd
+    axis = parts[hkey][1]
+    tk = tk_of[bkey]
+    t0 = r.transforms.get_local(tk).translation.copy()
+    hold(s.step(0.0, [("pointer_down", hx, hy)]))
+    check(s.controller.dragging, f"pointer_down on handle {hkey} (axis "
+                                 f"{axis}) started a gizmo drag")
+    hold(s.step(0.0, [("pointer_move", hx + 60, hy + 30)]))
+    hold(s.step(0.0, [("pointer_up",)]))
+    d = r.transforms.get_local(tk).translation - t0
+    check(abs(float(d[axis])) > 1e-3
+          and all(float(d[i]) == 0.0 for i in range(3) if i != axis),
+          f"the drag moved the target along axis {axis} only: {d}")
+
+    sky = pick_pixel(key_plane(r, np)[: H // 4], {-1}, np)
+    check(sky is not None, f"a sky pixel found: {sky}")
+    sx, sy, _ = sky
+    eye0 = s.camera.eye().copy()
+    hold(s.step(0.0, [("pointer_down", sx, sy)]))
+    hold(s.step(0.0, [("pointer_move", sx + 80, sy + 10)]))
+    hold(s.step(0.0, [("pointer_up",)]))
+    check(float(np.abs(s.camera.eye() - eye0).max()) > 1e-2
+          and s.selected == bkey,
+          f"an empty-sky drag orbited the camera (eye {eye0} -> "
+          f"{s.camera.eye()}), the selection kept")
+    r0 = s.camera.radius
+    hold(s.step(0.0, [("wheel", -1.0)]))
+    check(s.camera.radius < r0, f"wheel zoomed ({r0:.3f} -> "
+                                f"{s.camera.radius:.3f})")
+
+    # pointer-free steps on a moving camera, timings off then on: the
+    # same frames, the same syncs and launches
+    yaw0 = s.camera.yaw
+    runs = []          # (timings on, median, wall, syncs, sites, counts)
+    for on in (False, True, True, False):       # in turns
+        r.logging_timings = on
+        kernels.reset_launch_counts()
+        ev = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(N_FRAMES):
+            s.camera.yaw = yaw0 + 0.01 * (i + 1)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            img = s.step(1.0 / 60)
+            b.record()
+            ev.append((a, b))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / N_FRAMES
+        counts = dict(kernels.launch_counts)
+        med = statistics.median(a.elapsed_time(b) for a, b in ev)
+        hold(img)
+
+        def two_more():
+            for i in (N_FRAMES, N_FRAMES + 1):
+                s.camera.yaw = yaw0 + 0.01 * (i + 1)
+                s.step(1.0 / 60)
+
+        _, n_sync, sites = syncs_of(two_more, torch)
+        runs.append((on, med, wall, n_sync / 2, sites, counts))
+        log(f"  {N_FRAMES} pointer-free steps on a moving camera, timings "
+            f"{'on' if on else 'off'}: median {med:.3f} ms/step (CUDA "
+            f"events), host wall {wall:.3f} ms/step; launches {counts}; "
+            f"{n_sync} host syncs in two more ({sites})")
+    r.logging_timings = False
+    check(all(run[3] == runs[0][3] and run[5] == runs[0][5] for run in runs),
+          "timings on: the same host syncs and kernel launches as off")
+    check(runs[0][3] <= stress_syncs,
+          f"a pointer-free step waits on the device no more often than the "
+          f"stress frame ({runs[0][3]:g} a step against {stress_syncs})")
+    for name in OPAQUE_PATH:
+        check(runs[0][5][name] >= N_FRAMES,
+              f"{name} launched on every step")
+    def session_camera(i):
+        s.camera.yaw = yaw0 + 0.01 * (i + 1)
+        r.update_all(0.0, *s.camera.matrices(W / H))
+
+    n_kern, kern_ms = kernels_a_frame(r, session_camera, torch)
+    log(f"  kernels a pointer-free step (profiler): "
+        f"{'not measured' if n_kern is None else f'{n_kern:.0f}'}, device "
+        f"{'not measured' if kern_ms is None else f'{kern_ms:.3f}'} ms")
+    host = r.timings.summary()
+    dev = r.timings.device_summary()
+    check(set(dev) >= {"write_gpu", "collect_renderables",
+                       "render_frame/dispatch"} and len(r.timings.frames)
+          == 2 * N_FRAMES + 4, f"timings recorded {len(r.timings.frames)} "
+                               f"frames with device times for {sorted(dev)}")
+    spans = {k: (host[k] * 1e3, dev.get(k, 0.0) * 1e3) for k in sorted(host)}
+    log("  spans (host ms, device ms) a step: " + ", ".join(
+        f"{k} {h:.3f} / {d:.3f}" for k, (h, d) in spans.items()))
+    res.update(steps=runs, spans=spans, down_syncs=n_down,
+               kernels=(n_kern, kern_ms))
+
+    # the host work the tools add to every frame: the retrace signature
+    # (on every frame, as in the reference) and a span with timings off
+    captured = []
+    log_retrace = r._log_retrace
+    r._log_retrace = lambda *args: (captured.append(args),
+                                    log_retrace(*args))[1]
+    s.step(0.0)
+    del r._log_retrace
+    sig_us = host_us(lambda: log_retrace(*captured[0]))
+
+    def span_off():
+        with r.timings.span("write_gpu"):
+            pass
+
+    span_us = host_us(span_off)
+    log(f"  host work a frame gains: _log_retrace {sig_us:.1f} µs, a span "
+        f"with timings off {span_us:.2f} µs (two or three a frame)")
+    res["host_us"] = (sig_us, span_us)
+
+    # compatibility report beside the measured peak
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    img = hold(s.step(0.0))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    rep = check_compatibility(r)
+    est = rep.scene_bytes + rep.framebuffer_bytes
+    check(rep.ok and rep.device_kind == torch.cuda.get_device_name(0)
+          and rep.hbm_bytes == torch.cuda.get_device_properties(0)
+          .total_memory, f"check_compatibility: {rep}")
+    log(f"  compatibility: scene {rep.scene_bytes / 2**20:.1f} MiB + "
+        f"framebuffers {rep.framebuffer_bytes / 2**20:.1f} MiB = "
+        f"{est / 2**20:.1f} MiB estimated; the stress step's peak "
+        f"allocated {peak / 2**20:.1f} MiB: the estimate "
+        f"{'covers' if est >= peak else 'does not cover'} it")
+    res["compat"] = (rep, peak)
+
+    # exporter: a session frame and the frame's depth plane
+    path = os.path.join(out_dir, "frame.png")
+    export_image(img, path)
+    back = np.asarray(Image.open(path))
+    want = (img.double().nan_to_num().clamp(0, 1) * 255 + 0.5).to(
+        torch.uint8).cpu().numpy()
+    check(back.shape == (H, W, 4) and np.array_equal(back, want),
+          "export_image: the PNG read back equals the tensor's u8")
+    depth = []
+    r.render_device(hooks=RenderHooks(before_transparent=(
+        lambda hdr, dep, ds: depth.append(dep.clone()) or hdr)))
+    dpath = os.path.join(out_dir, "depth.png")
+    export_depth(depth[0], dpath)
+    dback = np.asarray(Image.open(dpath))
+    sky_px = (depth[0] >= 1.0).cpu().numpy()
+    check(dback.shape == (H, W, 3) and (dback[sky_px] == 255).all()
+          and (dback[~sky_px] < 255).any(),
+          "export_depth: sky white, geometry graded")
+
+    # snapshot round trip onto the card
+    spath = os.path.join(out_dir, "scene.awsm")
+    t0 = time.perf_counter()
+    save_scene(r, spath)
+    t1 = time.perf_counter()
+    r2 = load_scene(spath, device=DEVICE)
+    t2 = time.perf_counter()
+    a1 = r.render_device()
+    a2 = r.render_device()
+    b1 = r2.render_device()
+    same = bool(torch.equal(a1, a2))
+    check(same and bool(torch.equal(a1, b1)),
+          f"snapshot: the reloaded frame is bit-equal to the original "
+          f"({os.path.getsize(spath) / 2**20:.1f} MiB, saved in "
+          f"{t1 - t0:.2f} s, loaded in {t2 - t1:.2f} s)")
+    os.remove(spath)
+    del r2, a1, a2, b1
+
+    # the sidebar toggles and a resize
+    hold(s.step(0.0, [("set", "bloom", True)]))
+    check(r.config.post_processing.bloom, "set bloom: on")
+    kernels.reset_launch_counts()
+    hold(s.step(0.0, [("set", "msaa", True)]))
+    check(r.config.anti_aliasing.msaa
+          and kernels.launch_counts["rasterize16_msaa"] >= 1,
+          "set msaa: on, K9 launched")
+    hold(s.step(0.0, [("set", "grid", True)]))
+    check(bool(r._mesh_masks()["transparent"][
+        r.meshes._mesh_alloc.row_of(s.grid.mesh_key)]), "set grid: visible")
+    hold(s.step(0.0, [("resize", 1280, 720)]), 1280, 720)
+    hold(s.step(0.0, [("resize", W, H)]))
+    check(s.frames == 24 + 4 * N_FRAMES, f"{s.frames} session steps")
+
+    # the atlas through the facade
+    ra = atlas_scene(P, np)
+    img = ra.render_device()
+    left, right = img[32, 32, :3].tolist(), img[32, 96, :3].tolist()
+    check(left[0] > 0.5 and left[1] < 0.3 and right[1] > 0.5
+          and right[0] < 0.3, f"atlas quads distinct: left {left}, right "
+                              f"{right}")
+    rep = ra.mega_texture.report()["albedo"][0]
+    check(rep["entries"] == 2, f"atlas report: {rep}")
+
+    # the BRDF LUT on the card against the CPU's
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    lut = _lut.__wrapped__(256, 512, "cuda")
+    b.record()
+    b.synchronize()
+    lut_wall = (time.perf_counter() - t0) * 1e3
+    lut_ms = a.elapsed_time(b)
+    t0 = time.perf_counter()
+    ref = _lut.__wrapped__(256, 512, "cpu")
+    cpu_s = time.perf_counter() - t0
+    diff = (lut.cpu() - ref).abs()
+    err0, err, mean = (float(diff[:, 0].max()), float(diff[:, 1:].max()),
+                       float(diff.mean()))
+    check(tuple(lut.shape) == (256, 256, 2) and err <= TOOLS_LUT_ATOL
+          and mean <= 1e-5,
+          f"generate_brdf_lut(256, 512) on the card against the CPU: max "
+          f"|d| {err:.3g} off NdotV column 0 (atol {TOOLS_LUT_ATOL:g}), "
+          f"{err0:.3g} on it, mean {mean:.3g}")
+    log(f"  generate_brdf_lut(256, 512): {lut_ms:.3f} ms (CUDA events), "
+        f"{lut_wall:.3f} ms host wall on the card; {cpu_s:.2f} s on the "
+        f"CPU")
+    res["lut"] = (lut_ms, lut_wall, err, err0, mean)
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"phase tools: {res['seconds']:.1f} s")
+    return res
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3293,6 +3746,7 @@ def main() -> int:
     hk = phase_hooks(P, np, torch)
     log(f"phases lights and hooks: {t1 - t0:.1f} s and "
         f"{time.perf_counter() - t1:.1f} s")
+    tl = phase_tools(P, np, torch, ov["syncs_a"])
     h_med, h_wall, _h_counts, (h_k4, h_k5) = phase_gltf(P, np, torch)
     phase_golden(P, np, torch)
 
@@ -3363,6 +3817,37 @@ def main() -> int:
         f"triangles {hk['pass'][0]:.3f} ms, "
         f"{hk['pass'][0] / hk['pass'][2]:.4f} ms a triangle, at {W}x{H} "
         f"({card})")
+    for on, m_, w_, n_s, _sites, c_ in tl["steps"]:
+        log(f"session step Stress-1080p-ibl-tex (editor, gizmo attached, "
+            f"grid hidden), timings {'on' if on else 'off'}: median "
+            f"{m_:.3f} ms/step (CUDA events), host wall {w_:.3f} ms/step, "
+            f"{n_s:g} host syncs/step, "
+            f"{sum(c_.values()) / N_FRAMES:g} hand-kernel launches/step "
+            f"({c_}), over {N_FRAMES} steps at {W}x{H} ({card})")
+    n_k, d_ms = tl["kernels"]
+    log(f"session step: "
+        f"{'not measured' if n_k is None else f'{n_k:.0f}'} kernels a step, "
+        f"device {'not measured' if d_ms is None else f'{d_ms:.3f}'} ms a "
+        f"step (profiler) ({card})")
+    log(f"session pointer-down step: {tl['down_syncs']} host syncs; spans "
+        f"a step, host ms / device ms: " + ", ".join(
+            f"{k} {h_:.3f} / {d_:.3f}" for k, (h_, d_) in tl["spans"].items())
+        + f" ({card})")
+    log(f"host work a frame gains: _log_retrace {tl['host_us'][0]:.1f} µs,"
+        f" a span with timings off {tl['host_us'][1]:.2f} µs ({card})")
+    log(f"first bloom frame: cold (a fresh renderer) {tl['cold'][0]:.3f} ms "
+        f"(CUDA events), {tl['cold'][1]:.3f} ms host wall; after warmup "
+        f"{tl['warm'][0]:.3f} ms, {tl['warm'][1]:.3f} ms host wall ({card})")
+    rep, peak = tl["compat"]
+    log(f"check_compatibility: {rep.device_kind}, {rep.hbm_bytes / 2**30:.2f}"
+        f" GiB, scene {rep.scene_bytes / 2**20:.1f} MiB, framebuffers "
+        f"{rep.framebuffer_bytes / 2**20:.1f} MiB, ok {rep.ok}; the stress "
+        f"step's peak allocated {peak / 2**20:.1f} MiB ({card})")
+    lut_ms, lut_wall, lut_err, lut_err0, lut_mean = tl["lut"]
+    log(f"generate_brdf_lut(256, 512): {lut_ms:.3f} ms (CUDA events), "
+        f"{lut_wall:.3f} ms host wall; against the CPU max |d| "
+        f"{lut_err:.3g} off NdotV column 0, {lut_err0:.3g} on it, mean "
+        f"{lut_mean:.3g} ({card})")
     for label in ("supersample", "smaa"):
         ms, peak = aa[label]
         log(f"frame Stress-1080p-ibl-tex + {label}: median {ms:.3f} ms/frame"

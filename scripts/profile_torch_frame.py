@@ -18,7 +18,9 @@ animated scene; --scene stress-animated-static: the same scene without
 the updates; --scene stress-lights: bench.py's 64-light probe, the
 stress scene plus 57 point lights with tiled light lists, chip_smoke.py's
 lights scene; --scene stress-lights-dense: the same through the dense
-loop; --scene helmet: the glTF catalog's helmet),
+loop; --scene stress-session: the stress scene with the editor's gizmo
+attached to the colonnade's centre mesh, as chip_smoke.py's tools phase
+steps it; --scene helmet: the glTF catalog's helmet),
 warms up, then:
   1. renders --frames orbit frames with the profiler off: median ms/frame
      from CUDA events around each frame, and host wall ms/frame;
@@ -31,7 +33,7 @@ Usage (repo root, one card):
     python3 scripts/profile_torch_frame.py
         [--scene stress|stress-untextured|stress-volume|stress-msaa|
                  stress-temporal|stress-animated|stress-animated-static|
-                 stress-lights|stress-lights-dense|helmet]
+                 stress-lights|stress-lights-dense|stress-session|helmet]
         [--width 1920 --height 1080]
 """
 
@@ -57,7 +59,8 @@ def main() -> int:
                                         "stress-temporal", "stress-animated",
                                         "stress-animated-static",
                                         "stress-lights",
-                                        "stress-lights-dense", "helmet"),
+                                        "stress-lights-dense",
+                                        "stress-session", "helmet"),
                     default="stress")
     args = ap.parse_args()
 
@@ -74,18 +77,24 @@ def main() -> int:
 
     CS.W, CS.H = args.width, args.height
     if args.scene.startswith("stress"):
-        r, _, _ = CS.build_stress_scene(
+        r, keys, _ = CS.build_stress_scene(
             P, np, "cuda", textured=args.scene != "stress-untextured",
             volume=args.scene == "stress-volume",
             hud=args.scene == "stress-volume",
             effects=args.scene not in ("stress", "stress-untextured",
                                        "stress-volume", "stress-lights",
-                                       "stress-lights-dense"),
+                                       "stress-lights-dense",
+                                       "stress-session"),
             temporal=args.scene == "stress-temporal",
             animated=args.scene.startswith("stress-animated"))
         if args.scene.startswith("stress-lights"):
             CS.add_probe_lights(P, np, r)
             r._force_dense_lights = args.scene == "stress-lights-dense"
+        if args.scene == "stress-session":
+            from awsm_renderer_tpu_torch.editor import TransformController
+
+            TransformController(r).attach(
+                r.meshes.get(keys[len(keys) // 2]).transform_key)
         CS.orbit_camera(r, np, 0)
 
         def camera(i):

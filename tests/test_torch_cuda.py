@@ -27,7 +27,11 @@ on the card equal the CPU's, its image is within 1e-4 of the CPU's and
 within 1e-5 of the card's dense loop (12 lights summed in two orders);
 the hook frames (a world-space extra pass, a display overlay, host and
 first_pass hooks) are within 1e-4 of the CPU's and fire the host hooks
-once."""
+once. An interactive session's steps (a click that selects and attaches
+the gizmo, a pointer-free step) select the same mesh as on the CPU and
+their images are within 1e-4; a frame with timings on waits on the
+device as often as with them off and resolves each span's device time;
+a scene saved and loaded back onto the card renders bit-equal."""
 
 import numpy as np
 import pytest
@@ -894,3 +898,82 @@ def test_card_hook_frame(dev, name):
     assert out["cuda"][1] == out["cpu"][1]
     if name == "host_first_pass":
         assert out["cuda"][1] == {"pre": 1, "post": 1}
+
+
+def test_card_session_step(dev):
+    """tests/test_torch_editor.py's session scene on the card: a click
+    selects the box and attaches the gizmo (its HUD handles through the
+    overlay), a pointer-free step after it; both against the CPU."""
+    from awsm_renderer_tpu_torch.ops import kernels
+    from test_torch_editor import H, W, _Api, _session_scene
+
+    out = {}
+    for device in ("cpu", "cuda"):
+        r, s, key = _session_scene(_Api("torch", device))
+        imgs = [s.step(0.0, [("pointer_down", W // 2, H // 2),
+                             ("pointer_up",)])]
+        kernels.reset_launch_counts()
+        imgs.append(s.step(0.0))
+        out[device] = ([i.cpu().numpy() for i in imgs], s.selected,
+                       s.controller.target, key,
+                       dict(kernels.launch_counts))
+    (ci, csel, ctk, ckey, _), (gi, gsel, gtk, gkey, n) = (out["cpu"],
+                                                          out["cuda"])
+    assert gsel == csel == gkey == ckey and gtk == ctk
+    assert n["rasterize16_slim"] >= 1 and n["resolve_planes_fused"] >= 1
+    for a, b in zip(gi, ci):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
+
+
+def _syncs(fn):
+    """Host syncs (torch's sync debug mode warnings) while fn() runs."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def test_card_timings_frame_adds_no_sync(dev):
+    """tests/test_torch_tools.py's warmup scene on the card: a frame on a
+    moved camera with timings on waits on the device as often as the same
+    frame with them off; summary() then resolves the spans' device times."""
+    from awsm_renderer_tpu_torch.utils import math3d as m3
+    from test_torch_tools import _aux_scene
+
+    r = _aux_scene(False, "cuda")
+    r.render_device()
+    counts = []
+    for on, z in ((False, 3.1), (True, 3.2)):
+        r.logging_timings = on
+        r.camera.update(m3.look_at([0, 0, z], [0, 0, 0], [0, 1, 0]),
+                        r.camera.projection)
+        counts.append(_syncs(r.render_device))
+    assert counts[1] == counts[0]
+    host = r.timings.summary()
+    dev_s = r.timings.device_summary()
+    assert set(dev_s) == {"write_gpu", "collect_renderables",
+                          "render_frame/dispatch"} == set(host)
+    assert all(v > 0 for v in dev_s.values())
+
+
+def test_card_snapshot_roundtrip(dev, tmp_path):
+    """A scene saved from the card and loaded back onto it with
+    load_scene(device="cuda") renders bit-equal."""
+    from awsm_renderer_tpu_torch.core.snapshot import load_scene, save_scene
+    from test_torch_tools import _aux_scene
+
+    r = _aux_scene(False, "cuda")
+    img1 = r.render_device()
+    save_scene(r, str(tmp_path / "s.awsm"))
+    r2 = load_scene(str(tmp_path / "s.awsm"), device="cuda")
+    assert r2.device.type == "cuda"
+    img2 = r2.render_device()
+    assert img2.device.type == "cuda" and torch.equal(img1, img2)
