@@ -54,6 +54,12 @@ def cubemap_face_uv_c(d3):
     return face, u, v
 
 
+def cubemap_face_uv(dirs: torch.Tensor):
+    """dirs (P, 3) -> (face (P,) int32, uv (P, 2) in [0, 1])."""
+    face, u, v = cubemap_face_uv_c(dirs.unbind(1))
+    return face, torch.stack([u, v], dim=-1)
+
+
 def _bilinear_setup_c(d3, S: int):
     """Flat base index within one cubemap + (P,) fractional weights."""
     face, u, v = cubemap_face_uv_c(d3)
@@ -73,6 +79,38 @@ def _blend_quads_c(cols, fx, fy):
     w11 = fx * fy
     return [cols[c] * w00 + cols[4 + c] * w10 + cols[8 + c] * w01
             + cols[12 + c] * w11 for c in range(4)]
+
+
+def _sample_rows(rows: torch.Tensor, idx, fx, fy) -> torch.Tensor:
+    """Bilinear taps of quad-packed f32 rows (N, 16) at row idx -> (P, 4)."""
+    cols = rows.index_select(0, idx.long()).unbind(1)
+    return torch.stack(_blend_quads_c(cols, fx, fy), dim=-1)
+
+
+def sample_cubemap(packed: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """packed (6*S*S, 16) quad rows (pack_cubemap, as a tensor), dirs
+    (P, 3) -> (P, 4): bilinear, edge-clamped. A helper for tools and
+    tests: the frame's env taps go through sample_env_batch_c's one K6
+    gather."""
+    idx, fx, fy = _bilinear_setup_c(dirs.unbind(1),
+                                    math.isqrt(packed.shape[0] // 6))
+    return _sample_rows(packed, idx, fx, fy)
+
+
+def sample_prefiltered(packed: torch.Tensor, dirs: torch.Tensor,
+                       roughness: torch.Tensor) -> torch.Tensor:
+    """packed (n_levels, 6*S*S, 16); roughness (P,) picks the level,
+    blended linearly between the two nearest -> (P, 4)."""
+    n, rows = packed.shape[:2]
+    level = torch.clamp(roughness, 0.0, 1.0) * (n - 1)
+    l0 = torch.floor(level).to(torch.int32)
+    l1 = torch.clamp(l0 + 1, max=n - 1)
+    frac = (level - l0.float())[:, None]
+    idx, fx, fy = _bilinear_setup_c(dirs.unbind(1), math.isqrt(rows // 6))
+    flat = packed.reshape(n * rows, 16)
+    s0 = _sample_rows(flat, l0 * rows + idx, fx, fy)
+    s1 = _sample_rows(flat, l1 * rows + idx, fx, fy)
+    return s0 * (1 - frac) + s1 * frac
 
 
 def sample_env_batch_c(sky_rows: int, irr_rows: int, pref_shape,

@@ -84,6 +84,17 @@ def bloom_c(rgb_ch):
     return list(out)
 
 
+def _with_alpha(out_rgb, img: torch.Tensor) -> torch.Tensor:
+    """(H, W, 4) from 3 (H, W) planes and img's alpha."""
+    return torch.cat([torch.stack(list(out_rgb), dim=-1), img[..., 3:4]],
+                     dim=-1)
+
+
+def bloom(hdr: torch.Tensor) -> torch.Tensor:
+    """bloom_c on an (H, W, 4) image; alpha passes through."""
+    return _with_alpha(bloom_c(list(hdr[..., :3].unbind(-1))), hdr)
+
+
 DOF_MAX_BLUR = 16.0         # dof.wgsl DOF_MAX_BLUR (pixels)
 DOF_SAMPLES = 16            # dof.wgsl DOF_SAMPLES
 DOF_SENSOR_HEIGHT = 0.024   # dof.wgsl SENSOR_HEIGHT (24mm full frame)
@@ -251,6 +262,14 @@ def depth_of_field_c(rgb_ch, depth: torch.Tensor, camera: dict,
     return list(rgb * (1.0 - blend) + blur * inv * blend)
 
 
+def depth_of_field(hdr: torch.Tensor, depth: torch.Tensor,
+                   camera: dict) -> torch.Tensor:
+    """depth_of_field_c (every ring) on an (H, W, 4) image; alpha passes
+    through."""
+    return _with_alpha(depth_of_field_c(list(hdr[..., :3].unbind(-1)),
+                                        depth, camera), hdr)
+
+
 SMAA_THRESHOLD = 0.03       # smaa.wgsl SMAA_THRESHOLD
 SMAA_BLEND_STRENGTH = 0.6   # smaa.wgsl SMAA_BLEND_STRENGTH
 _SMAA_OFFSETS = {
@@ -308,3 +327,8 @@ def smaa_c(rgb_ch):
     out = torch.where(is_horiz, blended_h, blended_v)
     out = torch.where(is_diag, blended_d, out)
     return list(torch.where(no_edge, rgb, out))
+
+
+def smaa(img: torch.Tensor) -> torch.Tensor:
+    """smaa_c on an (H, W, 4) display image; alpha passes through."""
+    return _with_alpha(smaa_c(list(img[..., :3].unbind(-1))), img)

@@ -40,12 +40,14 @@ from .vertex import (
 
 _EPS = 1e-6
 NO_SLOTS = (False,) * M.NUM_TEX_SLOTS
+ALL_SLOTS = (True,) * M.NUM_TEX_SLOTS
 # extension flags: (clearcoat, sheen, iridescence, anisotropy,
 # transmission, volume), static per bucket like the reference's template
 # variables
 (EXT_CLEARCOAT, EXT_SHEEN, EXT_IRIDESCENCE, EXT_ANISOTROPY,
  EXT_TRANSMISSION, EXT_VOLUME) = range(6)
 NO_EXT = (False,) * 6
+ALL_EXT = (True,) * 6
 # global channel-isolation debug views ("channel:<name>"); indices match
 # the per-material debug bitmask's bit order
 DEBUG_CHANNELS = {
@@ -415,7 +417,8 @@ def shade_surface(planes, ds, *, width: int, height: int, solid_env: bool,
                   use_mips: bool = True, slot_mask=NO_SLOTS,
                   has_nearest: bool = True, ext=NO_EXT,
                   debug_mode: str = "none", height_full: int | None = None,
-                  row_offset: int = 0, transparent_pass: bool = False,
+                  row_offset: int = 0, width_full: int | None = None,
+                  col_offset: int = 0, transparent_pass: bool = False,
                   want_sky: bool = False, n_layer_tiles: int = 1,
                   light_tiles: bool = False):
     """Fragment shading shared by the opaque, transparent and HUD passes
@@ -429,7 +432,9 @@ def shade_surface(planes, ds, *, width: int, height: int, solid_env: bool,
     uv1 and colour, normal, tangent, optional analytic uv derivatives;
     tile-compacted planes carry their pixels' ndc_x/ndc_y) over a
     (height, width) grid of band rows starting at row_offset in a
-    height_full-row frame; n_layer_tiles > 1 marks that many stacked layer
+    height_full-row frame (and, for a 2-D screen tile, of columns starting
+    at col_offset in a width_full-column frame); n_layer_tiles > 1 marks
+    that many stacked layer
     images (screen rows wrap per layer). slot_mask / ext: the texture
     slots and extensions the bucket's materials use (everything else
     compiles to constants, as the reference's shader-template variables
@@ -461,7 +466,11 @@ def shade_surface(planes, ds, *, width: int, height: int, solid_env: bool,
         xs, ys = planes["ndc_x"], planes["ndc_y"]
     else:
         i = torch.arange(P, device=dev)
-        xs = ((i % width).float() + 0.5) / width * 2.0 - 1.0
+        xs = (i % width).float()
+        if col_offset:
+            xs = xs + float(col_offset)
+        xs = (xs + 0.5) / (width if width_full is None else width_full) \
+            * 2.0 - 1.0
         rows = torch.div(i, width, rounding_mode="floor")
         if n_layer_tiles > 1:      # stacked layers: rows wrap per layer
             rows = rows % (height // n_layer_tiles)
@@ -825,23 +834,28 @@ def shade_surface(planes, ds, *, width: int, height: int, solid_env: bool,
 
 
 def shade_deferred_c(vis, ds, *, width: int, height: int,
+                     height_full: int | None = None, row_offset: int = 0,
+                     width_full: int | None = None, col_offset: int = 0,
                      solid_env: bool = False, use_mips: bool = True,
                      slot_mask=NO_SLOTS, has_nearest: bool = True,
                      ext=NO_EXT, debug_mode: str = "none",
                      light_tiles: bool = False):
     """Deferred opaque shade -> HDR linear [r, g, b, a] (P,) planes: the
     shaded surface where covered, the skybox on a miss, alpha = coverage.
-    debug_mode "normals" shows the shading normal; ibl | punctual |
-    material | channel:<name> go to shade_surface."""
+    The (height, width) planes are a band (or screen tile) starting at
+    row_offset / col_offset of a height_full x width_full frame (the
+    sharded frame's). debug_mode "normals" shows the shading normal; ibl |
+    punctual | material | channel:<name> go to shade_surface."""
     P = width * height
     planes = {k: vis[k].reshape(P) for k in vis if k != "bins"}
     surf_mode = (debug_mode if debug_mode in ("ibl", "punctual", "material")
                  or debug_mode.startswith("channel:") else "none")
     color, _alpha, valid, n_final, sky = shade_surface(
-        planes, ds, width=width, height=height, solid_env=solid_env,
-        use_mips=use_mips, slot_mask=slot_mask, has_nearest=has_nearest,
-        ext=ext, debug_mode=surf_mode, want_sky=True,
-        light_tiles=light_tiles)
+        planes, ds, width=width, height=height, height_full=height_full,
+        row_offset=row_offset, width_full=width_full, col_offset=col_offset,
+        solid_env=solid_env, use_mips=use_mips, slot_mask=slot_mask,
+        has_nearest=has_nearest, ext=ext, debug_mode=surf_mode,
+        want_sky=True, light_tiles=light_tiles)
     if debug_mode == "normals":
         color = [n_final[c] * 0.5 + 0.5 for c in range(3)]
     out = [torch.where(valid, color[c], sky[c]) for c in range(3)]
@@ -1020,7 +1034,9 @@ def _shade_deep_then_front(layers, K: int, shade_group, out):
 
 def shade_transparent_layers_c(layers, opaque_ch, ds, *, width: int,
                                height: int, height_full: int | None = None,
-                               row_offset: int = 0, use_mips: bool = True,
+                               row_offset: int = 0,
+                               width_full: int | None = None,
+                               col_offset: int = 0, use_mips: bool = True,
                                slot_mask=NO_SLOTS, solid_env: bool = False,
                                has_nearest: bool = True, ext=NO_EXT,
                                n_layers: int = 4, tile_cap: int | None = None,
@@ -1038,7 +1054,9 @@ def shade_transparent_layers_c(layers, opaque_ch, ds, *, width: int,
     KHR_materials_volume at the refracted exit pixel, gathered by K6's
     f32 entry (offscreen exits take the prefiltered IBL colour).
 
-    tile_cap: covered-tile compaction over (8, 128) tiles
+    The planes are a band (or screen tile) starting at row_offset /
+    col_offset of a height_full x width_full frame. tile_cap:
+    covered-tile compaction over (8, 128) tiles
     (_shade_transparent_compact), taken when the cap leaves part of the
     band out and the planes are fat; no frame path passes it (the frame
     compacts at the raster instead, shade_transparent_compact32).
@@ -1060,7 +1078,8 @@ def shade_transparent_layers_c(layers, opaque_ch, ds, *, width: int,
         flat = {k: v[k0:k0 + Kg].reshape(Kg * P) for k, v in layers.items()}
         color, alpha, valid, _n, trans, refr = shade_surface(
             flat, ds, width=W, height=Kg * H, height_full=H_full,
-            row_offset=row_offset, use_mips=use_mips, slot_mask=slot_mask,
+            row_offset=row_offset, width_full=width_full,
+            col_offset=col_offset, use_mips=use_mips, slot_mask=slot_mask,
             solid_env=solid_env, has_nearest=has_nearest, ext=ext,
             transparent_pass=True, n_layer_tiles=Kg, light_tiles=light_tiles)
         if refr is not None:

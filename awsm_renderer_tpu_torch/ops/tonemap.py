@@ -52,3 +52,9 @@ def display_pass_c(hdr_ch, mode: ToneMapping):
         rgb = _khronos_pbr_neutral_c(rgb)
     rgb = [torch.clamp(linear_to_srgb(ch), 0.0, 1.0) for ch in rgb]
     return rgb + [torch.clamp(hdr_ch[3], 0.0, 1.0)]
+
+
+def display_pass(hdr: torch.Tensor, mode: ToneMapping) -> torch.Tensor:
+    """HDR linear (H, W, 4) -> display sRGB (H, W, 4) in [0, 1]
+    (display_pass_c on the image's planes)."""
+    return torch.stack(display_pass_c(list(hdr.unbind(-1)), mode), dim=-1)

@@ -13,8 +13,11 @@ callbacks run at the reference's seven points.
 Port of awsm_renderer_tpu/passes/frame.py: render_frame ->
 _opaque_band / _opaque_band_msaa -> _msaa_edge_blend /
 _resolve_supersample -> _overlay_band -> _finish_frame, and
-render_frame_temporal. PyTorch runs it eagerly, op by op, on the scene
-tensors' device.
+render_frame_temporal. The band functions (and _frame_band) also run
+one row band or screen tile of the frame, their setup shifted into its
+local coordinates (_shift_rows_band, _shift_cols_band): the sharded
+frame's (parallel/sharding.py). PyTorch runs it eagerly, op by op, on
+the scene tensors' device.
 """
 
 from __future__ import annotations
@@ -44,8 +47,8 @@ from ..ops.temporal import (
 )
 from ..ops.tonemap import display_pass_c
 from ..ops.vertex import (
-    S_BB_MAXY, S_BB_MINY, S_E0B, S_E0C, S_E1B, S_E1C, S_E2B, S_E2C, S_ZB,
-    S_ZC, vertex_stage,
+    _BIG, S_BB_MAXX, S_BB_MAXY, S_BB_MINX, S_BB_MINY, S_E0A, S_E0B, S_E0C,
+    S_E1A, S_E1B, S_E1C, S_E2A, S_E2B, S_E2C, S_ZA, S_ZB, S_ZC, vertex_stage,
 )
 
 _CORNER_NAMES = ("c_pos", "c_norm", "c_tang", "c_uv0", "c_uv1", "c_color",
@@ -142,18 +145,48 @@ def _total_triangles(ds) -> int:
         for g in _inst_gids(ds))
 
 
-def _shift_rows_band(rows: torch.Tensor, y0: int) -> torch.Tensor:
+_BBOX = (S_BB_MINX, S_BB_MINY, S_BB_MAXX, S_BB_MAXY)
+
+
+def _shift_band(rows: torch.Tensor, o: int, coefs, bb_lo: int, bb_hi: int,
+                extent: int | None) -> torch.Tensor:
+    """rows with the constant of each plane (three edges, z) raised by its
+    coefficient column in `coefs` times o, and the bbox columns bb_lo /
+    bb_hi lowered by o. extent: the band's size along the axis; a row
+    whose bbox then lies wholly outside [0, extent) gets the empty bbox
+    the vertex stage gives a triangle off the frame, so the binners skip
+    it (its edges cover no pixel of the band either way; a bbox out of
+    range would file it under the band's edge tiles)."""
+    s = rows.clone()
+    o = float(o)
+    for rc, rk in zip((S_E0C, S_E1C, S_E2C, S_ZC), coefs):
+        s[:, rc] = s[:, rc] + s[:, rk] * o
+    s[:, bb_lo] = s[:, bb_lo] - o
+    s[:, bb_hi] = s[:, bb_hi] - o
+    if extent is not None:
+        out = (s[:, bb_hi] <= 0.0) | (s[:, bb_lo] >= float(extent))
+        for c, v in zip(_BBOX, (_BIG, _BIG, -_BIG, -_BIG)):
+            s[:, c] = torch.where(out, v, s[:, c])
+    return s
+
+
+def _shift_rows_band(rows: torch.Tensor, y0: int,
+                     band_h: int | None = None) -> torch.Tensor:
     """Translate row-major (T, NSETUP) plane-equation setup into band-local
     y: E(px, py - y0) must equal the frame value, so every y-linear
-    plane's constant gains B*y0 and the y bboxes move up by y0."""
-    s = rows.clone()
-    y = float(y0)
-    for rb, rc in ((S_E0B, S_E0C), (S_E1B, S_E1C), (S_E2B, S_E2C),
-                   (S_ZB, S_ZC)):
-        s[:, rc] = s[:, rc] + s[:, rb] * y
-    s[:, S_BB_MINY] = s[:, S_BB_MINY] - y
-    s[:, S_BB_MAXY] = s[:, S_BB_MAXY] - y
-    return s
+    plane's constant gains B*y0 and the y bboxes move up by y0; with
+    band_h, rows wholly outside the band's rows get empty bboxes."""
+    return _shift_band(rows, y0, (S_E0B, S_E1B, S_E2B, S_ZB), S_BB_MINY,
+                       S_BB_MAXY, band_h)
+
+
+def _shift_cols_band(rows: torch.Tensor, x0: int,
+                     band_w: int | None = None) -> torch.Tensor:
+    """The x-axis analogue of _shift_rows_band: E(px - x0, py) — every
+    x-linear plane's constant gains A*x0 and the x bboxes move left by
+    x0. Both shifts give a 2-D screen tile its local coordinates."""
+    return _shift_band(rows, x0, (S_E0A, S_E1A, S_E2A, S_ZA), S_BB_MINX,
+                       S_BB_MAXX, band_w)
 
 
 def _stage(ds, geo, tri_mesh, mask, orig_ids=None, **kw):
@@ -182,8 +215,15 @@ def _gather_cols(geo, tri_idx):
 
 
 def _run_vertex(ds, mask, *, rw: int, rh_full: int, needs_clip: bool,
-                has_morphs: bool = False, skin_sets: int = 0):
-    """Vertex stage over the combined stream (pool + instanced groups).
+                has_morphs: bool = False, skin_sets: int = 0,
+                row_offset: int = 0, shift_rows: bool = False,
+                col_offset: int = 0, shift_cols: bool = False,
+                band=None):
+    """Vertex stage over the combined stream (pool + instanced groups) of
+    an rw x rh_full frame; shift_rows / shift_cols move the rows into the
+    local coordinates of the band (or screen tile) at row_offset /
+    col_offset, after the animated-subset split, and band = (band_h,
+    band_w), when given, empties the bboxes of rows wholly outside it.
 
     The animated-subset split: when the scene has morphs or skins and the
     renderer shipped the animated triangle set (ds["anim_tri_idx"], pool
@@ -199,19 +239,25 @@ def _run_vertex(ds, mask, *, rw: int, rh_full: int, needs_clip: bool,
     kw = dict(width=rw, height=rh_full, needs_clip=needs_clip)
     anim_idx = ds.get("anim_tri_idx") if (has_morphs or skin_sets) else None
     if anim_idx is None:
-        return _stage(ds, geo, tri_mesh, mask, has_morphs=has_morphs,
+        rows = _stage(ds, geo, tri_mesh, mask, has_morphs=has_morphs,
                       skin_sets=skin_sets, **kw)
-    rows = _stage(ds, geo, tri_mesh, mask, **kw)
-    ageo, safe = _gather_cols(geo, anim_idx)
-    a_tri = torch.where(anim_idx >= 0, tri_mesh[safe],
-                        torch.full_like(anim_idx, -1))
-    rows_a = _stage(ds, ageo, a_tri, mask, anim_idx, has_morphs=has_morphs,
-                    skin_sets=skin_sets, **kw)
-    n, cap, T = ds["anim_tri_n"], anim_idx.shape[0], tri_mesh.shape[0]
-    live = safe[:n]
-    rows.index_copy_(0, live, rows_a[:n])
-    if needs_clip:
-        rows.index_copy_(0, live + T, rows_a[cap:cap + n])
+    else:
+        rows = _stage(ds, geo, tri_mesh, mask, **kw)
+        ageo, safe = _gather_cols(geo, anim_idx)
+        a_tri = torch.where(anim_idx >= 0, tri_mesh[safe],
+                            torch.full_like(anim_idx, -1))
+        rows_a = _stage(ds, ageo, a_tri, mask, anim_idx,
+                        has_morphs=has_morphs, skin_sets=skin_sets, **kw)
+        n, cap, T = ds["anim_tri_n"], anim_idx.shape[0], tri_mesh.shape[0]
+        live = safe[:n]
+        rows.index_copy_(0, live, rows_a[:n])
+        if needs_clip:
+            rows.index_copy_(0, live + T, rows_a[cap:cap + n])
+    band_h, band_w = band or (None, None)
+    if shift_rows:
+        rows = _shift_rows_band(rows, row_offset, band_h)
+    if shift_cols:
+        rows = _shift_cols_band(rows, col_offset, band_w)
     return rows
 
 
@@ -244,28 +290,39 @@ def prep_setup_rows(rows: torch.Tensor) -> torch.Tensor:
     return pad_setup_rows(rows)
 
 
-def _opaque_band(ds, opaque_mask, *, rw: int, rh: int, needs_clip: bool,
+def _opaque_band(ds, opaque_mask, *, rw: int, band_h: int, rh_full: int,
+                 row_offset: int = 0, shift_rows: bool = False,
+                 rw_full: int | None = None, col_offset: int = 0,
+                 shift_cols: bool = False, needs_clip: bool,
                  has_morphs: bool = False, skin_sets: int = 0,
                  solid_env: bool, has_color: bool, has_uv1: bool,
                  use_mips: bool, slot_mask, has_nearest: bool, ext,
                  debug_mode: str, light_tiles: bool = False, hooks=None):
-    """Opaque geometry + deferred shade over the whole (rh, rw) padded
-    framebuffer -> (hdr [r,g,b,a] (rh*rw,) planes, tri_id, depth
-    (rh, rw), raster bins). An after_geometry hook gets the raster's
-    planes (without the bins) and returns the planes that are shaded and
-    whose tri_id and depth the frame keeps."""
+    """Opaque geometry + deferred shade over one (band_h, rw) band of the
+    padded rw_full x rh_full framebuffer, starting at row_offset /
+    col_offset (the whole frame: band_h = rh_full, rw_full None, offsets
+    0) -> (hdr [r,g,b,a] (band_h*rw,) planes, tri_id, depth (band_h,
+    rw), raster bins). shift_rows / shift_cols put the setup rows in the
+    band's local coordinates (the sharded frame). An after_geometry hook
+    gets the raster's planes (without the bins) and returns the planes
+    that are shaded and whose tri_id and depth the frame keeps."""
     srows = prep_setup_rows(_run_vertex(
-        ds, opaque_mask, rw=rw, rh_full=rh, needs_clip=needs_clip,
-        has_morphs=has_morphs, skin_sets=skin_sets))
+        ds, opaque_mask, rw=rw_full or rw, rh_full=rh_full,
+        needs_clip=needs_clip, has_morphs=has_morphs, skin_sets=skin_sets,
+        row_offset=row_offset, shift_rows=shift_rows, col_offset=col_offset,
+        shift_cols=shift_cols, band=(band_h, rw)))
     # uv1 / vertex-colour planes only when a material samples uv1 or a
     # mesh carries colours; no analytic derivatives: the mip gradients
-    # are screen differences of the padded uv0 planes, as in the reference
-    vis = rasterize16(srows, width=rw, height=rh, has_uv1=has_uv1,
+    # are screen differences of the band's padded uv0 planes, as in the
+    # reference
+    vis = rasterize16(srows, width=rw, height=band_h, has_uv1=has_uv1,
                       has_color=has_color, analytic_derivs=False)
     bins = vis.pop("bins")
     if getattr(hooks, "after_geometry", None):
         vis = hooks.after_geometry(vis, ds)
-    hdr_ch = shade_deferred_c(vis, ds, width=rw, height=rh,
+    hdr_ch = shade_deferred_c(vis, ds, width=rw, height=band_h,
+                              height_full=rh_full, row_offset=row_offset,
+                              width_full=rw_full, col_offset=col_offset,
                               solid_env=solid_env, use_mips=use_mips,
                               slot_mask=slot_mask, has_nearest=has_nearest,
                               ext=ext, debug_mode=debug_mode,
@@ -274,7 +331,9 @@ def _opaque_band(ds, opaque_mask, *, rw: int, rh: int, needs_clip: bool,
 
 
 def _opaque_band_msaa(ds, opaque_mask, *, rw2: int, rh2: int, rw1: int,
-                      rh1: int, needs_clip: bool, has_morphs: bool = False,
+                      rh1: int, band1_h: int | None = None,
+                      row_offset1: int = 0, shift_rows: bool = False,
+                      needs_clip: bool, has_morphs: bool = False,
                       skin_sets: int = 0, solid_env: bool,
                       use_mips: bool, slot_mask, has_nearest: bool, ext,
                       debug_mode: str, tile_cap: int | None = None,
@@ -290,13 +349,23 @@ def _opaque_band_msaa(ds, opaque_mask, *, rw2: int, rh2: int, rw1: int,
     turns the compaction off (it sees full-frame planes); the sample
     planes stay the raster's.
 
-    Returns (hdr [r, g, b, a] (rh1*rw1,) planes, samp = 4x (rh1, rw1)
-    sample-id planes [tl, tr, bl, br], depth1 (rh1, rw1), K9's bins)."""
+    band1_h (None: rh1, the whole frame) display rows starting at display
+    row row_offset1: K9 rasterizes the band's 2 * band1_h sample rows;
+    shift_rows puts the setup in the band's coordinates (the sharded
+    frame), so K2 resolves at band-local rows. The compaction is the
+    whole frame's only (the sharded frame passes no tile_cap).
+
+    Returns (hdr [r, g, b, a] (band1_h*rw1,) planes, samp = 4x (band1_h,
+    rw1) sample-id planes [tl, tr, bl, br], depth1 (band1_h, rw1), K9's
+    bins)."""
+    band1_h = rh1 if band1_h is None else band1_h
     srows = prep_setup_rows(_run_vertex(
         ds, opaque_mask, rw=rw2, rh_full=rh2, needs_clip=needs_clip,
-        has_morphs=has_morphs, skin_sets=skin_sets))
+        has_morphs=has_morphs, skin_sets=skin_sets,
+        row_offset=2 * row_offset1, shift_rows=shift_rows,
+        band=(2 * band1_h, rw2)))
     samp_raw, depth1_raw, bins = rasterize16_msaa(srows, width2=rw2,
-                                                  height2=rh2)
+                                                  height2=2 * band1_h)
     w_half = rw2 // 2
 
     def fit_cols(p, fill):
@@ -308,7 +377,7 @@ def _opaque_band_msaa(ds, opaque_mask, *, rw2: int, rh2: int, rw1: int,
 
     samp = [fit_cols(p, -1) for p in samp_raw]
     depth1 = fit_cols(depth1_raw, 1.0)
-    P = rh1 * rw1
+    P = band1_h * rw1
     rep = samp[0].reshape(P)
     if debug_mode == "edges":
         edge = ((samp[1] != samp[0]) | (samp[2] != samp[0])
@@ -331,12 +400,15 @@ def _opaque_band_msaa(ds, opaque_mask, *, rw2: int, rh2: int, rw1: int,
             light_tiles=light_tiles)
         return hdr_ch, samp, depth1, bins
 
-    vis = resolve_planes_fused(rep, srows, width=rw1, coord_scale=2)
+    vis = resolve_planes_fused(rep, srows, width=rw1,
+                               row_offset=0 if shift_rows else row_offset1,
+                               coord_scale=2)
     vis = {k: vis[k] for k in RESOLVE_NAMES}
     vis["depth"] = depth1.reshape(P)
     if getattr(hooks, "after_geometry", None):
         vis = hooks.after_geometry(vis, ds)
-    hdr_ch = shade_deferred_c(vis, ds, width=rw1, height=rh1,
+    hdr_ch = shade_deferred_c(vis, ds, width=rw1, height=band1_h,
+                              height_full=rh1, row_offset=row_offset1,
                               solid_env=solid_env, use_mips=use_mips,
                               slot_mask=slot_mask, has_nearest=has_nearest,
                               ext=ext, debug_mode=debug_mode,
@@ -391,7 +463,9 @@ def _resolve_supersample(hdr_ch, tri_id, depth, *, width: int, height: int,
 
 def _overlay_band(hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask, *,
                   rw: int, band_h: int, rh_full: int, row_offset: int = 0,
-                  shift_rows: bool = False, needs_clip: bool,
+                  shift_rows: bool = False, rw_full: int | None = None,
+                  col_offset: int = 0, shift_cols: bool = False,
+                  needs_clip: bool,
                   has_morphs: bool = False, skin_sets: int = 0,
                   solid_env: bool, has_color: bool, has_uv1: bool,
                   use_mips: bool, slot_mask, has_nearest: bool, ext,
@@ -403,10 +477,13 @@ def _overlay_band(hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask, *,
     (reference: frame.py _overlay_band). slot_mask / ext are the overlay
     bucket's own; ov_tri_idx is the overlay's compacted triangle pool
     (renderer._overlay_tri_idx), or None for the full combined pool (an
-    overlay mesh is instanced). transparent_mask / hud_mask None skip
-    their pass. The before_transparent / after_transparent hooks run
-    before and after the transparent pass on the (band_h, rw, 4) image.
-    Returns (hdr_ch, tri_id)."""
+    overlay mesh is instanced, or the sharded frame). The band is
+    (band_h, rw) at row_offset / col_offset of an rw_full x rh_full frame,
+    its setup shifted into local coordinates with shift_rows /
+    shift_cols; a compacted pool takes row bands only. transparent_mask /
+    hud_mask None skip their pass. The before_transparent /
+    after_transparent hooks run before and after the transparent pass on
+    the (band_h, rw, 4) image. Returns (hdr_ch, tri_id)."""
     # ---- row-band crop: the overlay runs only on the rows its geometry's
     # projected AABBs reach (renderer._overlay_crop); off with volume
     # refraction, which gathers the opaque image outside the band, and
@@ -438,6 +515,8 @@ def _overlay_band(hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask, *,
         tri_id[y0:y0 + crop_h] = tri_c
         return out, tri_id
 
+    if ov_tri_idx is not None and shift_cols:
+        raise ValueError("compacted overlay pools are 1-D only")
     anim = dict(has_morphs=has_morphs, skin_sets=skin_sets)
 
     def run_vertex(mask):
@@ -446,10 +525,14 @@ def _overlay_band(hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask, *,
                                        rh_full=rh_full, needs_clip=needs_clip,
                                        row_offset=row_offset,
                                        shift_rows=shift_rows, **anim)
-        rows = _run_vertex(ds, mask, rw=rw, rh_full=rh_full,
-                           needs_clip=needs_clip, **anim)
-        return _shift_rows_band(rows, row_offset) if shift_rows else rows
+        return _run_vertex(ds, mask, rw=rw_full or rw, rh_full=rh_full,
+                           needs_clip=needs_clip, row_offset=row_offset,
+                           shift_rows=shift_rows, col_offset=col_offset,
+                           shift_cols=shift_cols, band=(band_h, rw), **anim)
 
+    # the compacted peel's shade takes row bands only (the sharded frame
+    # passes no tile_cap)
+    cols_kw = dict(width_full=rw_full, col_offset=col_offset)
     shade_kw = dict(height_full=rh_full, row_offset=row_offset,
                     use_mips=use_mips, slot_mask=slot_mask,
                     solid_env=solid_env, has_nearest=has_nearest, ext=ext,
@@ -492,7 +575,7 @@ def _overlay_band(hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask, *,
                 has_color=has_color, analytic_derivs=True)
             hdr_ch = shade_transparent_layers_c(
                 layers, hdr_ch, ds, width=rw, height=band_h,
-                n_layers=n_transparent_layers, **shade_kw)
+                n_layers=n_transparent_layers, **cols_kw, **shade_kw)
 
     if getattr(hooks, "after_transparent", None):
         hdr_ch = unstack(hooks.after_transparent(stack(hdr_ch), ds))
@@ -516,7 +599,7 @@ def _overlay_band(hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask, *,
         P = rw * band_h
         h_planes = {k: v.reshape(P) for k, v in h_vis.items()}
         h_color, h_alpha, h_valid, _ = shade_surface(
-            h_planes, ds, width=rw, height=band_h, **shade_kw)
+            h_planes, ds, width=rw, height=band_h, **cols_kw, **shade_kw)
         a = torch.where(h_valid, h_alpha, torch.zeros_like(h_alpha))
         out = [torch.where(h_valid, h_color[c] * a + hdr_ch[c] * (1 - a),
                            hdr_ch[c]) for c in range(3)]
@@ -553,6 +636,29 @@ def _finish_frame(hdr_ch, tri_id, depth, ds, *, rw: int, rh: int,
     if getattr(hooks, "last_pass", None):
         ldr = hooks.last_pass(ldr, ds)
     return ldr, tri_id, depth
+
+
+def _frame_band(ds, opaque_mask, transparent_mask, hud_mask, *, rw: int,
+                band_h: int, rh_full: int, row_offset: int = 0,
+                shift_rows: bool = False, rw_full: int | None = None,
+                col_offset: int = 0, shift_cols: bool = False,
+                n_transparent_layers: int, debug_mode: str, **common):
+    """Single-scale band pipeline (reference: frame.py _frame_band): the
+    opaque stage and the overlay at the same resolution over one (band_h,
+    rw) band (or screen tile) of the padded frame. `common`: the
+    specialization keywords _opaque_band and _overlay_band share. Returns
+    (hdr_ch planes, tri_id, depth (band_h, rw)); the overlay runs over the
+    full combined pool."""
+    band = dict(rw=rw, band_h=band_h, rh_full=rh_full, row_offset=row_offset,
+                shift_rows=shift_rows, rw_full=rw_full, col_offset=col_offset,
+                shift_cols=shift_cols)
+    hdr_ch, tri_id, depth, _bins = _opaque_band(
+        ds, opaque_mask, debug_mode=debug_mode, **band, **common)
+    hdr_ch, tri_id = _overlay_band(
+        hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask,
+        n_transparent_layers=n_transparent_layers, ov_tri_idx=None, **band,
+        **common)
+    return hdr_ch, tri_id, depth
 
 
 def _runs_overlay(transparent_mask, hud_mask, hooks) -> bool:
@@ -616,8 +722,9 @@ def render_frame(ds, opaque_mask, transparent_mask=None, hud_mask=None, *,
     else:
         scale = 2 if supersample else 1
         rw2 = _pad_to(width * scale, TILE_W)
+        rh2 = _pad_to(height * scale, TILE_H)
         hdr_ch, tri_id, depth, bins = _opaque_band(
-            ds, opaque_mask, rw=rw2, rh=_pad_to(height * scale, TILE_H),
+            ds, opaque_mask, rw=rw2, band_h=rh2, rh_full=rh2,
             needs_clip=needs_clip, has_morphs=has_morphs,
             skin_sets=skin_sets, solid_env=solid_env, has_color=has_color,
             has_uv1=has_uv1, use_mips=use_mips, slot_mask=slot_mask,

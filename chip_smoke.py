@@ -505,6 +505,26 @@ KERNEL_SITES = ("rasterize16_slim", "resolve_planes_fused",
                 "gather_split_channels")
 
 
+def kernel_sites():
+    """{wrapper name: the modules whose global the main path calls it
+    through}."""
+    from awsm_renderer_tpu_torch.ops import (
+        cubemap, raster, relayout, shade, temporal, texsample,
+    )
+    from awsm_renderer_tpu_torch.passes import frame
+
+    return {"rasterize16_slim": (raster, frame),
+            "resolve_planes_fused": (shade, frame),
+            "onehot_split_rows": (shade,), "tap_plan_fused": (texsample,),
+            "filter_taps_fused": (texsample,),
+            "gather_split_channels": (cubemap,),
+            "rasterize_binned": (raster,),
+            "_rasterize_binned_compact": (raster,),
+            "gather_split_channels_f32": (relayout,),
+            "rasterize16_msaa": (frame,),
+            "reproject_history_planes": (temporal,)}
+
+
 def capture_first_frame(r, names=KERNEL_SITES, calls=None):
     """Render one frame with recorders on the kernel wrappers `names`;
     return the arguments of each wrapper's first call on the main path
@@ -512,23 +532,8 @@ def capture_first_frame(r, names=KERNEL_SITES, calls=None):
     "rasterize_binned/peel" and of its first call without a peel under
     "rasterize_binned/nopeel"). A dict `calls` collects every call's
     arguments, in order, under the same keys."""
-    from awsm_renderer_tpu_torch.ops import (
-        cubemap, raster, relayout, shade, temporal, texsample,
-    )
-    from awsm_renderer_tpu_torch.passes import frame
-
     captured = {}
-    # the modules whose global the main path calls each wrapper through
-    where = {"rasterize16_slim": (raster, frame),
-             "resolve_planes_fused": (shade, frame),
-             "onehot_split_rows": (shade,), "tap_plan_fused": (texsample,),
-             "filter_taps_fused": (texsample,),
-             "gather_split_channels": (cubemap,),
-             "rasterize_binned": (raster,),
-             "_rasterize_binned_compact": (raster,),
-             "gather_split_channels_f32": (relayout,),
-             "rasterize16_msaa": (frame,),
-             "reproject_history_planes": (temporal,)}
+    where = kernel_sites()
     sites = tuple((mod, n) for n in names for mod in where[n])
     originals = [getattr(mod, attr) for mod, attr in sites]
 
@@ -2944,25 +2949,34 @@ def check_path_kernels(cap, label, torch):
     return depth
 
 
-def kernels_a_frame(r, camera, torch, n: int = 3):
-    """Device kernels a frame and device ms a frame over n frames under
-    torch.profiler (CPU + CUDA activities), or (None, None) when the
-    profiler records no device time."""
+def device_kernels(fn, torch):
+    """(CUDA kernels, device ms) of one fn() under torch.profiler, or
+    (None, None) when the profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for i in range(n):
-            camera(i)
-            r.render_device()
+        fn()
         torch.cuda.synchronize()
     kern = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
-    n_kern = sum(e.count for e in kern)
-    if not n_kern:
+    n = sum(e.count for e in kern)
+    if not n:
         return None, None
-    return (n_kern / n,
-            sum(e.self_device_time_total for e in kern) / 1e3 / n)
+    return n, sum(e.self_device_time_total for e in kern) / 1e3
+
+
+def kernels_a_frame(r, camera, torch, n: int = 3):
+    """Device kernels a frame and device ms a frame over n frames under
+    torch.profiler (device_kernels), or (None, None) when the profiler
+    records no device time."""
+    def frames():
+        for i in range(n):
+            camera(i)
+            r.render_device()
+
+    n_kern, ms = device_kernels(frames, torch)
+    return (None, None) if n_kern is None else (n_kern / n, ms / n)
 
 
 def record_lists(r, torch):
@@ -3687,6 +3701,612 @@ def phase_tools(P, np, torch, stress_syncs: int):
     return res
 
 
+# ---- sharded: the multi-GPU frame (parallel/sharding.py) ------------------
+
+# 1080 rows split into TILE_H-aligned bands only for n dividing 135, 1920
+# columns into TILE_W-aligned ones only for n dividing 15
+SHARD_N = 3
+SHARD_PATH = ("rasterize16_slim", "resolve_planes_fused",
+              "onehot_split_rows", "tap_plan_fused", "filter_taps_fused",
+              "gather_split_channels", "gather_split_channels_f32",
+              "rasterize_binned", "rasterize16_msaa")
+SHARD_TIMEOUT = 600      # s, the spawned ranks' join
+
+
+def shard_inputs(r):
+    """Renderer r's current frame as the sharded functions take it: (ds,
+    (opaque, transparent, hud) device masks, None where a bucket is empty,
+    render_frame_sharded's keywords). The renderer's own specialization,
+    with the overlay's slot and extension masks merged into the frame's
+    (the sharded frame has one set of each) and no overlay compaction,
+    crop or tile cap (it has none)."""
+    ds = r._flush()
+    prep = r._prepare()
+    cfg = r.config
+    aa, pp = cfg.anti_aliasing, cfg.post_processing
+    tx = r.textures
+
+    def merged(a, b):
+        return a if b is None else tuple(x or y for x, y in zip(a, b))
+
+    kw = dict(
+        width=cfg.width, height=cfg.height, supersample=aa.supersample,
+        msaa=aa.msaa, tonemap=pp.tonemapping, bloom=pp.bloom, dof=pp.dof,
+        smaa=aa.smaa, use_mips=aa.mipmap, has_morphs=prep["has_morphs"],
+        skin_sets=prep["skin_sets"],
+        has_transparent=prep["transparent_dev"] is not None,
+        has_hud=prep["hud_dev"] is not None,
+        n_transparent_layers=prep["n_layers"],
+        slot_mask=merged(prep["slot_mask"], prep["ov_slot_mask"]),
+        solid_env=r.environment.is_solid,
+        has_nearest=bool((tx.descriptors[:, 5] == 0).any()
+                         and tx.descriptor_capacity > 0),
+        needs_clip=prep["masks"]["needs_clip"],
+        ext=merged(prep["ext"], prep["ov_ext"]),
+        has_uv1=bool((r.materials.tex_slots[:, :, 1] == 1).any()),
+        has_color=r.meshes.uses_vertex_colors,
+        light_tiles=(cfg.light_tiles if cfg.light_tiles is not None
+                     else r.lights.count > 8))
+    return ds, (prep["opaque_dev"], prep["transparent_dev"],
+                prep["hud_dev"]), kw
+
+
+def record_band_calls(fn, names=SHARD_PATH):
+    """fn() with recorders on the kernel wrappers `names` and on the
+    sharded frame's _pack -> (fn's result, segments): a segment ends where
+    a band's planes are packed for an exchange, so it holds one band's
+    calls of one stage, {wrapper name: [(args, kwargs)]}."""
+    from awsm_renderer_tpu_torch.parallel import sharding
+
+    where = kernel_sites()
+    sites = [(mod, n) for n in names for mod in where[n]]
+    originals = [getattr(mod, n) for mod, n in sites]
+    orig_pack = sharding._pack
+    segs = [{}]
+
+    def recorder(name, f):
+        def wrapped(*args, **kwargs):
+            segs[-1].setdefault(name, []).append((args, kwargs))
+            return f(*args, **kwargs)
+        return wrapped
+
+    def pack(planes):
+        segs.append({})
+        return orig_pack(planes)
+
+    try:
+        for (mod, n), f in zip(sites, originals):
+            setattr(mod, n, recorder(n, f))
+        sharding._pack = pack
+        out = fn()
+    finally:
+        for (mod, n), f in zip(sites, originals):
+            setattr(mod, n, f)
+        sharding._pack = orig_pack
+    return out, [s for s in segs if s]
+
+
+def launches_of(kernels) -> dict:
+    """The launch counts that are not 0."""
+    return {k: v for k, v in kernels.launch_counts.items() if v}
+
+
+def shard_diagnose(label, ds, masks, kw, tid_b, tid_1, d, dz, border,
+                   torch) -> None:
+    """Where a band assembly's ldr departs from the whole frame's off the
+    border rows: the pixels within 2 of a tri_id mismatch, those the
+    transparent panes cover (K1 over the transparent bucket at 1x), the
+    rest; depth where the ids agree."""
+    from awsm_renderer_tpu_torch.ops.raster import rasterize16_slim
+    from awsm_renderer_tpu_torch.passes.frame import (
+        _pad_to, _run_vertex, prep_setup_rows,
+    )
+
+    h, w = tid_b.shape
+    mis = (tid_b != tid_1).float()[None, None]
+    near = torch.nn.functional.max_pool2d(mis, 5, 1, 2)[0, 0] > 0
+    panes = torch.zeros_like(near)
+    if masks[1] is not None:
+        rows = prep_setup_rows(_run_vertex(
+            ds, masks[1], rw=_pad_to(w, 128), rh_full=_pad_to(h, 8),
+            needs_clip=kw["needs_clip"]))
+        col, _dep, _b = rasterize16_slim(rows, width=_pad_to(w, 128),
+                                         height=_pad_to(h, 8))
+        panes = (col.reshape(_pad_to(h, 8), -1)[:h, :w] >= 0)
+    big = (d > 1e-3) & ~border
+    rest = big & ~near & ~panes
+    same = tid_b == tid_1
+    log(f"    {label} ldr off the borders: {int(big.sum())} pixels > 1e-3, "
+        f"{int((big & near).sum())} within 2 of a tri_id mismatch, "
+        f"{int((big & panes & ~near).sum())} under the panes, "
+        f"{int(rest.sum())} elsewhere (max |d| "
+        f"{float(d[~border & ~near & ~panes].max()):.3g} off all three); "
+        f"depth max |d| {float(dz[same].max()):.3g} where the ids agree")
+    for y, x in rest.nonzero()[:6].tolist():
+        log(f"      ({y}, {x}): tri_id {int(tid_b[y, x])} / "
+            f"{int(tid_1[y, x])}, |d| {float(d[y, x]):.3g}, depth |d| "
+            f"{float(dz[y, x]):.3g}")
+
+
+def hold_band_kernels(seg, torch, spent=None) -> dict:
+    """Each kernel's first call of a band segment against its twin on the
+    same arguments (K1, K3, K5, K6, K6-f32, K7, K9 bit for bit; K2 ids
+    equal and planes within rtol 1e-5, atol 1e-6; K4 as check_k4_k5).
+    Returns {wrapper name: mismatches}."""
+    from awsm_renderer_tpu_torch.ops.raster import (
+        plane_layout, rasterize16_msaa, rasterize16_msaa_reference,
+        rasterize16_slim, rasterize16_slim_reference, rasterize_binned,
+        rasterize_binned_reference,
+    )
+    from awsm_renderer_tpu_torch.ops.relayout import (
+        gather_split_channels, gather_split_channels_f32,
+        gather_split_channels_f32_reference, gather_split_channels_reference,
+        onehot_split_rows, onehot_split_rows_reference,
+    )
+    from awsm_renderer_tpu_torch.ops.shade import (
+        RESOLVE_NAMES, resolve_planes_fused, resolve_planes_reference,
+    )
+    from awsm_renderer_tpu_torch.ops.texsample import (
+        filter_taps_fused, filter_taps_reference, tap_plan_fused,
+        tap_plan_reference,
+    )
+
+    bad = {}
+    spent = {} if spent is None else spent
+    for name, calls in seg.items():
+        args, kw = calls[0]
+        t0 = time.perf_counter()
+        if name == "rasterize16_slim":
+            col, depth, bins = rasterize16_slim(*args, **kw)
+            ccol, cdep = rasterize16_slim_reference(args[0], bins, **kw)
+            n = bit_mismatches(col, ccol, torch) + bit_mismatches(
+                depth, cdep, torch)
+        elif name == "rasterize16_msaa":
+            samp, depth, bins = rasterize16_msaa(*args, **kw)
+            rsamp, rdepth = rasterize16_msaa_reference(args[0], bins, **kw)
+            n = bit_mismatches(depth, rdepth, torch) + sum(
+                bit_mismatches(a, b, torch) for a, b in zip(samp, rsamp))
+        elif name == "resolve_planes_fused":
+            a = resolve_planes_fused(*args, **kw)
+            b = resolve_planes_reference(*args, **kw)
+            n = int((a["tri_id"] != b["tri_id"]).sum()) + sum(
+                int((~torch.isclose(a[k], b[k], rtol=1e-5, atol=1e-6)).sum())
+                for k in RESOLVE_NAMES[1:])
+        elif name == "rasterize_binned":
+            rows, zlo, zhi = args
+            names = plane_layout(kw["has_uv1"], kw["has_color"],
+                                 kw["analytic_derivs"])
+            a = rasterize_binned(rows, zlo, zhi, **kw)
+            b = rasterize_binned_reference(
+                rows, zlo, zhi, bins=kw["bins"], width=kw["width"],
+                height=kw["height"], names=names)
+            n = sum(bit_mismatches(a[k].contiguous(), b[k].contiguous(),
+                                   torch) for k in a)
+        elif name == "tap_plan_fused":
+            idx, w = tap_plan_fused(*args, **kw)
+            ridx, rw = tap_plan_reference(*args, **kw)
+            off = ((idx != ridx) | ((w - rw).abs() > 1e-6).any(0))
+            near = lod_near_integer(args, kw, torch)
+            # taps whose LOD lies within 1e-5 of an integer may round to
+            # either level: fewer than 0.01% of them may differ
+            n = int((off & ~near).sum()) + int(
+                int((off & near).sum()) >= 1e-4 * idx.shape[0])
+        else:
+            fn, ref = {
+                "onehot_split_rows": (onehot_split_rows,
+                                      onehot_split_rows_reference),
+                "filter_taps_fused": (filter_taps_fused,
+                                      filter_taps_reference),
+                "gather_split_channels": (gather_split_channels,
+                                          gather_split_channels_reference),
+                "gather_split_channels_f32": (
+                    gather_split_channels_f32,
+                    gather_split_channels_f32_reference)}[name]
+            n = bit_mismatches(fn(*args, **kw), ref(*args, **kw), torch)
+        bad[name] = n
+        spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+    return bad
+
+
+def classify_band_ids(ds, masks, kw, tid_b, tid_1, torch):
+    """tri_id mismatches between a band assembly and the whole frame:
+    classify_mismatches in its rounding mode (an edge value or the two z
+    within 4 ulps of their terms: a band's setup constants c + k * offset
+    round once more than the frame's) against the opaque setup at the
+    raster's scale, then the HUD's at 1x. Returns (mismatch indices,
+    counts)."""
+    from awsm_renderer_tpu_torch.passes.frame import (
+        _pad_to, _run_vertex, prep_setup_rows,
+    )
+
+    a, b = tid_b.reshape(-1), tid_1.reshape(-1)
+    idx = (a != b).nonzero()[:, 0]
+    counts = dict(ties=0, rounding=0, unclassified=int(idx.numel()))
+    if not idx.numel():
+        return idx, counts
+    h, w = tid_b.shape
+    scale = 2 if (kw["supersample"] or kw["msaa"]) else 1
+    left = torch.ones(idx.numel(), dtype=torch.bool, device=idx.device)
+    for mask, s in ((masks[0], scale), (masks[2], 1)):
+        if mask is None or not bool(left.any()):
+            continue
+        rows = prep_setup_rows(_run_vertex(
+            ds, mask, rw=_pad_to(w * s, 128), rh_full=_pad_to(h * s, 8),
+            needs_clip=kw["needs_clip"]))
+        px, py = pixel_centres(h, w, idx.device, torch, step=s)
+        sel = idx[left]
+        c = classify_mismatches(rows, a[sel], b[sel], px[sel], py[sel],
+                                torch, k9=True)
+        counts["ties"] += c["ties"]
+        counts["rounding"] += c["k9_rounding"]
+        left[left.clone()] = c["rest"]
+    counts["unclassified"] = int(left.sum())
+    return idx, counts
+
+
+def border_mask(h: int, w: int, grid, rh: int, rw: int, device, torch):
+    """(h, w) bool: the pixels of the rows and columns on either side of
+    each band or tile boundary of a grid over the padded rh x rw frame."""
+    m = torch.zeros((h, w), dtype=torch.bool, device=device)
+    for y in range(rh // grid[0], rh, rh // grid[0]):
+        m[max(y - 1, 0):y + 1] = True
+    for x in range(rw // grid[1], rw, rw // grid[1]):
+        m[:, max(x - 1, 0):x + 1] = True
+    return m
+
+
+def hold_sharded(label, r, grid, torch, profile=False) -> dict:
+    """The in-process band assembly of r's frame over `grid` against the
+    whole frame (render_frame with the same keywords): tri_id mismatches
+    classified (0 unclassified), ldr's and depth's max |d| off and on the
+    border rows, hand-kernel launches of the bands against the frame's,
+    each band's kernels against their twins. Returns the assembly (on the
+    host) and the counts."""
+    from awsm_renderer_tpu_torch.ops import kernels
+    from awsm_renderer_tpu_torch.parallel.sharding import _band_frame
+    from awsm_renderer_tpu_torch.passes.frame import render_frame
+
+    t0 = time.perf_counter()
+    ds, masks, kw = shard_inputs(r)
+    fkw = {k: v for k, v in kw.items()
+           if k not in ("has_transparent", "has_hud")}
+    n = grid[0] * grid[1]
+    profiled = None
+    if profile and DEVICE == "cuda":
+        profiled = [device_kernels(f, torch) for f in (
+            lambda: _band_frame(*(ds,) + masks, bands=range(n), grid=grid,
+                                **fkw),
+            lambda: render_frame(*(ds,) + masks, **fkw))]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    kernels.reset_launch_counts()
+    out, segs = record_band_calls(lambda: _band_frame(
+        *(ds,) + masks, bands=range(n), grid=grid, **fkw))
+    torch.cuda.synchronize()
+    band_counts = launches_of(kernels)
+    band_launches = sum(band_counts.values())
+    kernels.reset_launch_counts()
+    whole = render_frame(*(ds,) + masks, **fkw)[:3]
+    torch.cuda.synchronize()
+    frame_counts = launches_of(kernels)
+    frame_launches = sum(frame_counts.values())
+    ldr_b, tid_b, dep_b = out
+    ldr_1, tid_1, dep_1 = whole
+    check(bool(torch.isfinite(ldr_b).all()) and ldr_b.shape == ldr_1.shape,
+          f"{label}: the assembled frame is finite, {tuple(ldr_b.shape)}")
+    t2 = time.perf_counter()
+    idx, c = classify_band_ids(ds, masks, kw, tid_b, tid_1, torch)
+    h, w = tid_b.shape
+    border = border_mask(h, w, grid, -(-h // 8) * 8, -(-w // 128) * 128,
+                         tid_b.device, torch)
+    on_border = int(border.reshape(-1)[idx].sum())
+    d = (ldr_b - ldr_1).abs().amax(dim=-1)
+    dz = (dep_b - dep_1).abs()
+    off_b = float(d[~border].max())
+    on_b = float(d[border].max()) if bool(border.any()) else 0.0
+    shard_diagnose(label, ds, masks, kw, tid_b, tid_1, d, dz, border, torch)
+    t3 = time.perf_counter()
+    held, spent = {}, {}
+    for seg in segs:
+        for k, v in hold_band_kernels(seg, torch, spent).items():
+            held.setdefault(k, []).append(v)
+    t4 = time.perf_counter()
+    log(f"  {label}: s: inputs + profile {t1 - t0:.1f}, frames {t2 - t1:.1f},"
+        f" ids {t3 - t2:.1f}, twins {t4 - t3:.1f} ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in spent.items()) + ")")
+    log(f"  {label}: tri_id {idx.numel()} mismatches of {h * w} pixels "
+        f"({c['ties']} exact ties, {c['rounding']} edge or z within 4 ulps "
+        f"of the shifted setup's rounding, {c['unclassified']} "
+        f"unclassified; {on_border} on border rows or columns); ldr max "
+        f"|d| {off_b:.3g} off the border rows and columns, {on_b:.3g} on "
+        f"them, {int((d > 1e-3).sum())} pixels off by > 1e-3; depth max "
+        f"|d| {float(dz.max()):.3g}; hand-kernel launches {band_launches} "
+        f"for the {n} bands ({band_launches / n:.1f} a band), "
+        f"{frame_launches} for the whole frame ({band_counts} against "
+        f"{frame_counts}); twins held on "
+        + ", ".join(f"{k} x{len(v)}" for k, v in held.items()))
+    check(c["unclassified"] == 0,
+          f"{label}: every tri_id mismatch is classified")
+    check(all(x == 0 for v in held.values() for x in v),
+          f"{label}: every band's kernel calls equal their twins "
+          f"({sum(len(v) for v in held.values())} calls held)")
+    return dict(out=tuple(x.cpu() for x in out), kernels=set(held),
+                launches=(band_launches, frame_launches), off=off_b,
+                on=on_b, mismatches=idx.numel(), counts=c,
+                depth=float(dz.max()), profiled=profiled)
+
+
+def scene_checksum(ds, torch):
+    """(n,) float64 on the host: sum and sum of |x| of every tensor,
+    array and number in the device dict, by sorted key."""
+    import numpy as np
+
+    out = []
+
+    def add(v):
+        if isinstance(v, dict):
+            for k in sorted(v):
+                if k != "mat_columns":
+                    add(v[k])
+        elif isinstance(v, torch.Tensor):
+            x = v.detach().double().cpu()
+            out.extend([float(x.sum()), float(x.abs().sum())])
+        elif isinstance(v, np.ndarray):
+            x = v.astype(np.float64)
+            out.extend([float(x.sum()), float(np.abs(x).sum())])
+        elif isinstance(v, (int, float)):
+            out.append(float(v))
+
+    add(ds)
+    return torch.tensor(out, dtype=torch.float64)
+
+
+SHARD_RUNS = (("stress-rows", False, 1), ("stress-tiles", False, 2),
+              ("msaa-rows", True, 1))
+
+
+def shard_rank(rank: int, world: int, port: int, out_dir: str,
+               cfg: dict) -> None:
+    """One rank of the sharded phase's gloo group on the one card (a
+    spawned process; the kernels are the parent's build; cfg: the
+    parent's W, H, STRESS_GRID, N_FRAMES and DEVICE): build the stress
+    scene from seed 42, show by a checksum all-gather that every rank
+    holds the same scene, render the SHARD_RUNS frames through
+    render_frame_sharded (rows) and render_frame_sharded_2d (1 x world
+    tiles) and save each; on the card, time 12 frames of each (CUDA
+    events), its exchanges (synchronized) and count its launches and peak
+    memory."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    import awsm_renderer_tpu_torch as P
+    from awsm_renderer_tpu_torch.ops import kernels
+    from awsm_renderer_tpu_torch.parallel import sharding as S
+
+    globals().update(cfg)
+    cuda = DEVICE == "cuda"
+    torch.set_num_threads(2)
+    if cuda:
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    try:
+        if cuda:
+            kernels.lib()
+        meshes = {1: DeviceMesh(DEVICE, list(range(world)),
+                                mesh_dim_names=("rows",)),
+                  2: DeviceMesh(DEVICE, [list(range(world))],
+                                mesh_dim_names=("rows", "cols"))}
+        res = {}
+        scenes = {}
+        for label, effects, dims in SHARD_RUNS:
+            if effects not in scenes:
+                scenes.clear()
+                r, _k, _h = build_stress_scene(P, np, DEVICE,
+                                               effects=effects)
+                orbit_camera(r, np, 0)
+                scenes[effects] = shard_inputs(r)
+                sums = scene_checksum(scenes[effects][0], torch)
+                got = [torch.empty_like(sums) for _ in range(world)]
+                dist.all_gather(got, sums)
+                res[f"scene_equal_{int(effects)}"] = all(
+                    torch.equal(g, got[0]) for g in got)
+            ds, masks, kw = scenes[effects]
+            fn = (S.render_frame_sharded if dims == 1
+                  else S.render_frame_sharded_2d)
+            if dims == 2:
+                kw = {k: v for k, v in kw.items()
+                      if k not in ("supersample", "msaa")}
+
+            def frame():
+                return fn(meshes[dims], ds, *masks, **kw)
+
+            out = frame()
+            torch.save([x.cpu() for x in out],
+                       os.path.join(out_dir, f"{label}-{rank}.pt"))
+            if cuda:
+                res[label] = time_rank_frame(frame, S, kernels, torch)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def time_rank_frame(frame, S, kernels, torch) -> dict:
+    """A rank's frame on the card: N_FRAMES frames timed by CUDA events,
+    the peak memory over them, one frame's all-gathers timed alone
+    (synchronized before, the gathered tensors read after) and one
+    frame's hand-kernel launches."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(N_FRAMES):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        frame()
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+    peak = torch.cuda.max_memory_allocated()
+    ex = []
+    orig = S._all_gather
+
+    def timed(t, group):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = orig(t, group)
+        for x in o:
+            x.sum().item()
+        ex.append((time.perf_counter() - t0) * 1e3)
+        return o
+
+    S._all_gather = timed
+    try:
+        frame()
+    finally:
+        S._all_gather = orig
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    frame()
+    torch.cuda.synchronize()
+    return dict(ms=ms, peak=peak, exchange_ms=ex,
+                launches=launches_of(kernels))
+
+
+def run_shard_ranks(n: int) -> str:
+    """Spawn n ranks of shard_rank over gloo (localhost, a free port) and
+    wait for them; every rank must exit 0. Returns their output dir."""
+    import multiprocessing
+    import shutil
+    import socket
+
+    out_dir = os.path.join(REPO, "build", "sharded")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    cfg = dict(W=W, H=H, STRESS_GRID=STRESS_GRID, N_FRAMES=N_FRAMES,
+               DEVICE=DEVICE)
+    procs = [ctx.Process(target=shard_rank,
+                         args=(i, n, port, out_dir, cfg))
+             for i in range(n)]
+    for p in procs:
+        p.start()
+    try:
+        deadline = time.perf_counter() + SHARD_TIMEOUT
+        for p in procs:
+            p.join(max(1.0, deadline - time.perf_counter()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    codes = [p.exitcode for p in procs]
+    check(all(c == 0 for c in codes), f"the {n} gloo ranks exited 0 "
+                                      f"(exit codes {codes})")
+    return out_dir
+
+
+def phase_sharded(P, np, torch) -> dict:
+    """The multi-GPU frame on the one card. (1) In process: the stress
+    frame in SHARD_N row bands, SHARD_N x SHARD_N and 1 x SHARD_N tiles,
+    the MSAA + bloom + DoF headline, supersample and the volume + HUD
+    variant in SHARD_N row bands, each assembled from every band
+    (sharding._band_frame) and held against the whole frame. (2) SHARD_N
+    spawned ranks on the card over gloo: the stress rows, the stress 1 x
+    SHARD_N tiles and the MSAA rows through the public functions,
+    bit-equal to (1)'s assemblies; ms/frame, exchange ms, launches and
+    peak memory per rank."""
+    from dataclasses import replace
+
+    t0 = time.perf_counter()
+    n = SHARD_N
+    log(f"phase sharded: {n} row bands and screen tiles at {W}x{H}, every "
+        f"band in this process, then {n} gloo ranks on the one card")
+    res = {}
+    r, _k, _h = build_stress_scene(P, np, DEVICE)
+    orbit_camera(r, np, 0)
+    log(f"  scene built in {time.perf_counter() - t0:.1f} s")
+    for label, grid in (("stress-rows", (n, 1)), ("stress-tiles3x3", (n, n)),
+                        ("stress-tiles", (1, n))):
+        res[label] = hold_sharded(f"{label} {grid}", r, grid, torch,
+                                  profile=label == "stress-rows")
+    r.config = replace(r.config, anti_aliasing=P.AntiAliasing(
+        supersample=True))
+    res["supersample-rows"] = hold_sharded("supersample-rows", r, (n, 1),
+                                           torch)
+    del r
+    r, _k, _h = build_stress_scene(P, np, DEVICE, effects=True)
+    orbit_camera(r, np, 0)
+    res["msaa-rows"] = hold_sharded("msaa-rows (bloom, DoF)", r, (n, 1),
+                                    torch)
+    del r
+    r, _k, _h = build_stress_scene(P, np, DEVICE, volume=True, hud=True)
+    orbit_camera(r, np, 0)
+    res["volume-hud-rows"] = hold_sharded("volume-hud-rows", r, (n, 1),
+                                          torch)
+    del r
+    ran = set().union(*(v["kernels"] for v in res.values()))
+    check(ran == set(SHARD_PATH), f"the band frames ran every kernel of the "
+                                  f"path ({sorted(ran)})")
+    t1 = time.perf_counter()
+    torch.cuda.empty_cache()
+    out_dir = run_shard_ranks(n)
+    ranks = []
+    for i in range(n):
+        with open(os.path.join(out_dir, f"rank{i}.json")) as f:
+            ranks.append(json.load(f))
+        check(ranks[-1]["scene_equal_0"] and ranks[-1]["scene_equal_1"],
+              f"rank {i}: the {n} ranks' scenes have equal checksums")
+        for label, _e, _d in SHARD_RUNS:
+            got = torch.load(os.path.join(out_dir, f"{label}-{i}.pt"))
+            want = res[label]["out"]
+            nbad = sum(bit_mismatches(a, b, torch) for a, b in zip(got, want))
+            check(nbad == 0, f"rank {i} {label}: the whole frame bit-equal "
+                             f"to the in-process assembly")
+    t2 = time.perf_counter()
+    log(f"  phase sharded: in process {t1 - t0:.1f} s, ranks {t2 - t1:.1f} s")
+    res["ranks"] = ranks
+    return res
+
+
+def log_sharded(sh, card: str) -> None:
+    """The sharded phase's numbers, each beside the card."""
+    for label in ("stress-rows", "stress-tiles3x3", "stress-tiles",
+                  "supersample-rows", "msaa-rows", "volume-hud-rows"):
+        v = sh[label]
+        log(f"sharded {label} (in process): {v['mismatches']} tri_id "
+            f"mismatches ({v['counts']}), ldr max |d| {v['off']:.3g} off "
+            f"the borders, {v['on']:.3g} on them, depth max |d| "
+            f"{v['depth']:.3g}; hand-kernel launches {v['launches'][0]} "
+            f"for {SHARD_N if 'x3' not in label else SHARD_N ** 2} bands "
+            f"against {v['launches'][1]} for the whole frame ({card})")
+    (nb, msb), (n1, ms1) = sh["stress-rows"]["profiled"] or ((None,) * 2,) * 2
+    log(f"sharded stress-rows (in process, torch.profiler): "
+        f"{nb} CUDA kernels and {msb} device ms for the {SHARD_N} bands "
+        f"({'not measured' if nb is None else f'{nb / SHARD_N:.0f}'} a "
+        f"band), {n1} kernels and {ms1} device ms for the whole frame "
+        f"({card})")
+    for i, rk in enumerate(sh["ranks"]):
+        for label, _e, _d in SHARD_RUNS:
+            v = rk[label]
+            ex = v["exchange_ms"]
+            log(f"sharded rank {i}/{SHARD_N} {label} (gloo, one card): "
+                f"median {statistics.median(v['ms']):.3f} ms/frame (CUDA "
+                f"events, {len(v['ms'])} frames, min {min(v['ms']):.3f}, "
+                f"max {max(v['ms']):.3f}); {len(ex)} all-gathers a frame, "
+                f"{sum(ex):.3f} ms (synchronized: "
+                f"{', '.join(f'{x:.3f}' for x in ex)}); "
+                f"{sum(v['launches'].values())} hand-kernel launches a "
+                f"frame ({v['launches']}); peak {v['peak'] / 2 ** 30:.2f} "
+                f"GiB ({card})")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3749,6 +4369,7 @@ def main() -> int:
     tl = phase_tools(P, np, torch, ov["syncs_a"])
     h_med, h_wall, _h_counts, (h_k4, h_k5) = phase_gltf(P, np, torch)
     phase_golden(P, np, torch)
+    sh = phase_sharded(P, np, torch)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3871,6 +4492,7 @@ def main() -> int:
             f"{v['k9_rounding']} K9 sample-rounding flips, "
             f"{v['unclassified']} unclassified")
     log(f"phase oracle: {orc['seconds']:.1f} s ({card})")
+    log_sharded(sh, card)
     sources = {
         "K1": ("rasterize16_slim", "awsm_renderer_tpu_torch/csrc/raster16.cu",
                "awsm_renderer_tpu/ops/raster.py:1615"),
