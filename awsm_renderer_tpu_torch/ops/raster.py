@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import count
 from . import kernels
 from .vertex import (
     NSETUP, S_BB_MAXX, S_BB_MAXY, S_BB_MINX, S_BB_MINY,
@@ -896,12 +897,15 @@ def _peel_layers(peel, zlo, n_layers: int):
     """Run `peel(zlo)` front to back, chaining zlo to each layer's depth
     (2.0 where it missed). Runtime peel skip: once layer k-1 holds no
     fragment every deeper peel is empty, so the kernel is not launched
-    (one host sync per layer after the first). Returns {name: (K, N)}."""
+    (one host sync per layer after the first, counted as
+    render_frame/peel_sync). Returns {name: (K, N)}."""
     per_layer = []
     for k in range(n_layers):
-        if k and not bool((per_layer[-1]["tri_id"] >= 0).any()):
-            per_layer += [_empty_layer(per_layer[-1])] * (n_layers - k)
-            break
+        if k:
+            count("render_frame/peel_sync")
+            if not bool((per_layer[-1]["tri_id"] >= 0).any()):
+                per_layer += [_empty_layer(per_layer[-1])] * (n_layers - k)
+                break
         layer = peel(zlo)
         zlo = torch.where(layer["tri_id"] >= 0, layer["depth"],
                           torch.full_like(layer["depth"], 2.0))

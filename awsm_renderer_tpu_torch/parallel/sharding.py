@@ -54,7 +54,6 @@ from ..ops.shade import ALL_EXT, ALL_SLOTS, EXT_VOLUME
 from ..passes.frame import (
     _finish_frame, _frame_band, _msaa_edge_blend, _opaque_band,
     _opaque_band_msaa, _overlay_band, _pad_to, _resolve_supersample,
-    _total_triangles,
 )
 
 
@@ -229,9 +228,6 @@ def _band_frame(ds, opaque_mask, transparent_mask=None, hud_mask=None, *,
     ldr, tri_id, depth = _finish_frame(
         hdr_ch, tri_id, depth, ds, rw=rw1, rh=rh1, width=width,
         height=height, tonemap=tonemap, bloom=bloom, dof=dof, smaa=smaa)
-    # picking ids in triangle-pool space (clipping doubles the rows)
-    T_pool = _total_triangles(ds)
-    tri_id = torch.where(tri_id >= 0, tri_id % T_pool, -1)
     return ldr, tri_id, depth
 
 

@@ -18,6 +18,13 @@ one row band or screen tile of the frame, their setup shifted into its
 local coordinates (_shift_rows_band, _shift_cols_band): the sharded
 frame's (parallel/sharding.py). PyTorch runs it eagerly, op by op, on
 the scene tensors' device.
+
+With the renderer's timings on, each stage runs in a span of them
+(utils/profiling.py span), inside the facade's render_frame/dispatch
+and never inside another stage: render_frame/vertex, raster, shade,
+resolve (MSAA edge blend, supersample resolve, the temporal
+reprojection and merge), overlay, effects (bloom, DoF, SMAA) and
+display.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ from ..ops.vertex import (
     _BIG, S_BB_MAXX, S_BB_MAXY, S_BB_MINX, S_BB_MINY, S_E0A, S_E0B, S_E0C,
     S_E1A, S_E1B, S_E1C, S_E2A, S_E2B, S_E2C, S_ZA, S_ZB, S_ZC, vertex_stage,
 )
+from ..utils.profiling import span
 
 _CORNER_NAMES = ("c_pos", "c_norm", "c_tang", "c_uv0", "c_uv1", "c_color",
                  "c_joints", "c_weights", "c_morph_base")
@@ -306,27 +314,30 @@ def _opaque_band(ds, opaque_mask, *, rw: int, band_h: int, rh_full: int,
     band's local coordinates (the sharded frame). An after_geometry hook
     gets the raster's planes (without the bins) and returns the planes
     that are shaded and whose tri_id and depth the frame keeps."""
-    srows = prep_setup_rows(_run_vertex(
-        ds, opaque_mask, rw=rw_full or rw, rh_full=rh_full,
-        needs_clip=needs_clip, has_morphs=has_morphs, skin_sets=skin_sets,
-        row_offset=row_offset, shift_rows=shift_rows, col_offset=col_offset,
-        shift_cols=shift_cols, band=(band_h, rw)))
+    with span("render_frame/vertex"):
+        srows = prep_setup_rows(_run_vertex(
+            ds, opaque_mask, rw=rw_full or rw, rh_full=rh_full,
+            needs_clip=needs_clip, has_morphs=has_morphs,
+            skin_sets=skin_sets, row_offset=row_offset,
+            shift_rows=shift_rows, col_offset=col_offset,
+            shift_cols=shift_cols, band=(band_h, rw)))
     # uv1 / vertex-colour planes only when a material samples uv1 or a
     # mesh carries colours; no analytic derivatives: the mip gradients
     # are screen differences of the band's padded uv0 planes, as in the
     # reference
-    vis = rasterize16(srows, width=rw, height=band_h, has_uv1=has_uv1,
-                      has_color=has_color, analytic_derivs=False)
-    bins = vis.pop("bins")
+    with span("render_frame/raster"):
+        vis = rasterize16(srows, width=rw, height=band_h, has_uv1=has_uv1,
+                          has_color=has_color, analytic_derivs=False)
+        bins = vis.pop("bins")
     if getattr(hooks, "after_geometry", None):
         vis = hooks.after_geometry(vis, ds)
-    hdr_ch = shade_deferred_c(vis, ds, width=rw, height=band_h,
-                              height_full=rh_full, row_offset=row_offset,
-                              width_full=rw_full, col_offset=col_offset,
-                              solid_env=solid_env, use_mips=use_mips,
-                              slot_mask=slot_mask, has_nearest=has_nearest,
-                              ext=ext, debug_mode=debug_mode,
-                              light_tiles=light_tiles)
+    with span("render_frame/shade"):
+        hdr_ch = shade_deferred_c(
+            vis, ds, width=rw, height=band_h, height_full=rh_full,
+            row_offset=row_offset, width_full=rw_full, col_offset=col_offset,
+            solid_env=solid_env, use_mips=use_mips, slot_mask=slot_mask,
+            has_nearest=has_nearest, ext=ext, debug_mode=debug_mode,
+            light_tiles=light_tiles)
     return hdr_ch, vis["tri_id"], vis["depth"], bins
 
 
@@ -359,13 +370,12 @@ def _opaque_band_msaa(ds, opaque_mask, *, rw2: int, rh2: int, rw1: int,
     rw1) sample-id planes [tl, tr, bl, br], depth1 (band1_h, rw1), K9's
     bins)."""
     band1_h = rh1 if band1_h is None else band1_h
-    srows = prep_setup_rows(_run_vertex(
-        ds, opaque_mask, rw=rw2, rh_full=rh2, needs_clip=needs_clip,
-        has_morphs=has_morphs, skin_sets=skin_sets,
-        row_offset=2 * row_offset1, shift_rows=shift_rows,
-        band=(2 * band1_h, rw2)))
-    samp_raw, depth1_raw, bins = rasterize16_msaa(srows, width2=rw2,
-                                                  height2=2 * band1_h)
+    with span("render_frame/vertex"):
+        srows = prep_setup_rows(_run_vertex(
+            ds, opaque_mask, rw=rw2, rh_full=rh2, needs_clip=needs_clip,
+            has_morphs=has_morphs, skin_sets=skin_sets,
+            row_offset=2 * row_offset1, shift_rows=shift_rows,
+            band=(2 * band1_h, rw2)))
     w_half = rw2 // 2
 
     def fit_cols(p, fill):
@@ -375,44 +385,49 @@ def _opaque_band_msaa(ds, opaque_mask, *, rw2: int, rh2: int, rw1: int,
                          device=p.device)
         return torch.cat([p, pad], dim=1)
 
-    samp = [fit_cols(p, -1) for p in samp_raw]
-    depth1 = fit_cols(depth1_raw, 1.0)
-    P = band1_h * rw1
-    rep = samp[0].reshape(P)
-    if debug_mode == "edges":
-        edge = ((samp[1] != samp[0]) | (samp[2] != samp[0])
-                | (samp[3] != samp[0])).reshape(P)
-        v = torch.where(edge, 1.0, torch.where(rep >= 0, 0.15, 0.0))
-        return [v, v, v, (rep >= 0).float()], samp, depth1, bins
+    with span("render_frame/raster"):
+        samp_raw, depth1_raw, bins = rasterize16_msaa(srows, width2=rw2,
+                                                      height2=2 * band1_h)
+        samp = [fit_cols(p, -1) for p in samp_raw]
+        depth1 = fit_cols(depth1_raw, 1.0)
+    with span("render_frame/shade"):
+        P = band1_h * rw1
+        rep = samp[0].reshape(P)
+        if debug_mode == "edges":
+            edge = ((samp[1] != samp[0]) | (samp[2] != samp[0])
+                    | (samp[3] != samp[0])).reshape(P)
+            v = torch.where(edge, 1.0, torch.where(rep >= 0, 0.15, 0.0))
+            return [v, v, v, (rep >= 0).float()], samp, depth1, bins
 
-    # covered-tile compaction (shade.py shade_deferred_compact_c): an image
-    # environment fills the skipped units' sky from its texel-pool rows.
-    # rh1 and rw1 are TILE_H- and TILE_W-multiples (8, 128), so the
-    # reference's layout conditions (frame.py:751-756) reduce to this gate
-    if (tile_cap is not None and (solid_env or "env_pool_base" in ds)
-            and tile_cap * OPAQUE_TILE_ROWS * 128 < P
-            and not getattr(hooks, "after_geometry", None)):
-        hdr_ch = shade_deferred_compact_c(
-            rep, srows, depth1.reshape(P), ds, width=rw1, height=rh1,
-            use_mips=use_mips, slot_mask=slot_mask,
-            solid_env=solid_env, has_nearest=has_nearest, ext=ext,
-            debug_mode=debug_mode, tile_cap=tile_cap,
-            light_tiles=light_tiles)
-        return hdr_ch, samp, depth1, bins
+        # covered-tile compaction (shade.py shade_deferred_compact_c): an
+        # image environment fills the skipped units' sky from its
+        # texel-pool rows. rh1 and rw1 are TILE_H- and TILE_W-multiples (8,
+        # 128), so the reference's layout conditions (frame.py:751-756)
+        # reduce to this gate
+        if (tile_cap is not None and (solid_env or "env_pool_base" in ds)
+                and tile_cap * OPAQUE_TILE_ROWS * 128 < P
+                and not getattr(hooks, "after_geometry", None)):
+            hdr_ch = shade_deferred_compact_c(
+                rep, srows, depth1.reshape(P), ds, width=rw1, height=rh1,
+                use_mips=use_mips, slot_mask=slot_mask,
+                solid_env=solid_env, has_nearest=has_nearest, ext=ext,
+                debug_mode=debug_mode, tile_cap=tile_cap,
+                light_tiles=light_tiles)
+            return hdr_ch, samp, depth1, bins
 
-    vis = resolve_planes_fused(rep, srows, width=rw1,
-                               row_offset=0 if shift_rows else row_offset1,
-                               coord_scale=2)
-    vis = {k: vis[k] for k in RESOLVE_NAMES}
-    vis["depth"] = depth1.reshape(P)
+        vis = resolve_planes_fused(
+            rep, srows, width=rw1,
+            row_offset=0 if shift_rows else row_offset1, coord_scale=2)
+        vis = {k: vis[k] for k in RESOLVE_NAMES}
+        vis["depth"] = depth1.reshape(P)
     if getattr(hooks, "after_geometry", None):
         vis = hooks.after_geometry(vis, ds)
-    hdr_ch = shade_deferred_c(vis, ds, width=rw1, height=band1_h,
-                              height_full=rh1, row_offset=row_offset1,
-                              solid_env=solid_env, use_mips=use_mips,
-                              slot_mask=slot_mask, has_nearest=has_nearest,
-                              ext=ext, debug_mode=debug_mode,
-                              light_tiles=light_tiles)
+    with span("render_frame/shade"):
+        hdr_ch = shade_deferred_c(
+            vis, ds, width=rw1, height=band1_h, height_full=rh1,
+            row_offset=row_offset1, solid_env=solid_env, use_mips=use_mips,
+            slot_mask=slot_mask, has_nearest=has_nearest, ext=ext,
+            debug_mode=debug_mode, light_tiles=light_tiles)
     return hdr_ch, samp, depth1, bins
 
 
@@ -618,23 +633,33 @@ def _finish_frame(hdr_ch, tri_id, depth, ds, *, rw: int, rh: int,
     channel planes: bloom, depth of field (dof_rings: the host-proven
     active ring subset, () = the identity), the tonemap + sRGB display
     pass, SMAA on the display image; stack to (H, W, 4); the last_pass
-    hook."""
-    hdr_ch = [c.reshape(rh, rw)[:height, :width] for c in hdr_ch]
-    tri_id = tri_id[:height, :width]
-    depth = depth[:height, :width]
+    hook; tri_id to picking ids in triangle-pool space (clipping doubles
+    the rows)."""
+    with span("render_frame/display"):
+        hdr_ch = [c.reshape(rh, rw)[:height, :width] for c in hdr_ch]
+        tri_id = tri_id[:height, :width]
+        depth = depth[:height, :width]
     rgb = hdr_ch[:3]
-    if bloom:
-        rgb = bloom_c(rgb)
-    if dof and dof_rings != ():
-        rgb = depth_of_field_c(
-            rgb, depth, ds["camera"],
-            rings=DOF_RING_SCALES if dof_rings is None else dof_rings)
-    ldr_ch = display_pass_c(list(rgb) + hdr_ch[3:], tonemap)
+    dof = dof and dof_rings != ()
+    if bloom or dof:
+        with span("render_frame/effects"):
+            if bloom:
+                rgb = bloom_c(rgb)
+            if dof:
+                rgb = depth_of_field_c(
+                    rgb, depth, ds["camera"],
+                    rings=DOF_RING_SCALES if dof_rings is None else dof_rings)
+    with span("render_frame/display"):
+        ldr_ch = display_pass_c(list(rgb) + hdr_ch[3:], tonemap)
     if smaa:
-        ldr_ch = smaa_c(ldr_ch[:3]) + ldr_ch[3:]
-    ldr = torch.stack(ldr_ch, dim=-1)
-    if getattr(hooks, "last_pass", None):
-        ldr = hooks.last_pass(ldr, ds)
+        with span("render_frame/effects"):
+            ldr_ch = smaa_c(ldr_ch[:3]) + ldr_ch[3:]
+    with span("render_frame/display"):
+        ldr = torch.stack(ldr_ch, dim=-1)
+        if getattr(hooks, "last_pass", None):
+            ldr = hooks.last_pass(ldr, ds)
+        T_pool = _total_triangles(ds)
+        tri_id = torch.where(tri_id >= 0, tri_id % T_pool, -1)
     return ldr, tri_id, depth
 
 
@@ -717,7 +742,8 @@ def render_frame(ds, opaque_mask, transparent_mask=None, hud_mask=None, *,
             debug_mode=debug_mode, tile_cap=opaque_tile_cap,
             light_tiles=light_tiles, hooks=hooks)
         if debug_mode != "edges":         # keep the edge view crisp
-            hdr_ch = _msaa_edge_blend(hdr_ch, samp, rh1, rw1)
+            with span("render_frame/resolve"):
+                hdr_ch = _msaa_edge_blend(hdr_ch, samp, rh1, rw1)
         tri_id = samp[0]
     else:
         scale = 2 if supersample else 1
@@ -733,31 +759,30 @@ def render_frame(ds, opaque_mask, transparent_mask=None, hud_mask=None, *,
         if supersample:
             # resolve BEFORE the overlay: the peel and HUD then run at
             # display resolution, over the resolved depth
-            hdr_ch, tri_id, depth = _resolve_supersample(
-                hdr_ch, tri_id, depth, width=width, height=height, rw2=rw2,
-                rw1=rw1, rh1=rh1)
+            with span("render_frame/resolve"):
+                hdr_ch, tri_id, depth = _resolve_supersample(
+                    hdr_ch, tri_id, depth, width=width, height=height,
+                    rw2=rw2, rw1=rw1, rh1=rh1)
     if _runs_overlay(transparent_mask, hud_mask, hooks):
-        hdr_ch, tri_id = _overlay_band(
-            hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask, rw=rw1,
-            band_h=rh1, rh_full=rh1, needs_clip=needs_clip,
-            has_morphs=has_morphs, skin_sets=skin_sets,
-            solid_env=solid_env, has_color=has_color, has_uv1=has_uv1,
-            use_mips=use_mips,
-            slot_mask=(slot_mask if overlay_slot_mask is None
-                       else overlay_slot_mask),
-            has_nearest=has_nearest,
-            ext=ext if overlay_ext is None else overlay_ext,
-            n_transparent_layers=n_transparent_layers,
-            crop_y0=overlay_crop_y0, crop_h=overlay_crop_h,
-            ov_tri_idx=overlay_tri_idx, tile_cap=overlay_tile_cap,
-            light_tiles=light_tiles, hooks=hooks)
+        with span("render_frame/overlay"):
+            hdr_ch, tri_id = _overlay_band(
+                hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask,
+                rw=rw1, band_h=rh1, rh_full=rh1, needs_clip=needs_clip,
+                has_morphs=has_morphs, skin_sets=skin_sets,
+                solid_env=solid_env, has_color=has_color, has_uv1=has_uv1,
+                use_mips=use_mips,
+                slot_mask=(slot_mask if overlay_slot_mask is None
+                           else overlay_slot_mask),
+                has_nearest=has_nearest,
+                ext=ext if overlay_ext is None else overlay_ext,
+                n_transparent_layers=n_transparent_layers,
+                crop_y0=overlay_crop_y0, crop_h=overlay_crop_h,
+                ov_tri_idx=overlay_tri_idx, tile_cap=overlay_tile_cap,
+                light_tiles=light_tiles, hooks=hooks)
     ldr, tri_id, depth = _finish_frame(
         hdr_ch, tri_id, depth, ds, rw=rw1, rh=rh1, width=width,
         height=height, tonemap=tonemap, bloom=bloom, dof=dof, smaa=smaa,
         dof_rings=dof_rings, hooks=hooks)
-    # picking ids in triangle-pool space (clipping doubles the rows)
-    T_pool = _total_triangles(ds)
-    tri_id = torch.where(tri_id >= 0, tri_id % T_pool, -1)
     return ldr, tri_id, depth, bins
 
 
@@ -808,63 +833,69 @@ def render_frame_temporal(ds, opaque_mask, transparent_mask, hud_mask, hist,
     n_units = (rh1 // OPAQUE_TILE_ROWS) * (rw1 // 128)
 
     # ---- 1. slim geometry (jittered camera) -------------------------------
-    srows = prep_setup_rows(_run_vertex(
-        ds, opaque_mask, rw=rw1, rh_full=rh1, needs_clip=needs_clip,
-        has_morphs=has_morphs, skin_sets=skin_sets))
-    col, depth, _bins = rasterize16_slim(srows, width=rw1, height=rh1)
+    with span("render_frame/vertex"):
+        srows = prep_setup_rows(_run_vertex(
+            ds, opaque_mask, rw=rw1, rh_full=rh1, needs_clip=needs_clip,
+            has_morphs=has_morphs, skin_sets=skin_sets))
+    with span("render_frame/raster"):
+        col, depth, _bins = rasterize16_slim(srows, width=rw1, height=rh1)
 
     # ---- 2. reproject + validate (unjittered matrices) ---------------------
-    off_x, off_y, exp_z = temporal_offsets(ds["camera"], depth, width=rw1,
-                                           height=rh1)
-    rep_r, rep_g, rep_b, valid, blendable = reproject_history(
-        hist, off_x, off_y, exp_z, col, width=rw1, height=rh1)
+    with span("render_frame/resolve"):
+        off_x, off_y, exp_z = temporal_offsets(ds["camera"], depth,
+                                               width=rw1, height=rh1)
+        rep_r, rep_g, rep_b, valid, blendable = reproject_history(
+            hist, off_x, off_y, exp_z, col, width=rw1, height=rh1)
 
     # ---- 3. shade the budgeted unit set ------------------------------------
-    idx, shaded_unit = select_units(valid, age, width=rw1, height=rh1,
-                                    shade_cap=shade_cap)
-    C = idx.shape[0]
-    tid_c = _tile_swizzle(col, rh1, rw1).index_select(0, idx).reshape(C * U)
-    dep_c = _tile_swizzle(depth, rh1, rw1).index_select(0, idx).reshape(C * U)
-    out_c, _valid_c = shade_units_c(
-        tid_c, dep_c, idx, srows, ds, width=rw1, height=rh1, coord_scale=1,
-        use_mips=use_mips, slot_mask=slot_mask, solid_env=solid_env,
-        has_nearest=has_nearest, ext=ext, debug_mode="none",
-        light_tiles=light_tiles)
-    new_ch = [_tile_unswizzle(
-        torch.zeros((n_units, U), device=col.device).index_copy(
-            0, idx, out_c[c].reshape(C, U)), rh1, rw1) for c in range(3)]
-    shaded_px = _tile_unswizzle(shaded_unit[:, None].expand(n_units, U),
-                                rh1, rw1)
+    with span("render_frame/shade"):
+        idx, shaded_unit = select_units(valid, age, width=rw1, height=rh1,
+                                        shade_cap=shade_cap)
+        C = idx.shape[0]
+        tid_c = _tile_swizzle(col, rh1, rw1).index_select(0, idx).reshape(
+            C * U)
+        dep_c = _tile_swizzle(depth, rh1, rw1).index_select(0, idx).reshape(
+            C * U)
+        out_c, _valid_c = shade_units_c(
+            tid_c, dep_c, idx, srows, ds, width=rw1, height=rh1,
+            coord_scale=1, use_mips=use_mips, slot_mask=slot_mask,
+            solid_env=solid_env, has_nearest=has_nearest, ext=ext,
+            debug_mode="none", light_tiles=light_tiles)
+        new_ch = [_tile_unswizzle(
+            torch.zeros((n_units, U), device=col.device).index_copy(
+                0, idx, out_c[c].reshape(C, U)), rh1, rw1) for c in range(3)]
+        shaded_px = _tile_unswizzle(shaded_unit[:, None].expand(n_units, U),
+                                    rh1, rw1)
 
     # ---- 4. temporal resolve + new history ---------------------------------
-    merged, new_hist, cov = temporal_merge(
-        new_ch, shaded_px, [rep_r, rep_g, rep_b], valid, blendable, hist,
-        col, depth, width=rw1, height=rh1, alpha=alpha)
-    new_age = torch.where(shaded_unit, 0, age + 1)
+    with span("render_frame/resolve"):
+        merged, new_hist, cov = temporal_merge(
+            new_ch, shaded_px, [rep_r, rep_g, rep_b], valid, blendable, hist,
+            col, depth, width=rw1, height=rh1, alpha=alpha)
+        new_age = torch.where(shaded_unit, 0, age + 1)
 
     # ---- 5. overlay + effects + display (as render_frame) ------------------
     hdr_ch = merged + [cov]
     tri_id = col.reshape(rh1, rw1)
     depth2 = depth.reshape(rh1, rw1)
     if _runs_overlay(transparent_mask, hud_mask, hooks):
-        hdr_ch, tri_id = _overlay_band(
-            hdr_ch, tri_id, depth2, ds, transparent_mask, hud_mask, rw=rw1,
-            band_h=rh1, rh_full=rh1, needs_clip=needs_clip,
-            has_morphs=has_morphs, skin_sets=skin_sets,
-            solid_env=solid_env, has_color=has_color, has_uv1=has_uv1,
-            use_mips=use_mips,
-            slot_mask=(slot_mask if overlay_slot_mask is None
-                       else overlay_slot_mask),
-            has_nearest=has_nearest,
-            ext=ext if overlay_ext is None else overlay_ext,
-            n_transparent_layers=n_transparent_layers,
-            crop_y0=overlay_crop_y0, crop_h=overlay_crop_h,
-            ov_tri_idx=overlay_tri_idx, tile_cap=overlay_tile_cap,
-            light_tiles=light_tiles, hooks=hooks)
+        with span("render_frame/overlay"):
+            hdr_ch, tri_id = _overlay_band(
+                hdr_ch, tri_id, depth2, ds, transparent_mask, hud_mask,
+                rw=rw1, band_h=rh1, rh_full=rh1, needs_clip=needs_clip,
+                has_morphs=has_morphs, skin_sets=skin_sets,
+                solid_env=solid_env, has_color=has_color, has_uv1=has_uv1,
+                use_mips=use_mips,
+                slot_mask=(slot_mask if overlay_slot_mask is None
+                           else overlay_slot_mask),
+                has_nearest=has_nearest,
+                ext=ext if overlay_ext is None else overlay_ext,
+                n_transparent_layers=n_transparent_layers,
+                crop_y0=overlay_crop_y0, crop_h=overlay_crop_h,
+                ov_tri_idx=overlay_tri_idx, tile_cap=overlay_tile_cap,
+                light_tiles=light_tiles, hooks=hooks)
     ldr, tri_id, depth2 = _finish_frame(
         hdr_ch, tri_id, depth2, ds, rw=rw1, rh=rh1, width=width,
         height=height, tonemap=tonemap, bloom=bloom, dof=dof, smaa=smaa,
         dof_rings=dof_rings, hooks=hooks)
-    T_pool = _total_triangles(ds)
-    tri_id = torch.where(tri_id >= 0, tri_id % T_pool, -1)
     return ldr, tri_id, depth2, new_hist, new_age

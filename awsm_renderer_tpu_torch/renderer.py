@@ -52,7 +52,7 @@ from .ops.temporal import reset_history
 from .passes.frame import (
     _inst_gids, _pad_to, render_frame, render_frame_temporal,
 )
-from .utils.profiling import RenderTimings
+from .utils.profiling import RenderTimings, active
 
 # component-major corner pools the vertex stage reads: name -> components
 # (None: the pool's own width, the skin-set bucket's 4 * S); c_morph_base,
@@ -918,7 +918,16 @@ class AwsmRendererTorch:
         a tensor on the renderer's device (no host readback). hooks: a
         passes.frame.RenderHooks; pre_render runs first, before the
         config is read and the scene flushed, so what it changes lands in
-        this frame; post_render runs after the frame."""
+        this frame; post_render runs after the frame. With timings on,
+        the frame is one span, render_device, and the frame graph's
+        spans and counts land in this renderer's timings."""
+        with active(self.timings):
+            with self.timings.span("render_device"):
+                ldr = self._render_device(debug_mode, hooks)
+            self.timings.end_frame()
+        return ldr
+
+    def _render_device(self, debug_mode: str, hooks):
         if hooks is not None and hooks.pre_render:
             hooks.pre_render(self)
         cfg = self.config
@@ -952,82 +961,86 @@ class AwsmRendererTorch:
                                     else self.camera.view_projection))
             else:
                 ds = self._flush()
-        prep_key = self._scene_signature(cfg)
-        if self._prep is None or self._prep[0] != prep_key:
-            self._prep = (prep_key, self._prepare())
-        prep = self._prep[1]
-        masks = prep["masks"]
-        tx = self.textures
-        ov_crop = prep["ov_crop"]
-        kw = dict(
-            width=cfg.width, height=cfg.height, tonemap=pp.tonemapping,
-            bloom=pp.bloom, dof=pp.dof, smaa=aa.smaa,
-            dof_rings=prep["dof_rings"], needs_clip=masks["needs_clip"],
-            solid_env=self.environment.is_solid,
-            has_color=self.meshes.uses_vertex_colors,
-            has_uv1=bool((self.materials.tex_slots[:, :, 1] == 1).any()),
-            use_mips=aa.mipmap, slot_mask=prep["slot_mask"],
-            has_nearest=bool((tx.descriptors[:, 5] == 0).any()
-                             and tx.descriptor_capacity > 0),
-            ext=prep["ext"], n_transparent_layers=prep["n_layers"],
-            overlay_slot_mask=prep["ov_slot_mask"],
-            overlay_ext=prep["ov_ext"],
-            overlay_crop_y0=ov_crop[0] if ov_crop else None,
-            overlay_crop_h=ov_crop[1] if ov_crop else None,
-            overlay_tri_idx=prep["ov_idx"],
-            overlay_tile_cap=prep["ov_tile_cap"],
-            has_morphs=prep["has_morphs"], skin_sets=prep["skin_sets"],
-            # tiled light lists above 8 lights unless config says
-            light_tiles=(cfg.light_tiles if cfg.light_tiles is not None
-                         else (self.lights.count > 8
-                               and not self._force_dense_lights)),
-            hooks=hooks)
-        # the animated-subset split: ship the (cached) animated triangle
-        # set while the scene has morphs or skins
-        anim = (self._anim_tri_idx()
-                if prep["has_morphs"] or prep["skin_sets"] else None)
-        if anim is not None:
-            ds["anim_tri_idx"], ds["anim_tri_n"] = anim
-        else:
-            ds.pop("anim_tri_idx", None)
-            ds.pop("anim_tri_n", None)
-        bucket_masks = (prep["opaque_dev"], prep["transparent_dev"],
-                        prep["hud_dev"])
-        if use_temporal:
-            rw1 = _pad_to(cfg.width, TILE_W)
-            rh1 = _pad_to(cfg.height, TILE_H)
-            n_units = (rh1 // 8) * (rw1 // 128)
-            # the history survives camera motion (that is its point); a
-            # content flush or a resize resets it, and the reset frame
-            # shades every unit so the next one starts converged
-            if (st is None or st["epoch"] != self._content_epoch
-                    or st["shape"] != (rh1, rw1)):
-                hist = reset_history(rh1, rw1, self.device)
-                age = torch.full((n_units,), 1 << 20, dtype=torch.int32,
-                                 device=self.device)
-                cap = n_units
+        # the prep memo, the frame's keywords and state: host work between
+        # the flush and the frame graph
+        with self.timings.span("prepare"):
+            prep_key = self._scene_signature(cfg)
+            if self._prep is None or self._prep[0] != prep_key:
+                self.timings.count("prepare/rerun")
+                self._prep = (prep_key, self._prepare())
+            prep = self._prep[1]
+            masks = prep["masks"]
+            tx = self.textures
+            ov_crop = prep["ov_crop"]
+            kw = dict(
+                width=cfg.width, height=cfg.height, tonemap=pp.tonemapping,
+                bloom=pp.bloom, dof=pp.dof, smaa=aa.smaa,
+                dof_rings=prep["dof_rings"], needs_clip=masks["needs_clip"],
+                solid_env=self.environment.is_solid,
+                has_color=self.meshes.uses_vertex_colors,
+                has_uv1=bool((self.materials.tex_slots[:, :, 1] == 1).any()),
+                use_mips=aa.mipmap, slot_mask=prep["slot_mask"],
+                has_nearest=bool((tx.descriptors[:, 5] == 0).any()
+                                 and tx.descriptor_capacity > 0),
+                ext=prep["ext"], n_transparent_layers=prep["n_layers"],
+                overlay_slot_mask=prep["ov_slot_mask"],
+                overlay_ext=prep["ov_ext"],
+                overlay_crop_y0=ov_crop[0] if ov_crop else None,
+                overlay_crop_h=ov_crop[1] if ov_crop else None,
+                overlay_tri_idx=prep["ov_idx"],
+                overlay_tile_cap=prep["ov_tile_cap"],
+                has_morphs=prep["has_morphs"], skin_sets=prep["skin_sets"],
+                # tiled light lists above 8 lights unless config says
+                light_tiles=(cfg.light_tiles if cfg.light_tiles is not None
+                             else (self.lights.count > 8
+                                   and not self._force_dense_lights)),
+                hooks=hooks)
+            # the animated-subset split: ship the (cached) animated triangle
+            # set while the scene has morphs or skins
+            anim = (self._anim_tri_idx()
+                    if prep["has_morphs"] or prep["skin_sets"] else None)
+            if anim is not None:
+                ds["anim_tri_idx"], ds["anim_tri_n"] = anim
             else:
-                hist, age = st["hist"], st["age"]
-                cap = max(1, min(n_units, int(round(cfg.temporal.cap_frac
-                                                    * n_units))))
-            mode_kw = dict(shade_cap=cap, alpha=cfg.temporal.alpha)
+                ds.pop("anim_tri_idx", None)
+                ds.pop("anim_tri_n", None)
+            bucket_masks = (prep["opaque_dev"], prep["transparent_dev"],
+                            prep["hud_dev"])
+            if use_temporal:
+                rw1 = _pad_to(cfg.width, TILE_W)
+                rh1 = _pad_to(cfg.height, TILE_H)
+                n_units = (rh1 // 8) * (rw1 // 128)
+                # the history survives camera motion (that is its point); a
+                # content flush or a resize resets it, and the reset frame
+                # shades every unit so the next one starts converged
+                if (st is None or st["epoch"] != self._content_epoch
+                        or st["shape"] != (rh1, rw1)):
+                    hist = reset_history(rh1, rw1, self.device)
+                    age = torch.full((n_units,), 1 << 20, dtype=torch.int32,
+                                     device=self.device)
+                    cap = n_units
+                else:
+                    hist, age = st["hist"], st["age"]
+                    cap = max(1, min(n_units, int(round(
+                        cfg.temporal.cap_frac * n_units))))
+                mode_kw = dict(shade_cap=cap, alpha=cfg.temporal.alpha)
+            else:
+                mode_kw = dict(supersample=aa.supersample, msaa=aa.msaa,
+                               opaque_tile_cap=prep["op_tile_cap"],
+                               debug_mode=debug_mode)
             self._log_retrace({**kw, **mode_kw}, bucket_masks, ds)
-            with self.timings.span("render_frame/dispatch"):
+        with self.timings.span("render_frame/dispatch"):
+            if use_temporal:
                 ldr, tri_id, _depth, hist, age = render_frame_temporal(
                     ds, *bucket_masks, hist, age, **mode_kw, **kw)
+            else:
+                ldr, tri_id, _depth, bins = render_frame(
+                    ds, *bucket_masks, **mode_kw, **kw)
+        if use_temporal:
             self._temporal = dict(
                 hist=hist, age=age, prev_vp=self.camera.view_projection,
                 epoch=self._content_epoch, shape=(rh1, rw1))
             bins = None
-        else:
-            mode_kw = dict(supersample=aa.supersample, msaa=aa.msaa,
-                           opaque_tile_cap=prep["op_tile_cap"],
-                           debug_mode=debug_mode)
-            self._log_retrace({**kw, **mode_kw}, bucket_masks, ds)
-            with self.timings.span("render_frame/dispatch"):
-                ldr, tri_id, _depth, bins = render_frame(
-                    ds, *bucket_masks, **mode_kw, **kw)
-        self.timings.end_frame()
         self._last_tri_id = tri_id
         self._rendered_sig = prep_key
         self.last_bins = bins

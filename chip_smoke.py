@@ -3587,7 +3587,7 @@ def phase_tools(P, np, torch, stress_syncs: int):
 
     span_us = host_us(span_off)
     log(f"  host work a frame gains: _log_retrace {sig_us:.1f} µs, a span "
-        f"with timings off {span_us:.2f} µs (two or three a frame)")
+        f"with timings off {span_us:.2f} µs")
     res["host_us"] = (sig_us, span_us)
 
     # compatibility report beside the measured peak

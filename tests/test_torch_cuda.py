@@ -30,8 +30,8 @@ first_pass hooks) are within 1e-4 of the CPU's and fire the host hooks
 once. An interactive session's steps (a click that selects and attaches
 the gizmo, a pointer-free step) select the same mesh as on the CPU and
 their images are within 1e-4; a frame with timings on waits on the
-device as often as with them off and resolves each span's device time;
-a scene saved and loaded back onto the card renders bit-equal."""
+device as often as with them off and resolves each span's device time,
+and with them off makes no CUDA event; a scene saved and loaded back onto the card renders bit-equal."""
 
 import numpy as np
 import pytest
@@ -960,8 +960,41 @@ def test_card_timings_frame_adds_no_sync(dev):
     host = r.timings.summary()
     dev_s = r.timings.device_summary()
     assert set(dev_s) == {"write_gpu", "collect_renderables",
-                          "render_frame/dispatch"} == set(host)
+                          "render_frame/dispatch", "render_device",
+                          "prepare", "render_frame/vertex",
+                          "render_frame/raster", "render_frame/shade",
+                          "render_frame/display"} == set(host)
     assert all(v > 0 for v in dev_s.values())
+    assert r.timings.counts == {"prepare/rerun": 1}   # the moved camera
+
+
+def test_card_timings_off_records_no_event(dev, monkeypatch):
+    """With timings off a frame on the card makes no CUDA event (and, the
+    span being the shared no-op, no profiler range); with them on, two a
+    span opened."""
+    from awsm_renderer_tpu_torch.utils import math3d as m3
+    from test_torch_tools import _aux_scene
+
+    made, real = [], torch.cuda.Event
+
+    def event(*args, **kwargs):
+        made.append(1)
+        return real(*args, **kwargs)
+
+    r = _aux_scene(False, "cuda")
+    r.render_device()
+    monkeypatch.setattr(torch.cuda, "Event", event)
+    for on, z in ((False, 3.1), (True, 3.2)):
+        made.clear()
+        r.logging_timings = on
+        r.camera.update(m3.look_at([0, 0, z], [0, 0, 0], [0, 1, 0]),
+                        r.camera.projection)
+        r.render_device()
+        if not on:
+            assert made == [] and r.timings.counts == {}
+            assert r.timings.frames == []
+    pairs = sum(len(p) for p in r.timings._pending[-1].values())
+    assert len(made) == 2 * pairs > 0
 
 
 def test_card_snapshot_roundtrip(dev, tmp_path):

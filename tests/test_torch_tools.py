@@ -323,23 +323,34 @@ def test_warmup_restores_config_when_a_variant_raises():
     assert r.config is cfg
 
 
+# the port's spans beyond the reference's on the sphere scene's frames
+# (tests/test_torch_spans.py): the facade's whole frame and its prep, and
+# the frame graph's stages a single-sample frame without effects runs
+PORT_SPANS = ["render_device", "prepare", "render_frame/vertex",
+              "render_frame/raster", "render_frame/shade",
+              "render_frame/display"]
+
+
 def test_spans_at_jax_names(jax_side):
     _n, _b, spans, *_ = _warmup_flow(False)
-    assert spans == jax_side["warmup"][2]
-    assert spans[0] == sorted(["write_gpu", "write_gpu/meshes",
-                               "collect_renderables",
-                               "render_frame/dispatch"])
+    jax_spans = jax_side["warmup"][2]
+    assert spans == [sorted(f + PORT_SPANS) for f in jax_spans]
+    assert jax_spans[0] == sorted(["write_gpu", "write_gpu/meshes",
+                                   "collect_renderables",
+                                   "render_frame/dispatch"])
 
 
 def test_timings_off_records_nothing():
     r = _sphere_scene(False)
     r.render_device()
     assert r.timings.frames == [] and r.timings.summary() == {}
+    assert r.timings.counts == {}
     r.logging_timings = True
     r.render_device()
     s = r.timings.summary()
-    assert set(s) == {"write_gpu", "render_frame/dispatch"}
+    assert set(s) == {"write_gpu", "render_frame/dispatch", *PORT_SPANS}
     assert all(v > 0 for v in s.values())
+    assert r.timings.counts == {}               # the prep memo held
     assert r.timings.device_summary() == {}     # no CUDA events on the CPU
 
 
