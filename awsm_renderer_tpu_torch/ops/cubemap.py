@@ -115,7 +115,7 @@ def sample_prefiltered(packed: torch.Tensor, dirs: torch.Tensor,
 
 def sample_env_batch_c(sky_rows: int, irr_rows: int, pref_shape,
                        irr_dirs, pref_reqs, sky_dirs, texq: torch.Tensor,
-                       env_base: int):
+                       env_base: int, gather=gather_split_channels):
     """All of a pass's environment taps through ONE K6 gather from the
     texel pool.
 
@@ -124,7 +124,8 @@ def sample_env_batch_c(sky_rows: int, irr_rows: int, pref_shape,
     prefiltered map; irr_dirs: (x, y, z) planes; pref_reqs: list of
     (direction triple, roughness (P,)); sky_dirs: view-ray triple for the
     miss-path skybox colour, or None; texq: (N, 64) bf16 texel pool with
-    the env rows appended at env_base. Returns (irr [r,g,b,a],
+    the env rows appended at env_base; gather: the texel-pool gather (K6,
+    or its twin for a plain computation). Returns (irr [r,g,b,a],
     [pref_i ...], sky or None) as channel lists."""
     A, B = sky_rows, irr_rows
     n, C = pref_shape
@@ -152,8 +153,7 @@ def sample_env_batch_c(sky_rows: int, irr_rows: int, pref_shape,
         parts.append(env_base + A + B + l1 * C + idx)
 
     P = irr_dirs[0].shape[0]
-    cols_all = gather_split_channels(texq, torch.cat(parts).to(torch.int32),
-                                     16)
+    cols_all = gather(texq, torch.cat(parts).to(torch.int32), 16)
 
     def cols(i):
         return cols_all[:, i * P:(i + 1) * P]

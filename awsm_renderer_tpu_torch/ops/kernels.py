@@ -31,7 +31,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 SOURCES = ("raster16.cu", "resolve.cu", "relayout.cu", "texsample.cu",
-           "binned.cu", "raster_msaa.cu", "temporal.cu", "dense.cu")
+           "binned.cu", "raster_msaa.cu", "temporal.cu", "dense.cu",
+           "shade.cu")
 # -fmad=false: no FMA contraction anywhere. The edge functions and the
 # resolve ALU must round exactly like their plain PyTorch twins (separate
 # mul and add kernels); a contracted edge function opens pinholes along
@@ -63,6 +64,7 @@ _SIGNATURES = {
     "awsm_dense_info": [_P, _I, _P],
     "awsm_split_rows": [_P, _I, _I, _I, _P, _P],
     "awsm_channel_rows": [_P, _I, _I, _I, _P, _P],
+    "awsm_shade_surface": [_P, _P],
 }
 
 launch_counts: Dict[str, int] = {
@@ -81,6 +83,7 @@ launch_counts: Dict[str, int] = {
     "rasterize_peel_dense": 0,
     "split_rows": 0,
     "channel_rows": 0,
+    "shade_surface_fused": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None

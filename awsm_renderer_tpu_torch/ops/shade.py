@@ -16,6 +16,7 @@ tiled loop's light rows as the device table.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -23,16 +24,21 @@ import torch
 from ..core import materials as M
 from ..core.lights import (
     L_COLOR, L_DIRECTION, L_INNER_COS, L_KIND, L_OUTER_COS, L_POSITION,
-    L_RANGE,
+    L_RANGE, LIGHT_F32,
 )
+from ..core.textures import TEXEL_COLS
+from ..utils.profiling import count
 from . import brdf, kernels
 from .cubemap import sample_env_batch_c
 from .cvec import (
     add as v_add, cross3, dot3, lerp as v_lerp, mul as v_mul, norm3,
     scale as v_scale, where as v_where,
 )
-from .relayout import onehot_split_rows
-from .texsample import sample_texture_batch_c
+from .relayout import (
+    gather_split_channels, gather_split_channels_reference,
+    onehot_split_rows, onehot_split_rows_reference,
+)
+from .texsample import sample_texture_block_c
 from .vertex import (
     NSETUP, S_COLOR, S_E0A, S_E0B, S_E0C, S_E1A, S_E1B, S_E1C, S_E2A, S_E2B,
     S_E2C, S_IW0, S_MAT_ROW, S_NORMAL, S_TANGENT, S_TANGENT_W, S_UV0, S_UV1,
@@ -169,20 +175,19 @@ def _one_light_listed(row, active, n_pos, n, v, base_diffuse, f0,
 
 
 def _punctual_lights(ds, n_pos, n, v, base_diffuse, f0, alpha_rough,
-                     light_tiles: bool, valid):
-    """Punctual lighting: the dense loop over the live lights (rows >=
-    n_lights would add exact zeros in the reference's masked capacity
-    loop), or with light_tiles the tiled-list loop over the covered
-    (`valid`) pixels' unit boxes."""
+                     light_tiles: bool, valid, rows):
+    """Punctual lighting: the dense loop over the live lights' host `rows`
+    (rows >= n_lights would add exact zeros in the reference's masked
+    capacity loop), or with light_tiles the tiled-list loop over the
+    covered (`valid`) pixels' unit boxes."""
     if light_tiles:
         return _punctual_lights_tiled(ds, n_pos, n, v, base_diffuse, f0,
                                       alpha_rough, valid)
     n_dot_v = torch.clamp(dot3(n, v), min=_EPS)
     total = [torch.zeros_like(alpha_rough) for _ in range(3)]
-    for li in range(ds["n_lights"]):
-        row = [float(x) for x in ds["lights_host"][li]]
-        total = _one_light(row, n_pos, n, v, base_diffuse, f0, alpha_rough,
-                           n_dot_v, total)
+    for row in rows:
+        total = _one_light([float(x) for x in row], n_pos, n, v,
+                           base_diffuse, f0, alpha_rough, n_dot_v, total)
     return total
 
 
@@ -242,19 +247,24 @@ def _material_table(ds) -> torch.Tensor:
                       ds["mat_flags"].float()], dim=1)
 
 
-def _material_columns(ds, slot_mask, debug_mode: str):
+def _material_columns(ds, slot_mask, debug_mode: str,
+                      slots_only: bool = False):
     """The fused-table columns a shade call reads — the float params, the
     3 columns of each active slot, the kind and alpha-mode flags (+ the
-    debug bitmask for the per-material view) — as (column list, int64
+    debug bitmask for the per-material view); slots_only: the active
+    slots' alone (K14 reads the rest itself) — as (column list, int64
     index tensor on the table's device). The index tensor is built once
     per (slot_mask, view) and kept in `ds`: indexing the table with a
     Python list copies the list to the card on every call, which waits
     for the stream."""
     flag0 = M.NUM_F32 + M.NUM_TEX_SLOTS * 3
-    needed = list(range(M.NUM_F32))
-    needed += [M.NUM_F32 + s * 3 + c for s in range(M.NUM_TEX_SLOTS)
-               if slot_mask[s] for c in range(3)]
-    needed += [flag0 + M.MI_KIND, flag0 + M.MI_ALPHA_MODE]
+    slots = [M.NUM_F32 + s * 3 + c for s in range(M.NUM_TEX_SLOTS)
+             if slot_mask[s] for c in range(3)]
+    if slots_only:
+        needed = slots
+    else:
+        needed = list(range(M.NUM_F32)) + slots
+        needed += [flag0 + M.MI_KIND, flag0 + M.MI_ALPHA_MODE]
     if debug_mode == "material":
         needed.append(flag0 + M.MI_DEBUG_MASK)
     cache = ds.setdefault("mat_columns", {})
@@ -413,6 +423,23 @@ def resolve_planes_fused(tid: torch.Tensor, setup_rows: torch.Tensor, *,
     return out
 
 
+def _surface_mode(debug_mode: str) -> str:
+    """The view shade_surface draws for a frame's debug_mode: normals |
+    ibl | punctual | material | channel:<name>, else none (the edge view
+    never reaches the shade)."""
+    if (debug_mode in ("normals", "ibl", "punctual", "material")
+            or debug_mode.startswith("channel:")):
+        return debug_mode
+    return "none"
+
+
+def _in_k14_scope(ext, debug_mode: str, light_tiles: bool) -> bool:
+    """Whether K14 covers a shade call: no material extension, the plain
+    or the normals view, the dense light loop."""
+    return (not any(ext) and debug_mode in ("none", "normals")
+            and not light_tiles)
+
+
 def shade_surface(planes, ds, *, width: int, height: int, solid_env: bool,
                   use_mips: bool = True, slot_mask=NO_SLOTS,
                   has_nearest: bool = True, ext=NO_EXT,
@@ -422,11 +449,11 @@ def shade_surface(planes, ds, *, width: int, height: int, solid_env: bool,
                   want_sky: bool = False, n_layer_tiles: int = 1,
                   light_tiles: bool = False):
     """Fragment shading shared by the opaque, transparent and HUD passes
-    -> (rgb [3 planes], alpha, valid, n_final [3 planes]), plus the miss
-    path's sky colour [3 planes or floats] with want_sky, or the
+    -> (rgb [3 planes], alpha, valid), plus with transparent_pass the
     transmission factor [3 planes] and the refraction info (refracted
     background index (P,) int32, IBL-fallback mask, fallback colour) —
-    None without KHR_materials_volume — with transparent_pass.
+    None without KHR_materials_volume. want_sky: a miss takes the
+    environment's sky colour (the opaque pass).
 
     planes: {name: (P,)} G-buffer (tri_id, depth, mat_row, uv0, optional
     uv1 and colour, normal, tangent, optional analytic uv derivatives;
@@ -440,74 +467,70 @@ def shade_surface(planes, ds, *, width: int, height: int, solid_env: bool,
     compiles to constants, as the reference's shader-template variables
     do). alpha is 1 / the mask cutoff test / base alpha per alpha mode (the
     editor grid's line alpha in the transparent pass). debug_mode: none |
-    ibl | punctual | material | channel:<name>. light_tiles: punctual
-    lights through per-unit tiled lists (_punctual_lights_tiled) instead
-    of the dense loop."""
-    P = width * height
-    H_full = height if height_full is None else height_full
-    dev = planes["tri_id"].device
-    miss = planes["tri_id"] < 0
-    valid = ~miss
-    depth = planes["depth"]
+    normals (the shading normal as colour) | ibl | punctual | material |
+    channel:<name>. light_tiles: punctual lights through per-unit tiled
+    lists (_punctual_lights_tiled) instead of the dense loop.
+
+    The texture taps (K4 + K5) run first. A call in K14's scope
+    (_in_k14_scope) then shades in one launch (shade_surface_fused; its
+    plain twin on a CPU tensor); any other call runs the op-by-op chain
+    (_shade_math) and counts `shade/chain`."""
+    fused = _in_k14_scope(ext, debug_mode, light_tiles)
+    if not fused:
+        count("shade/chain")
+    valid = planes["tri_id"] >= 0
+    geom = dict(width=width, height=height,
+                height_full=height if height_full is None else height_full,
+                width_full=width if width_full is None else width_full,
+                row_offset=row_offset, col_offset=col_offset,
+                n_layer_tiles=n_layer_tiles)
+
+    # ---- material fetch (K3): only the columns this call reads (K14's
+    # route: the active slots' alone, none without an active slot)
+    needed, col_idx = _material_columns(ds, slot_mask, debug_mode,
+                                        slots_only=fused)
+    cols = {}
+    if needed:
+        table = _material_table(ds).index_select(1, col_idx)
+        mat_row = planes["mat_row"].to(torch.int32).clamp(
+            0, table.shape[0] - 1)
+        cols = dict(zip(needed, onehot_split_rows(mat_row, table)))
+
+    taps = _texture_taps(planes, ds, cols, slot_mask, width=width,
+                         height=height, n_layer_tiles=n_layer_tiles,
+                         use_mips=use_mips, has_nearest=has_nearest)
+    if fused:
+        color, alpha, trans = shade_surface_fused(
+            planes, ds, taps, slot_mask=slot_mask, solid_env=solid_env,
+            transparent_pass=transparent_pass, want_sky=want_sky,
+            normals_view=debug_mode == "normals", **geom)
+        refr = None
+    else:
+        color, alpha, trans, refr = _shade_math(
+            planes, ds, cols, taps, valid, slot_mask=slot_mask, ext=ext,
+            debug_mode=debug_mode, solid_env=solid_env,
+            transparent_pass=transparent_pass, want_sky=want_sky,
+            light_tiles=light_tiles,
+            light_rows=ds["lights_host"][:ds["n_lights"]],
+            gather=gather_split_channels, **geom)
+    if transparent_pass:
+        return color, alpha, valid, trans, refr
+    return color, alpha, valid
+
+
+def _texture_taps(planes, ds, cols, slot_mask, *, width: int, height: int,
+                  n_layer_tiles: int, use_mips: bool, has_nearest: bool):
+    """Every active slot through one K4 plan + one K5 -> K5's (4, n_active
+    * P) rgba block (tap t: the t-th active slot, every pixel, bound to a
+    texture or not), or None without an active slot. cols: the fetched
+    material columns by fused-table number."""
+    active = [s for s in range(M.NUM_TEX_SLOTS) if slot_mask[s]]
+    if not active:
+        return None
     uv0 = (planes["uv0_u"], planes["uv0_v"])
     uv1 = (planes["uv1_u"], planes["uv1_v"]) if "uv1_u" in planes else uv0
-    if "color_r" in planes:
-        vcolor = [planes["color_r"], planes["color_g"], planes["color_b"],
-                  planes["color_a"]]
-    else:
-        vcolor = [1.0, 1.0, 1.0, 1.0]
-    n = norm3([planes["normal_x"], planes["normal_y"], planes["normal_z"]])
-
-    # ---- world position + view ray ---------------------------------------
-    cam = ds["camera"]
-    if "ndc_x" in planes:
-        # tile-compacted planes: the flat index no longer encodes the
-        # screen position, so the pixels' NDC coordinates ride as planes
-        xs, ys = planes["ndc_x"], planes["ndc_y"]
-    else:
-        i = torch.arange(P, device=dev)
-        xs = (i % width).float()
-        if col_offset:
-            xs = xs + float(col_offset)
-        xs = (xs + 0.5) / (width if width_full is None else width_full) \
-            * 2.0 - 1.0
-        rows = torch.div(i, width, rounding_mode="floor")
-        if n_layer_tiles > 1:      # stacked layers: rows wrap per layer
-            rows = rows % (height // n_layer_tiles)
-        ys = 1.0 - ((rows + row_offset).float() + 0.5) / H_full * 2.0
-    ivp = [[float(x) for x in r] for r in cam["inv_view_proj"]]
-    wp = [xs * ivp[j][0] + ys * ivp[j][1] + depth * ivp[j][2] + ivp[j][3]
-          for j in range(4)]
-    inv_w = 1.0 / torch.where(torch.abs(wp[3]) > _EPS, wp[3],
-                              torch.full_like(wp[3], _EPS))
-    world_pos = [wp[0] * inv_w, wp[1] * inv_w, wp[2] * inv_w]
-    cam_pos = [float(x) for x in cam["position"]]
-    v = norm3([cam_pos[k] - world_pos[k] for k in range(3)])
-
-    # ---- material fetch (K3): only the columns this bucket reads ----------
-    flag0 = M.NUM_F32 + M.NUM_TEX_SLOTS * 3
-    needed, col_idx = _material_columns(ds, slot_mask, debug_mode)
-    table = _material_table(ds).index_select(1, col_idx)
-    mat_row = planes["mat_row"].to(torch.int32).clamp(0, table.shape[0] - 1)
-    cols = onehot_split_rows(mat_row, table)                  # (C, P)
-    fused = dict(zip(needed, cols))
-
-    def mf(idx, k=1):
-        return fused[idx] if k == 1 else [fused[idx + c] for c in range(k)]
-
-    def slot_col(slot, c):
-        return fused[M.NUM_F32 + slot * 3 + c]
-
-    def mflag(idx):
-        return fused[flag0 + idx]
-
-    is_unlit = mflag(M.MI_KIND) == float(M.KIND_UNLIT)
-    is_grid = mflag(M.MI_KIND) == float(M.KIND_GRID)
-
-    # ---- texture taps: every active slot through one K4 plan + one K5 ----
-    active = [s for s in range(M.NUM_TEX_SLOTS) if slot_mask[s]]
     duv = None
-    if active and use_mips:
+    if use_mips:
         if "du0_dx" in planes:
             duv = (planes["du0_dx"], planes["dv0_dx"], planes["du0_dy"],
                    planes["dv0_dy"])
@@ -523,23 +546,115 @@ def shade_surface(planes, ds, *, width: int, height: int, solid_env: bool,
                                     layers=L))
     taps = []
     for slot in active:
-        tex_id = slot_col(slot, 0).to(torch.int32)
-        tform = slot_col(slot, 2).to(torch.int32)
+        col0 = M.NUM_F32 + slot * 3
+        tex_id = cols[col0].to(torch.int32)
+        tform = cols[col0 + 2].to(torch.int32)
         if uv1 is uv0:
             u, vv = uv0
         else:
-            use1 = slot_col(slot, 1) == 1.0
+            use1 = cols[col0 + 1] == 1.0
             u = torch.where(use1, uv1[0], uv0[0])
             vv = torch.where(use1, uv1[1], uv0[1])
         taps.append((tex_id, (u, vv), duv, tform))
-    tex_cache = dict(zip(active, sample_texture_batch_c(
+    return sample_texture_block_c(
         ds["texels"], ds["tex_desc"], taps, has_nearest=has_nearest,
-        tex_transforms=ds["tex_transforms"])))
+        tex_transforms=ds["tex_transforms"])
+
+
+def _view_rays(planes, cam, *, width: int, height: int, height_full: int,
+               width_full: int, row_offset: int, col_offset: int,
+               n_layer_tiles: int):
+    """The pixels' world positions (reconstructed from depth) [3 planes],
+    the camera position [3 floats] and the unit rays to it [3 planes]."""
+    P = width * height
+    depth = planes["depth"]
+    if "ndc_x" in planes:
+        # tile-compacted planes: the flat index no longer encodes the
+        # screen position, so the pixels' NDC coordinates ride as planes
+        xs, ys = planes["ndc_x"], planes["ndc_y"]
+    else:
+        # the divisors are tensors: PyTorch on the card multiplies by a
+        # Python scalar divisor's reciprocal, an ulp off the IEEE quotient
+        # that K14 and the CPU take, and the GGX peak of a 0.04-roughness
+        # surface turns an ulp of the view ray into ~1e-3 of colour
+        i = torch.arange(P, device=depth.device)
+        xs = (i % width).float()
+        if col_offset:
+            xs = xs + float(col_offset)
+        xs = (xs + 0.5) / torch.full_like(xs, width_full) * 2.0 - 1.0
+        rows = torch.div(i, width, rounding_mode="floor")
+        if n_layer_tiles > 1:      # stacked layers: rows wrap per layer
+            rows = rows % (height // n_layer_tiles)
+        ys = (rows + row_offset).float() + 0.5
+        ys = 1.0 - ys / torch.full_like(ys, height_full) * 2.0
+    ivp = [[float(x) for x in r] for r in cam["inv_view_proj"]]
+    wp = [xs * ivp[j][0] + ys * ivp[j][1] + depth * ivp[j][2] + ivp[j][3]
+          for j in range(4)]
+    inv_w = 1.0 / torch.where(torch.abs(wp[3]) > _EPS, wp[3],
+                              torch.full_like(wp[3], _EPS))
+    world_pos = [wp[0] * inv_w, wp[1] * inv_w, wp[2] * inv_w]
+    cam_pos = [float(x) for x in cam["position"]]
+    v = norm3([cam_pos[k] - world_pos[k] for k in range(3)])
+    return world_pos, cam_pos, v
+
+
+def _shade_math(planes, ds, cols, taps, valid, *, slot_mask, ext,
+                debug_mode: str, solid_env: bool, transparent_pass: bool,
+                want_sky: bool, light_tiles: bool, light_rows, gather,
+                width: int, height: int, height_full: int, width_full: int,
+                row_offset: int, col_offset: int, n_layer_tiles: int):
+    """The shade after the taps, op by op on (P,) planes -> (rgb, alpha,
+    transmission factor or None, refraction info or None): the chain's
+    math, and K14's plain twin's. cols: material columns by fused-table
+    number; taps: _texture_taps's block; light_rows: the dense loop's
+    host rows; gather: the env taps' texel-pool gather (K6 or its
+    twin)."""
+    P = width * height
+    dev = planes["tri_id"].device
+    if "color_r" in planes:
+        vcolor = [planes["color_r"], planes["color_g"], planes["color_b"],
+                  planes["color_a"]]
+    else:
+        vcolor = [1.0, 1.0, 1.0, 1.0]
+    n = norm3([planes["normal_x"], planes["normal_y"], planes["normal_z"]])
+    cam = ds["camera"]
+    world_pos, cam_pos, v = _view_rays(
+        planes, cam, width=width, height=height, height_full=height_full,
+        width_full=width_full, row_offset=row_offset, col_offset=col_offset,
+        n_layer_tiles=n_layer_tiles)
+    H_full = height_full
+
+    flag0 = M.NUM_F32 + M.NUM_TEX_SLOTS * 3
+
+    def mf(idx, k=1):
+        return cols[idx] if k == 1 else [cols[idx + c] for c in range(k)]
+
+    def slot_col(slot, c):
+        return cols[M.NUM_F32 + slot * 3 + c]
+
+    def mflag(idx):
+        return cols[flag0 + idx]
+
+    is_unlit = mflag(M.MI_KIND) == float(M.KIND_UNLIT)
+    is_grid = mflag(M.MI_KIND) == float(M.KIND_GRID)
+
+    tap_of = {s: t for t, s in enumerate(
+        s for s in range(M.NUM_TEX_SLOTS) if slot_mask[s])}
+    tex_cache = {}
+    one = torch.ones((), device=dev)
 
     def tex(slot):
-        """A slot's sampled [r, g, b, a], or constant white when no
-        material of the bucket binds it."""
-        return tex_cache.get(slot, [1.0, 1.0, 1.0, 1.0])
+        """A slot's sampled [r, g, b, a] (white where the pixel's material
+        binds no texture there), or constant white when no material of
+        the bucket binds the slot."""
+        if slot not in tap_of:
+            return [1.0, 1.0, 1.0, 1.0]
+        if slot not in tex_cache:
+            t = tap_of[slot]
+            bound = slot_col(slot, 0) >= 0
+            tex_cache[slot] = [torch.where(bound, c[t * P:(t + 1) * P], one)
+                               for c in taps]
+        return tex_cache[slot]
 
     base_tex = tex(M.TS_BASE_COLOR)
     base_f = mf(M.MF_BASE_COLOR, 4)
@@ -613,7 +728,7 @@ def shade_surface(planes, ds, *, width: int, height: int, solid_env: bool,
     # ---- punctual + IBL -----------------------------------------------------
     direct = _punctual_lights(ds, world_pos, n_final, v, c_diff, f0,
                               alpha_rough, light_tiles=light_tiles,
-                              valid=valid)
+                              valid=valid, rows=light_rows)
     n_dot_v = torch.clamp(dot3(n_final, v), min=_EPS)
 
     # KHR_materials_anisotropy: bend the IBL lobe along the tangent or
@@ -686,7 +801,7 @@ def shade_surface(planes, ds, *, width: int, height: int, solid_env: bool,
             ds["skybox"].shape[0], ds["irradiance"].shape[0],
             ds["prefiltered"].shape[:2], n_final, reqs,
             sky_dirs=[-c for c in v] if want_sky else None,
-            texq=ds["texels"], env_base=ds["env_pool_base"])
+            texq=ds["texels"], env_base=ds["env_pool_base"], gather=gather)
         irr = irr4[:3]
         pref = prefs[0][:3]
         sky = sky4[:3] if want_sky else None
@@ -827,10 +942,203 @@ def shade_surface(planes, ds, *, width: int, height: int, solid_env: bool,
     color = v_where(is_unlit, base[:3], pbr_color)
     if transparent_pass:
         color = v_where(is_grid, base[:3], color)
-        return color, alpha, valid, n_final, trans_factor, refr_info
+    if debug_mode == "normals":
+        color = [n_final[c] * 0.5 + 0.5 for c in range(3)]
     if want_sky:
-        return color, alpha, valid, n_final, sky
-    return color, alpha, valid, n_final
+        color = [torch.where(valid, color[c], sky[c]) for c in range(3)]
+    return color, alpha, trans_factor, refr_info
+
+
+#: the texture slots K14 reads, in the order of its tap indices
+#: (csrc/shade.cu: T_BASE ... T_SPECULAR_COLOR)
+K14_SLOTS = (M.TS_BASE_COLOR, M.TS_METALLIC_ROUGHNESS, M.TS_NORMAL,
+             M.TS_OCCLUSION, M.TS_EMISSIVE, M.TS_SPECULAR,
+             M.TS_SPECULAR_COLOR)
+
+
+def shade_surface_fused_reference(planes, ds, taps, *, slot_mask,
+                                  solid_env: bool, width: int, height: int,
+                                  height_full: int | None = None,
+                                  width_full: int | None = None,
+                                  row_offset: int = 0, col_offset: int = 0,
+                                  n_layer_tiles: int = 1,
+                                  transparent_pass: bool = False,
+                                  want_sky: bool = False,
+                                  normals_view: bool = False):
+    """Plain PyTorch twin of K14, on K14's inputs (shade_surface_fused):
+    the chain's math (_shade_math) with the material columns, the light
+    rows and the environment rows gathered in plain PyTorch. Returns
+    (rgb [3 planes], alpha, transmission factor [3 planes] or None)."""
+    needed, col_idx = _material_columns(ds, slot_mask, "none")
+    table = _material_table(ds).index_select(1, col_idx)
+    mat_row = planes["mat_row"].to(torch.int32).clamp(0, table.shape[0] - 1)
+    cols = dict(zip(needed, onehot_split_rows_reference(mat_row, table)))
+    color, alpha, trans, _refr = _shade_math(
+        planes, ds, cols, taps, planes["tri_id"] >= 0, slot_mask=slot_mask,
+        ext=NO_EXT, debug_mode="normals" if normals_view else "none",
+        solid_env=solid_env, transparent_pass=transparent_pass,
+        want_sky=want_sky, light_tiles=False,
+        light_rows=ds["lights"][:ds["n_lights"]].tolist(),
+        gather=gather_split_channels_reference, width=width, height=height,
+        height_full=height if height_full is None else height_full,
+        width_full=width if width_full is None else width_full,
+        row_offset=row_offset, col_offset=col_offset,
+        n_layer_tiles=n_layer_tiles)
+    return color, alpha, trans
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+class _ShadeParams(ctypes.Structure):
+    """csrc/shade.cu ShadeParams, field for field."""
+    _fields_ = [
+        ("tri_id", _P), ("depth", _P), ("mat_row", _P), ("normal", _P * 3),
+        ("tangent", _P * 4), ("color", _P * 4), ("ndc", _P * 2),
+        ("taps", _P), ("tap_stride", ctypes.c_int64), ("tap", _I * 7),
+        ("mat_float", _P), ("mat_tex", _P), ("mat_flags", _P),
+        ("mat_cap", _I), ("lights", _P), ("n_lights", _I), ("texels", _P),
+        ("n_texels", _I), ("env_base", _I), ("sky_size", _I),
+        ("irr_size", _I), ("pref_size", _I), ("pref_levels", _I),
+        ("solid", ctypes.c_float * 9), ("inv_view_proj", ctypes.c_float * 16),
+        ("cam_pos", ctypes.c_float * 3), ("P", _I), ("width", _I),
+        ("height", _I), ("height_full", _I), ("width_full", _I),
+        ("row_offset", _I), ("col_offset", _I), ("n_layer_tiles", _I),
+        ("transparent", _I), ("want_sky", _I), ("normals_view", _I),
+        ("out", _P), ("trans", _P),
+    ]
+
+
+def shade_surface_fused(planes, ds, taps, *, slot_mask, solid_env: bool,
+                        width: int, height: int,
+                        height_full: int | None = None,
+                        width_full: int | None = None, row_offset: int = 0,
+                        col_offset: int = 0, n_layer_tiles: int = 1,
+                        transparent_pass: bool = False,
+                        want_sky: bool = False, normals_view: bool = False):
+    """K14 (csrc/shade.cu): the surface shade after the taps in one launch
+    -> (rgb [3 planes], alpha, transmission factor [3 planes] with
+    transparent_pass, else None).
+
+    planes: shade_surface's (P,) G-buffer planes (tri_id int32, depth,
+    mat_row, normal; tangent with the normal slot in slot_mask; colour,
+    ndc_x / ndc_y when present) over shade_surface's geometry. ds: the
+    material tables (mat_float, mat_tex, mat_flags), the light table
+    (lights, its first n_lights rows lit), the camera, and the
+    environment: solid_env's colours (skybox, irradiance, prefiltered
+    host rows) or the texel pool's env rows at env_pool_base. taps: K5's
+    raw (4, n_active * P) block for slot_mask's active slots (None without
+    one); K14 reads K14_SLOTS' of them. want_sky: a miss takes the sky;
+    normals_view: the shading normal as colour. A CPU tensor takes the
+    twin."""
+    tid = planes["tri_id"]
+    if tid.device.type == "cpu":
+        return shade_surface_fused_reference(
+            planes, ds, taps, slot_mask=slot_mask, solid_env=solid_env,
+            width=width, height=height, height_full=height_full,
+            width_full=width_full, row_offset=row_offset,
+            col_offset=col_offset, n_layer_tiles=n_layer_tiles,
+            transparent_pass=transparent_pass, want_sky=want_sky,
+            normals_view=normals_view)
+    P = width * height
+    if tid.dtype != torch.int32 or tid.shape != (P,):
+        raise ValueError(f"tri_id must be ({P},) int32")
+    active = [s for s in range(M.NUM_TEX_SLOTS) if slot_mask[s]]
+    names = ["depth", "mat_row", "normal_x", "normal_y", "normal_z"]
+    if slot_mask[M.TS_NORMAL]:
+        names += ["tangent_x", "tangent_y", "tangent_z", "tangent_w"]
+    if "color_r" in planes:
+        names += ["color_r", "color_g", "color_b", "color_a"]
+    if "ndc_x" in planes:
+        names += ["ndc_x", "ndc_y"]
+    pl = {k: planes[k].contiguous() for k in names}
+    for k, t in pl.items():
+        if t.dtype != torch.float32 or t.shape != (P,):
+            raise ValueError(f"plane {k} must be ({P},) f32")
+    if active and (taps is None or taps.dtype != torch.float32
+                   or taps.shape != (4, len(active) * P)):
+        raise ValueError(f"taps must be (4, {len(active) * P}) f32")
+    mat_float, mat_tex, mat_flags = (ds["mat_float"], ds["mat_tex"],
+                                     ds["mat_flags"])
+    cap = mat_float.shape[0]
+    if (mat_float.dtype != torch.float32
+            or mat_float.shape[1:] != (M.NUM_F32,)
+            or mat_tex.dtype != torch.int32
+            or mat_tex.shape != (cap, M.NUM_TEX_SLOTS, 3)
+            or mat_flags.dtype != torch.int32
+            or mat_flags.shape != (cap, M.NUM_I32)):
+        raise ValueError("material tables must be (cap, NUM_F32) f32, "
+                         "(cap, NUM_TEX_SLOTS, 3) and (cap, NUM_I32) int32")
+    lights, n_lights = ds["lights"], ds["n_lights"]
+    if (lights.dtype != torch.float32 or lights.dim() != 2
+            or lights.shape[1] != LIGHT_F32 or n_lights > lights.shape[0]):
+        raise ValueError(f"lights must be (L >= n_lights, {LIGHT_F32}) f32")
+    tensors = [tid, *pl.values(), mat_float, mat_tex, mat_flags, lights]
+    if active:
+        tensors.append(taps)
+
+    prm = _ShadeParams()
+    if not solid_env:
+        texq = ds["texels"]
+        if (texq.dtype != torch.bfloat16 or texq.dim() != 2
+                or texq.shape[1] != TEXEL_COLS or texq.data_ptr() % 16):
+            raise ValueError(f"texels must be 16-byte aligned (N, "
+                             f"{TEXEL_COLS}) bf16 rows")
+        tensors.append(texq)
+        n_lv, pref_rows = ds["prefiltered"].shape[:2]
+        prm.texels = texq.data_ptr()
+        prm.n_texels = texq.shape[0]
+        prm.env_base = ds["env_pool_base"]
+        prm.sky_size = math.isqrt(ds["skybox"].shape[0] // 6)
+        prm.irr_size = math.isqrt(ds["irradiance"].shape[0] // 6)
+        prm.pref_size = math.isqrt(pref_rows // 6)
+        prm.pref_levels = n_lv
+    else:
+        prm.solid[:] = ([float(ds["irradiance"][0, c]) for c in range(3)]
+                        + [float(ds["prefiltered"][0, 0, c])
+                           for c in range(3)]
+                        + [float(ds["skybox"][0, c]) for c in range(3)])
+    kernels.check_cuda(*tensors)
+
+    out = torch.empty((4, P), dtype=torch.float32, device=tid.device)
+    trans = (torch.empty((3, P), dtype=torch.float32, device=tid.device)
+             if transparent_pass else None)
+    prm.tri_id, prm.depth, prm.mat_row = (tid.data_ptr(),
+                                          pl["depth"].data_ptr(),
+                                          pl["mat_row"].data_ptr())
+    prm.normal[:] = [pl[f"normal_{a}"].data_ptr() for a in "xyz"]
+    if slot_mask[M.TS_NORMAL]:
+        prm.tangent[:] = [pl[f"tangent_{a}"].data_ptr() for a in "xyzw"]
+    if "color_r" in pl:
+        prm.color[:] = [pl[f"color_{a}"].data_ptr() for a in "rgba"]
+    if "ndc_x" in pl:
+        prm.ndc[:] = [pl["ndc_x"].data_ptr(), pl["ndc_y"].data_ptr()]
+    if active:
+        prm.taps = taps.data_ptr()
+        prm.tap_stride = len(active) * P
+    prm.tap[:] = [active.index(s) if slot_mask[s] else -1 for s in K14_SLOTS]
+    prm.mat_float, prm.mat_tex, prm.mat_flags = (
+        mat_float.data_ptr(), mat_tex.data_ptr(), mat_flags.data_ptr())
+    prm.mat_cap = cap
+    prm.lights, prm.n_lights = lights.data_ptr(), n_lights
+    cam = ds["camera"]
+    prm.inv_view_proj[:] = [float(x) for r in cam["inv_view_proj"]
+                            for x in r]
+    prm.cam_pos[:] = [float(x) for x in cam["position"]]
+    prm.P, prm.width, prm.height = P, width, height
+    prm.height_full = height if height_full is None else height_full
+    prm.width_full = width if width_full is None else width_full
+    prm.row_offset, prm.col_offset = row_offset, col_offset
+    prm.n_layer_tiles = n_layer_tiles
+    prm.transparent, prm.want_sky = int(transparent_pass), int(want_sky)
+    prm.normals_view = int(normals_view)
+    prm.out = out.data_ptr()
+    prm.trans = trans.data_ptr() if trans is not None else None
+    kernels.launch("shade_surface_fused", "awsm_shade_surface",
+                   ctypes.byref(prm))
+    return ([out[0], out[1], out[2]], out[3],
+            None if trans is None else [trans[0], trans[1], trans[2]])
 
 
 def shade_deferred_c(vis, ds, *, width: int, height: int,
@@ -844,22 +1152,17 @@ def shade_deferred_c(vis, ds, *, width: int, height: int,
     shaded surface where covered, the skybox on a miss, alpha = coverage.
     The (height, width) planes are a band (or screen tile) starting at
     row_offset / col_offset of a height_full x width_full frame (the
-    sharded frame's). debug_mode "normals" shows the shading normal; ibl |
-    punctual | material | channel:<name> go to shade_surface."""
+    sharded frame's). debug_mode: shade_surface's views (_surface_mode)."""
     P = width * height
     planes = {k: vis[k].reshape(P) for k in vis if k != "bins"}
-    surf_mode = (debug_mode if debug_mode in ("ibl", "punctual", "material")
-                 or debug_mode.startswith("channel:") else "none")
-    color, _alpha, valid, n_final, sky = shade_surface(
+    color, _alpha, valid = shade_surface(
         planes, ds, width=width, height=height, height_full=height_full,
         row_offset=row_offset, width_full=width_full, col_offset=col_offset,
         solid_env=solid_env, use_mips=use_mips, slot_mask=slot_mask,
-        has_nearest=has_nearest, ext=ext, debug_mode=surf_mode,
-        want_sky=True, light_tiles=light_tiles)
-    if debug_mode == "normals":
-        color = [n_final[c] * 0.5 + 0.5 for c in range(3)]
-    out = [torch.where(valid, color[c], sky[c]) for c in range(3)]
-    return out + [valid.float()]
+        has_nearest=has_nearest, ext=ext,
+        debug_mode=_surface_mode(debug_mode), want_sky=True,
+        light_tiles=light_tiles)
+    return color + [valid.float()]
 
 
 # rows of the compacted opaque shade's (OPAQUE_TILE_ROWS, 128) units
@@ -916,16 +1219,13 @@ def shade_units_c(tid_c, dep_c, idx, setup_rows, ds, *, width: int,
     planes["depth"] = dep_c
     planes["ndc_x"] = ((gx + 0.5) / width * 2.0 - 1.0).reshape(C * U)
     planes["ndc_y"] = (1.0 - (gy + 0.5) / height * 2.0).reshape(C * U)
-    surf_mode = (debug_mode if debug_mode in ("ibl", "punctual", "material")
-                 or debug_mode.startswith("channel:") else "none")
-    color, _alpha, valid, n_final, sky = shade_surface(
+    color, _alpha, valid = shade_surface(
         planes, ds, width=128, height=C * th, height_full=height,
         solid_env=solid_env, use_mips=use_mips, slot_mask=slot_mask,
-        has_nearest=has_nearest, ext=ext, debug_mode=surf_mode,
-        want_sky=True, light_tiles=light_tiles)
-    if debug_mode == "normals":
-        color = [n_final[c] * 0.5 + 0.5 for c in range(3)]
-    return [torch.where(valid, color[c], sky[c]) for c in range(3)], valid
+        has_nearest=has_nearest, ext=ext,
+        debug_mode=_surface_mode(debug_mode), want_sky=True,
+        light_tiles=light_tiles)
+    return color, valid
 
 
 def shade_deferred_compact_c(tid_flat, setup_rows, depth_flat, ds, *,
@@ -1076,7 +1376,7 @@ def shade_transparent_layers_c(layers, opaque_ch, ds, *, width: int,
 
     def shade_group(k0, Kg, out_rgb):
         flat = {k: v[k0:k0 + Kg].reshape(Kg * P) for k, v in layers.items()}
-        color, alpha, valid, _n, trans, refr = shade_surface(
+        color, alpha, valid, trans, refr = shade_surface(
             flat, ds, width=W, height=Kg * H, height_full=H_full,
             row_offset=row_offset, width_full=width_full,
             col_offset=col_offset, use_mips=use_mips, slot_mask=slot_mask,
@@ -1146,7 +1446,7 @@ def _shade_transparent_compact(layers, opaque_ch, ds, *, width: int,
         flat = {k: v[k0:k0 + Kg].reshape(Kg * Pc) for k, v in comp.items()}
         flat["ndc_x"] = ndc_x.repeat(Kg)
         flat["ndc_y"] = ndc_y.repeat(Kg)
-        color, alpha, valid, _n, trans, _refr = shade_surface(
+        color, alpha, valid, trans, _refr = shade_surface(
             flat, ds, width=128, height=Kg * C * th, height_full=height_full,
             use_mips=use_mips, slot_mask=slot_mask, solid_env=solid_env,
             has_nearest=has_nearest, ext=ext, transparent_pass=True,
@@ -1214,7 +1514,7 @@ def shade_transparent_compact32(layers, tile_idx, opaque_ch, ds, *,
         flat = {k: v[k0:k0 + Kg].reshape(Kg * Pc) for k, v in comp.items()}
         flat["ndc_x"] = ndc_x.repeat(Kg)
         flat["ndc_y"] = ndc_y.repeat(Kg)
-        color, alpha, valid, _n, trans, _refr = shade_surface(
+        color, alpha, valid, trans, _refr = shade_surface(
             flat, ds, width=128, height=Kg * C * 8, height_full=height_full,
             use_mips=use_mips, slot_mask=slot_mask, solid_env=solid_env,
             has_nearest=has_nearest, ext=ext, transparent_pass=True,

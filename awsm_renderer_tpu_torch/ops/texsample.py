@@ -328,19 +328,17 @@ def filter_taps_fused(texq, idx, w, *, mips: bool):
     return out
 
 
-def sample_texture_batch_c(texq, descriptors, taps, has_nearest: bool = True,
+def sample_texture_block_c(texq, descriptors, taps, has_nearest: bool = True,
                            tex_transforms=None):
     """Sample many texture taps through ONE plan (K4) and ONE gather +
-    filter (K5), channel-column form.
+    filter (K5) -> K5's (4, n_taps * P) rgba block, tap i at columns
+    [i * P, (i + 1) * P), unbound taps (tex_id < 0) not whitened.
 
     taps: list of (tex_id (P,) int32, (u, v), duv or None [, tform_id
     (P,) int32 or None]); duv = (du_dx, dv_dx, du_dy, dv_dy) enables the
     gradient mip LOD and trilinear filtering (one texel row per tap even
     then: it carries the parent-mip 3x3). Every tap carries duv or none
-    does. Returns one [r, g, b, a] list of (P,) planes per tap; tex_id < 0
-    gives white."""
-    if not taps:
-        return []
+    does."""
     P = taps[0][0].shape[0]
     mips = {t[2] is not None for t in taps}
     if len(mips) != 1:
@@ -366,7 +364,18 @@ def sample_texture_batch_c(texq, descriptors, taps, has_nearest: bool = True,
                             tex_transforms=(tex_transforms
                                             if tform_all is not None
                                             else None))
-    rgba = filter_taps_fused(texq, idx, w, mips=mips)
+    return filter_taps_fused(texq, idx, w, mips=mips)
+
+
+def sample_texture_batch_c(texq, descriptors, taps, has_nearest: bool = True,
+                           tex_transforms=None):
+    """sample_texture_block_c's taps, channel-column form: one [r, g, b,
+    a] list of (P,) planes per tap; tex_id < 0 gives white."""
+    if not taps:
+        return []
+    P = taps[0][0].shape[0]
+    rgba = sample_texture_block_c(texq, descriptors, taps, has_nearest,
+                                  tex_transforms)
     one = torch.ones((), device=rgba.device)
     outs = []
     for i, t in enumerate(taps):

@@ -613,7 +613,7 @@ def _overlay_band(hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask, *,
             del h_vis["bins"]
         P = rw * band_h
         h_planes = {k: v.reshape(P) for k, v in h_vis.items()}
-        h_color, h_alpha, h_valid, _ = shade_surface(
+        h_color, h_alpha, h_valid = shade_surface(
             h_planes, ds, width=rw, height=band_h, **cols_kw, **shade_kw)
         a = torch.where(h_valid, h_alpha, torch.zeros_like(h_alpha))
         out = [torch.where(h_valid, h_color[c] * a + hdr_ch[c] * (1 - a),

@@ -502,7 +502,10 @@ def orbit_camera(r, np, i: int, rad=None, height=7.0):
 
 KERNEL_SITES = ("rasterize16_slim", "resolve_planes_fused",
                 "onehot_split_rows", "tap_plan_fused", "filter_taps_fused",
-                "gather_split_channels")
+                "shade_surface_fused")
+# the op-by-op shade chain's sites instead of K14's (a frame outside
+# K14's scope: tiled lights, a debug view, an extension)
+CHAIN_SITES = KERNEL_SITES[:-1] + ("gather_split_channels",)
 
 
 def kernel_sites():
@@ -517,7 +520,8 @@ def kernel_sites():
             "resolve_planes_fused": (shade, frame),
             "onehot_split_rows": (shade,), "tap_plan_fused": (texsample,),
             "filter_taps_fused": (texsample,),
-            "gather_split_channels": (cubemap,),
+            "gather_split_channels": (cubemap, shade),
+            "shade_surface_fused": (shade,),
             "rasterize_binned": (raster,),
             "_rasterize_binned_compact": (raster,),
             "gather_split_channels_f32": (relayout,),
@@ -525,10 +529,11 @@ def kernel_sites():
             "reproject_history_planes": (temporal,)}
 
 
-def capture_first_frame(r, names=KERNEL_SITES, calls=None):
-    """Render one frame with recorders on the kernel wrappers `names`;
-    return the arguments of each wrapper's first call on the main path
-    (for rasterize_binned, of its first peel call under
+def capture_first_frame(r, names=KERNEL_SITES, calls=None,
+                        debug_mode="none"):
+    """Render one frame (in debug_mode) with recorders on the kernel
+    wrappers `names`; return the arguments of each wrapper's first call
+    on the main path (for rasterize_binned, of its first peel call under
     "rasterize_binned/peel" and of its first call without a peel under
     "rasterize_binned/nopeel"). A dict `calls` collects every call's
     arguments, in order, under the same keys."""
@@ -556,7 +561,7 @@ def capture_first_frame(r, names=KERNEL_SITES, calls=None):
     try:
         for (mod, attr), fn in zip(sites, originals):
             setattr(mod, attr, recorder(attr, fn))
-        r.render_device()
+        r.render_device(debug_mode)
     finally:
         for (mod, attr), fn in zip(sites, originals):
             setattr(mod, attr, fn)
@@ -726,6 +731,11 @@ def phase_kernels(r, np, torch):
     check(sorted(cap) == sorted(KERNEL_SITES + ("_rasterize_binned_compact",)),
           "the first frame called the six opaque-pass kernel wrappers and "
           "K8's")
+    # K6 serves the op-by-op chain only: an "ibl" view frame runs it
+    cap.update(capture_first_frame(r, ("gather_split_channels",),
+                                   debug_mode="ibl"))
+    check("gather_split_channels" in cap,
+          "an ibl-view frame (the chain) calls K6")
     results = {}
 
     # ---- K1 ---------------------------------------------------------------
@@ -874,6 +884,11 @@ def phase_kernels(r, np, torch):
         bound=bound(n_rows * ncols * 2 + nbytes(idx, a), 0.0),
         library_ms=kernel_ms(lambda: torch.index_select(cols_t, 1, safe)))
     results["K4"], results["K5"] = check_k4_k5(cap, "stress", torch)
+    k14 = calls["shade_surface_fused"]
+    check(len(k14) == 2, f"the frame called K14 twice (the opaque shade, "
+                         f"the panes' shade): {len(k14)}")
+    results["K14"] = check_k14(k14[0], "stress opaque", torch)
+    results["K14_panes"] = check_k14(k14[1], "stress panes", torch)
     for k, v in results.items():
         log(f"  {k}: kernel {v['ms']:.4f} ms, plain twin "
             f"{v['plain_ms']:.4f} ms")
@@ -965,6 +980,100 @@ def check_k4_k5(cap, label, torch, timed=True):
     return k4, k5
 
 
+# channels of each slot K14 reads (ops/shade.py K14_SLOTS' order)
+K14_CHANNELS = (4, 2, 3, 1, 3, 1, 3)
+K14_ATOL = 1e-5          # and rtol: the card test's tolerance and reason
+
+
+def k14_mismatches(got, ref, torch):
+    """(values outside K14_ATOL, max |d|) over K14's outputs against the
+    twin's, NaN equal to NaN."""
+    pairs = list(zip(got[0], ref[0])) + [(got[1], ref[1])]
+    if got[2] is not None:
+        pairs += list(zip(got[2], ref[2]))
+    n_bad, err = 0, 0.0
+    for a, b in pairs:
+        both_nan = torch.isnan(a) & torch.isnan(b)
+        ok = torch.isclose(a, b, rtol=K14_ATOL, atol=K14_ATOL) | both_nan
+        n_bad += int((~ok).sum())
+        d = (a - b).abs()[~both_nan]
+        err = max(err, float(d.max()) if d.numel() else 0.0)
+    return n_bad, err
+
+
+def k14_bytes(args, kw, env_idx, torch) -> int:
+    """The least bytes a K14 call moves: each plane it reads once; each
+    tapped channel it reads at the pixels whose material binds the slot;
+    the distinct material rows and the lit light rows once; the distinct
+    32-byte env rows its taps address (env_idx: the twin's gather, sky
+    rows counted at misses only); rgb + alpha (and the transmission
+    factor) out."""
+    from awsm_renderer_tpu_torch.core import materials as M
+    from awsm_renderer_tpu_torch.ops.shade import K14_SLOTS
+
+    planes, ds, _taps = args
+    P = planes["tri_id"].numel()
+    mask = kw["slot_mask"]
+    n_planes = 6 + 4 * bool(mask[M.TS_NORMAL]) + 4 * ("color_r" in planes) \
+        + 2 * ("ndc_x" in planes)
+    rows = planes["mat_row"].to(torch.int64).clamp(
+        0, ds["mat_float"].shape[0] - 1)
+    n = 4 * P * n_planes
+    for s, ch in zip(K14_SLOTS, K14_CHANNELS):
+        if mask[s]:
+            n += 4 * ch * int((ds["mat_tex"][rows, s, 0] >= 0).sum())
+    n += int(rows.unique().numel()) * 4 * (M.NUM_F32 + 2 + sum(mask))
+    n += ds["n_lights"] * 4 * 16
+    if env_idx is not None:
+        parts = list(env_idx.reshape(-1, P))
+        if kw["want_sky"]:
+            parts[1] = parts[1][planes["tri_id"] < 0]
+        n += 32 * int(torch.cat(parts).unique().numel())
+    return n + P * 4 * (4 + 3 * kw["transparent_pass"])
+
+
+def check_k14(call, label, torch, timed=True):
+    """K14 against its twin, within K14_ATOL (absolute and relative);
+    timed: kernel_ms, the twin's ms and the byte bound."""
+    from awsm_renderer_tpu_torch.ops import shade as S
+
+    args, kw = call
+    got = S.shade_surface_fused(*args, **kw)
+    seen = []
+    real = S.gather_split_channels_reference
+
+    def gather(texq, idx, ncols):
+        seen.append(idx)
+        return real(texq, idx, ncols)
+
+    S.gather_split_channels_reference = gather
+    try:
+        ref = S.shade_surface_fused_reference(*args, **kw)
+    finally:
+        S.gather_split_channels_reference = real
+    n_bad, err = k14_mismatches(got, ref, torch)
+    P = args[0]["tri_id"].numel()
+    log(f"  K14 shade_surface_fused [{label}] {P} pixels, slots "
+        f"{[s for s, b in enumerate(kw['slot_mask']) if b]}, "
+        f"{args[1]['n_lights']} lights, solid env {kw['solid_env']}, "
+        f"transparent {kw['transparent_pass']}: {n_bad} values outside "
+        f"{K14_ATOL} of the twin, max |d| {err}")
+    check(n_bad == 0, f"K14 [{label}] within {K14_ATOL} of the twin")
+    if not timed:
+        return None
+    res = dict(err=err,
+               ms=kernel_ms(lambda: S.shade_surface_fused(*args, **kw)),
+               plain_ms=cuda_ms(lambda: S.shade_surface_fused_reference(
+                   *args, **kw), 2),
+               bound=bound(k14_bytes(args, kw, seen[0] if seen else None,
+                                     torch), 0.0),
+               library_ms=None)
+    log(f"  K14 [{label}]: {res['ms']:.4f} ms, twin {res['plain_ms']:.4f} "
+        f"ms, bound {res['bound'][0]:.4f} ms ({res['bound'][1]}), share "
+        f"{100 * res['bound'][0] / res['ms']:.1f}%")
+    return res
+
+
 def orbit_frames(r, np, torch, camera, expect, n_frames=N_FRAMES,
                  after=None):
     """Warm-up frame, then n_frames frames with the launch counts set to 0
@@ -1025,7 +1134,9 @@ def check_image(img, np, torch):
 
 OPAQUE_PATH = ("rasterize16_slim", "resolve_planes_fused",
                "onehot_split_rows", "tap_plan_fused", "filter_taps_fused",
-               "gather_split_channels")
+               "shade_surface_fused")
+# a frame outside K14's scope (the tiled light loop): the chain's K3 and K6
+CHAIN_PATH = OPAQUE_PATH[:-1] + ("gather_split_channels",)
 
 
 def phase_frame(r, keys, np, torch):
@@ -1315,7 +1426,8 @@ def phase_overlay(P, np, torch, r_stress, cap_stress):
 
     img, med, wall, counts = orbit_frames(
         r, np, torch, lambda i: orbit_camera(r, np, i),
-        OPAQUE_PATH + ("rasterize_binned", "gather_split_channels_f32"))
+        OPAQUE_PATH + ("rasterize_binned", "gather_split_channels",
+                       "gather_split_channels_f32"))
     check_image(img, np, torch)
     check(counts["rasterize_binned_compact"] == 0,
           "volume refraction keeps the band-wide peel (no K8)")
@@ -1351,7 +1463,9 @@ def phase_aa(P, np, torch):
         f"config, panes included), {N_FRAMES} frames at {W}x{H}")
     r, keys, _ = build_stress_scene(P, np, DEVICE, effects=True)
     orbit_camera(r, np, 0)
-    cap = capture_first_frame(r, ("rasterize16_msaa", "resolve_planes_fused"))
+    k14_calls = {}
+    cap = capture_first_frame(r, ("rasterize16_msaa", "resolve_planes_fused",
+                                  "shade_surface_fused"), k14_calls)
     torch.cuda.synchronize()
     prep = r._prep[1]
     C = prep["op_tile_cap"]
@@ -1361,6 +1475,13 @@ def phase_aa(P, np, torch):
         f"{prep['dof_rings']}, overlay tile cap {prep['ov_tile_cap']}")
     check("rasterize16_msaa" in cap, "the MSAA frame called K9")
     results = {}
+    # K14 on the benchmark's colonnade-msaa frame: the compacted opaque
+    # shade (7 lights, the image environment's taps and sky) and the panes
+    k14 = k14_calls["shade_surface_fused"]
+    check(len(k14) == 2, f"the MSAA frame called K14 twice: {len(k14)}")
+    results["K14_msaa"] = check_k14(k14[0], "MSAA opaque", torch)
+    results["K14_msaa_panes"] = check_k14(k14[1], "MSAA panes", torch)
+    del k14_calls, k14
 
     # ---- K9 ---------------------------------------------------------------
     (srows,), kw = cap["rasterize16_msaa"]
@@ -1458,7 +1579,7 @@ def phase_aa(P, np, torch):
         r, np, torch, lambda i: orbit_camera(r, np, i),
         ("rasterize16_msaa", "resolve_planes_fused", "onehot_split_rows",
          "tap_plan_fused", "filter_taps_fused", "gather_split_channels",
-         "rasterize_binned_compact"))
+         "shade_surface_fused", "rasterize_binned_compact"))
     check(counts_f["rasterize16_slim"] == 0, "MSAA frames launch no K1")
     cov = check_image(img, np, torch)
     tid_p = r._last_tri_id
@@ -1519,6 +1640,7 @@ def phase_aa(P, np, torch):
 
 ANIM_PATH = ("rasterize16_msaa", "resolve_planes_fused", "onehot_split_rows",
              "tap_plan_fused", "filter_taps_fused", "gather_split_channels",
+             "shade_surface_fused",
              "rasterize_binned_compact")
 
 
@@ -1592,7 +1714,7 @@ def phase_animated(P, np, torch, aa_syncs: int):
         f"{n_tris} triangles, built in {time.perf_counter() - t0:.1f} s")
     names = ("rasterize16_msaa", "resolve_planes_fused", "onehot_split_rows",
              "tap_plan_fused", "filter_taps_fused", "gather_split_channels",
-             "_rasterize_binned_compact")
+             "shade_surface_fused", "_rasterize_binned_compact")
     cap = capture_first_frame(r, names)
     torch.cuda.synchronize()
     prep, ds = r._prep[1], r._device
@@ -1654,6 +1776,7 @@ def phase_animated(P, np, torch, aa_syncs: int):
                          gather_split_channels_reference(texels, idx, ncols),
                          torch) == 0, "K6 bit-equal to the twin")
     check_k4_k5(cap, "animated", torch, timed=False)
+    check_k14(cap["shade_surface_fused"], "animated", torch, timed=False)
     (rows, zlo_c, zhi_c), kw8 = cap["_rasterize_binned_compact"]
     hold_planes("K8 _rasterize_binned_compact (first peel)",
                 _rasterize_binned_compact(rows, zlo_c, zhi_c, **kw8),
@@ -2256,7 +2379,7 @@ TEMPORAL_FRAMES = 24
 TEMPORAL_PATH = ("rasterize16_slim", "reproject_history",
                  "resolve_planes_fused", "onehot_split_rows",
                  "tap_plan_fused", "filter_taps_fused",
-                 "gather_split_channels", "rasterize_binned_compact")
+                 "shade_surface_fused", "rasterize_binned_compact")
 
 
 def valid_by_mesh(r, cur_tid, v, np, torch):
@@ -2503,16 +2626,18 @@ def phase_gltf(P, np, torch):
         f"triangles, {n_tex} bound texture slots, texel pool "
         f"{r.textures.texels_packed.shape[0]} rows")
     check(n_tex == 5, "the helmet binds five texture slots")
-    cap = capture_first_frame(r, ("tap_plan_fused", "filter_taps_fused"))
+    cap = capture_first_frame(r, ("tap_plan_fused", "filter_taps_fused",
+                                  "shade_surface_fused"))
     torch.cuda.synchronize()
     P_px = W * H
     check(cap["tap_plan_fused"][0][0].shape[0] == 5 * P_px,
           "the helmet frame plans five taps per pixel in one K4 launch")
     k45 = check_k4_k5(cap, "helmet", torch)
+    k14 = check_k14(cap["shade_surface_fused"], "helmet", torch)
     img, med, wall, counts = orbit_frames(r, np, torch, camera, OPAQUE_PATH)
     check_image(img, np, torch)
     count_syncs(r, torch, "glb-helmet (opaque only)", camera, N_FRAMES + 1)
-    return med, wall, counts, k45
+    return med, wall, counts, k45 + (k14,)
 
 
 def phase_golden(P, np, torch):
@@ -2878,7 +3003,7 @@ def phase_golden(P, np, torch):
 
 # ---- M12: the 64-light probe and the hooks frame ----------------------------
 
-LIGHTS_PATH = OPAQUE_PATH + ("rasterize_binned_compact",)
+LIGHTS_PATH = CHAIN_PATH + ("rasterize_binned_compact",)
 MAX_LIST = 16            # passes/light_culling.py MAX_LIGHTS_PER_TILE
 # tiled against dense on the display image, off the overflowing units: the
 # CPU tests hold 12 lights at 1e-6; here up to 64 terms a pixel sum in
@@ -2903,7 +3028,8 @@ def add_probe_lights(P, np, r):
 
 def check_path_kernels(cap, label, torch):
     """K1, K2, K3, K4, K5, K6 and K8 against their twins on a frame's
-    captured first calls (capture_first_frame(KERNEL_SITES + K8))."""
+    captured first calls (capture_first_frame(CHAIN_SITES + K8): the
+    tiled light loop runs the op-by-op chain)."""
     from awsm_renderer_tpu_torch.ops.raster import (
         _rasterize_binned_compact, plane_layout, rasterize16_slim,
         rasterize16_slim_reference, rasterize_binned_compact_reference,
@@ -3047,7 +3173,7 @@ def phase_lights(P, np, torch, stress_syncs: int):
     log(f"phase lights: Stress-1080p-64-lights (bench.py's lights probe: "
         f"the stress scene's 7 lights + 57 point lights), {r.meshes.count} "
         f"meshes, built in {time.perf_counter() - t0:.1f} s")
-    cap = capture_first_frame(r, KERNEL_SITES + ("_rasterize_binned_compact",))
+    cap = capture_first_frame(r, CHAIN_SITES + ("_rasterize_binned_compact",))
     torch.cuda.synchronize()
     depth = check_path_kernels(cap, "64 lights", torch)
     del cap
@@ -3113,8 +3239,9 @@ def phase_lights(P, np, torch, stress_syncs: int):
     for label, dense_loop in (("tiled", False), ("dense", True)):
         r._force_dense_lights = dense_loop
         log(f"  {label}: {N_FRAMES} orbit frames")
-        img, med, wall, counts_ = orbit_frames(r, np, torch, cam,
-                                               LIGHTS_PATH)
+        img, med, wall, counts_ = orbit_frames(
+            r, np, torch, cam, OPAQUE_PATH + ("rasterize_binned_compact",)
+            if dense_loop else LIGHTS_PATH)
         check_image(img, np, torch)
         n_k, dev_ms = kernels_a_frame(r, cam, torch)
         log(f"  {label}: {'not measured' if n_k is None else f'{n_k:.0f}'} "
@@ -3708,7 +3835,8 @@ def phase_tools(P, np, torch, stress_syncs: int):
 SHARD_N = 3
 SHARD_PATH = ("rasterize16_slim", "resolve_planes_fused",
               "onehot_split_rows", "tap_plan_fused", "filter_taps_fused",
-              "gather_split_channels", "gather_split_channels_f32",
+              "shade_surface_fused", "gather_split_channels",
+              "gather_split_channels_f32",
               "rasterize_binned", "rasterize16_msaa")
 SHARD_TIMEOUT = 600      # s, the spawned ranks' join
 
@@ -3845,6 +3973,7 @@ def hold_band_kernels(seg, torch, spent=None) -> dict:
     )
     from awsm_renderer_tpu_torch.ops.shade import (
         RESOLVE_NAMES, resolve_planes_fused, resolve_planes_reference,
+        shade_surface_fused, shade_surface_fused_reference,
     )
     from awsm_renderer_tpu_torch.ops.texsample import (
         filter_taps_fused, filter_taps_reference, tap_plan_fused,
@@ -3882,6 +4011,10 @@ def hold_band_kernels(seg, torch, spent=None) -> dict:
                 height=kw["height"], names=names)
             n = sum(bit_mismatches(a[k].contiguous(), b[k].contiguous(),
                                    torch) for k in a)
+        elif name == "shade_surface_fused":
+            n = k14_mismatches(shade_surface_fused(*args, **kw),
+                               shade_surface_fused_reference(*args, **kw),
+                               torch)[0]
         elif name == "tap_plan_fused":
             idx, w = tap_plan_fused(*args, **kw)
             ridx, rw = tap_plan_reference(*args, **kw)
@@ -4367,7 +4500,7 @@ def main() -> int:
     log(f"phases lights and hooks: {t1 - t0:.1f} s and "
         f"{time.perf_counter() - t1:.1f} s")
     tl = phase_tools(P, np, torch, ov["syncs_a"])
-    h_med, h_wall, _h_counts, (h_k4, h_k5) = phase_gltf(P, np, torch)
+    h_med, h_wall, h_counts, (h_k4, h_k5, h_k14) = phase_gltf(P, np, torch)
     phase_golden(P, np, torch)
     sh = phase_sharded(P, np, torch)
 
@@ -4399,6 +4532,17 @@ def main() -> int:
             f"registers, {v['ctas_per_sm']} CTAs an SM, {v['waves']} waves; "
             f"{v['cull']} tests left by the warps' cull ({card})")
     a_med, a_wall, a_counts = aa["frames"]
+    for v, label, n in (
+            (results["K14_panes"], "the stress frame's panes", None),
+            (aa["K14_msaa"], "the MSAA frame's compacted opaque shade",
+             a_counts["shade_surface_fused"]),
+            (aa["K14_msaa_panes"], "the MSAA frame's panes", None),
+            (h_k14, "the helmet", h_counts["shade_surface_fused"])):
+        log(f"K14 on {label}: kernel_ms {v['ms']:.4f} ms, twin "
+            f"{v['plain_ms']:.4f} ms, bound {v['bound'][0]:.4f} ms "
+            f"({v['bound'][1]}), share {100 * v['bound'][0] / v['ms']:.1f}%"
+            f"{'' if n is None else f', {n} launches over {N_FRAMES} frames'}"
+            f" ({card})")
     log(f"frame Stress-1080p-msaa-bloom-dof: median {a_med:.3f} ms/frame "
         f"(CUDA events), host wall {a_wall:.3f} ms/frame, {aa['syncs']} host"
         f" syncs/frame, at {W}x{H} ({card})")
@@ -4533,6 +4677,8 @@ def main() -> int:
                 "awsm_renderer_tpu/ops/relayout.py:106"),
         "K13": ("channel_rows", "awsm_renderer_tpu_torch/csrc/relayout.cu",
                 "awsm_renderer_tpu/ops/relayout.py:188"),
+        "K14": ("shade_surface_fused", "awsm_renderer_tpu_torch/csrc/shade.cu",
+                "none: XLA fused the reference's shade math"),
     }
     out = []
     for k, (name, src, rep) in sources.items():

@@ -11,7 +11,9 @@ the seed, the program, the traffic's driver and its warm-up), then:
      span opened and closed, timings on and off, over 20,000 spans;
   2. spans: --frames frames with timings on: host ms a frame of every
      span, render_device's self time (what its write_gpu, prepare and
-     render_frame/dispatch spans leave), the counts a frame, and host
+     render_frame/dispatch spans leave), the counts a frame (shade/chain,
+     the shade calls outside K14's scope, printed also at 0), the hand
+     kernels' launches a frame by kernel, and host
      syncs a frame (torch's sync debug mode) over two more frames beside
      the render_frame/peel_sync count of the same frames;
   3. trace: --profiled frames under torch.profiler, as the traced
@@ -148,7 +150,9 @@ def main() -> int:
     r.timings = RenderTimings(enabled=True, device=dev)
     l0 = dict(kernels.launch_counts)
     host_ms = statistics.mean(frames(args.frames, True)) * 1e3
-    launches = sum(v - l0.get(k, 0) for k, v in kernels.launch_counts.items())
+    by_kernel = {k: v - l0.get(k, 0) for k, v in kernels.launch_counts.items()
+                 if v - l0.get(k, 0)}
+    launches = sum(by_kernel.values())
     spans = {k: v * 1e3 for k, v in r.timings.summary().items()}
     n = len(r.timings.frames)
     counts = {k: v / n for k, v in r.timings.counts.items()}
@@ -207,6 +211,8 @@ def main() -> int:
                                  / spans["render_frame/dispatch"]),
         counts_a_frame=counts, syncs=syncs, peel_syncs_same_frames=peel,
         launches_a_frame=launches / n,
+        launches_by_kernel={k: v / n for k, v in by_kernel.items()},
+        shade_chain_a_frame=counts.get("shade/chain", 0.0),
         kernels_a_frame=reduced["n_kernels"] / args.profiled,
         kernels_by_range=per_frame,
         unattributed=dict(sorted(lost.items(), key=lambda kv: -kv[1])),
@@ -233,9 +239,11 @@ def main() -> int:
                                            key=lambda kv: -kv[1])))
     print(f"render_device self {self_ms:.3f} ms; stages / dispatch "
           f"{rec['stage_sum_over_dispatch']:.4f}")
-    print(f"counts a frame {counts}; syncs {syncs}, peel_sync "
+    print(f"counts a frame {counts} (shade/chain "
+          f"{rec['shade_chain_a_frame']:g}); syncs {syncs}, peel_sync "
           f"{peel} a frame over the same frames; hand launches "
-          f"{rec['launches_a_frame']:.2f} a frame")
+          f"{rec['launches_a_frame']:.2f} a frame: " + ", ".join(
+              f"{k} {v:.2f}" for k, v in rec["launches_by_kernel"].items()))
     print(f"kernels a frame {rec['kernels_a_frame']:.1f}: " + ", ".join(
         f"{k} {v:.1f}" for k, v in per_frame.items()))
     print(f"unattributed kernels (all frames): {rec['unattributed']}")

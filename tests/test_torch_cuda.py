@@ -252,12 +252,14 @@ def test_card_frame_matches_cpu_frame(dev, scene):
         P.RendererConfig(width=T.W, height=T.H), device="cuda"), scene)
     kernels.reset_launch_counts()
     img_card = card.render()
-    # K6 serves the image environment's taps; a solid env has none
-    # and K4 + K5 the texture taps; an untextured frame has none
+    # K14 shades, the image environment's taps included (K6 serves only
+    # the chain); K3 fetches the tapped slots' columns and K4 + K5 take
+    # the texture taps; an untextured frame has none
     want = dict.fromkeys(kernels.launch_counts, 1)
-    want["gather_split_channels"] = int(not card.environment.is_solid)
+    want["gather_split_channels"] = 0
     textured = scene == "box-textured"
-    want["tap_plan_fused"] = want["filter_taps_fused"] = int(textured)
+    for name in ("onehot_split_rows", "tap_plan_fused", "filter_taps_fused"):
+        want[name] = int(textured)
     # the overlay's kernels: no transparent or HUD content here; K9
     # only with MSAA; K11-K13 on no frame path
     for name in ("rasterize_binned", "rasterize_binned_compact",
@@ -633,7 +635,7 @@ def test_k10_kernel_bit_equal_to_twin(dev, case):
 
 def test_card_temporal_frame_matches_cpu_frame(dev):
     """A reset frame and three orbit frames of the temporal box on the
-    card (K1, K10, K2's explicit px/py entry, K3) against the same frames
+    card (K1, K10, K2's explicit px/py entry, K14) against the same frames
     on the CPU."""
     import awsm_renderer_tpu_torch as P
     from awsm_renderer_tpu_torch.ops import kernels
@@ -649,7 +651,7 @@ def test_card_temporal_frame_matches_cpu_frame(dev):
         kernels.reset_launch_counts()
         img_card = card.render()
         for name in ("rasterize16_slim", "reproject_history",
-                     "resolve_planes_fused"):
+                     "resolve_planes_fused", "shade_surface_fused"):
             assert kernels.launch_counts[name] == 1, name
         img_cpu = cpu.render()
         st_card, st_cpu = card._temporal, cpu._temporal
@@ -1010,3 +1012,126 @@ def test_card_snapshot_roundtrip(dev, tmp_path):
     assert r2.device.type == "cuda"
     img2 = r2.render_device()
     assert img2.device.type == "cuda" and torch.equal(img1, img2)
+
+
+# ---- K14 on the benchmark cells' 1080p frames --------------------------
+
+K14_CELLS = ("helmet-ibl.orbit", "colonnade-msaa.orbit")
+
+
+@pytest.fixture(scope="module")
+def cell_frames(dev):
+    """Each benchmark cell opened on the card at its real size (port_bench
+    open_cell: the 1080p scene from a seed, warmed up), with the K14 calls
+    of one moving-camera frame: {cell: (renderer, driver, calls)}."""
+    from awsm_renderer_tpu_torch.ops import shade as S
+    from port_bench import run
+
+    run._caches_in_checkout()
+    out = {}
+    for cell in K14_CELLS:
+        _w, _c, _m, _scene, r, drv = run.open_cell(cell, 4100001801, dev)
+        calls, real = [], S.shade_surface_fused
+
+        def record(*args, **kwargs):
+            calls.append((args, kwargs))
+            return real(*args, **kwargs)
+
+        S.shade_surface_fused = record
+        try:
+            drv.step(0)
+        finally:
+            S.shade_surface_fused = real
+        torch.cuda.synchronize()
+        out[cell] = (r, drv, calls)
+    return out
+
+
+@pytest.mark.parametrize("cell", K14_CELLS)
+def test_k14_matches_twin_on_cell_frames(cell_frames, cell):
+    """K14 against its twin on the frame's own inputs (the helmet's
+    opaque shade, five texture slots and image IBL; the colonnade's
+    compacted MSAA opaque shade, 7 lights, and its panes' transparent
+    shade). Tolerance 1e-5 absolute and relative (observed 2.4e-7): the
+    twin's PyTorch multiplies by the reciprocal of a light's range and
+    spot width where K14 divides, and the two may round exp2f / expf /
+    logf / powf an ulp apart; alpha and every index are exact, so no tap,
+    texel or branch differs. (The twin runs on the card: PyTorch's sqrt
+    on the CPU is not IEEE, K14's and the card's are, and a GGX peak
+    turns an ulp of sqrt into ~1e-3.)"""
+    from awsm_renderer_tpu_torch.ops import shade as S
+
+    _r, _drv, calls = cell_frames[cell]
+    assert len(calls) == (1 if cell.startswith("helmet") else 2)
+    for args, kwargs in calls:
+        got = S.shade_surface_fused(*args, **kwargs)
+        ref = S.shade_surface_fused_reference(*args, **kwargs)
+        pairs = list(zip(got[0], ref[0])) + [(got[1], ref[1])]
+        if kwargs["transparent_pass"]:
+            pairs += list(zip(got[2], ref[2]))
+        for a, b in pairs:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5,
+                                       equal_nan=True)
+        assert torch.equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("cell", K14_CELLS)
+def test_k14_launches_one_kernel_and_copies_nothing(cell_frames, cell):
+    """One K14 call on a cell's frame inputs is one kernel on the device,
+    with no host-to-device copy and no wait on the device (the camera and
+    the environment's colours travel as kernel arguments); a frame waits
+    on the device as often as before K14 (the colonnade's one peel
+    check, none on the helmet)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from awsm_renderer_tpu_torch.ops import shade as S
+
+    r, drv, calls = cell_frames[cell]
+    args, kwargs = calls[0]
+    S.shade_surface_fused(*args, **kwargs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            S.shade_surface_fused(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    on_card = [(e.key, e.count) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(on_card) == 1 and on_card[0][1] == 1, on_card
+    assert "shade_surface_kernel" in on_card[0][0], on_card
+    assert _syncs(lambda: drv.step(1)) == (0 if cell.startswith("helmet")
+                                           else 1)
+
+
+@pytest.mark.parametrize("cell", K14_CELLS)
+def test_k14_launches_once_per_shade_call(dev, cell_frames, cell):
+    """Over three frames every shade call is in K14's scope: one K14
+    launch each, and the chain's count shade/chain stays 0."""
+    from awsm_renderer_tpu_torch.ops import kernels
+    from awsm_renderer_tpu_torch.ops import shade as S
+    from awsm_renderer_tpu_torch.utils.profiling import RenderTimings
+
+    r, drv, _calls = cell_frames[cell]
+    n_calls, real = [], S.shade_surface
+
+    def counted(*args, **kwargs):
+        n_calls.append(1)
+        return real(*args, **kwargs)
+
+    r.timings = RenderTimings(enabled=True, device=dev)
+    r.logging_timings = True
+    n0 = kernels.launch_counts["shade_surface_fused"]
+    S.shade_surface = counted
+    try:
+        for i in range(2, 5):
+            drv.step(i)
+    finally:
+        S.shade_surface = real
+        r.logging_timings = False
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["shade_surface_fused"] - n0 == len(n_calls)
+    assert len(n_calls) == 3 * (1 if cell.startswith("helmet") else 2)
+    assert r.timings.counts.get("shade/chain", 0) == 0
