@@ -86,16 +86,19 @@ def judge(per_frame, limits: dict):
     return ok, worst, failed
 
 
-def render_reference(frames, device, dtype=None):
+def render_reference(frames, device, dtype=None, reference=None):
     """Reference images of `frames` [(scene, view, proj)], one at a time;
-    a scene's tables are built once for each run of frames that show it."""
+    a scene's tables are built once for each run of frames that show it.
+    reference: the configuration's own reference class (its module's
+    `Reference`), else the shared one, reference.render.Reference."""
     import torch
 
-    from .reference.render import Reference
+    if reference is None:
+        from .reference.render import Reference as reference
 
     refs = {}
     for scene, view, proj in frames:
         if id(scene) not in refs:
-            refs = {id(scene): Reference(scene, device,
+            refs = {id(scene): reference(scene, device,
                                          dtype or torch.float32)}
         yield refs[id(scene)].render(view, proj)

@@ -1,8 +1,11 @@
 """Faults planted under the timed path, and the control, each a
 wrap(renderer, scene) -> render entry that run.run_cell puts in the
-program's place before the warm-up. control.py reads them at a cell's
-own size through run_cell; tests/test_pb_faults.py sees `correct` come
-out false for each at a test's size. The benchmark's runs use none."""
+program's place before the warm-up; the control takes the run's
+run.Frame too (the configuration's reference, and what the driver says
+the frame being stepped shows). control.py reads them at a cell's own
+size through run_cell; tests/test_pb_faults.py and tests/test_pb_edit.py
+see `correct` come out false for each at a test's size. The benchmark's
+runs use none."""
 
 from __future__ import annotations
 
@@ -50,6 +53,45 @@ def panes_dropped(r, scene):
     return r.render_device
 
 
+def _hidden_while_drawn(r, which):
+    """The meshes which(key, mesh) picks, hidden for the frame's render
+    and shown again after it: the session's pick, which renders again
+    when the scene changed since the last frame, still finds them."""
+    def render():
+        keys = [k for k, m in list(r.meshes.items())
+                if not m.hidden and which(k, m)]
+        for k in keys:
+            r.meshes.set_hidden(k, True)
+        try:
+            return r.render_device()
+        finally:
+            for k in keys:
+                r.meshes.set_hidden(k, False)
+    return render
+
+
+def gizmo_hidden(r, scene):
+    """The editor's gizmo left out of the image: the HUD meshes hidden
+    while the frame is drawn."""
+    return _hidden_while_drawn(r, lambda k, m: m.hud)
+
+
+def grid_hidden(r, scene):
+    """The editor's ground grid left out of the image."""
+    from awsm_renderer_tpu_torch.core.materials import GridMaterial
+
+    return _hidden_while_drawn(r, lambda k, m: isinstance(
+        r.materials.get(m.material_key), GridMaterial))
+
+
+def drag_dropped(r, scene):
+    """The drag's transform edit dropped: a translation set through the
+    transform store never lands, so the dragged mesh and its gizmo stay
+    where the drag started."""
+    r.transforms.set_translation = lambda key, t: None
+    return r.render_device
+
+
 def _post(r, **kw):
     r.set_post_processing(dataclasses.replace(r.config.post_processing, **kw))
     return r.render_device
@@ -78,21 +120,31 @@ def mipmap_off(r, scene):
     return _aa(r, mipmap=False)
 
 
-def control_bf16(r, scene):
-    """The control: the plain reference computed in bfloat16, the next
-    precision below the float32 the renderer computes in, rendering the
-    program's camera in its place."""
+def control_bf16(r, scene, *, frame):
+    """The control: the configuration's plain reference computed in
+    bfloat16, the next precision below the float32 the renderer computes
+    in, rendering in the program's place what the driver says the frame
+    shows (its scene, edits included, and its camera). Outside the window
+    (the warm-up) the program renders. The configuration's scene has its
+    reference built here, in set-up: a cell whose frames all show it
+    builds none in the window."""
     import torch
 
-    from .reference.render import Reference
-
-    ref = Reference(scene, r.device, torch.bfloat16)
+    refs = {id(scene): frame.reference(scene, r.device, torch.bfloat16)}
 
     def render():
-        return ref.render(r.camera.view, r.camera.projection)
+        shown = frame.shown()
+        if shown is None:
+            return r.render_device()
+        sc, view, proj = shown
+        if id(sc) not in refs:
+            refs.clear()
+            refs[id(sc)] = frame.reference(sc, r.device, torch.bfloat16)
+        return refs[id(sc)].render(view, proj)
     return render
 
 
 WRAPS = {f.__name__: f for f in (stale, altered, half, panes_dropped,
+                                 gizmo_hidden, grid_hidden, drag_dropped,
                                  bloom_off, dof_off, msaa_off, mipmap_off,
                                  control_bf16)}

@@ -4,10 +4,11 @@ and a camera in, the (H, W, 4) display image out, in plain PyTorch.
 What it computes, in the order a frame does:
 
 1. vertex: world-space corners (model matrix; normals by its inverse
-   transpose), clip space by the camera's view-projection, screen space
-   on the raster grid (twice the display size under MSAA-4x); back faces
-   culled unless double-sided. The scenes it takes lie in front of the
-   near plane: a triangle that crosses it raises.
+   transpose), clip space by the camera's view-projection; a triangle
+   that crosses the near plane is clipped there in clip space, before
+   the divide, into one triangle or two, its attributes interpolated
+   linearly at the crossing; screen space on the raster grid (twice the
+   display size under MSAA-4x); back faces culled unless double-sided.
 2. visibility: a z-buffer over every sample, by brute force over each
    triangle's bounding box: edge functions with the top-left rule at
    sample centres, the affine NDC z plane, the nearest fragment (lower
@@ -32,7 +33,9 @@ What it computes, in the order a frame does:
 7. bloom, depth of field, tonemap and the sRGB transfer (post.py).
 
 Every float tensor is in `dtype` (float32, or bfloat16 for the
-control). Nothing here imports the program.
+control). Nothing here imports the program. It shades "pbr" materials
+and draws no HUD; a scene with other material kinds or HUD meshes needs
+a subclass that does (editor.py), and this class refuses it.
 """
 
 from __future__ import annotations
@@ -48,6 +51,8 @@ from . import texture as tex_mod
 from ..scene import SLOTS
 
 _EPS = 1e-6
+# the near plane in clip space, [0, 1] depth: z_clip > _Z_EPS lies in front
+_Z_EPS = 1e-6
 # candidate (triangle, sample) pairs tested at once
 _CHUNK = 1 << 23
 
@@ -81,6 +86,10 @@ def _screen_gradient(p: torch.Tensor, vertical: bool):
 class Reference:
     """Renders frames of one scene; the scene's tables are built once."""
 
+    #: the material kinds _shade and _surface know, and whether _hud draws
+    KINDS = ("pbr",)
+    HUD = False
+
     def __init__(self, scene, device, dtype=torch.float32):
         self.scene = scene
         self.dev = torch.device(device)
@@ -90,37 +99,18 @@ class Reference:
         self.msaa = bool(st.get("msaa", False))
         self.use_mips = bool(st.get("mipmap", True))
         self.max_layers = int(st.get("max_transparent_layers", 4))
+        kinds = sorted({m.kind for m in scene.materials} - set(self.KINDS))
+        if kinds or (not self.HUD and any(m.hud for m in scene.meshes)):
+            raise ValueError(f"{type(self).__name__} shades no material of "
+                             f"kind {kinds} and draws no HUD mesh")
 
-        def t(a, dt=None):
-            return torch.as_tensor(np.asarray(a), device=self.dev,
-                                   dtype=dt or self.dt)
-
-        pos, nrm, tan, tw, uv, mat, trans, dsd = [], [], [], [], [], [], [], []
+        t = self._t
         self.aabbs = []
         for m in scene.meshes:
             Wm = np.asarray(m.world, np.float64)
-            nm = np.linalg.inv(Wm[:3, :3]).T
-            idx = np.asarray(m.indices, np.int64)
             p = np.asarray(m.positions, np.float64) @ Wm[:3, :3].T + Wm[:3, 3]
-            pos.append(p[idx])
             self.aabbs.append((p.min(0), p.max(0)))
-            nrm.append((np.asarray(m.normals, np.float64) @ nm.T)[idx])
-            tg = np.asarray(m.tangents, np.float64)
-            tan.append((tg[:, :3] @ Wm[:3, :3].T)[idx])
-            tw.append(tg[idx[:, 0], 3])
-            uv.append(np.asarray(m.uv0, np.float64)[idx])
-            n = idx.shape[0]
-            mat.append(np.full(n, m.material))
-            trans.append(np.full(n, m.transparent))
-            dsd.append(np.full(n, m.double_sided))
-        self.pos = t(np.concatenate(pos))            # (T, 3, 3)
-        self.nrm = t(np.concatenate(nrm))
-        self.tan = t(np.concatenate(tan))
-        self.tan_w = t(np.concatenate(tw))
-        self.uv = t(np.concatenate(uv))              # (T, 3, 2)
-        self.mat = t(np.concatenate(mat), torch.int64)
-        self.transparent = t(np.concatenate(trans), torch.bool)
-        self.double_sided = t(np.concatenate(dsd), torch.bool)
+        self.tri = self._tables([m for m in scene.meshes if not m.hud])
 
         mats = scene.materials
         self.m_base = t([m.base_color for m in mats])
@@ -141,21 +131,114 @@ class Reference:
         self.sky, self.pref, self.irr = t(faces), t(pref), t(irr)
         self.lights = scene.lights
 
+    def _t(self, a, dt=None):
+        return torch.as_tensor(np.asarray(a), device=self.dev,
+                               dtype=dt or self.dt)
+
+    def _tables(self, meshes) -> dict:
+        """Per-triangle tables of `meshes`: world corners (T, 3, 3),
+        normals and tangents by corner, the tangents' handedness, uvs
+        (T, 3, 2), material, transparent and double-sided flags."""
+        pos, nrm, tan, tw, uv, mat, trans, dsd = [], [], [], [], [], [], [], []
+        for m in meshes:
+            Wm = np.asarray(m.world, np.float64)
+            nm = np.linalg.inv(Wm[:3, :3]).T
+            idx = np.asarray(m.indices, np.int64)
+            p = np.asarray(m.positions, np.float64) @ Wm[:3, :3].T + Wm[:3, 3]
+            pos.append(p[idx])
+            nrm.append((np.asarray(m.normals, np.float64) @ nm.T)[idx])
+            tg = np.asarray(m.tangents, np.float64)
+            tan.append((tg[:, :3] @ Wm[:3, :3].T)[idx])
+            tw.append(tg[idx[:, 0], 3])
+            uv.append(np.asarray(m.uv0, np.float64)[idx])
+            n = idx.shape[0]
+            mat.append(np.full(n, m.material))
+            trans.append(np.full(n, m.transparent))
+            dsd.append(np.full(n, m.double_sided))
+        t = self._t
+        return dict(pos=t(np.concatenate(pos)), nrm=t(np.concatenate(nrm)),
+                    tan=t(np.concatenate(tan)), tan_w=t(np.concatenate(tw)),
+                    uv=t(np.concatenate(uv)),
+                    mat=t(np.concatenate(mat), torch.int64),
+                    transparent=t(np.concatenate(trans), torch.bool),
+                    double_sided=t(np.concatenate(dsd), torch.bool))
+
     # ---- visibility -------------------------------------------------------
 
-    def _setup(self, pos, vp, Wr: int, Hr: int, keep_mask):
-        """Screen-space setup of triangles `pos` (T, 3, 3) world corners:
-        oriented corners, edge functions, z plane, integer bboxes."""
-        dt = self.dt
+    def _clip(self, pos, vp):
+        """Clip-space x, y, z, w of world corners `pos` (T, 3, 3): four
+        (T, 3) planes."""
         vpf = [[float(x) for x in r] for r in vp]
-        clip = [sum(pos[:, :, k] * vpf[j][k] for k in range(3)) + vpf[j][3]
-                for j in range(4)]                       # 4 x (T, 3)
-        inside = clip[2] > 1e-6
+        return [sum(pos[:, :, k] * vpf[j][k] for k in range(3)) + vpf[j][3]
+                for j in range(4)]
+
+    _CORNER_KEYS = ("nrm", "tan", "uv")
+
+    def _near_clip(self, tri, clip):
+        """Triangles that cross the near plane, clipped in clip space
+        before the divide: with one corner in front, the triangle from it
+        to the two crossings; with two, the quad they cut off, as two
+        triangles. The crossings' clip coordinates, normals, tangents and
+        uvs are the corners' interpolated linearly at the crossing. The
+        first triangle takes the original's index, a second is appended
+        after every original. Returns (tri, clip) as they came when no
+        triangle crosses."""
+        inside = clip[2] > _Z_EPS
         n_in = inside.sum(1)
-        crossing = keep_mask & (n_in > 0) & (n_in < 3)
-        if bool(crossing.any()):
-            raise ValueError(f"{int(crossing.sum())} triangles cross the "
-                             f"near plane; the reference does not clip")
+        cross = ((n_in > 0) & (n_in < 3)).nonzero()[:, 0]
+        if cross.numel() == 0:
+            return tri, clip
+        ins, n = inside[cross], n_in[cross]
+        # rotate so that corner a is the one in front (n = 1), or c the one
+        # behind (n = 2); the winding is kept
+        first_in = ins.int().argmax(1)
+        first_out = (~ins).int().argmax(1)
+        rot = torch.where(n == 1, first_in, (first_out + 1) % 3)
+        order = (rot[:, None] + torch.arange(3, device=self.dev)) % 3
+        corner = {k: tri[k][cross] for k in self._CORNER_KEYS}
+        corner["clip"] = torch.stack([c[cross] for c in clip], -1)
+        corner = {k: v.gather(1, order[:, :, None].expand(-1, -1, v.shape[2]))
+                  for k, v in corner.items()}
+        zc = corner["clip"][:, :, 2]
+
+        def at(k):
+            return {key: v[:, k] for key, v in corner.items()}
+
+        def crossing(p, q):
+            dz = zc[:, q] - zc[:, p]
+            t = torch.clamp((_Z_EPS - zc[:, p]) / torch.where(
+                dz.abs() > 1e-20, dz, torch.ones_like(dz)), 0.0, 1.0)[:, None]
+            return {key: v[:, p] + t * (v[:, q] - v[:, p])
+                    for key, v in corner.items()}
+
+        a, b = at(0), at(1)
+        i_ab, i_ac, i_bc = crossing(0, 1), crossing(0, 2), crossing(1, 2)
+        one = (n == 1)[:, None]
+        first = {k: torch.stack([a[k], torch.where(one, i_ab[k], b[k]),
+                                 torch.where(one, i_ac[k], i_bc[k])], 1)
+                 for k in corner}
+        two = (n == 2).nonzero()[:, 0]
+        second = {k: torch.stack([a[k], i_bc[k], i_ac[k]], 1)[two]
+                  for k in corner}
+        out = {}
+        for k, v in tri.items():
+            if k == "pos":
+                continue
+            if k in self._CORNER_KEYS:
+                v = v.clone()
+                v[cross] = first[k]
+                out[k] = torch.cat([v, second[k]])
+            else:
+                out[k] = torch.cat([v, v[cross[two]]])
+        cl = torch.stack(clip, -1)
+        cl[cross] = first["clip"]
+        cl = torch.cat([cl, second["clip"]])
+        return out, [cl[..., j] for j in range(4)]
+
+    def _setup(self, tri, clip, Wr: int, Hr: int, keep_mask):
+        """Screen-space setup of the triangles of `tri` at clip-space
+        corners `clip`, all in front of the near plane or behind it:
+        oriented corners, edge functions, z plane, integer bboxes."""
         w = clip[3]
         iw = 1.0 / torch.where(w.abs() > 1e-20, w, torch.full_like(w, 1e-20))
         sx = (clip[0] * iw * 0.5 + 0.5) * Wr
@@ -164,7 +247,8 @@ class Reference:
         area2 = ((sx[:, 1] - sx[:, 0]) * (sy[:, 2] - sy[:, 0])
                  - (sx[:, 2] - sx[:, 0]) * (sy[:, 1] - sy[:, 0]))
         front = area2 < 0.0
-        keep = (keep_mask & (front | self.double_sided) & (area2.abs() > 1e-12)
+        keep = (keep_mask & (front | tri["double_sided"])
+                & (area2.abs() > 1e-12)
                 & (w > 0).all(1) & (z.amax(1) >= 0.0) & (z.amin(1) <= 1.0))
         order = torch.where(front[:, None],
                             torch.tensor([0, 2, 1], device=self.dev),
@@ -257,8 +341,9 @@ class Reference:
 
     # ---- resolve + shade --------------------------------------------------
 
-    def _resolve(self, su, tid, px, py, analytic: bool):
-        """Perspective-correct attributes of triangles tid (-1 = miss) at
+    def _resolve(self, su, tri, tid, px, py, analytic: bool):
+        """Perspective-correct attributes of triangles tid (-1 = miss) of
+        `tri`, set up as `su`, at
         raster points px, py -> dict of (P,) planes, zero on a miss."""
         miss = tid < 0
         t = tid.clamp(min=0)
@@ -276,11 +361,12 @@ class Reference:
             return a[t].gather(1, order[:, :, None].expand(-1, -1,
                                                            a.shape[2]))
 
-        uv, nrm, tan = corners(self.uv), corners(self.nrm), corners(self.tan)
+        uv, nrm, tan = (corners(tri["uv"]), corners(tri["nrm"]),
+                        corners(tri["tan"]))
         out = {"uv": (pn[:, :, None] * uv).sum(1).T,
                "n": (pn[:, :, None] * nrm).sum(1).T,
                "t": (pn[:, :, None] * tan).sum(1).T,
-               "tw": self.tan_w[t], "mat": self.mat[t]}
+               "tw": tri["tan_w"][t], "mat": tri["mat"][t]}
         if analytic:
             dDx = (ea * iw).sum(1)
             dDy = (eb * iw).sum(1)
@@ -405,8 +491,21 @@ class Reference:
         color = direct + ambient + emis
         alpha = torch.where(self.m_blend[mat], base[3],
                             torch.ones_like(base[3]))
+        color, alpha = self._surface(color, alpha, base, mat, world, cpos,
+                                     transparent)
         sky = None if transparent else env_mod.sample_cube(self.sky, -v)[:3]
         return color, alpha, sky
+
+    def _surface(self, color, alpha, base, mat, world, cpos, transparent):
+        """(colour, alpha) of the material kinds other than "pbr", from
+        the pbr ones, the base colour (4, P), the world positions (3, P)
+        and the camera's (3, 1); this class shades "pbr" alone."""
+        return color, alpha
+
+    def _hud(self, hdr, vp, cam, ndc_x, ndc_y, xx, yy):
+        """The HUD pass over the (4, H, W) HDR image; this class draws
+        none."""
+        return hdr
 
     # ---- the frame ----------------------------------------------------------
 
@@ -422,8 +521,9 @@ class Reference:
                 np.float32))
         s = 2 if self.msaa else 1
         Wr, Hr = W * s, H * s
-        opaque = ~self.transparent
-        su = self._setup(self.pos, vp, Wr, Hr, torch.ones_like(opaque))
+        tri, clip = self._near_clip(self.tri, self._clip(self.tri["pos"], vp))
+        opaque = ~tri["transparent"]
+        su = self._setup(tri, clip, Wr, Hr, torch.ones_like(opaque))
         ids = (su["keep"] & opaque).nonzero()[:, 0]
         win, zb = self._raster(su, ids, Wr, Hr)
         yy, xx = torch.meshgrid(torch.arange(H, device=self.dev),
@@ -437,11 +537,11 @@ class Reference:
             depth = torch.minimum(torch.minimum(zb[0::2, 0::2], zb[0::2, 1::2]),
                                   torch.minimum(zb[1::2, 0::2], zb[1::2, 1::2]))
             rep = samp[0].reshape(-1)
-            r = self._resolve(su, rep, xx * 2 + 0.5, yy * 2 + 0.5, True)
+            r = self._resolve(su, tri, rep, xx * 2 + 0.5, yy * 2 + 0.5, True)
         else:
             depth = zb
             rep = win.reshape(-1)
-            r = self._resolve(su, rep, xx + 0.5, yy + 0.5, False)
+            r = self._resolve(su, tri, rep, xx + 0.5, yy + 0.5, False)
         depth_d = depth.reshape(-1).to(dt)
         color, _a, sky = self._shade(r, ndc_x, ndc_y, depth_d, cam)
         valid = r["valid"]
@@ -450,10 +550,11 @@ class Reference:
         if self.msaa:
             hdr = self._edge_blend(hdr, samp)
 
-        trans = (su["keep"] & self.transparent).nonzero()[:, 0]
+        trans = (su["keep"] & tri["transparent"]).nonzero()[:, 0]
         if trans.numel():
-            hdr = self._overlay(hdr, depth.float(), trans, vp, cam, ndc_x,
-                                ndc_y, xx, yy)
+            hdr = self._overlay(hdr, depth.float(), tri, clip, trans, cam,
+                                ndc_x, ndc_y, xx, yy)
+        hdr = self._hud(hdr, vp, cam, ndc_x, ndc_y, xx, yy)
         rgb, alpha = hdr[:3], hdr[3]
         st = self.scene.settings
         if st.get("bloom"):
@@ -517,18 +618,20 @@ class Reference:
             acc = acc + chosen
         return acc * 0.25
 
-    def _overlay(self, hdr, depth, trans, vp, cam, ndc_x, ndc_y, xx, yy):
+    def _overlay(self, hdr, depth, tri, clip, trans, cam, ndc_x, ndc_y, xx,
+                 yy):
         """Peel the alpha-blended layers over the opaque depth at display
         resolution and composite them back to front."""
         W, H = self.W, self.H
-        su = self._setup(self.pos, vp, W, H, self.transparent)
+        su = self._setup(tri, clip, W, H, tri["transparent"])
         layers = []
         zlo = torch.full((H, W), -1.0, device=self.dev)
         for _ in range(self.max_layers):
             win, z = self._raster(su, trans, W, H, zlo=zlo, zhi=depth)
             if not bool((win >= 0).any()):
                 break
-            r = self._resolve(su, win.reshape(-1), xx + 0.5, yy + 0.5, True)
+            r = self._resolve(su, tri, win.reshape(-1), xx + 0.5, yy + 0.5,
+                              True)
             color, alpha, _ = self._shade(r, ndc_x, ndc_y,
                                           z.reshape(-1).to(self.dt), cam,
                                           transparent=True)

@@ -33,6 +33,7 @@ from __future__ import annotations
 import argparse
 import gc
 import importlib.util
+import inspect
 import json
 import os
 import sys
@@ -139,12 +140,41 @@ def sizes_of(scene) -> dict:
                 transparent=scene.triangles(transparent=True) > 0)
 
 
+class Frame:
+    """What a wrap of faults.py reads besides the renderer and the scene:
+    the configuration's reference class, and what the driver says the
+    window's frame now being stepped shows (None outside the window)."""
+
+    def __init__(self, reference):
+        self.reference = reference
+        self.drv = None
+        self.i = None
+
+    def shown(self):
+        return None if self.i is None else self.drv.shown(self.i)
+
+
+def reference_of(mod):
+    """The configuration's own reference class (its module's `Reference`),
+    else the shared one."""
+    if hasattr(mod, "Reference"):
+        return mod.Reference
+    from port_bench.reference.render import Reference
+
+    return Reference
+
+
 def open_cell(workload: str, seed: int, dev, bench: dict | None = None,
               edit_cfg=None, wrap=None):
     """Set-up of a run: the scene from the seed, handed to the program,
     the mix's driver, its warm-up rendered. Returns (entry, cfg, mix,
     scene, renderer, driver); the driver renders through the renderer's
-    entry, or through wrap(renderer, scene)."""
+    entry, or through wrap(renderer, scene), which is handed the run's
+    Frame too where it takes a keyword `frame`."""
+    return _open(workload, seed, dev, bench, edit_cfg, wrap)[:6]
+
+
+def _open(workload, seed, dev, bench, edit_cfg, wrap):
     from port_bench import program
 
     w, cfg, mix, mod = cell(workload, bench)
@@ -157,10 +187,16 @@ def open_cell(workload: str, seed: int, dev, bench: dict | None = None,
         r = mod.load_program(scene, dev, workdir)
     else:
         r = program.load(scene, dev)
-    render = wrap(r, scene) if wrap is not None else r.render_device
-    drv = driver(mix, scene, seed, r, render)
+    frame = Frame(reference_of(mod))
+    if wrap is None:
+        render = r.render_device
+    elif "frame" in inspect.signature(wrap).parameters:
+        render = wrap(r, scene, frame=frame)
+    else:
+        render = wrap(r, scene)
+    drv = frame.drv = driver(mix, scene, seed, r, render)
     drv.warmup()
-    return w, cfg, mix, scene, r, drv
+    return w, cfg, mix, scene, r, drv, frame
 
 
 def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
@@ -168,8 +204,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
              edit_cfg=None, wrap=None, log=None) -> dict:
     """One run of a cell; returns the result object. edit_cfg(cfg, mix)
     may change the configuration and the mix (tests run them small on
-    the CPU); wrap(r, scene) may replace the renderer's entry (faults.py:
-    the planted faults and the control)."""
+    the CPU); wrap(r, scene[, frame=]) may replace the renderer's entry
+    (faults.py: the planted faults and the control)."""
     import torch
 
     from port_bench import check, window
@@ -184,8 +220,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
         if cuda:
             torch.cuda.synchronize()
 
-    w, cfg, mix, scene, r, drv = open_cell(workload, seed, dev, bench,
-                                           edit_cfg, wrap)
+    w, cfg, mix, scene, r, drv, frame = _open(workload, seed, dev, bench,
+                                              edit_cfg, wrap)
     workdir = os.path.join(ROOT, "build", "port_bench")
 
     sync()
@@ -215,6 +251,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
         if ts >= t_close:
             break
         take = shown.wants(i)
+        frame.i = i
         out = drv.step(i)
         th = time.perf_counter()
         if take:
@@ -231,6 +268,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
         host_s.append(th - ts)
         i += 1
     attempted = i
+    frame.i = None
     gc.unfreeze()
     peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
     metrics, extra_device, breakdown = {}, {}, None
@@ -270,11 +308,16 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
             breakdown = {"device_ops": [list(x) for x in prof["device_ops"][:10]],
                          "idle_gaps": [list(x) for x in
                                        prof["idle_by_range"][:10]]}
+        # the program's counters over every frame timed so far: the
+        # window's, the sync frames' and the profiled ones
+        n_timed = len(r.timings.frames)
+        counts = ({k: v / n_timed for k, v in r.timings.counts.items()}
+                  if n_timed else None)
         r.logging_timings = False
         rec = dict(frames=len(finishes), host_render_s=host_s,
                    spans_host=spans_host, spans_device=spans_device,
                    launches=launches, syncs=syncs, profile=prof,
-                   sizes=sizes_of(scene))
+                   sizes=sizes_of(scene), counts=counts)
         wanted = [m for m in bench["per_layer"]
                   if w["name"] in m.get("workloads", [w["name"]])]
         for name, rd in readers([m["name"] for m in wanted]).items():
@@ -287,12 +330,13 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     held = shown.frames()
     picks = [p for p, _ in held]
     frames = [drv.shown(p) for p in picks]
-    del r, drv, out
+    reference = frame.reference
+    del r, drv, out, frame
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
     per_frame = []
-    refs = check.render_reference(frames, dev)
+    refs = check.render_reference(frames, dev, reference=reference)
     for (_, img), ref in zip(held, refs):
         per_frame.append(check.compare(img.to(dev), ref,
                                        float(ck["pixel_tol"])))

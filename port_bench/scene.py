@@ -33,6 +33,11 @@ class Texture:
 
 @dataclass
 class Material:
+    """kind "pbr" is glTF metallic-roughness; "unlit" shows its base
+    colour; "grid" is the editor's ground grid, its base colour under a
+    line alpha worked out from `grid` (spacing, major_every,
+    fade_distance) in the alpha-blended layers."""
+
     base_color: np.ndarray
     metallic: float
     roughness: float
@@ -41,11 +46,14 @@ class Material:
     normal_scale: float = 1.0
     alpha_mode: str = "opaque"          # "opaque" | "blend"
     textures: Dict[str, int] = field(default_factory=dict)
+    kind: str = "pbr"                   # "pbr" | "unlit" | "grid"
+    grid: Dict[str, float] = field(default_factory=dict)
 
 
 @dataclass
 class Mesh:
-    """One mesh instance: model-space vertex data and its world matrix."""
+    """One mesh instance: model-space vertex data and its world matrix.
+    hud: drawn by the HUD pass, over everything, with its own depth."""
 
     positions: np.ndarray               # (V, 3)
     normals: np.ndarray                 # (V, 3)
@@ -56,6 +64,7 @@ class Mesh:
     material: int
     transparent: bool = False
     double_sided: bool = False
+    hud: bool = False
 
 
 @dataclass

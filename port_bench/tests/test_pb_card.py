@@ -11,7 +11,12 @@ import pytest
 
 from port_bench import run
 
-CELLS = ["colonnade-msaa.orbit", "helmet-ibl.orbit"]
+CELLS = ["colonnade-msaa.orbit", "helmet-ibl.orbit",
+         "colonnade-msaa-editor.edit"]
+# the control's window: long enough to finish the checked frames, each
+# of them the reference rendered in bfloat16 (the edit cell builds it
+# anew for every frame: its scene moves)
+CONTROL_S = {"colonnade-msaa-editor.edit": 14.0}
 
 
 def _card():
@@ -43,5 +48,6 @@ def test_control_fails_at_full_size(workload):
     _card()
     from port_bench import control
 
-    got = control.readings(workload, 2 ** 32 + 3, "control_bf16", 3.0)
+    got = control.readings(workload, 2 ** 32 + 3, "control_bf16",
+                           CONTROL_S.get(workload, 3.0))
     assert not got["correct"], got

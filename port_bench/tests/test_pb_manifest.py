@@ -3,6 +3,7 @@ layout: every name resolves to its own file, and a new configuration,
 mix or per-layer metric is files plus manifest entries, nothing else."""
 
 import json
+import math
 import os
 import re
 import shutil
@@ -108,6 +109,59 @@ def test_paths_hold_the_benchmark_alone(bench):
     for p in bench["paths"]:
         assert re.match(r"^[A-Za-z0-9_./-]{1,200}$", p) and ".." not in p
         assert not p.endswith("_torch")
+
+
+def test_every_cell_takes_one_chip(bench):
+    assert all(w["chips"] == 1 for w in bench["workloads"])
+
+
+def test_existing_cells_keep_their_limits_and_bounds(bench):
+    """What the cells before the editing session were held to: no bound
+    and no limit of theirs loosened."""
+    bounds = {m["name"]: m["bound"] for m in bench["end_to_end"]}
+    assert bounds == {"frame_ms": 0.25, "frame_ms_p95": 0.25,
+                      "peak_mem_mib": 0.01, "setup_s": 0.25}
+    want = {"colonnade-msaa": {"bad_tile": 0.35, "bad_px": 0.005,
+                               "mean_abs": 0.001},
+            "helmet-ibl": {"bad_tile": 0.08, "bad_px": 7e-05,
+                           "mean_abs": 0.0015}}
+    for name, limits in want.items():
+        with open(os.path.join(ROOT, "port_bench", "configs",
+                               name + ".json")) as f:
+            ck = json.load(f)["check"]
+        assert ck["limits"] == limits and ck["frames"] == 3
+        assert ck["pixel_tol"] == pytest.approx(4 / 255)
+
+
+def test_the_edit_cell_is_the_queued_one(bench):
+    """colonnade-msaa-editor.edit as it was queued: colonnade-msaa's scene
+    keys verbatim, its render group but for the focus, the session's
+    camera, the editor's defaults and 30-step drags of 4 px."""
+    _w, cfg, mix, _mod = run.cell("colonnade-msaa-editor.edit", bench)
+    with open(os.path.join(ROOT, "port_bench", "configs",
+                           "colonnade-msaa.json")) as f:
+        base = json.load(f)
+    for k in ("grid", "spacing", "box_size", "sphere", "panes", "checker",
+              "materials", "point_lights", "sun", "env_size"):
+        assert cfg[k] == base[k], k
+    assert cfg["reduced"] == [] and cfg["render"] == dict(base["render"],
+                                                          dof_focus=5.0)
+    cam = cfg["camera"]
+    assert (cam["radius"], cam["pitch"], cam["near"], cam["far"]) == (
+        5.0, 0.6, 0.1, 200.0)
+    assert cam["fov_y"] == pytest.approx(math.pi / 3)
+    assert cam["yaw_step"] == pytest.approx(math.pi / 8)
+    ed = cfg["editor"]
+    assert (ed["gizmo"]["mode"], ed["gizmo"]["space"],
+            ed["gizmo"]["scale"]) == ("translate", "world", 1.0)
+    assert {k: ed["grid"][k] for k in ("size", "spacing", "major_every",
+                                       "fade_distance")} == {
+        "size": 200.0, "spacing": 1.0, "major_every": 10.0,
+        "fade_distance": 60.0}
+    assert mix["driver"] == "edit"
+    assert (mix["period"], mix["move_px"], mix["handle_at"],
+            mix["warmup_drags"]) == (30, 4, 0.55, 2)
+    assert mix["dt"] == pytest.approx(1 / 60)
 
 
 LIFT = '''"""lift: a still camera while every mesh is moved up and down

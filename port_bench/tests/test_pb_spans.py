@@ -44,3 +44,26 @@ def test_span_reader_is_silent_without_its_span(metric):
     assert rd.read(_rec({"write_gpu": 1e-4,
                          "render_frame/dispatch": 0.049})) is None
     assert rd.read(_rec({})) is None
+
+
+COUNTERS = {"facade.prep_reruns": "prepare/rerun",
+            "frame.peel_syncs": "render_frame/peel_sync"}
+
+
+@pytest.mark.parametrize("metric", sorted(COUNTERS))
+def test_counter_reader_reads_its_counter_a_frame(metric):
+    """run_cell hands the counters over as counts a timed frame; a frame
+    that never counted reads 0, a record with no counts reads nothing."""
+    rd = run.readers([metric])[metric]
+    rec = dict(_rec({}), counts={COUNTERS[metric]: 0.75, "shade/chain": 2.0})
+    assert rd.read(rec) == pytest.approx(0.75)
+    assert rd.read(dict(rec, counts={})) == 0.0
+    assert rd.read(dict(rec, counts=None)) is None
+
+
+def test_session_host_ms_is_the_step_less_the_render():
+    rd = run.readers(["facade.session_host_ms"])["facade.session_host_ms"]
+    rec = _rec({"render_device": 0.046})
+    assert rd.read(rec) == pytest.approx(4.0)
+    assert rd.read(_rec({})) is None
+    assert rd.read(dict(rec, host_render_s=[])) is None
