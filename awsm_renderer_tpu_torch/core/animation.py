@@ -18,6 +18,7 @@ import numpy as np
 
 from ..errors import AnimationError
 from ..utils import math3d as m3
+from ..utils.profiling import count
 
 F = np.float32
 
@@ -204,6 +205,10 @@ class Animations:
     def items(self):
         return self._players.items()
 
+    @property
+    def count(self) -> int:
+        return len(self._players)
+
     def _build_native_tables(self):
         """Flatten LINEAR/STEP channels of all players into the concatenated
         arrays the C++ sampler consumes. Cubic-spline channels stay python."""
@@ -386,6 +391,7 @@ class Animations:
                     player.time, is_rotation=(ch.path == TargetPath.ROTATION))
                 _stash(player, ch, v)
 
+        count("animation/channels", sum(len(e) for e in contrib.values()))
         for key, entries in contrib.items():
             ch = entries[0][0]
             if len(entries) == 1:

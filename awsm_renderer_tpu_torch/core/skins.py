@@ -17,6 +17,7 @@ import numpy as np
 from ..errors import SkinError
 
 from ..utils.allocator import BuddyAllocator
+from ..utils.profiling import count
 
 F = np.float32
 
@@ -72,6 +73,10 @@ class Skins:
         return skin.base + np.arange(len(skin.joint_keys), dtype=np.int32)
 
     @property
+    def count(self) -> int:
+        return len(self._skins)
+
+    @property
     def capacity(self) -> int:
         return self._alloc.capacity
 
@@ -94,4 +99,5 @@ class Skins:
             worlds = np.stack([transforms.world_of(k) for k in skin.joint_keys])
             self.joint_matrices[skin.base : skin.base + J] = worlds @ skin.inverse_bind
             self.gpu_dirty = True
+            count("skins/joints", J)
         self._pending.clear()

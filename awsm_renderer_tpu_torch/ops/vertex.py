@@ -24,6 +24,7 @@ from ..core.meshes import (
     MESH_FLAG_DOUBLE_SIDED, MI_FLAGS, MI_MATERIAL_ROW, MI_MORPH_STRIDE,
     MI_N_MORPH_TARGETS, MI_SKIN_SETS, MI_TRANSFORM_ROW,
 )
+from ..utils.profiling import span
 
 # ---- setup row indices (row-major (T, NSETUP)) — see the JAX module's
 # comment for the plane-equation layout and its watertightness argument
@@ -276,20 +277,22 @@ def vertex_stage(c_pos, c_norm, c_tang, c_uv0, c_uv1, c_color, c_joints,
     uv1 = _corner_comps(c_uv1, 2)
     vcol = _corner_comps(c_color, 4)
     if has_morphs:
-        _morph(pos, nrm, tan, c_morph_base, morph_deltas, morph_weights,
-               minfo, mesh)
+        with span("render_frame/vertex/morph"):
+            _morph(pos, nrm, tan, c_morph_base, morph_deltas, morph_weights,
+                   minfo, mesh)
 
     node_world = onehot_gather(tf_row, world.reshape(-1, 16))     # (T, 16)
     node_nmat = onehot_gather(tf_row, normal_mat.reshape(-1, 9))  # (T, 9)
     if skin_sets > 0:
-        skin = _skin(c_joints, c_weights, joint_matrices, skin_sets)
-        skinned = (minfo[:, MI_SKIN_SETS] > 0)[:, None]
-        models = [torch.where(skinned, skin[c], node_world)
-                  for c in range(3)]
-        tmats = [_upper3(mc) for mc in models]
-        # the skinned normal matrix is the skin matrix's upper-left 3x3
-        # (the reference's shortcut)
-        nmats = [torch.where(skinned, tm, node_nmat) for tm in tmats]
+        with span("render_frame/vertex/skin"):
+            skin = _skin(c_joints, c_weights, joint_matrices, skin_sets)
+            skinned = (minfo[:, MI_SKIN_SETS] > 0)[:, None]
+            models = [torch.where(skinned, skin[c], node_world)
+                      for c in range(3)]
+            tmats = [_upper3(mc) for mc in models]
+            # the skinned normal matrix is the skin matrix's upper-left
+            # 3x3 (the reference's shortcut)
+            nmats = [torch.where(skinned, tm, node_nmat) for tm in tmats]
     else:
         models = [node_world] * 3
         tmats = [_upper3(node_world)] * 3

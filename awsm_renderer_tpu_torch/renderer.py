@@ -24,6 +24,7 @@ reference; the frame runs eagerly on `device` (passes/frame.py).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, Optional
 
@@ -38,8 +39,8 @@ from .core.frustum import Frustum
 from .core.lights import Lights
 from .core.materials import MI_DEBUG_MASK, Materials
 from .core.meshes import (
-    MESH_FLAG_HIDDEN, MESH_FLAG_HUD, MESH_FLAG_TRANSPARENT, Meshes,
-    MeshGeometry,
+    MESH_FLAG_HIDDEN, MESH_FLAG_HUD, MESH_FLAG_TRANSPARENT,
+    MI_N_MORPH_TARGETS, Meshes, MeshGeometry,
 )
 from .core.skins import Skins
 from .core.textures import TEXEL_COLS, Textures, f32_to_bf16_bits
@@ -228,11 +229,22 @@ class AwsmRendererTorch:
         self.__init__(self.config, self.device)
 
     def update_all(self, dt: float, view=None, projection=None) -> None:
-        self.animations.update(dt, self.transforms, self.meshes)
-        changed = self.transforms.update_world()
-        if changed:
-            self.meshes.update_world(self.transforms, changed)
-            self.skins.update_transforms(self.transforms, changed)
+        """Advance the animation players by dt and propagate what they
+        drive: the transform graph, the meshes' world bounds and the
+        skins' joint matrices. With timings on, the call is the span
+        update_all (its steps inside it) and its counts land in the
+        timings; they join the frame that the next render_device ends."""
+        t = self.timings
+        with active(t), t.span("update_all"):
+            with t.span("update_all/animations"):
+                self.animations.update(dt, self.transforms, self.meshes)
+            with t.span("update_all/transforms"):
+                changed = self.transforms.update_world()
+                if changed:
+                    self.meshes.update_world(self.transforms, changed)
+            if changed:
+                with t.span("update_all/skins"):
+                    self.skins.update_transforms(self.transforms, changed)
         if view is not None and projection is not None:
             self.camera.update(view, projection)
 
@@ -261,6 +273,18 @@ class AwsmRendererTorch:
         self._mask_cache[name] = (arr.copy(), dev)
         return dev
 
+    def _anim_span(self):
+        """The span write_gpu/animation around an upload of a store that
+        animation dirties (world and normal matrices, joint matrices, the
+        mesh table and morph weights), where the scene animates: it has
+        players, skins or morph targets. Else (and with timings off) a
+        no-op."""
+        t = self.timings
+        if t.enabled and (self.animations.count or self.skins.count or (
+                self.meshes.mesh_info[:, MI_N_MORPH_TARGETS] > 0).any()):
+            return t.span("write_gpu/animation")
+        return contextlib.nullcontext()
+
     def _flush(self, jitter_px=None, prev_view_proj=None) -> Dict[str, object]:
         """Upload the dirty host stores. jitter_px / prev_view_proj (the
         temporal frame's) repack the camera with the Halton jitter and
@@ -286,8 +310,9 @@ class AwsmRendererTorch:
                                               self.device)
         t = self.transforms
         if t.gpu_dirty:
-            d["world"] = self._upload(t.world)
-            d["normal_mat"] = self._upload(t.normal)
+            with self._anim_span():
+                d["world"] = self._upload(t.world)
+                d["normal_mat"] = self._upload(t.normal)
             t.gpu_dirty = False
 
         if self.meshes.gpu_dirty:
@@ -302,7 +327,8 @@ class AwsmRendererTorch:
             mats.gpu_dirty = False
 
         if self.skins.gpu_dirty or "joint_matrices" not in d:
-            d["joint_matrices"] = self._upload(self.skins.joint_matrices)
+            with self._anim_span():
+                d["joint_matrices"] = self._upload(self.skins.joint_matrices)
             self.skins.gpu_dirty = False
 
         if self.lights.gpu_dirty or "lights" not in d:
@@ -422,8 +448,9 @@ class AwsmRendererTorch:
         if m.morph_pool_dirty or "morph_deltas" not in d:
             d["morph_deltas"] = self._tensor(m.morph_deltas)
             m.morph_pool_dirty = False
-        d["mesh_info"] = self._upload(m.mesh_info)
-        d["morph_weights"] = self._upload(m.morph_weights)
+        with self._anim_span():
+            d["mesh_info"] = self._upload(m.mesh_info)
+            d["morph_weights"] = self._upload(m.morph_weights)
 
         # instanced groups: one corner upload per group and its (I,)
         # instance mesh rows; the frame tiles them

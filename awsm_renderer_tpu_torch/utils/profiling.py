@@ -101,10 +101,10 @@ class RenderTimings:
         no-op)."""
         return _Span(self, name) if self.enabled else _NOOP
 
-    def count(self, name: str) -> None:
-        """One more event `name` (disabled: nothing)."""
+    def count(self, name: str, n: int = 1) -> None:
+        """n more events `name` (disabled: nothing)."""
         if self.enabled:
-            self.counts[name] = self.counts.get(name, 0) + 1
+            self.counts[name] = self.counts.get(name, 0) + n
 
     def note(self, msg: str) -> None:
         """One-line event attached to the current frame (e.g.
@@ -172,12 +172,12 @@ def span(name: str):
     return _NOOP if t is None else _Span(t, name)
 
 
-def count(name: str) -> None:
+def count(name: str, n: int = 1) -> None:
     """RenderTimings.count on the active timings; nothing when none is
     active."""
     t = _ACTIVE.get()
     if t is not None:
-        t.count(name)
+        t.count(name, n)
 
 
 _debug_counts: Dict[object, int] = defaultdict(int)
