@@ -10,7 +10,7 @@ Nothing here runs at import time: the CPU tests import every module, and
 a host without CUDA may have no ``nvcc`` at all.
 
 Each kernel wrapper (ops/raster.py, ops/shade.py, ops/relayout.py,
-ops/texsample.py, ops/temporal.py) calls
+ops/texsample.py, ops/temporal.py, ops/vertex.py) calls
 ``launch`` exactly where it launches its kernel; ``launch`` raises on a
 non-zero ``cudaError_t`` and adds one to ``launch_counts[name]``, which is
 how a run shows that the main path went through the kernels.
@@ -32,7 +32,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 SOURCES = ("raster16.cu", "resolve.cu", "relayout.cu", "texsample.cu",
            "binned.cu", "raster_msaa.cu", "temporal.cu", "dense.cu",
-           "shade.cu")
+           "shade.cu", "vertex.cu")
 # -fmad=false: no FMA contraction anywhere. The edge functions and the
 # resolve ALU must round exactly like their plain PyTorch twins (separate
 # mul and add kernels); a contracted edge function opens pinholes along
@@ -65,6 +65,7 @@ _SIGNATURES = {
     "awsm_split_rows": [_P, _I, _I, _I, _P, _P],
     "awsm_channel_rows": [_P, _I, _I, _I, _P, _P],
     "awsm_shade_surface": [_P, _P],
+    "awsm_vertex_stage": [_P, _P],
 }
 
 launch_counts: Dict[str, int] = {
@@ -84,6 +85,7 @@ launch_counts: Dict[str, int] = {
     "split_rows": 0,
     "channel_rows": 0,
     "shade_surface_fused": 0,
+    "vertex_stage": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None

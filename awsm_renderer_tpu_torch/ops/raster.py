@@ -31,7 +31,7 @@ from ..utils.profiling import count
 from . import kernels
 from .vertex import (
     NSETUP, S_BB_MAXX, S_BB_MAXY, S_BB_MINX, S_BB_MINY,
-    S_E0A, S_E1A, S_E2A, S_ORIG_ID, S_ZA, S_ZB, S_ZC,
+    S_E0A, S_E1A, S_E2A, S_ORIG_ID, S_ZA, S_ZB, S_ZC, pad_rows,
 )
 
 # smallest normal f32: E >= _FMIN <=> E > 0 for any non-degenerate edge
@@ -66,19 +66,9 @@ def plane_layout(has_uv1: bool = True, has_color: bool = True,
 
 def pad_setup_rows(rows: torch.Tensor) -> torch.Tensor:
     """Pad row-major setup (T, NSETUP) to a CHUNK multiple with invalid
-    triangles (empty bboxes; their edge constant 0 with zero A/B covers
-    nothing once the bbox test drops them from every bin)."""
-    T = rows.shape[0]
-    pad = (-T) % CHUNK
-    if pad == 0:
-        return rows
-    tail = torch.zeros((pad, rows.shape[1]), dtype=rows.dtype,
-                       device=rows.device)
-    tail[:, S_BB_MINX] = _BIG
-    tail[:, S_BB_MINY] = _BIG
-    tail[:, S_BB_MAXX] = -_BIG
-    tail[:, S_BB_MAXY] = -_BIG
-    return torch.cat([rows, tail], dim=0)
+    triangles (ops/vertex.py pad_rows; K15 writes the same tail itself
+    when the frame asks the vertex stage for padded rows)."""
+    return pad_rows(rows, CHUNK)
 
 
 def _ceil_log2(n: int) -> int:

@@ -6,17 +6,23 @@ fetches, morph targets (one gather of every target's deltas per corner
 and a weighted sum over the weights table's width), skins (one gather of
 every influence's joint matrix per corner and a weighted sum), corner
 transform, 2-slot near-plane clipping and the v4 plane-equation setup
-rows. All math runs on flat (T,) component tensors; the camera matrix
-enters as Python floats (a uniform), the per-mesh tables through
-index_select.
+rows. vertex_stage_chain runs it op by op on flat (T,) component tensors
+(the camera matrix enters as Python floats, the per-mesh tables through
+index_select). vertex_stage, what the frame calls, runs it in one launch
+of K15 (csrc/vertex.cu) on a CUDA tensor and in its plain twin,
+vertex_stage_reference (the chain's math on K15's inputs), on a CPU
+tensor.
 
 Output: row-major (T, NSETUP) f32 setup — (2T, NSETUP) with clipping,
 where row t is triangle t's primary piece and row T+t its secondary clip
-piece. Row j carries S_ORIG_ID == j; a compacted pool (orig_ids) carries
-its pool ids instead, on the secondary pieces too.
+piece. Row j carries S_ORIG_ID == j; a compacted pool (orig_ids, or
+vertex_stage's index) carries its pool ids instead, on the secondary
+pieces too.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -24,7 +30,7 @@ from ..core.meshes import (
     MESH_FLAG_DOUBLE_SIDED, MI_FLAGS, MI_MATERIAL_ROW, MI_MORPH_STRIDE,
     MI_N_MORPH_TARGETS, MI_SKIN_SETS, MI_TRANSFORM_ROW,
 )
-from ..utils.profiling import span
+from . import kernels
 
 # ---- setup row indices (row-major (T, NSETUP)) — see the JAX module's
 # comment for the plane-equation layout and its watertightness argument
@@ -60,6 +66,39 @@ def onehot_gather(rows: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     g = table.index_select(0, rows.clamp(0, cap - 1).long())
     return torch.where(ok[:, None], g, torch.zeros((), dtype=g.dtype,
                                                    device=g.device))
+
+
+def _gather_cols(geo, tri_idx):
+    """Compacted corner pools: the columns tri_idx of each (C, T) pool in
+    `geo`, by flat row-major indices c*T + idx (the gather is
+    output-sized); -1 pads read column 0. Returns them and the clamped
+    int64 indices."""
+    safe = tri_idx.clamp(min=0).long()
+
+    def cols(a):
+        cdim, t = a.shape
+        gidx = (torch.arange(cdim, device=a.device)[:, None] * t
+                + safe[None, :])
+        return a.reshape(cdim * t)[gidx.reshape(-1)].reshape(cdim, -1)
+
+    return {n: cols(a) for n, a in geo.items()}, safe
+
+
+def pad_rows(rows: torch.Tensor, multiple: int) -> torch.Tensor:
+    """Pad row-major setup (T, NSETUP) to a multiple of `multiple` rows
+    with invalid triangles (empty bboxes; their edge constant 0 with zero
+    A/B covers nothing once the bbox test drops them from every bin)."""
+    T = rows.shape[0]
+    pad = (-T) % multiple
+    if pad == 0:
+        return rows
+    tail = torch.zeros((pad, rows.shape[1]), dtype=rows.dtype,
+                       device=rows.device)
+    tail[:, S_BB_MINX] = _BIG
+    tail[:, S_BB_MINY] = _BIG
+    tail[:, S_BB_MAXX] = -_BIG
+    tail[:, S_BB_MAXY] = -_BIG
+    return torch.cat([rows, tail], dim=0)
 
 
 def _corner_comps(arr, C):
@@ -191,27 +230,41 @@ def finish_setup(corners, attrs, act, mat_row, flags, width: int,
 
 
 def _morph(pos, nrm, tan, c_morph_base, morph_deltas, morph_weights,
-           minfo, mesh):
+           minfo, mesh, ordered: bool = False):
     """Add each corner's weighted morph deltas to its position, normal and
     tangent xyz in place (reference: shared_wgsl/vertex/morph.wgsl).
     Target m of a corner reads delta row base + m * stride, for m below
     the mesh's target count and base >= 0; the weights table's width B
     bounds m. One gather of (3, B, T) rows and one sum over B, whatever
-    B is. Tangent w is never morphed (the deltas carry xyz only)."""
+    B is; ordered: K15's order instead, target by target, each live one
+    added in turn (up to the largest target count). Tangent w is never
+    morphed (the deltas carry xyz only)."""
     T = mesh.shape[0]
     B = morph_weights.shape[1]
     dev = mesh.device
     n_targets = minfo[:, MI_N_MORPH_TARGETS].long()
     stride = minfo[:, MI_MORPH_STRIDE].long()
     wts = onehot_gather(mesh, morph_weights)                      # (T, B)
-    m = torch.arange(B, device=dev)[None, :, None]                # (1, B, 1)
     base = c_morph_base.long()[:, None, :]                        # (3, 1, T)
-    rows = (base + m * stride).clamp(0, max(morph_deltas.shape[0], 1) - 1)
-    delta = morph_deltas.index_select(0, rows.reshape(-1)).reshape(
-        3, B, T, morph_deltas.shape[1])
-    live = (m < n_targets) & (base >= 0)                          # (3, B, T)
-    wm = torch.where(live, wts.t()[None], torch.zeros((), device=dev))
-    acc = (wm[..., None] * delta).sum(dim=1)                      # (3, T, 10)
+    last = max(morph_deltas.shape[0], 1) - 1
+    if ordered:
+        acc = torch.zeros((3, T, morph_deltas.shape[1]), device=dev)
+        n_live = min(B, int(n_targets.max())) if T else 0
+        for m in range(n_live):
+            rows = (base[:, 0] + m * stride).clamp(0, last)       # (3, T)
+            delta = morph_deltas.index_select(0, rows.reshape(-1)).reshape(
+                3, T, -1)
+            live = (m < n_targets) & (base[:, 0] >= 0)            # (3, T)
+            acc = torch.where(live[..., None],
+                              acc + wts[None, :, m, None] * delta, acc)
+    else:
+        m = torch.arange(B, device=dev)[None, :, None]            # (1, B, 1)
+        rows = (base + m * stride).clamp(0, last)
+        delta = morph_deltas.index_select(0, rows.reshape(-1)).reshape(
+            3, B, T, morph_deltas.shape[1])
+        live = (m < n_targets) & (base >= 0)                      # (3, B, T)
+        wm = torch.where(live, wts.t()[None], torch.zeros((), device=dev))
+        acc = (wm[..., None] * delta).sum(dim=1)                  # (3, T, 10)
     for c in range(3):
         for k in range(3):
             pos[c][k] = pos[c][k] + acc[c, :, k]
@@ -219,12 +272,13 @@ def _morph(pos, nrm, tan, c_morph_base, morph_deltas, morph_weights,
             tan[c][k] = tan[c][k] + acc[c, :, 6 + k]
 
 
-def _skin(c_joints, c_weights, joint_matrices, skin_sets: int):
+def _skin(c_joints, c_weights, joint_matrices, skin_sets: int,
+          ordered: bool = False):
     """Per-corner skin matrices (reference: skin.wgsl): the weighted sum
     of the 4 * skin_sets influences' joint matrices, read at stride
     c_joints.shape[0] // 3, joint rows clamped to [0, J - 1]. One gather
     of (3, 4S, T) matrices and one sum over the influences -> (3, T,
-    16)."""
+    16); ordered: K15's order instead, influence by influence."""
     T = c_joints.shape[1]
     n_inf = 4 * skin_sets
     stride = c_joints.shape[0] // 3
@@ -233,7 +287,12 @@ def _skin(c_joints, c_weights, joint_matrices, skin_sets: int):
         0, jm.shape[0] - 1)
     wi = c_weights.reshape(3, stride, T)[:, :n_inf]
     mats = jm.index_select(0, ji.reshape(-1)).reshape(3, n_inf, T, 16)
-    return (mats * wi[..., None]).sum(dim=1)
+    if not ordered:
+        return (mats * wi[..., None]).sum(dim=1)
+    acc = torch.zeros((3, T, 16), device=c_weights.device)
+    for i in range(n_inf):
+        acc = acc + mats[:, i] * wi[:, i, :, None]
+    return acc
 
 
 def _upper3(m):
@@ -241,13 +300,14 @@ def _upper3(m):
     return torch.cat([m[:, 0:3], m[:, 4:7], m[:, 8:11]], dim=1)
 
 
-def vertex_stage(c_pos, c_norm, c_tang, c_uv0, c_uv1, c_color, c_joints,
-                 c_weights, c_morph_base, morph_deltas, tri_mesh, mesh_info,
-                 morph_weights, world, normal_mat, joint_matrices, view_proj,
-                 mesh_mask, orig_ids=None, *, width: int, height: int,
-                 has_morphs: bool = False, skin_sets: int = 0,
-                 needs_clip: bool = True) -> torch.Tensor:
-    """Vertex stage -> (2T or T, NSETUP) setup rows.
+def vertex_stage_chain(c_pos, c_norm, c_tang, c_uv0, c_uv1, c_color,
+                       c_joints, c_weights, c_morph_base, morph_deltas,
+                       tri_mesh, mesh_info, morph_weights, world, normal_mat,
+                       joint_matrices, view_proj, mesh_mask, orig_ids=None, *,
+                       width: int, height: int, has_morphs: bool = False,
+                       skin_sets: int = 0, needs_clip: bool = True,
+                       ordered: bool = False) -> torch.Tensor:
+    """Vertex stage op by op -> (2T or T, NSETUP) setup rows.
 
     c_*: (3C, T) component-major corner pools (c_joints / c_weights: 4 *
     the skin-set bucket rows a corner; c_morph_base (3, T) int, the row of
@@ -260,7 +320,8 @@ def vertex_stage(c_pos, c_norm, c_tang, c_uv0, c_uv1, c_color, c_joints,
     morph and skin branches on (skin_sets: the influence sets to read);
     without them the animation tables are not read. needs_clip=False
     when the host proved every visible AABB lies in front of the near
-    plane (no secondary rows)."""
+    plane (no secondary rows). ordered: the morph and skin sums in K15's
+    order (the twin's)."""
     T = tri_mesh.shape[0]
     mesh = tri_mesh.clamp(0, mesh_info.shape[0] - 1)
     minfo = onehot_gather(mesh, torch.cat(
@@ -277,22 +338,20 @@ def vertex_stage(c_pos, c_norm, c_tang, c_uv0, c_uv1, c_color, c_joints,
     uv1 = _corner_comps(c_uv1, 2)
     vcol = _corner_comps(c_color, 4)
     if has_morphs:
-        with span("render_frame/vertex/morph"):
-            _morph(pos, nrm, tan, c_morph_base, morph_deltas, morph_weights,
-                   minfo, mesh)
+        _morph(pos, nrm, tan, c_morph_base, morph_deltas, morph_weights,
+               minfo, mesh, ordered)
 
     node_world = onehot_gather(tf_row, world.reshape(-1, 16))     # (T, 16)
     node_nmat = onehot_gather(tf_row, normal_mat.reshape(-1, 9))  # (T, 9)
     if skin_sets > 0:
-        with span("render_frame/vertex/skin"):
-            skin = _skin(c_joints, c_weights, joint_matrices, skin_sets)
-            skinned = (minfo[:, MI_SKIN_SETS] > 0)[:, None]
-            models = [torch.where(skinned, skin[c], node_world)
-                      for c in range(3)]
-            tmats = [_upper3(mc) for mc in models]
-            # the skinned normal matrix is the skin matrix's upper-left
-            # 3x3 (the reference's shortcut)
-            nmats = [torch.where(skinned, tm, node_nmat) for tm in tmats]
+        skin = _skin(c_joints, c_weights, joint_matrices, skin_sets, ordered)
+        skinned = (minfo[:, MI_SKIN_SETS] > 0)[:, None]
+        models = [torch.where(skinned, skin[c], node_world)
+                  for c in range(3)]
+        tmats = [_upper3(mc) for mc in models]
+        # the skinned normal matrix is the skin matrix's upper-left 3x3
+        # (the reference's shortcut)
+        nmats = [torch.where(skinned, tm, node_nmat) for tm in tmats]
     else:
         models = [node_world] * 3
         tmats = [_upper3(node_world)] * 3
@@ -359,3 +418,191 @@ def vertex_stage(c_pos, c_norm, c_tang, c_uv0, c_uv1, c_color, c_joints,
                           active & two_in, mat_row, flags, width, height,
                           id_offset=T, orig_ids=orig_ids)
     return torch.cat([rows_p, rows_s], dim=0)               # (2T, NSETUP)
+
+
+def vertex_stage_reference(c_pos, c_norm, c_tang, c_uv0, c_uv1, c_color,
+                           c_joints, c_weights, c_morph_base, morph_deltas,
+                           tri_mesh, mesh_info, morph_weights, world,
+                           normal_mat, joint_matrices, view_proj, mesh_mask,
+                           index=None, *, width: int, height: int,
+                           has_morphs: bool = False, skin_sets: int = 0,
+                           needs_clip: bool = True, out=None,
+                           n_index: int | None = None,
+                           pad_to: int = 1) -> torch.Tensor:
+    """Plain PyTorch twin of K15, on K15's inputs (vertex_stage): the
+    index's columns gathered from the pools, the chain's math with the
+    morph and skin sums in K15's order, the rows scattered into `out` or
+    padded to `pad_to`."""
+    pools = [c_pos, c_norm, c_tang, c_uv0, c_uv1, c_color, c_joints,
+             c_weights, c_morph_base]
+    if index is not None:
+        # the joint, weight and morph-base pools are read only when
+        # animated
+        n_read = 9 if (has_morphs or skin_sets) else 6
+        cols, safe = _gather_cols(dict(enumerate(pools[:n_read])), index)
+        pools[:n_read] = [cols[k] for k in range(n_read)]
+        tri_mesh = torch.where(index >= 0, tri_mesh[safe],
+                               torch.full_like(index, -1))
+    rows = vertex_stage_chain(
+        *pools, morph_deltas, tri_mesh, mesh_info, morph_weights, world,
+        normal_mat, joint_matrices, view_proj, mesh_mask, index,
+        width=width, height=height, has_morphs=has_morphs,
+        skin_sets=skin_sets, needs_clip=needs_clip, ordered=True)
+    if out is None:
+        return pad_rows(rows, pad_to)
+    n, cap, T = n_index, index.shape[0], c_pos.shape[1]
+    live = safe[:n]
+    out.index_copy_(0, live, rows[:n])
+    if needs_clip:
+        out.index_copy_(0, live + T, rows[cap:cap + n])
+    return out
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+class _VertexParams(ctypes.Structure):
+    """csrc/vertex.cu VertexParams, field for field."""
+    _fields_ = [
+        ("pos", _P), ("nrm", _P), ("tang", _P), ("uv0", _P), ("uv1", _P),
+        ("color", _P), ("joints", _P), ("weights", _P), ("morph_base", _P),
+        ("tri_mesh", _P), ("index", _P), ("mesh_info", _P),
+        ("mesh_mask", _P), ("morph_deltas", _P), ("morph_weights", _P),
+        ("world", _P), ("normal_mat", _P), ("joint_matrices", _P),
+        ("out", _P), ("ld", ctypes.c_int64), ("n", _I), ("second", _I),
+        ("scatter", _I), ("tail_row", _I), ("tail_rows", _I),
+        ("n_mesh", _I), ("info_cols", _I), ("n_weight_rows", _I),
+        ("morph_width", _I), ("n_deltas", _I), ("morph_cols", _I),
+        ("n_tf", _I), ("n_joints", _I), ("joint_stride", _I),
+        ("n_influences", _I), ("needs_clip", _I), ("has_morphs", _I),
+        ("width", _I), ("height", _I), ("view_proj", ctypes.c_float * 16),
+    ]
+
+
+def vertex_stage(c_pos, c_norm, c_tang, c_uv0, c_uv1, c_color, c_joints,
+                 c_weights, c_morph_base, morph_deltas, tri_mesh, mesh_info,
+                 morph_weights, world, normal_mat, joint_matrices, view_proj,
+                 mesh_mask, index=None, *, width: int, height: int,
+                 has_morphs: bool = False, skin_sets: int = 0,
+                 needs_clip: bool = True, out=None,
+                 n_index: int | None = None,
+                 pad_to: int = 1) -> torch.Tensor:
+    """K15 (csrc/vertex.cu): the vertex stage in one launch -> setup rows.
+
+    The pools, tables and flags are vertex_stage_chain's, over a pool of
+    T triangles (the pools' columns). Without index, every column is a
+    triangle: (T or 2T, NSETUP) rows, row j carrying j. index (N,) int32
+    pool columns, -1 pads (read as dead triangles): with out None, the
+    compacted set, (N or 2N) rows in index order carrying their pool ids;
+    with out, the (T or 2T [+ tail], NSETUP) rows of this pool's stage,
+    the first n_index triangles of index are written into it at their
+    pool rows (and T + those with clipping), carrying their pool ids, and
+    out is returned. pad_to: without out, the rows padded with invalid
+    rows to a multiple of pad_to (ops/raster.py pad_setup_rows with
+    CHUNK). A CPU tensor takes the twin."""
+    if c_pos.device.type == "cpu":
+        return vertex_stage_reference(
+            c_pos, c_norm, c_tang, c_uv0, c_uv1, c_color, c_joints,
+            c_weights, c_morph_base, morph_deltas, tri_mesh, mesh_info,
+            morph_weights, world, normal_mat, joint_matrices, view_proj,
+            mesh_mask, index, width=width, height=height,
+            has_morphs=has_morphs, skin_sets=skin_sets,
+            needs_clip=needs_clip, out=out, n_index=n_index, pad_to=pad_to)
+    T = c_pos.shape[1]
+    pools = dict(pos=(c_pos, 9), nrm=(c_norm, 9), tang=(c_tang, 12),
+                 uv0=(c_uv0, 6), uv1=(c_uv1, 6), color=(c_color, 12))
+    for name, (t, rows) in pools.items():
+        if t.dtype != torch.float32 or t.shape != (rows, T):
+            raise ValueError(f"{name} must be ({rows}, {T}) f32")
+    if tri_mesh.dtype != torch.int32 or tri_mesh.shape != (T,):
+        raise ValueError(f"tri_mesh must be ({T},) int32")
+    if mesh_info.dtype != torch.int32 or mesh_info.dim() != 2:
+        raise ValueError("mesh_info must be (M, K) int32")
+    M = mesh_info.shape[0]
+    if mesh_mask.dtype != torch.bool or mesh_mask.shape != (M,):
+        raise ValueError(f"mesh_mask must be ({M},) bool")
+    world = world.reshape(-1, 16)
+    normal_mat = normal_mat.reshape(-1, 9)
+    if (world.dtype != torch.float32 or normal_mat.dtype != torch.float32
+            or normal_mat.shape[0] != world.shape[0]):
+        raise ValueError("world (TC, 4, 4) and normal_mat (TC, 3, 3) must "
+                         "be f32")
+    tensors = [c_pos, c_norm, c_tang, c_uv0, c_uv1, c_color, tri_mesh,
+               mesh_info, mesh_mask, world, normal_mat]
+    prm = _VertexParams()
+    if index is not None:
+        if index.dtype != torch.int32 or index.dim() != 1:
+            raise ValueError("index must be (N,) int32")
+        tensors.append(index)
+        prm.index = index.data_ptr()
+    if has_morphs:
+        if (c_morph_base.dtype != torch.int32
+                or c_morph_base.shape != (3, T)
+                or morph_deltas.dtype != torch.float32
+                or morph_deltas.dim() != 2 or morph_deltas.shape[1] < 9
+                or morph_weights.dtype != torch.float32
+                or morph_weights.dim() != 2):
+            raise ValueError(f"c_morph_base must be (3, {T}) int32, "
+                             "morph_deltas (MD, >= 9) and morph_weights "
+                             "(M, B) f32")
+        tensors += [c_morph_base, morph_deltas, morph_weights]
+        prm.morph_base = c_morph_base.data_ptr()
+        prm.morph_deltas = morph_deltas.data_ptr()
+        prm.morph_weights = morph_weights.data_ptr()
+        prm.n_weight_rows, prm.morph_width = morph_weights.shape
+        prm.n_deltas, prm.morph_cols = morph_deltas.shape
+        prm.has_morphs = 1
+    if skin_sets > 0:
+        jm = joint_matrices.reshape(-1, 16)
+        stride = c_joints.shape[0] // 3
+        if (c_joints.dtype != torch.int32 or c_weights.dtype != torch.float32
+                or c_joints.shape != (3 * stride, T)
+                or c_weights.shape != c_joints.shape
+                or stride < 4 * skin_sets or jm.dtype != torch.float32
+                or jm.shape[0] == 0):
+            raise ValueError(f"c_joints (int32) and c_weights (f32) must be "
+                             f"(3 * S >= {12 * skin_sets}, {T}), the joint "
+                             f"matrices (J > 0, 4, 4) f32")
+        tensors += [c_joints, c_weights, jm]
+        prm.joints, prm.weights = c_joints.data_ptr(), c_weights.data_ptr()
+        prm.joint_matrices = jm.data_ptr()
+        prm.n_joints, prm.joint_stride = jm.shape[0], stride
+        prm.n_influences = 4 * skin_sets
+    kernels.check_cuda(*tensors)
+
+    if out is None:
+        n = T if index is None else index.shape[0]
+        n_rows = 2 * n if needs_clip else n
+        total = n_rows + (-n_rows) % pad_to
+        out = torch.empty((total, NSETUP), dtype=torch.float32,
+                          device=c_pos.device)
+        prm.second, prm.tail_row, prm.tail_rows = n, n_rows, total - n_rows
+    else:
+        if index is None or n_index is None:
+            raise ValueError("out takes an index and its live count")
+        if (out.dtype != torch.float32 or out.dim() != 2
+                or out.shape[1] != NSETUP
+                or out.shape[0] < (2 * T if needs_clip else T)):
+            raise ValueError(f"out must hold the pool's rows, (>= "
+                             f"{2 * T if needs_clip else T}, {NSETUP}) f32")
+        kernels.check_cuda(c_pos, out)
+        n = n_index
+        prm.second, prm.scatter = T, 1
+    if M == 0 or out.data_ptr() % 16:
+        raise ValueError("need a mesh table and a 16-byte aligned output")
+    prm.pos, prm.nrm, prm.tang = (c_pos.data_ptr(), c_norm.data_ptr(),
+                                  c_tang.data_ptr())
+    prm.uv0, prm.uv1, prm.color = (c_uv0.data_ptr(), c_uv1.data_ptr(),
+                                   c_color.data_ptr())
+    prm.tri_mesh, prm.mesh_info = tri_mesh.data_ptr(), mesh_info.data_ptr()
+    prm.mesh_mask = mesh_mask.data_ptr()
+    prm.world, prm.normal_mat = world.data_ptr(), normal_mat.data_ptr()
+    prm.out, prm.ld, prm.n = out.data_ptr(), T, n
+    prm.n_mesh, prm.info_cols = M, mesh_info.shape[1]
+    prm.n_tf = world.shape[0]
+    prm.needs_clip = int(needs_clip)
+    prm.width, prm.height = width, height
+    prm.view_proj[:] = [float(v) for row in view_proj for v in row]
+    kernels.launch("vertex_stage", "awsm_vertex_stage", ctypes.byref(prm))
+    return out

@@ -39,9 +39,9 @@ from ..ops.effects import (
     DOF_RING_SCALES, bloom_c, depth_of_field_c, smaa_c,
 )
 from ..ops.raster import (
-    BT_H, BT_W, TILE_H, TILE_W, pad_setup_rows, rasterize, rasterize16,
-    rasterize16_msaa, rasterize16_slim, rasterize_layers_compact,
-    rasterize_layers_rows,
+    BT_H, BT_W, CHUNK, TILE_H, TILE_W, pad_setup_rows, rasterize,
+    rasterize16, rasterize16_msaa, rasterize16_slim,
+    rasterize_layers_compact, rasterize_layers_rows,
 )
 from ..ops.shade import (
     EXT_VOLUME, NO_EXT, NO_SLOTS, OPAQUE_TILE_ROWS, RESOLVE_NAMES,
@@ -197,70 +197,50 @@ def _shift_cols_band(rows: torch.Tensor, x0: int,
                        S_BB_MAXX, band_w)
 
 
-def _stage(ds, geo, tri_mesh, mask, orig_ids=None, **kw):
-    """vertex_stage over corner pools `geo` with ds's per-mesh tables."""
+def _stage(ds, geo, tri_mesh, mask, index=None, **kw):
+    """vertex_stage (K15) over corner pools `geo` with ds's per-mesh
+    tables."""
     return vertex_stage(
         *(geo[n] for n in _CORNER_NAMES), ds["morph_deltas"], tri_mesh,
         ds["mesh_info"], ds["morph_weights"], ds["world"], ds["normal_mat"],
-        ds["joint_matrices"], ds["camera"]["view_proj"], mask, orig_ids,
-        **kw)
-
-
-def _gather_cols(geo, tri_idx):
-    """Compacted corner pools: the columns tri_idx of each (C, T) pool in
-    `geo`, by flat row-major indices c*T + idx (the gather is
-    output-sized); -1 pads read column 0. Returns them and the clamped
-    int64 indices."""
-    safe = tri_idx.clamp(min=0).long()
-
-    def cols(a):
-        cdim, t = a.shape
-        gidx = (torch.arange(cdim, device=a.device)[:, None] * t
-                + safe[None, :])
-        return a.reshape(cdim * t)[gidx.reshape(-1)].reshape(cdim, -1)
-
-    return {n: cols(a) for n, a in geo.items()}, safe
+        ds["joint_matrices"], ds["camera"]["view_proj"], mask, index, **kw)
 
 
 def _run_vertex(ds, mask, *, rw: int, rh_full: int, needs_clip: bool,
                 has_morphs: bool = False, skin_sets: int = 0,
                 row_offset: int = 0, shift_rows: bool = False,
                 col_offset: int = 0, shift_cols: bool = False,
-                band=None):
+                band=None, pad: bool = False):
     """Vertex stage over the combined stream (pool + instanced groups) of
     an rw x rh_full frame; shift_rows / shift_cols move the rows into the
     local coordinates of the band (or screen tile) at row_offset /
     col_offset, after the animated-subset split, and band = (band_h,
     band_w), when given, empties the bboxes of rows wholly outside it.
+    pad: the rows come padded to a CHUNK multiple (prep_setup_rows), the
+    tail written by the stage's own launch.
 
     The animated-subset split: when the scene has morphs or skins and the
     renderer shipped the animated triangle set (ds["anim_tri_idx"], pool
     indices padded with -1 to a power of two, its live count in
     ds["anim_tri_n"]), the whole pool runs the plain stage and only the
-    subset pays the morph and skin gathers; its rows overwrite the
-    pool's at anim_idx (and at T + anim_idx under clipping), so row j
-    stays triangle j's. The subset's rows carry their pool ids in
-    S_ORIG_ID, so a secondary row T + t written here carries t (as the
-    reference's). Only the live count is scattered: the pads are never
-    written."""
+    subset pays the morph and skin sums: a second launch over the
+    subset's live count writes its rows over the pool's at anim_idx (and
+    at T + anim_idx under clipping), so row j stays triangle j's. The
+    subset's rows carry their pool ids in S_ORIG_ID, so a secondary row
+    T + t written there carries t (as the reference's). The pads are
+    never written."""
     geo, tri_mesh = _combined_geometry(ds)
     kw = dict(width=rw, height=rh_full, needs_clip=needs_clip)
     anim_idx = ds.get("anim_tri_idx") if (has_morphs or skin_sets) else None
+    pad_to = CHUNK if pad else 1
     if anim_idx is None:
         rows = _stage(ds, geo, tri_mesh, mask, has_morphs=has_morphs,
-                      skin_sets=skin_sets, **kw)
+                      skin_sets=skin_sets, pad_to=pad_to, **kw)
     else:
-        rows = _stage(ds, geo, tri_mesh, mask, **kw)
-        ageo, safe = _gather_cols(geo, anim_idx)
-        a_tri = torch.where(anim_idx >= 0, tri_mesh[safe],
-                            torch.full_like(anim_idx, -1))
-        rows_a = _stage(ds, ageo, a_tri, mask, anim_idx,
-                        has_morphs=has_morphs, skin_sets=skin_sets, **kw)
-        n, cap, T = ds["anim_tri_n"], anim_idx.shape[0], tri_mesh.shape[0]
-        live = safe[:n]
-        rows.index_copy_(0, live, rows_a[:n])
-        if needs_clip:
-            rows.index_copy_(0, live + T, rows_a[cap:cap + n])
+        rows = _stage(ds, geo, tri_mesh, mask, pad_to=pad_to, **kw)
+        _stage(ds, geo, tri_mesh, mask, anim_idx, out=rows,
+               n_index=ds["anim_tri_n"], has_morphs=has_morphs,
+               skin_sets=skin_sets, **kw)
     band_h, band_w = band or (None, None)
     if shift_rows:
         rows = _shift_rows_band(rows, row_offset, band_h)
@@ -275,20 +255,15 @@ def _run_vertex_compact(ds, mask, tri_idx, *, rw: int, rh_full: int,
                         skin_sets: int = 0):
     """Vertex stage over a compacted triangle set: tri_idx (Nc,) int32
     pool indices, -1 = padding. The overlay buckets hold a few hundred
-    triangles of a pool of hundreds of thousands; the corner gather is
-    output-sized and the rows carry their pool ids in S_ORIG_ID
-    (vertex_stage orig_ids), which the fat K7/K8 kernels emit as tri_id.
-    Instanced geometry never reaches it (the renderer passes no index when
-    an overlay mesh is instanced)."""
-    # the joint, weight and morph-base pools are read only when animated
-    names = _CORNER_NAMES if (has_morphs or skin_sets) else _CORNER_NAMES[:6]
-    geo, safe = _gather_cols({n: ds[n] for n in names}, tri_idx)
-    geo = {n: geo.get(n, ds[n]) for n in _CORNER_NAMES}
-    tri_mesh = torch.where(tri_idx >= 0, ds["tri_mesh"][safe],
-                           torch.full_like(tri_idx, -1))
-    rows = _stage(ds, geo, tri_mesh, mask, tri_idx, width=rw,
+    triangles of a pool of hundreds of thousands; the stage reads the
+    pools at tri_idx (vertex_stage's index) and the rows carry their pool
+    ids in S_ORIG_ID, which the fat K7/K8 kernels emit as tri_id. The
+    rows come padded to a CHUNK multiple (prep_setup_rows). Instanced
+    geometry never reaches it (the renderer passes no index when an
+    overlay mesh is instanced)."""
+    rows = _stage(ds, ds, ds["tri_mesh"], mask, tri_idx, width=rw,
                   height=rh_full, needs_clip=needs_clip,
-                  has_morphs=has_morphs, skin_sets=skin_sets)
+                  has_morphs=has_morphs, skin_sets=skin_sets, pad_to=CHUNK)
     return _shift_rows_band(rows, row_offset) if shift_rows else rows
 
 
@@ -315,12 +290,12 @@ def _opaque_band(ds, opaque_mask, *, rw: int, band_h: int, rh_full: int,
     gets the raster's planes (without the bins) and returns the planes
     that are shaded and whose tri_id and depth the frame keeps."""
     with span("render_frame/vertex"):
-        srows = prep_setup_rows(_run_vertex(
+        srows = _run_vertex(
             ds, opaque_mask, rw=rw_full or rw, rh_full=rh_full,
             needs_clip=needs_clip, has_morphs=has_morphs,
             skin_sets=skin_sets, row_offset=row_offset,
             shift_rows=shift_rows, col_offset=col_offset,
-            shift_cols=shift_cols, band=(band_h, rw)))
+            shift_cols=shift_cols, band=(band_h, rw), pad=True)
     # uv1 / vertex-colour planes only when a material samples uv1 or a
     # mesh carries colours; no analytic derivatives: the mip gradients
     # are screen differences of the band's padded uv0 planes, as in the
@@ -371,11 +346,11 @@ def _opaque_band_msaa(ds, opaque_mask, *, rw2: int, rh2: int, rw1: int,
     bins)."""
     band1_h = rh1 if band1_h is None else band1_h
     with span("render_frame/vertex"):
-        srows = prep_setup_rows(_run_vertex(
+        srows = _run_vertex(
             ds, opaque_mask, rw=rw2, rh_full=rh2, needs_clip=needs_clip,
             has_morphs=has_morphs, skin_sets=skin_sets,
             row_offset=2 * row_offset1, shift_rows=shift_rows,
-            band=(2 * band1_h, rw2)))
+            band=(2 * band1_h, rw2), pad=True)
     w_half = rw2 // 2
 
     def fit_cols(p, fill):
@@ -543,7 +518,8 @@ def _overlay_band(hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask, *,
         return _run_vertex(ds, mask, rw=rw_full or rw, rh_full=rh_full,
                            needs_clip=needs_clip, row_offset=row_offset,
                            shift_rows=shift_rows, col_offset=col_offset,
-                           shift_cols=shift_cols, band=(band_h, rw), **anim)
+                           shift_cols=shift_cols, band=(band_h, rw),
+                           pad=True, **anim)
 
     # the compacted peel's shade takes row bands only (the sharded frame
     # passes no tile_cap)
@@ -566,7 +542,7 @@ def _overlay_band(hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask, *,
     # ---- transparent forward pass: K-layer depth peel under the shared,
     # read-only opaque depth; back-to-front composite ---------------------
     if transparent_mask is not None:
-        t_rows = prep_setup_rows(run_vertex(transparent_mask))
+        t_rows = run_vertex(transparent_mask)
         n_t32 = (-(-band_h // BT_H)) * (rw // BT_W)
         # covered-tile compaction of the whole peel + shade when the host
         # cap bounds the transparent tiles below the band (not with volume
@@ -597,7 +573,7 @@ def _overlay_band(hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask, *,
 
     # ---- HUD pass: its own cleared depth, composited on top -------------
     if hud_mask is not None:
-        h_rows = prep_setup_rows(run_vertex(hud_mask))
+        h_rows = run_vertex(hud_mask)
         if ov_tri_idx is not None:
             # the compacted pool breaks K2's row index == pool id
             # invariant, so the HUD takes K7, which reads the ids from
@@ -834,9 +810,9 @@ def render_frame_temporal(ds, opaque_mask, transparent_mask, hud_mask, hist,
 
     # ---- 1. slim geometry (jittered camera) -------------------------------
     with span("render_frame/vertex"):
-        srows = prep_setup_rows(_run_vertex(
+        srows = _run_vertex(
             ds, opaque_mask, rw=rw1, rh_full=rh1, needs_clip=needs_clip,
-            has_morphs=has_morphs, skin_sets=skin_sets))
+            has_morphs=has_morphs, skin_sets=skin_sets, pad=True)
     with span("render_frame/raster"):
         col, depth, _bins = rasterize16_slim(srows, width=rw1, height=rh1)
 

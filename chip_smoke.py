@@ -500,7 +500,7 @@ def orbit_camera(r, np, i: int, rad=None, height=7.0):
     r.camera.update(view, m3.perspective(np.pi / 3, W / H, 0.1, 200.0))
 
 
-KERNEL_SITES = ("rasterize16_slim", "resolve_planes_fused",
+KERNEL_SITES = ("vertex_stage", "rasterize16_slim", "resolve_planes_fused",
                 "onehot_split_rows", "tap_plan_fused", "filter_taps_fused",
                 "shade_surface_fused")
 # the op-by-op shade chain's sites instead of K14's (a frame outside
@@ -522,6 +522,7 @@ def kernel_sites():
             "filter_taps_fused": (texsample,),
             "gather_split_channels": (cubemap, shade),
             "shade_surface_fused": (shade,),
+            "vertex_stage": (frame,),
             "rasterize_binned": (raster,),
             "_rasterize_binned_compact": (raster,),
             "gather_split_channels_f32": (relayout,),
@@ -889,6 +890,11 @@ def phase_kernels(r, np, torch):
                          f"the panes' shade): {len(k14)}")
     results["K14"] = check_k14(k14[0], "stress opaque", torch)
     results["K14_panes"] = check_k14(k14[1], "stress panes", torch)
+    k15 = calls["vertex_stage"]
+    check(len(k15) == 2, f"the frame called K15 twice (the opaque pass, the "
+                         f"panes' compacted pass): {len(k15)}")
+    results["K15"] = check_k15(k15[0], "stress opaque", torch)
+    results["K15_panes"] = check_k15(k15[1], "stress panes", torch)
     for k, v in results.items():
         log(f"  {k}: kernel {v['ms']:.4f} ms, plain twin "
             f"{v['plain_ms']:.4f} ms")
@@ -1074,6 +1080,123 @@ def check_k14(call, label, torch, timed=True):
     return res
 
 
+def k15_pair(args, kw):
+    """K15 and its twin on one captured vertex_stage call; a call that
+    writes into the pool's rows (the animated subset) gets a copy of them
+    each."""
+    from awsm_renderer_tpu_torch.ops import vertex as V
+
+    out = kw.get("out")
+    kws = [dict(kw, out=None if out is None else out.clone())
+           for _ in range(2)]
+    return (V.vertex_stage(*args, **kws[0]),
+            V.vertex_stage_reference(*args, **kws[1]))
+
+
+def k15_mismatches(got, ref, kw, torch):
+    """(values of K15's rows that are not the twin's bit for bit, NaN for
+    NaN, where no morph or skin sum is taken, else rows outside
+    tests/test_torch_vertex_fused.py's tolerance; values not bit-equal)."""
+    from awsm_renderer_tpu_torch.ops.vertex import (
+        S_BB_MINX, S_MAT_ROW, S_ORIG_ID, S_TANGENT_W, S_ZA, S_ZC,
+    )
+
+    nan = torch.isnan(got) & torch.isnan(ref)
+    n_bits = int((got.view(torch.int32) != ref.view(torch.int32))
+                 .logical_and(~nan).sum()) + int((nan != torch.isnan(got))
+                                                 .sum())
+    if not (kw.get("has_morphs") or kw.get("skin_sets")):
+        return n_bits, n_bits
+    va, vb = got[:, S_BB_MINX] < 1e37, ref[:, S_BB_MINX] < 1e37
+    ints = [S_MAT_ROW, S_TANGENT_W, S_ORIG_ID]
+    n_bad = int((va != vb).sum()) + int(
+        (got[:, ints] != ref[:, ints]).logical_and(~nan[:, ints]).sum())
+    a, b = got[vb].double(), ref[vb].double()
+    err = (a - b).abs() / b.abs().clamp(min=1.0)
+    z = torch.zeros(got.shape[1], dtype=torch.bool, device=got.device)
+    z[S_ZA:S_ZC + 1] = True
+    area = (b[:, 2] + b[:, 5] + b[:, 8]).abs().clamp(max=1.0)
+    n_bad += int((err[:, ~z] > 3e-5).any(dim=1).sum())
+    n_bad += int((err[:, z].max(dim=1).values * area > 1e-4).sum())
+    return n_bad, n_bits
+
+
+def k15_bytes(args, kw, torch) -> tuple:
+    """(The least bytes a K15 call moves, triangles, rows written): each
+    computed triangle's mesh row and, with an index, its index entry;
+    its three corners' 18 floats (and morph base, joint and weight
+    entries when animated); the distinct morph delta rows (9 floats) its
+    live targets address; its rows (and a padding tail) out."""
+    from awsm_renderer_tpu_torch.core.meshes import (
+        MI_MORPH_STRIDE, MI_N_MORPH_TARGETS,
+    )
+    from awsm_renderer_tpu_torch.ops.vertex import NSETUP
+
+    (c_pos, *_pools, c_joints, _w, c_morph_base, morph_deltas, tri_mesh,
+     mesh_info) = args[:12]
+    index = args[18] if len(args) > 18 else kw.get("index")
+    out, clip = kw.get("out"), kw.get("needs_clip", True)
+    T = c_pos.shape[1]
+    n = T if index is None else (kw["n_index"] if out is not None
+                                 else index.shape[0])
+    per_corner = 18 * 4
+    if kw.get("has_morphs"):
+        per_corner += 4
+    if kw.get("skin_sets"):
+        per_corner += 8 * 4 * kw["skin_sets"]
+    b = n * (4 + 3 * per_corner + (4 if index is not None else 0))
+    if kw.get("has_morphs"):
+        cols = (torch.arange(T, device=c_pos.device) if index is None
+                else index[:n].clamp(min=0).long())
+        mesh = tri_mesh[cols].clamp(0, mesh_info.shape[0] - 1).long()
+        n_t = mesh_info[mesh, MI_N_MORPH_TARGETS].long()
+        base = c_morph_base[:, cols].long()
+        stride = mesh_info[mesh, MI_MORPH_STRIDE].long()
+        rows = [(base + m * stride)[(base >= 0) & (m < n_t)]
+                for m in range(int(n_t.max()) if n else 0)]
+        if rows:
+            b += 36 * unique_rows(torch.cat(rows), morph_deltas.shape[0])
+    n_rows = (2 * n if clip else n)
+    if out is None:
+        n_rows = -(-n_rows // kw.get("pad_to", 1)) * kw.get("pad_to", 1)
+    return b + n_rows * NSETUP * 4, n, n_rows
+
+
+def check_k15(call, label, torch, timed=True):
+    """K15 against its twin: bit-equal where no morph or skin sum is taken,
+    else within the CPU test's tolerance (its bit mismatches logged);
+    timed: kernel_ms, the twin's ms and the byte bound."""
+    from awsm_renderer_tpu_torch.ops import vertex as V
+
+    args, kw = call
+    got, ref = k15_pair(args, kw)
+    n_bad, n_bits = k15_mismatches(got, ref, kw, torch)
+    anim = bool(kw.get("has_morphs") or kw.get("skin_sets"))
+    index = args[18] if len(args) > 18 else None
+    log(f"  K15 vertex_stage [{label}] {tuple(got.shape)} rows, index "
+        f"{'none' if index is None else tuple(index.shape)}, clip "
+        f"{kw.get('needs_clip')}, morphs {bool(kw.get('has_morphs'))},"
+        f" skin sets {kw.get('skin_sets', 0)}: {n_bits} values not "
+        f"bit-equal to the twin" + (f", {n_bad} rows outside the tolerance"
+                                   if anim else ""))
+    check(n_bad == 0, f"K15 [{label}] " + ("within the stated tolerance of"
+                                           if anim else "bit-equal to")
+          + " the twin")
+    if not timed:
+        return None
+    nb, n_tri, n_rows = k15_bytes(args, kw, torch)
+    res = dict(err=float(n_bits),
+               ms=kernel_ms(lambda: V.vertex_stage(*args, **kw)),
+               plain_ms=cuda_ms(lambda: V.vertex_stage_reference(
+                   *args, **kw), 2),
+               bound=bound(nb, 0.0), library_ms=None, tris=n_tri,
+               rows=n_rows)
+    log(f"  K15 [{label}]: {res['ms']:.4f} ms, twin {res['plain_ms']:.4f} "
+        f"ms, bound {res['bound'][0]:.4f} ms ({res['bound'][1]}), share "
+        f"{100 * res['bound'][0] / res['ms']:.1f}%")
+    return res
+
+
 def orbit_frames(r, np, torch, camera, expect, n_frames=N_FRAMES,
                  after=None):
     """Warm-up frame, then n_frames frames with the launch counts set to 0
@@ -1132,7 +1255,7 @@ def check_image(img, np, torch):
     return cov
 
 
-OPAQUE_PATH = ("rasterize16_slim", "resolve_planes_fused",
+OPAQUE_PATH = ("vertex_stage", "rasterize16_slim", "resolve_planes_fused",
                "onehot_split_rows", "tap_plan_fused", "filter_taps_fused",
                "shade_surface_fused")
 # a frame outside K14's scope (the tiled light loop): the chain's K3 and K6
@@ -1465,7 +1588,8 @@ def phase_aa(P, np, torch):
     orbit_camera(r, np, 0)
     k14_calls = {}
     cap = capture_first_frame(r, ("rasterize16_msaa", "resolve_planes_fused",
-                                  "shade_surface_fused"), k14_calls)
+                                  "shade_surface_fused", "vertex_stage"),
+                              k14_calls)
     torch.cuda.synchronize()
     prep = r._prep[1]
     C = prep["op_tile_cap"]
@@ -1481,7 +1605,11 @@ def phase_aa(P, np, torch):
     check(len(k14) == 2, f"the MSAA frame called K14 twice: {len(k14)}")
     results["K14_msaa"] = check_k14(k14[0], "MSAA opaque", torch)
     results["K14_msaa_panes"] = check_k14(k14[1], "MSAA panes", torch)
-    del k14_calls, k14
+    k15 = k14_calls["vertex_stage"]
+    check(len(k15) == 2, f"the MSAA frame called K15 twice: {len(k15)}")
+    results["K15_msaa"] = check_k15(k15[0], "MSAA opaque", torch)
+    results["K15_msaa_panes"] = check_k15(k15[1], "MSAA panes", torch)
+    del k14_calls, k14, k15
 
     # ---- K9 ---------------------------------------------------------------
     (srows,), kw = cap["rasterize16_msaa"]
@@ -1638,9 +1766,9 @@ def phase_aa(P, np, torch):
     return results
 
 
-ANIM_PATH = ("rasterize16_msaa", "resolve_planes_fused", "onehot_split_rows",
-             "tap_plan_fused", "filter_taps_fused", "gather_split_channels",
-             "shade_surface_fused",
+ANIM_PATH = ("vertex_stage", "rasterize16_msaa", "resolve_planes_fused",
+             "onehot_split_rows", "tap_plan_fused", "filter_taps_fused",
+             "gather_split_channels", "shade_surface_fused",
              "rasterize_binned_compact")
 
 
@@ -1714,8 +1842,10 @@ def phase_animated(P, np, torch, aa_syncs: int):
         f"{n_tris} triangles, built in {time.perf_counter() - t0:.1f} s")
     names = ("rasterize16_msaa", "resolve_planes_fused", "onehot_split_rows",
              "tap_plan_fused", "filter_taps_fused", "gather_split_channels",
-             "shade_surface_fused", "_rasterize_binned_compact")
-    cap = capture_first_frame(r, names)
+             "shade_surface_fused", "_rasterize_binned_compact",
+             "vertex_stage")
+    calls = {}
+    cap = capture_first_frame(r, names, calls)
     torch.cuda.synchronize()
     prep, ds = r._prep[1], r._device
     check(prep["has_morphs"] and prep["skin_sets"] == 1
@@ -1777,6 +1907,12 @@ def phase_animated(P, np, torch, aa_syncs: int):
                          torch) == 0, "K6 bit-equal to the twin")
     check_k4_k5(cap, "animated", torch, timed=False)
     check_k14(cap["shade_surface_fused"], "animated", torch, timed=False)
+    k15 = calls["vertex_stage"]
+    check(len(k15) == 3, f"the animated frame called K15 three times (the "
+                         f"whole pool, the animated subset, the panes): "
+                         f"{len(k15)}")
+    res["K15_pool"] = check_k15(k15[0], "animated pool", torch)
+    res["K15_subset"] = check_k15(k15[1], "animated subset", torch)
     (rows, zlo_c, zhi_c), kw8 = cap["_rasterize_binned_compact"]
     hold_planes("K8 _rasterize_binned_compact (first peel)",
                 _rasterize_binned_compact(rows, zlo_c, zhi_c, **kw8),
@@ -1785,7 +1921,7 @@ def phase_animated(P, np, torch, aa_syncs: int):
                     tile_idx=kw8["tile_idx"], n_tx=kw8["n_tx"],
                     names=plane_layout(kw8["has_uv1"], kw8["has_color"])),
                 torch)
-    del cap, samp, depth, bins, rsamp, rdepth, split
+    del cap, calls, k15, samp, depth, bins, rsamp, rdepth, split
 
     # ---- the image moves with time -----------------------------------------
     img0 = r.render_device().clone()
@@ -2376,7 +2512,7 @@ def temporal_camera(r, np, i: int):
 
 
 TEMPORAL_FRAMES = 24
-TEMPORAL_PATH = ("rasterize16_slim", "reproject_history",
+TEMPORAL_PATH = ("vertex_stage", "rasterize16_slim", "reproject_history",
                  "resolve_planes_fused", "onehot_split_rows",
                  "tap_plan_fused", "filter_taps_fused",
                  "shade_surface_fused", "rasterize_binned_compact")
@@ -2627,17 +2763,18 @@ def phase_gltf(P, np, torch):
         f"{r.textures.texels_packed.shape[0]} rows")
     check(n_tex == 5, "the helmet binds five texture slots")
     cap = capture_first_frame(r, ("tap_plan_fused", "filter_taps_fused",
-                                  "shade_surface_fused"))
+                                  "shade_surface_fused", "vertex_stage"))
     torch.cuda.synchronize()
     P_px = W * H
     check(cap["tap_plan_fused"][0][0].shape[0] == 5 * P_px,
           "the helmet frame plans five taps per pixel in one K4 launch")
     k45 = check_k4_k5(cap, "helmet", torch)
     k14 = check_k14(cap["shade_surface_fused"], "helmet", torch)
+    k15 = check_k15(cap["vertex_stage"], "helmet", torch)
     img, med, wall, counts = orbit_frames(r, np, torch, camera, OPAQUE_PATH)
     check_image(img, np, torch)
     count_syncs(r, torch, "glb-helmet (opaque only)", camera, N_FRAMES + 1)
-    return med, wall, counts, k45 + (k14,)
+    return med, wall, counts, k45 + (k14, k15)
 
 
 def phase_golden(P, np, torch):
@@ -3833,7 +3970,7 @@ def phase_tools(P, np, torch, stress_syncs: int):
 # 1080 rows split into TILE_H-aligned bands only for n dividing 135, 1920
 # columns into TILE_W-aligned ones only for n dividing 15
 SHARD_N = 3
-SHARD_PATH = ("rasterize16_slim", "resolve_planes_fused",
+SHARD_PATH = ("vertex_stage", "rasterize16_slim", "resolve_planes_fused",
               "onehot_split_rows", "tap_plan_fused", "filter_taps_fused",
               "shade_surface_fused", "gather_split_channels",
               "gather_split_channels_f32",
@@ -4015,6 +4152,8 @@ def hold_band_kernels(seg, torch, spent=None) -> dict:
             n = k14_mismatches(shade_surface_fused(*args, **kw),
                                shade_surface_fused_reference(*args, **kw),
                                torch)[0]
+        elif name == "vertex_stage":
+            n = k15_mismatches(*k15_pair(args, kw), kw, torch)[0]
         elif name == "tap_plan_fused":
             idx, w = tap_plan_fused(*args, **kw)
             ridx, rw = tap_plan_reference(*args, **kw)
@@ -4500,7 +4639,8 @@ def main() -> int:
     log(f"phases lights and hooks: {t1 - t0:.1f} s and "
         f"{time.perf_counter() - t1:.1f} s")
     tl = phase_tools(P, np, torch, ov["syncs_a"])
-    h_med, h_wall, h_counts, (h_k4, h_k5, h_k14) = phase_gltf(P, np, torch)
+    h_med, h_wall, h_counts, (h_k4, h_k5, h_k14, h_k15) = phase_gltf(
+        P, np, torch)
     phase_golden(P, np, torch)
     sh = phase_sharded(P, np, torch)
 
@@ -4541,6 +4681,25 @@ def main() -> int:
         log(f"K14 on {label}: kernel_ms {v['ms']:.4f} ms, twin "
             f"{v['plain_ms']:.4f} ms, bound {v['bound'][0]:.4f} ms "
             f"({v['bound'][1]}), share {100 * v['bound'][0] / v['ms']:.1f}%"
+            f"{'' if n is None else f', {n} launches over {N_FRAMES} frames'}"
+            f" ({card})")
+    for v, label, n in (
+            (results["K15"], "the stress frame's opaque pass",
+             counts["vertex_stage"]),
+            (results["K15_panes"], "the stress frame's panes", None),
+            (aa["K15_msaa"], "the MSAA frame's opaque pass",
+             a_counts["vertex_stage"]),
+            (aa["K15_msaa_panes"], "the MSAA frame's panes", None),
+            (an["K15_pool"], "the animated frame's whole pool",
+             an["animated"][2]["vertex_stage"]),
+            (an["K15_subset"], "the animated frame's morphed and skinned "
+                               "subset", None),
+            (h_k15, "the helmet", h_counts["vertex_stage"])):
+        log(f"K15 on {label}: kernel_ms {v['ms']:.4f} ms, twin "
+            f"{v['plain_ms']:.4f} ms, bound {v['bound'][0]:.4f} ms "
+            f"({v['bound'][1]}), share "
+            f"{100 * v['bound'][0] / v['ms']:.1f}%, {v['rows']} rows from "
+            f"{v['tris']} triangles"
             f"{'' if n is None else f', {n} launches over {N_FRAMES} frames'}"
             f" ({card})")
     log(f"frame Stress-1080p-msaa-bloom-dof: median {a_med:.3f} ms/frame "

@@ -36,7 +36,7 @@ WRAPPERS = ("rasterize16_slim", "rasterize16_msaa", "rasterize_binned",
             "gather_split_channels", "gather_split_channels_f32",
             "split_rows", "channel_rows", "tap_plan_fused",
             "filter_taps_fused", "reproject_history_planes",
-            "shade_surface_fused")
+            "shade_surface_fused", "vertex_stage")
 # ops that launch no kernel on the card
 FREE = {"empty", "empty_like", "empty_strided", "new_empty",
         "new_empty_strided", "_local_scalar_dense", "lift_fresh",

@@ -31,7 +31,13 @@ once. An interactive session's steps (a click that selects and attaches
 the gizmo, a pointer-free step) select the same mesh as on the CPU and
 their images are within 1e-4; a frame with timings on waits on the
 device as often as with them off and resolves each span's device time,
-and with them off makes no CUDA event; a scene saved and loaded back onto the card renders bit-equal."""
+and with them off makes no CUDA event; a scene saved and loaded back
+onto the card renders bit-equal. K14 matches its twin on the benchmark
+cells' 1080p frames; K15 is bit-equal to its twin there, NaN for NaN,
+and where it takes a morph or skin sum within
+tests/test_torch_vertex_fused.py's tolerance; each is one kernel a call
+with no wait on the device, one launch a call of its wrapper, and every
+frame above counts K15 once a vertex_stage call."""
 
 import numpy as np
 import pytest
@@ -260,8 +266,10 @@ def test_card_frame_matches_cpu_frame(dev, scene):
     textured = scene == "box-textured"
     for name in ("onehot_split_rows", "tap_plan_fused", "filter_taps_fused"):
         want[name] = int(textured)
-    # the overlay's kernels: no transparent or HUD content here; K9
-    # only with MSAA; K11-K13 on no frame path
+    # K15 once: the opaque pass's vertex stage. The overlay's kernels:
+    # no transparent or HUD content here; K9 only with MSAA; K11-K13 on
+    # no frame path
+    want["vertex_stage"] = 1
     for name in ("rasterize_binned", "rasterize_binned_compact",
                  "gather_split_channels_f32", "rasterize16_msaa",
                  "reproject_history", "rasterize_dense",
@@ -461,6 +469,8 @@ def test_card_overlay_frame_matches_cpu_frame(dev, case, monkeypatch):
     kernels.reset_launch_counts()
     img_card = card.render()
     assert kernels.launch_counts["rasterize_binned"] >= 1
+    # K15: the opaque pass's vertex stage and the overlay pass's
+    assert kernels.launch_counts["vertex_stage"] == 2
     if case == "refraction-4":
         assert kernels.launch_counts["gather_split_channels_f32"] >= 1
     img_cpu = cpu.render()
@@ -601,6 +611,7 @@ def test_card_aa_frame_matches_cpu_frame(dev, key, monkeypatch):
     msaa = key != "supersample"
     assert kernels.launch_counts["rasterize16_msaa"] == int(msaa)
     assert kernels.launch_counts["rasterize16_slim"] == int(not msaa)
+    assert kernels.launch_counts["vertex_stage"] == 1
     img_cpu = cpu.render()
     np.testing.assert_array_equal(card._last_tri_id.cpu().numpy(),
                                   cpu._last_tri_id.numpy())
@@ -651,7 +662,8 @@ def test_card_temporal_frame_matches_cpu_frame(dev):
         kernels.reset_launch_counts()
         img_card = card.render()
         for name in ("rasterize16_slim", "reproject_history",
-                     "resolve_planes_fused", "shade_surface_fused"):
+                     "resolve_planes_fused", "shade_surface_fused",
+                     "vertex_stage"):
             assert kernels.launch_counts[name] == 1, name
         img_cpu = cpu.render()
         st_card, st_cpu = card._temporal, cpu._temporal
@@ -923,6 +935,7 @@ def test_card_session_step(dev):
                                                           out["cuda"])
     assert gsel == csel == gkey == ckey and gtk == ctk
     assert n["rasterize16_slim"] >= 1 and n["resolve_planes_fused"] >= 1
+    assert n["vertex_stage"] == 2      # the opaque pass and the gizmo's HUD
     for a, b in zip(gi, ci):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
 
@@ -1014,36 +1027,48 @@ def test_card_snapshot_roundtrip(dev, tmp_path):
     assert img2.device.type == "cuda" and torch.equal(img1, img2)
 
 
-# ---- K14 on the benchmark cells' 1080p frames --------------------------
+# ---- K14 and K15 on the benchmark cells' 1080p frames ------------------
 
 K14_CELLS = ("helmet-ibl.orbit", "colonnade-msaa.orbit")
+# K15 launches a frame: a vertex_stage call each (the helmet's opaque
+# pass; the colonnade's and its panes'; the edit cell's opaque, panes +
+# grid and HUD passes; the avatar room's whole pool and animated subset)
+K15_CELLS = {"helmet-ibl.orbit": 1, "colonnade-msaa.orbit": 2,
+             "colonnade-msaa-editor.edit": 3, "avatar-room-msaa.animate": 2}
 
 
 @pytest.fixture(scope="module")
 def cell_frames(dev):
     """Each benchmark cell opened on the card at its real size (port_bench
-    open_cell: the 1080p scene from a seed, warmed up), with the K14 calls
-    of one moving-camera frame: {cell: (renderer, driver, calls)}."""
+    open_cell: the 1080p scene from a seed, warmed up), with the K14 and
+    K15 calls of one frame: {cell: (renderer, driver, K14 calls, K15
+    calls)}."""
     from awsm_renderer_tpu_torch.ops import shade as S
+    from awsm_renderer_tpu_torch.passes import frame as TF
     from port_bench import run
 
     run._caches_in_checkout()
     out = {}
-    for cell in K14_CELLS:
+    for cell in K15_CELLS:
         _w, _c, _m, _scene, r, drv = run.open_cell(cell, 4100001801, dev)
-        calls, real = [], S.shade_surface_fused
+        calls, vcalls = [], []
+        real, vreal = S.shade_surface_fused, TF.vertex_stage
 
         def record(*args, **kwargs):
             calls.append((args, kwargs))
             return real(*args, **kwargs)
 
-        S.shade_surface_fused = record
+        def vrecord(*args, **kwargs):
+            vcalls.append((args, kwargs))
+            return vreal(*args, **kwargs)
+
+        S.shade_surface_fused, TF.vertex_stage = record, vrecord
         try:
             drv.step(0)
         finally:
-            S.shade_surface_fused = real
+            S.shade_surface_fused, TF.vertex_stage = real, vreal
         torch.cuda.synchronize()
-        out[cell] = (r, drv, calls)
+        out[cell] = (r, drv, calls, vcalls)
     return out
 
 
@@ -1061,7 +1086,7 @@ def test_k14_matches_twin_on_cell_frames(cell_frames, cell):
     turns an ulp of sqrt into ~1e-3.)"""
     from awsm_renderer_tpu_torch.ops import shade as S
 
-    _r, _drv, calls = cell_frames[cell]
+    _r, _drv, calls, _v = cell_frames[cell]
     assert len(calls) == (1 if cell.startswith("helmet") else 2)
     for args, kwargs in calls:
         got = S.shade_surface_fused(*args, **kwargs)
@@ -1086,7 +1111,7 @@ def test_k14_launches_one_kernel_and_copies_nothing(cell_frames, cell):
 
     from awsm_renderer_tpu_torch.ops import shade as S
 
-    r, drv, calls = cell_frames[cell]
+    r, drv, calls, _v = cell_frames[cell]
     args, kwargs = calls[0]
     S.shade_surface_fused(*args, **kwargs)
     torch.cuda.synchronize()
@@ -1114,7 +1139,7 @@ def test_k14_launches_once_per_shade_call(dev, cell_frames, cell):
     from awsm_renderer_tpu_torch.ops import shade as S
     from awsm_renderer_tpu_torch.utils.profiling import RenderTimings
 
-    r, drv, _calls = cell_frames[cell]
+    r, drv, _calls, _v = cell_frames[cell]
     n_calls, real = [], S.shade_surface
 
     def counted(*args, **kwargs):
@@ -1135,3 +1160,95 @@ def test_k14_launches_once_per_shade_call(dev, cell_frames, cell):
     assert kernels.launch_counts["shade_surface_fused"] - n0 == len(n_calls)
     assert len(n_calls) == 3 * (1 if cell.startswith("helmet") else 2)
     assert r.timings.counts.get("shade/chain", 0) == 0
+
+
+def _k15_pair(args, kwargs):
+    """K15 and its twin on one recorded call; a call that writes into the
+    pool's rows (the animated subset) gets a copy of them each."""
+    from awsm_renderer_tpu_torch.ops import vertex as V
+
+    out = kwargs.get("out")
+    kw = [dict(kwargs, out=None if out is None else out.clone())
+          for _ in range(2)]
+    return (V.vertex_stage(*args, **kw[0]),
+            V.vertex_stage_reference(*args, **kw[1]))
+
+
+@pytest.mark.parametrize("cell", list(K15_CELLS))
+def test_k15_matches_twin_on_cell_frames(cell_frames, cell):
+    """K15 against its twin on each vertex_stage call of the frame (the
+    cells' pools at 1080p: the helmet's plain pass, the colonnade's and
+    its compacted panes', the edit cell's three clipped passes, the
+    avatar room's whole pool and its morphed and skinned subset):
+    bit-equal, NaN for NaN, where no morph or skin sum is taken; else
+    within tests/test_torch_vertex_fused.py's tolerance (the twin sums
+    in K15's order, so it is bit-equal there in practice too)."""
+    import test_torch_vertex_fused as VF
+
+    _r, _drv, _calls, vcalls = cell_frames[cell]
+    assert len(vcalls) == K15_CELLS[cell]
+    for args, kwargs in vcalls:
+        got, ref = _k15_pair(args, kwargs)
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape
+        if kwargs.get("has_morphs") or kwargs.get("skin_sets"):
+            VF._close(got.cpu(), ref.cpu(), cell)
+            continue
+        nan = torch.isnan(got) & torch.isnan(ref)
+        assert torch.equal(_bits(torch.where(nan, 0.0, got)),
+                           _bits(torch.where(nan, 0.0, ref)))
+        assert torch.equal(nan, torch.isnan(got))
+
+
+@pytest.mark.parametrize("cell", list(K15_CELLS))
+def test_k15_launches_one_kernel_and_waits_on_nothing(cell_frames, cell):
+    """Each K15 call of a cell's frame is one kernel on the device, with
+    no host-to-device copy and no wait on the device (the camera travels
+    as kernel arguments)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from awsm_renderer_tpu_torch.ops import vertex as V
+
+    _r, _drv, _calls, vcalls = cell_frames[cell]
+    for args, kwargs in vcalls:
+        V.vertex_stage(*args, **kwargs)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                V.vertex_stage(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+        on_card = [(e.key, e.count) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(on_card) == 1 and on_card[0][1] == 1, on_card
+        assert "vertex_kernel" in on_card[0][0], on_card
+
+
+@pytest.mark.parametrize("cell", list(K15_CELLS))
+def test_k15_launches_once_per_vertex_stage_call(dev, cell_frames, cell):
+    """Over three frames (the driver's next three: the animation driver
+    takes its frames in order) every vertex_stage call launches K15
+    once: the cell's calls a frame, three times."""
+    from awsm_renderer_tpu_torch.ops import kernels
+    from awsm_renderer_tpu_torch.passes import frame as TF
+
+    _r, drv, _calls, _v = cell_frames[cell]
+    n_calls, real = [], TF.vertex_stage
+
+    def counted(*args, **kwargs):
+        n_calls.append(1)
+        return real(*args, **kwargs)
+
+    n0 = kernels.launch_counts["vertex_stage"]
+    TF.vertex_stage = counted
+    try:
+        for i in range(1, 4):
+            drv.step(i)
+    finally:
+        TF.vertex_stage = real
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["vertex_stage"] - n0 == len(n_calls)
+    assert len(n_calls) == 3 * K15_CELLS[cell]
