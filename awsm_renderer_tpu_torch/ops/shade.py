@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
 
 import torch
 
@@ -64,6 +65,31 @@ DEBUG_CHANNELS = {
     "emissive": 4,
     "specular": 5,
 }
+
+
+
+@dataclass(frozen=True)
+class ShadeSpec:
+    """A shade call's specialization: the host values that pick its code
+    path, as the reference's shader-template variables do. slot_mask /
+    ext: the texture slots and material extensions the bucket's
+    materials use (everything else compiles to constants); solid_env: a
+    solid environment's constants in place of the texel pool's image
+    rows; use_mips: mip-mapped taps; has_nearest: some texture filters
+    nearest; light_tiles: punctual lights through per-unit tiled lists
+    (_punctual_lights_tiled) instead of the dense loop; debug_mode: the
+    view drawn, none | normals (the shading normal as colour) | ibl |
+    punctual | material | channel:<name>. A frame's come from
+    passes/frame.py FrameSpec."""
+
+    slot_mask: tuple = NO_SLOTS
+    ext: tuple = NO_EXT
+    solid_env: bool = False
+    use_mips: bool = True
+    has_nearest: bool = True
+    light_tiles: bool = False
+    debug_mode: str = "none"
+
 
 #: resolved-plane names the resolve emits, in output order
 RESOLVE_NAMES = (
@@ -433,21 +459,18 @@ def _surface_mode(debug_mode: str) -> str:
     return "none"
 
 
-def _in_k14_scope(ext, debug_mode: str, light_tiles: bool) -> bool:
+def _in_k14_scope(spec: ShadeSpec) -> bool:
     """Whether K14 covers a shade call: no material extension, the plain
     or the normals view, the dense light loop."""
-    return (not any(ext) and debug_mode in ("none", "normals")
-            and not light_tiles)
+    return (not any(spec.ext) and spec.debug_mode in ("none", "normals")
+            and not spec.light_tiles)
 
 
-def shade_surface(planes, ds, *, width: int, height: int, solid_env: bool,
-                  use_mips: bool = True, slot_mask=NO_SLOTS,
-                  has_nearest: bool = True, ext=NO_EXT,
-                  debug_mode: str = "none", height_full: int | None = None,
-                  row_offset: int = 0, width_full: int | None = None,
-                  col_offset: int = 0, transparent_pass: bool = False,
-                  want_sky: bool = False, n_layer_tiles: int = 1,
-                  light_tiles: bool = False):
+def shade_surface(planes, ds, spec: ShadeSpec, *, width: int, height: int,
+                  height_full: int | None = None, row_offset: int = 0,
+                  width_full: int | None = None, col_offset: int = 0,
+                  transparent_pass: bool = False, want_sky: bool = False,
+                  n_layer_tiles: int = 1):
     """Fragment shading shared by the opaque, transparent and HUD passes
     -> (rgb [3 planes], alpha, valid), plus with transparent_pass the
     transmission factor [3 planes] and the refraction info (refracted
@@ -462,20 +485,15 @@ def shade_surface(planes, ds, *, width: int, height: int, solid_env: bool,
     height_full-row frame (and, for a 2-D screen tile, of columns starting
     at col_offset in a width_full-column frame); n_layer_tiles > 1 marks
     that many stacked layer
-    images (screen rows wrap per layer). slot_mask / ext: the texture
-    slots and extensions the bucket's materials use (everything else
-    compiles to constants, as the reference's shader-template variables
-    do). alpha is 1 / the mask cutoff test / base alpha per alpha mode (the
-    editor grid's line alpha in the transparent pass). debug_mode: none |
-    normals (the shading normal as colour) | ibl | punctual | material |
-    channel:<name>. light_tiles: punctual lights through per-unit tiled
-    lists (_punctual_lights_tiled) instead of the dense loop.
+    images (screen rows wrap per layer). spec: the call's specialization.
+    alpha is 1 / the mask cutoff test / base alpha per alpha mode (the
+    editor grid's line alpha in the transparent pass).
 
     The texture taps (K4 + K5) run first. A call in K14's scope
     (_in_k14_scope) then shades in one launch (shade_surface_fused; its
     plain twin on a CPU tensor); any other call runs the op-by-op chain
     (_shade_math) and counts `shade/chain`."""
-    fused = _in_k14_scope(ext, debug_mode, light_tiles)
+    fused = _in_k14_scope(spec)
     if not fused:
         count("shade/chain")
     valid = planes["tri_id"] >= 0
@@ -487,7 +505,7 @@ def shade_surface(planes, ds, *, width: int, height: int, solid_env: bool,
 
     # ---- material fetch (K3): only the columns this call reads (K14's
     # route: the active slots' alone, none without an active slot)
-    needed, col_idx = _material_columns(ds, slot_mask, debug_mode,
+    needed, col_idx = _material_columns(ds, spec.slot_mask, spec.debug_mode,
                                         slots_only=fused)
     cols = {}
     if needed:
@@ -496,21 +514,19 @@ def shade_surface(planes, ds, *, width: int, height: int, solid_env: bool,
             0, table.shape[0] - 1)
         cols = dict(zip(needed, onehot_split_rows(mat_row, table)))
 
-    taps = _texture_taps(planes, ds, cols, slot_mask, width=width,
-                         height=height, n_layer_tiles=n_layer_tiles,
-                         use_mips=use_mips, has_nearest=has_nearest)
+    taps = _texture_taps(planes, ds, cols, spec, width=width, height=height,
+                         n_layer_tiles=n_layer_tiles)
     if fused:
         color, alpha, trans = shade_surface_fused(
-            planes, ds, taps, slot_mask=slot_mask, solid_env=solid_env,
-            transparent_pass=transparent_pass, want_sky=want_sky,
-            normals_view=debug_mode == "normals", **geom)
+            planes, ds, taps, slot_mask=spec.slot_mask,
+            solid_env=spec.solid_env, transparent_pass=transparent_pass,
+            want_sky=want_sky, normals_view=spec.debug_mode == "normals",
+            **geom)
         refr = None
     else:
         color, alpha, trans, refr = _shade_math(
-            planes, ds, cols, taps, valid, slot_mask=slot_mask, ext=ext,
-            debug_mode=debug_mode, solid_env=solid_env,
+            planes, ds, cols, taps, valid, spec,
             transparent_pass=transparent_pass, want_sky=want_sky,
-            light_tiles=light_tiles,
             light_rows=ds["lights_host"][:ds["n_lights"]],
             gather=gather_split_channels, **geom)
     if transparent_pass:
@@ -518,19 +534,19 @@ def shade_surface(planes, ds, *, width: int, height: int, solid_env: bool,
     return color, alpha, valid
 
 
-def _texture_taps(planes, ds, cols, slot_mask, *, width: int, height: int,
-                  n_layer_tiles: int, use_mips: bool, has_nearest: bool):
+def _texture_taps(planes, ds, cols, spec: ShadeSpec, *, width: int,
+                  height: int, n_layer_tiles: int):
     """Every active slot through one K4 plan + one K5 -> K5's (4, n_active
     * P) rgba block (tap t: the t-th active slot, every pixel, bound to a
     texture or not), or None without an active slot. cols: the fetched
     material columns by fused-table number."""
-    active = [s for s in range(M.NUM_TEX_SLOTS) if slot_mask[s]]
+    active = [s for s in range(M.NUM_TEX_SLOTS) if spec.slot_mask[s]]
     if not active:
         return None
     uv0 = (planes["uv0_u"], planes["uv0_v"])
     uv1 = (planes["uv1_u"], planes["uv1_v"]) if "uv1_u" in planes else uv0
     duv = None
-    if use_mips:
+    if spec.use_mips:
         if "du0_dx" in planes:
             duv = (planes["du0_dx"], planes["dv0_dx"], planes["du0_dy"],
                    planes["dv0_dy"])
@@ -557,7 +573,7 @@ def _texture_taps(planes, ds, cols, slot_mask, *, width: int, height: int,
             vv = torch.where(use1, uv1[1], uv0[1])
         taps.append((tex_id, (u, vv), duv, tform))
     return sample_texture_block_c(
-        ds["texels"], ds["tex_desc"], taps, has_nearest=has_nearest,
+        ds["texels"], ds["tex_desc"], taps, has_nearest=spec.has_nearest,
         tex_transforms=ds["tex_transforms"])
 
 
@@ -598,9 +614,8 @@ def _view_rays(planes, cam, *, width: int, height: int, height_full: int,
     return world_pos, cam_pos, v
 
 
-def _shade_math(planes, ds, cols, taps, valid, *, slot_mask, ext,
-                debug_mode: str, solid_env: bool, transparent_pass: bool,
-                want_sky: bool, light_tiles: bool, light_rows, gather,
+def _shade_math(planes, ds, cols, taps, valid, spec: ShadeSpec, *,
+                transparent_pass: bool, want_sky: bool, light_rows, gather,
                 width: int, height: int, height_full: int, width_full: int,
                 row_offset: int, col_offset: int, n_layer_tiles: int):
     """The shade after the taps, op by op on (P,) planes -> (rgb, alpha,
@@ -609,6 +624,8 @@ def _shade_math(planes, ds, cols, taps, valid, *, slot_mask, ext,
     number; taps: _texture_taps's block; light_rows: the dense loop's
     host rows; gather: the env taps' texel-pool gather (K6 or its
     twin)."""
+    slot_mask, ext, debug_mode = spec.slot_mask, spec.ext, spec.debug_mode
+    solid_env, light_tiles = spec.solid_env, spec.light_tiles
     P = width * height
     dev = planes["tri_id"].device
     if "color_r" in planes:
@@ -974,10 +991,10 @@ def shade_surface_fused_reference(planes, ds, taps, *, slot_mask,
     mat_row = planes["mat_row"].to(torch.int32).clamp(0, table.shape[0] - 1)
     cols = dict(zip(needed, onehot_split_rows_reference(mat_row, table)))
     color, alpha, trans, _refr = _shade_math(
-        planes, ds, cols, taps, planes["tri_id"] >= 0, slot_mask=slot_mask,
-        ext=NO_EXT, debug_mode="normals" if normals_view else "none",
-        solid_env=solid_env, transparent_pass=transparent_pass,
-        want_sky=want_sky, light_tiles=False,
+        planes, ds, cols, taps, planes["tri_id"] >= 0,
+        ShadeSpec(slot_mask=slot_mask, solid_env=solid_env,
+                  debug_mode="normals" if normals_view else "none"),
+        transparent_pass=transparent_pass, want_sky=want_sky,
         light_rows=ds["lights"][:ds["n_lights"]].tolist(),
         gather=gather_split_channels_reference, width=width, height=height,
         height_full=height if height_full is None else height_full,
@@ -1141,27 +1158,20 @@ def shade_surface_fused(planes, ds, taps, *, slot_mask, solid_env: bool,
             None if trans is None else [trans[0], trans[1], trans[2]])
 
 
-def shade_deferred_c(vis, ds, *, width: int, height: int,
+def shade_deferred_c(vis, ds, spec: ShadeSpec, *, width: int, height: int,
                      height_full: int | None = None, row_offset: int = 0,
-                     width_full: int | None = None, col_offset: int = 0,
-                     solid_env: bool = False, use_mips: bool = True,
-                     slot_mask=NO_SLOTS, has_nearest: bool = True,
-                     ext=NO_EXT, debug_mode: str = "none",
-                     light_tiles: bool = False):
+                     width_full: int | None = None, col_offset: int = 0):
     """Deferred opaque shade -> HDR linear [r, g, b, a] (P,) planes: the
     shaded surface where covered, the skybox on a miss, alpha = coverage.
     The (height, width) planes are a band (or screen tile) starting at
     row_offset / col_offset of a height_full x width_full frame (the
-    sharded frame's). debug_mode: shade_surface's views (_surface_mode)."""
+    sharded frame's)."""
     P = width * height
     planes = {k: vis[k].reshape(P) for k in vis if k != "bins"}
     color, _alpha, valid = shade_surface(
-        planes, ds, width=width, height=height, height_full=height_full,
-        row_offset=row_offset, width_full=width_full, col_offset=col_offset,
-        solid_env=solid_env, use_mips=use_mips, slot_mask=slot_mask,
-        has_nearest=has_nearest, ext=ext,
-        debug_mode=_surface_mode(debug_mode), want_sky=True,
-        light_tiles=light_tiles)
+        planes, ds, spec, width=width, height=height,
+        height_full=height_full, row_offset=row_offset,
+        width_full=width_full, col_offset=col_offset, want_sky=True)
     return color + [valid.float()]
 
 
@@ -1185,10 +1195,8 @@ def _tile_unswizzle(t: torch.Tensor, H: int, W: int):
             .reshape(H * W))
 
 
-def shade_units_c(tid_c, dep_c, idx, setup_rows, ds, *, width: int,
-                  height: int, coord_scale: int, use_mips: bool, slot_mask,
-                  solid_env: bool, has_nearest: bool, ext, debug_mode: str,
-                  light_tiles: bool = False):
+def shade_units_c(tid_c, dep_c, idx, setup_rows, ds, spec: ShadeSpec, *,
+                  width: int, height: int, coord_scale: int):
     """Shade an explicit set of C compacted (th, 128) units (th =
     OPAQUE_TILE_ROWS; reference: shade.py shade_units_c) of a height-row
     frame: the MSAA frame's covered units and the temporal frame's
@@ -1220,19 +1228,14 @@ def shade_units_c(tid_c, dep_c, idx, setup_rows, ds, *, width: int,
     planes["ndc_x"] = ((gx + 0.5) / width * 2.0 - 1.0).reshape(C * U)
     planes["ndc_y"] = (1.0 - (gy + 0.5) / height * 2.0).reshape(C * U)
     color, _alpha, valid = shade_surface(
-        planes, ds, width=128, height=C * th, height_full=height,
-        solid_env=solid_env, use_mips=use_mips, slot_mask=slot_mask,
-        has_nearest=has_nearest, ext=ext,
-        debug_mode=_surface_mode(debug_mode), want_sky=True,
-        light_tiles=light_tiles)
+        planes, ds, spec, width=128, height=C * th, height_full=height,
+        want_sky=True)
     return color, valid
 
 
-def shade_deferred_compact_c(tid_flat, setup_rows, depth_flat, ds, *,
-                             width: int, height: int, use_mips: bool,
-                             slot_mask, solid_env: bool, has_nearest: bool,
-                             ext, debug_mode: str, tile_cap: int,
-                             light_tiles: bool = False):
+def shade_deferred_compact_c(tid_flat, setup_rows, depth_flat, ds,
+                             spec: ShadeSpec, *, width: int, height: int,
+                             tile_cap: int):
     """Covered-tile-compacted deferred opaque shade (reference: shade.py
     shade_deferred_compact_c; the MSAA frame's, whose ids come from the
     top-left samples of a 2x raster).
@@ -1256,15 +1259,12 @@ def shade_deferred_compact_c(tid_flat, setup_rows, depth_flat, ds, *,
     tid_c = sw_tid.index_select(0, idx).reshape(C * U)
     dep_c = _tile_swizzle(depth_flat, H, W).index_select(
         0, idx).reshape(C * U)
-    out_c, valid = shade_units_c(
-        tid_c, dep_c, idx, setup_rows, ds, width=W, height=H, coord_scale=2,
-        use_mips=use_mips, slot_mask=slot_mask, solid_env=solid_env,
-        has_nearest=has_nearest, ext=ext, debug_mode=debug_mode,
-        light_tiles=light_tiles)
+    out_c, valid = shade_units_c(tid_c, dep_c, idx, setup_rows, ds, spec,
+                                 width=W, height=H, coord_scale=2)
 
     R = n_tiles - C
     rest_sky = None
-    if not solid_env and R:
+    if not spec.solid_env and R:
         # per-pixel skybox for the skipped units: view rays through the
         # far plane, as shade_surface's miss path reconstructs them
         from .cubemap import sample_skybox_pool_c
@@ -1291,7 +1291,7 @@ def shade_deferred_compact_c(tid_flat, setup_rows, depth_flat, ds, *,
     out = []
     dev = tid_flat.device
     for c in range(3):
-        fill = float(ds["skybox"][0, c]) if solid_env else 0.0
+        fill = float(ds["skybox"][0, c]) if spec.solid_env else 0.0
         scat = torch.full((n_tiles, U), fill, device=dev).index_copy(
             0, idx, out_c[c].reshape(C, U))
         if rest_sky is not None:
@@ -1332,15 +1332,13 @@ def _shade_deep_then_front(layers, K: int, shade_group, out):
     return shade_group(0, K, out)
 
 
-def shade_transparent_layers_c(layers, opaque_ch, ds, *, width: int,
-                               height: int, height_full: int | None = None,
+def shade_transparent_layers_c(layers, opaque_ch, ds, spec: ShadeSpec, *,
+                               width: int, height: int,
+                               height_full: int | None = None,
                                row_offset: int = 0,
                                width_full: int | None = None,
-                               col_offset: int = 0, use_mips: bool = True,
-                               slot_mask=NO_SLOTS, solid_env: bool = False,
-                               has_nearest: bool = True, ext=NO_EXT,
-                               n_layers: int = 4, tile_cap: int | None = None,
-                               light_tiles: bool = False):
+                               col_offset: int = 0, n_layers: int = 4,
+                               tile_cap: int | None = None):
     """Forward-shade K depth-peeled transparent layers and composite them
     back to front over the opaque band (reference: shade.py
     shade_transparent_layers_c).
@@ -1369,19 +1367,16 @@ def shade_transparent_layers_c(layers, opaque_ch, ds, *, width: int,
     if (tile_cap is not None and H % OPAQUE_TILE_ROWS == 0 and W % 128 == 0
             and tile_cap * OPAQUE_TILE_ROWS * 128 < P and "uv0_u" in layers):
         return _shade_transparent_compact(
-            layers, opaque_ch, ds, width=W, height=H, height_full=H_full,
-            row_offset=row_offset, use_mips=use_mips, slot_mask=slot_mask,
-            solid_env=solid_env, has_nearest=has_nearest, ext=ext,
-            n_layers=K, tile_cap=tile_cap, light_tiles=light_tiles)
+            layers, opaque_ch, ds, spec, width=W, height=H,
+            height_full=H_full, row_offset=row_offset, n_layers=K,
+            tile_cap=tile_cap)
 
     def shade_group(k0, Kg, out_rgb):
         flat = {k: v[k0:k0 + Kg].reshape(Kg * P) for k, v in layers.items()}
         color, alpha, valid, trans, refr = shade_surface(
-            flat, ds, width=W, height=Kg * H, height_full=H_full,
+            flat, ds, spec, width=W, height=Kg * H, height_full=H_full,
             row_offset=row_offset, width_full=width_full,
-            col_offset=col_offset, use_mips=use_mips, slot_mask=slot_mask,
-            solid_env=solid_env, has_nearest=has_nearest, ext=ext,
-            transparent_pass=True, n_layer_tiles=Kg, light_tiles=light_tiles)
+            col_offset=col_offset, transparent_pass=True, n_layer_tiles=Kg)
         if refr is not None:
             idx, use_fb, fb = refr
             got = gather_split_channels_f32(torch.stack(opaque_ch, dim=-1),
@@ -1396,12 +1391,10 @@ def shade_transparent_layers_c(layers, opaque_ch, ds, *, width: int,
     return out + [opaque_ch[3]]
 
 
-def _shade_transparent_compact(layers, opaque_ch, ds, *, width: int,
-                               height: int, height_full: int,
-                               row_offset: int, use_mips: bool, slot_mask,
-                               solid_env: bool, has_nearest: bool, ext,
-                               n_layers: int, tile_cap: int,
-                               light_tiles: bool = False):
+def _shade_transparent_compact(layers, opaque_ch, ds, spec: ShadeSpec, *,
+                               width: int, height: int, height_full: int,
+                               row_offset: int, n_layers: int,
+                               tile_cap: int):
     """Covered-tile-compacted K-layer transparent shade + composite
     (reference: shade.py _shade_transparent_compact, reached through
     shade_transparent_layers_c(tile_cap=...)). The band planes cut into
@@ -1412,7 +1405,7 @@ def _shade_transparent_compact(layers, opaque_ch, ds, *, width: int,
     when the raster emitted none); only the composited rgb scatters back.
     Equal to the band path whenever the cap covers every tile layer 0
     touches. Not valid with KHR_materials_volume."""
-    if ext[EXT_VOLUME]:
+    if spec.ext[EXT_VOLUME]:
         raise ValueError("refraction needs band-space planes")
     H, W, K, th = height, width, n_layers, OPAQUE_TILE_ROWS
     P = H * W
@@ -1447,10 +1440,8 @@ def _shade_transparent_compact(layers, opaque_ch, ds, *, width: int,
         flat["ndc_x"] = ndc_x.repeat(Kg)
         flat["ndc_y"] = ndc_y.repeat(Kg)
         color, alpha, valid, trans, _refr = shade_surface(
-            flat, ds, width=128, height=Kg * C * th, height_full=height_full,
-            use_mips=use_mips, slot_mask=slot_mask, solid_env=solid_env,
-            has_nearest=has_nearest, ext=ext, transparent_pass=True,
-            light_tiles=light_tiles)
+            flat, ds, spec, width=128, height=Kg * C * th,
+            height_full=height_full, transparent_pass=True)
         bg = [o.expand(Kg, Pc) for o in ob]
         return _composite(color, alpha, valid, trans, bg, out_rgb)
 
@@ -1460,14 +1451,10 @@ def _shade_transparent_compact(layers, opaque_ch, ds, *, width: int,
     return out_full + [opaque_ch[3]]
 
 
-def shade_transparent_compact32(layers, tile_idx, opaque_ch, ds, *,
-                                width: int, height: int, height_full: int,
-                                row_offset: int, n_tx: int,
-                                use_mips: bool = True, slot_mask=NO_SLOTS,
-                                solid_env: bool = False,
-                                has_nearest: bool = True, ext=NO_EXT,
-                                n_layers: int = 4,
-                                light_tiles: bool = False):
+def shade_transparent_compact32(layers, tile_idx, opaque_ch, ds,
+                                spec: ShadeSpec, *, width: int, height: int,
+                                height_full: int, row_offset: int, n_tx: int,
+                                n_layers: int = 4):
     """Shade + composite K peels rasterized in covered-tile-compacted
     space (rasterize_layers_compact; reference: shade.py
     shade_transparent_compact32).
@@ -1482,7 +1469,7 @@ def shade_transparent_compact32(layers, tile_idx, opaque_ch, ds, *,
     at arbitrary pixels). Returns [r, g, b, a] (height*width,) planes."""
     from .raster import BT_H, BT_W, _deswizzle32, _pad_swizzle32
 
-    if ext[EXT_VOLUME]:
+    if spec.ext[EXT_VOLUME]:
         raise ValueError("refraction needs band-space planes")
     if "du0_dx" not in layers:
         raise ValueError("compact peel planes carry analytic derivatives")
@@ -1515,10 +1502,8 @@ def shade_transparent_compact32(layers, tile_idx, opaque_ch, ds, *,
         flat["ndc_x"] = ndc_x.repeat(Kg)
         flat["ndc_y"] = ndc_y.repeat(Kg)
         color, alpha, valid, trans, _refr = shade_surface(
-            flat, ds, width=128, height=Kg * C * 8, height_full=height_full,
-            use_mips=use_mips, slot_mask=slot_mask, solid_env=solid_env,
-            has_nearest=has_nearest, ext=ext, transparent_pass=True,
-            light_tiles=light_tiles)
+            flat, ds, spec, width=128, height=Kg * C * 8,
+            height_full=height_full, transparent_pass=True)
         bg = [o.expand(Kg, Pc) for o in ob]
         return _composite(color, alpha, valid, trans, bg, out_rgb)
 

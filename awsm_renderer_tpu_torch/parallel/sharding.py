@@ -52,7 +52,7 @@ from ..config import ToneMapping
 from ..ops.raster import TILE_H, TILE_W
 from ..ops.shade import ALL_EXT, ALL_SLOTS, EXT_VOLUME
 from ..passes.frame import (
-    _finish_frame, _frame_band, _msaa_edge_blend, _opaque_band,
+    FrameSpec, _finish_frame, _frame_band, _msaa_edge_blend, _opaque_band,
     _opaque_band_msaa, _overlay_band, _pad_to, _resolve_supersample,
 )
 
@@ -108,13 +108,8 @@ def _bucket(mask, on: bool, like):
     return torch.zeros_like(like) if mask is None else mask
 
 
-def _band_frame(ds, opaque_mask, transparent_mask=None, hud_mask=None, *,
-                bands, grid, exchange=None, width: int, height: int,
-                supersample: bool = False, msaa: bool = False,
-                tonemap: ToneMapping = ToneMapping.KHRONOS_PBR_NEUTRAL,
-                bloom: bool = False, dof: bool = False, smaa: bool = False,
-                debug_mode: str = "none", n_transparent_layers: int = 4,
-                **common):
+def _band_frame(ds, opaque_mask, transparent_mask, hud_mask,
+                spec: FrameSpec, *, bands, grid, exchange=None):
     """The sharded frame's pipeline for the bands `bands` (row-major
     indices) of a `grid` = (rows, cols) split of the padded frame.
 
@@ -124,18 +119,20 @@ def _band_frame(ds, opaque_mask, transparent_mask=None, hud_mask=None, *,
     assembles them — the in-process frame, which runs a sharded frame's
     every band in one process with no process group. A grid of more than
     one column is single-scale. transparent_mask / hud_mask None skip
-    their pass. `common`: the specialization keywords of the band
-    functions (use_mips, has_morphs, skin_sets, slot_mask, solid_env,
-    has_nearest, needs_clip, ext, has_uv1, has_color, light_tiles).
+    their pass. The overlay takes the opaque bucket's slot and extension
+    masks, and nothing compacts, crops or drops a DoF ring: spec's
+    overlay_* fields, tile caps and dof_rings are the single-device
+    frame's.
 
     Returns (ldr (H, W, 4), tri_id (H, W) int32 in triangle-pool space,
     depth (H, W)), the whole frame."""
     nr, nc = grid
-    if supersample and msaa:
+    if spec.supersample and spec.msaa:
         raise ValueError("pick one AA mode")
     if exchange is None:
         exchange = functools.partial(_assemble, grid=grid)
-    scale = 2 if supersample else 1
+    width, height = spec.width, spec.height
+    scale = 2 if spec.supersample else 1
     rw2 = _pad_to(width * scale, TILE_W)
     rh2 = _pad_to(height * scale, TILE_H)
     rw1 = _pad_to(width, TILE_W)
@@ -144,7 +141,7 @@ def _band_frame(ds, opaque_mask, transparent_mask=None, hud_mask=None, *,
         raise ValueError(
             f"padded render height {rh2} must split into TILE_H({TILE_H})-"
             f"aligned bands across {nr} devices")
-    if (supersample or msaa) and rh1 % (TILE_H * nr):
+    if (spec.supersample or spec.msaa) and rh1 % (TILE_H * nr):
         raise ValueError(
             f"padded display height {rh1} must split into TILE_H({TILE_H})-"
             f"aligned bands across {nr} devices for the 1x overlay pass")
@@ -152,8 +149,6 @@ def _band_frame(ds, opaque_mask, transparent_mask=None, hud_mask=None, *,
         raise ValueError(
             f"padded width {rw1} must split into TILE_W({TILE_W})-aligned "
             f"tile columns across {nc} devices")
-    overlay = dict(n_transparent_layers=n_transparent_layers,
-                   ov_tri_idx=None, **common)
 
     def overlay_bands(hdr_ch, tri_id, depth):
         """The overlay over each band's rows of the resolved 1x frame
@@ -165,8 +160,8 @@ def _band_frame(ds, opaque_mask, transparent_mask=None, hud_mask=None, *,
             hdr_b, tid_b = _overlay_band(
                 [c.reshape(rh1, rw1)[rows].reshape(-1) for c in hdr_ch],
                 tri_id[rows], depth[rows], ds, transparent_mask, hud_mask,
-                rw=rw1, band_h=band_h, rh_full=rh1, row_offset=b * band_h,
-                shift_rows=True, **overlay)
+                spec, rw=rw1, band_h=band_h, rh_full=rh1,
+                row_offset=b * band_h, shift_rows=True)
             packs.append(_pack([c.reshape(band_h, rw1) for c in hdr_b]
                                + [tid_b]))
         full = exchange(packs)
@@ -174,16 +169,13 @@ def _band_frame(ds, opaque_mask, transparent_mask=None, hud_mask=None, *,
             torch.int32)
 
     packs = []
-    if msaa:
+    if spec.msaa:
         band_h = rh1 // nr
-        msaa_kw = {k: v for k, v in common.items()
-                   if k not in ("has_uv1", "has_color")}
         for b in bands:
             hdr_b, samp, depth_b, _bins = _opaque_band_msaa(
-                ds, opaque_mask, rw2=_pad_to(width * 2, TILE_W),
+                ds, opaque_mask, spec, rw2=_pad_to(width * 2, TILE_W),
                 rh2=2 * rh1, rw1=rw1, rh1=rh1, band1_h=band_h,
-                row_offset1=b * band_h, shift_rows=True,
-                debug_mode=debug_mode, **msaa_kw)
+                row_offset1=b * band_h, shift_rows=True)
             packs.append(_pack([c.reshape(band_h, rw1) for c in hdr_b]
                                + list(samp) + [depth_b]))
         full = exchange(packs)
@@ -194,13 +186,12 @@ def _band_frame(ds, opaque_mask, transparent_mask=None, hud_mask=None, *,
                                   samp, rh1, rw1)
         hdr_ch, tri_id = overlay_bands(hdr_ch, samp[0], full[8])
         depth = full[8]
-    elif supersample:
+    elif spec.supersample:
         band_h = rh2 // nr
         for b in bands:
             hdr_b, tid_b, depth_b, _bins = _opaque_band(
-                ds, opaque_mask, rw=rw2, band_h=band_h, rh_full=rh2,
-                row_offset=b * band_h, shift_rows=True,
-                debug_mode=debug_mode, **common)
+                ds, opaque_mask, spec, rw=rw2, band_h=band_h, rh_full=rh2,
+                row_offset=b * band_h, shift_rows=True)
             packs.append(_pack([c.reshape(band_h, rw2) for c in hdr_b]
                                + [tid_b, depth_b]))
         full = exchange(packs)
@@ -214,21 +205,16 @@ def _band_frame(ds, opaque_mask, transparent_mask=None, hud_mask=None, *,
         for b in bands:
             r, c = divmod(b, nc)
             hdr_b, tid_b, depth_b = _frame_band(
-                ds, opaque_mask, transparent_mask, hud_mask, rw=band_w,
-                band_h=band_h, rh_full=rh1, row_offset=r * band_h,
+                ds, opaque_mask, transparent_mask, hud_mask, spec,
+                rw=band_w, band_h=band_h, rh_full=rh1, row_offset=r * band_h,
                 shift_rows=True, rw_full=rw1 if nc > 1 else None,
-                col_offset=c * band_w, shift_cols=nc > 1,
-                n_transparent_layers=n_transparent_layers,
-                debug_mode=debug_mode, **common)
+                col_offset=c * band_w, shift_cols=nc > 1)
             packs.append(_pack([h.reshape(band_h, band_w) for h in hdr_b]
                                + [tid_b, depth_b]))
         full = exchange(packs)
         hdr_ch = [full[c].reshape(-1) for c in range(4)]
         tri_id, depth = full[4].view(torch.int32), full[5]
-    ldr, tri_id, depth = _finish_frame(
-        hdr_ch, tri_id, depth, ds, rw=rw1, rh=rh1, width=width,
-        height=height, tonemap=tonemap, bloom=bloom, dof=dof, smaa=smaa)
-    return ldr, tri_id, depth
+    return _finish_frame(hdr_ch, tri_id, depth, ds, spec, rw=rw1, rh=rh1)
 
 
 def render_frame_sharded(
@@ -255,28 +241,29 @@ def render_frame_sharded(
     scene and masks (nothing is broadcast). solid_env must say whether
     the scene's environment is solid: the port's flush ships an image
     environment's rows in the texel pool (ds["env_pool_base"]) and a
-    solid one's as constants. The padded render height must
-    split into TILE_H-aligned bands: pad(height * scale) % (TILE_H * n)
-    == 0 (1080 rows: n dividing 135).
+    solid one's as constants (the renderer's _frame_spec has it). The
+    padded render height must split into TILE_H-aligned bands:
+    pad(height * scale) % (TILE_H * n) == 0 (1080 rows: n dividing 135).
 
     Returns (ldr (H, W, 4), tri_id (H, W), depth (H, W)), the whole frame,
     on every rank."""
     if mesh.ndim != 1:
         raise ValueError("render_frame_sharded takes a 1-D mesh; screen "
                          "tiles are render_frame_sharded_2d's")
+    spec = FrameSpec(
+        width=width, height=height, tonemap=tonemap, supersample=supersample,
+        msaa=msaa, needs_clip=needs_clip, has_morphs=has_morphs,
+        skin_sets=skin_sets, solid_env=solid_env, has_color=has_color,
+        has_uv1=has_uv1, use_mips=use_mips, slot_mask=slot_mask,
+        has_nearest=has_nearest, ext=ALL_EXT if ext is None else ext,
+        debug_mode=debug_mode, n_transparent_layers=n_transparent_layers,
+        bloom=bloom, dof=dof, smaa=smaa, light_tiles=light_tiles)
     return _band_frame(
         ds, opaque_mask, _bucket(transparent_mask, has_transparent,
                                  opaque_mask),
-        _bucket(hud_mask, has_hud, opaque_mask),
+        _bucket(hud_mask, has_hud, opaque_mask), spec,
         bands=(mesh.get_local_rank(0),), grid=(mesh.size(0), 1),
-        exchange=_MeshExchange(mesh), width=width, height=height,
-        supersample=supersample, msaa=msaa, tonemap=tonemap, bloom=bloom,
-        dof=dof, smaa=smaa, debug_mode=debug_mode,
-        n_transparent_layers=n_transparent_layers, use_mips=use_mips,
-        has_morphs=has_morphs, skin_sets=skin_sets, slot_mask=slot_mask,
-        solid_env=solid_env, has_nearest=has_nearest, needs_clip=needs_clip,
-        ext=ALL_EXT if ext is None else ext, has_uv1=has_uv1,
-        has_color=has_color, light_tiles=light_tiles)
+        exchange=_MeshExchange(mesh))
 
 
 def render_frame_sharded_2d(
@@ -309,15 +296,16 @@ def render_frame_sharded_2d(
     if mesh.ndim != 2:
         raise ValueError("render_frame_sharded_2d takes a 2-D mesh")
     nc = mesh.size(1)
+    spec = FrameSpec(
+        width=width, height=height, tonemap=tonemap, needs_clip=needs_clip,
+        has_morphs=has_morphs, skin_sets=skin_sets, solid_env=solid_env,
+        has_color=has_color, has_uv1=has_uv1, use_mips=use_mips,
+        slot_mask=slot_mask, has_nearest=has_nearest, ext=ext,
+        n_transparent_layers=n_transparent_layers, bloom=bloom, dof=dof,
+        smaa=smaa, light_tiles=light_tiles)
     return _band_frame(
         ds, opaque_mask, _bucket(transparent_mask, has_transparent,
                                  opaque_mask),
-        _bucket(hud_mask, has_hud, opaque_mask),
+        _bucket(hud_mask, has_hud, opaque_mask), spec,
         bands=(mesh.get_local_rank(0) * nc + mesh.get_local_rank(1),),
-        grid=(mesh.size(0), nc), exchange=_MeshExchange(mesh), width=width,
-        height=height, tonemap=tonemap, bloom=bloom, dof=dof, smaa=smaa,
-        n_transparent_layers=n_transparent_layers, use_mips=use_mips,
-        has_morphs=has_morphs, skin_sets=skin_sets, slot_mask=slot_mask,
-        solid_env=solid_env, has_nearest=has_nearest, needs_clip=needs_clip,
-        ext=ext, has_uv1=has_uv1, has_color=has_color,
-        light_tiles=light_tiles)
+        grid=(mesh.size(0), nc), exchange=_MeshExchange(mesh))

@@ -16,8 +16,10 @@ _resolve_supersample -> _overlay_band -> _finish_frame, and
 render_frame_temporal. The band functions (and _frame_band) also run
 one row band or screen tile of the frame, their setup shifted into its
 local coordinates (_shift_rows_band, _shift_cols_band): the sharded
-frame's (parallel/sharding.py). PyTorch runs it eagerly, op by op, on
-the scene tensors' device.
+frame's (parallel/sharding.py). Each function takes the frame's
+specialization whole, a FrameSpec, and each shade its bucket's
+ShadeSpec. PyTorch runs it eagerly, op by op, on the scene tensors'
+device.
 
 With the renderer's timings on, each stage runs in a span of them
 (utils/profiling.py span), inside the facade's render_frame/dispatch
@@ -30,6 +32,7 @@ display.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import cached_property
 from typing import Callable, Optional
 
 import torch
@@ -39,15 +42,15 @@ from ..ops.effects import (
     DOF_RING_SCALES, bloom_c, depth_of_field_c, smaa_c,
 )
 from ..ops.raster import (
-    BT_H, BT_W, CHUNK, TILE_H, TILE_W, pad_setup_rows, rasterize,
+    BT_H, BT_W, CHUNK, TILE_H, TILE_W, rasterize,
     rasterize16, rasterize16_msaa, rasterize16_slim,
     rasterize_layers_compact, rasterize_layers_rows,
 )
 from ..ops.shade import (
-    EXT_VOLUME, NO_EXT, NO_SLOTS, OPAQUE_TILE_ROWS, RESOLVE_NAMES,
-    _tile_swizzle, _tile_unswizzle, resolve_planes_fused, shade_deferred_c,
-    shade_deferred_compact_c, shade_surface, shade_transparent_compact32,
-    shade_transparent_layers_c, shade_units_c,
+    EXT_VOLUME, NO_EXT, NO_SLOTS, OPAQUE_TILE_ROWS, RESOLVE_NAMES, ShadeSpec,
+    _surface_mode, _tile_swizzle, _tile_unswizzle, resolve_planes_fused,
+    shade_deferred_c, shade_deferred_compact_c, shade_surface,
+    shade_transparent_compact32, shade_transparent_layers_c, shade_units_c,
 )
 from ..ops.temporal import (
     reproject_history, select_units, temporal_merge, temporal_offsets,
@@ -216,8 +219,9 @@ def _run_vertex(ds, mask, *, rw: int, rh_full: int, needs_clip: bool,
     local coordinates of the band (or screen tile) at row_offset /
     col_offset, after the animated-subset split, and band = (band_h,
     band_w), when given, empties the bboxes of rows wholly outside it.
-    pad: the rows come padded to a CHUNK multiple (prep_setup_rows), the
-    tail written by the stage's own launch.
+    pad: the rows come padded to a CHUNK multiple (the raster's input,
+    ops/raster.py pad_setup_rows), the tail written by the stage's own
+    launch.
 
     The animated-subset split: when the scene has morphs or skins and the
     renderer shipped the animated triangle set (ds["anim_tri_idx"], pool
@@ -258,29 +262,103 @@ def _run_vertex_compact(ds, mask, tri_idx, *, rw: int, rh_full: int,
     triangles of a pool of hundreds of thousands; the stage reads the
     pools at tri_idx (vertex_stage's index) and the rows carry their pool
     ids in S_ORIG_ID, which the fat K7/K8 kernels emit as tri_id. The
-    rows come padded to a CHUNK multiple (prep_setup_rows). Instanced
-    geometry never reaches it (the renderer passes no index when an
-    overlay mesh is instanced)."""
+    rows come padded to a CHUNK multiple. Instanced geometry never
+    reaches it (the renderer passes no index when an overlay mesh is
+    instanced)."""
     rows = _stage(ds, ds, ds["tri_mesh"], mask, tri_idx, width=rw,
                   height=rh_full, needs_clip=needs_clip,
                   has_morphs=has_morphs, skin_sets=skin_sets, pad_to=CHUNK)
     return _shift_rows_band(rows, row_offset) if shift_rows else rows
 
 
-def prep_setup_rows(rows: torch.Tensor) -> torch.Tensor:
-    """(T, NSETUP) vertex rows -> padded row-major raster input. No sort:
-    the binner's 16-triangle groups keep the pool's per-mesh order."""
-    return pad_setup_rows(rows)
+@dataclass(frozen=True)
+class FrameSpec:
+    """A frame's specialization: the host values that pick its code path,
+    under the reference's render_frame / render_frame_temporal keyword
+    names. The renderer builds one a frame (renderer.py _frame_spec).
+
+    width / height: the display size; tonemap, bloom, dof, smaa,
+    dof_rings (the host-proven active DoF rings, () = the identity, None
+    = every ring): the effects and the display. supersample / msaa: the
+    opaque stage at 2x2 samples a pixel (K1 at twice the resolution,
+    box-resolved; K9, shaded once a pixel and edge-blended). needs_clip,
+    has_morphs, skin_sets: the vertex stage's (clipping; the morph and
+    skin branches, split to ds["anim_tri_idx"] when the renderer ships
+    it). has_uv1 / has_color: the raster's uv1 and vertex-colour planes.
+    slot_mask, ext, solid_env, use_mips, has_nearest, light_tiles,
+    debug_mode: the shade's (ops/shade.py ShadeSpec; debug_mode "edges"
+    is the MSAA frame's coverage view). n_transparent_layers: the peel's
+    depth; overlay_slot_mask / overlay_ext: the overlay buckets' own
+    masks (None: the opaque bucket's); overlay_crop_y0 / overlay_crop_h:
+    the rows the overlay's geometry reaches (renderer._overlay_crop);
+    overlay_tile_cap / opaque_tile_cap: the host's covered-tile bounds of
+    the compacted peel and of the MSAA frame's compacted shade (None:
+    no compaction). shade_cap / alpha: the temporal frame's unit budget
+    and history blend (None on the ordinary frame)."""
+
+    width: int
+    height: int
+    tonemap: ToneMapping
+    supersample: bool = False
+    msaa: bool = False
+    needs_clip: bool = True
+    has_morphs: bool = False
+    skin_sets: int = 0
+    solid_env: bool = False
+    has_color: bool = True
+    has_uv1: bool = False
+    use_mips: bool = True
+    slot_mask: tuple = NO_SLOTS
+    has_nearest: bool = True
+    ext: tuple = NO_EXT
+    debug_mode: str = "none"
+    n_transparent_layers: int = 4
+    overlay_slot_mask: Optional[tuple] = None
+    overlay_ext: Optional[tuple] = None
+    overlay_crop_y0: Optional[int] = None
+    overlay_crop_h: Optional[int] = None
+    overlay_tile_cap: Optional[int] = None
+    opaque_tile_cap: Optional[int] = None
+    bloom: bool = False
+    dof: bool = False
+    smaa: bool = False
+    dof_rings: Optional[tuple] = None
+    light_tiles: bool = False
+    shade_cap: Optional[int] = None
+    alpha: Optional[float] = None
+
+    @property
+    def vertex(self) -> dict:
+        """_run_vertex's specialization keywords."""
+        return dict(needs_clip=self.needs_clip, has_morphs=self.has_morphs,
+                    skin_sets=self.skin_sets)
+
+    @cached_property
+    def opaque_shade(self) -> ShadeSpec:
+        """The opaque bucket's shade, drawing debug_mode's view (the edge
+        view never reaches the shade)."""
+        return ShadeSpec(
+            slot_mask=self.slot_mask, ext=self.ext, solid_env=self.solid_env,
+            use_mips=self.use_mips, has_nearest=self.has_nearest,
+            light_tiles=self.light_tiles,
+            debug_mode=_surface_mode(self.debug_mode))
+
+    @cached_property
+    def overlay_shade(self) -> ShadeSpec:
+        """The overlay buckets' shade: their own masks where given, else
+        the opaque bucket's, and the plain view."""
+        return ShadeSpec(
+            slot_mask=(self.slot_mask if self.overlay_slot_mask is None
+                       else self.overlay_slot_mask),
+            ext=self.ext if self.overlay_ext is None else self.overlay_ext,
+            solid_env=self.solid_env, use_mips=self.use_mips,
+            has_nearest=self.has_nearest, light_tiles=self.light_tiles)
 
 
-def _opaque_band(ds, opaque_mask, *, rw: int, band_h: int, rh_full: int,
-                 row_offset: int = 0, shift_rows: bool = False,
+def _opaque_band(ds, opaque_mask, spec: FrameSpec, *, rw: int, band_h: int,
+                 rh_full: int, row_offset: int = 0, shift_rows: bool = False,
                  rw_full: int | None = None, col_offset: int = 0,
-                 shift_cols: bool = False, needs_clip: bool,
-                 has_morphs: bool = False, skin_sets: int = 0,
-                 solid_env: bool, has_color: bool, has_uv1: bool,
-                 use_mips: bool, slot_mask, has_nearest: bool, ext,
-                 debug_mode: str, light_tiles: bool = False, hooks=None):
+                 shift_cols: bool = False, hooks=None):
     """Opaque geometry + deferred shade over one (band_h, rw) band of the
     padded rw_full x rh_full framebuffer, starting at row_offset /
     col_offset (the whole frame: band_h = rh_full, rw_full None, offsets
@@ -292,54 +370,48 @@ def _opaque_band(ds, opaque_mask, *, rw: int, band_h: int, rh_full: int,
     with span("render_frame/vertex"):
         srows = _run_vertex(
             ds, opaque_mask, rw=rw_full or rw, rh_full=rh_full,
-            needs_clip=needs_clip, has_morphs=has_morphs,
-            skin_sets=skin_sets, row_offset=row_offset,
-            shift_rows=shift_rows, col_offset=col_offset,
-            shift_cols=shift_cols, band=(band_h, rw), pad=True)
+            row_offset=row_offset, shift_rows=shift_rows,
+            col_offset=col_offset, shift_cols=shift_cols,
+            band=(band_h, rw), pad=True, **spec.vertex)
     # uv1 / vertex-colour planes only when a material samples uv1 or a
     # mesh carries colours; no analytic derivatives: the mip gradients
     # are screen differences of the band's padded uv0 planes, as in the
     # reference
     with span("render_frame/raster"):
-        vis = rasterize16(srows, width=rw, height=band_h, has_uv1=has_uv1,
-                          has_color=has_color, analytic_derivs=False)
+        vis = rasterize16(srows, width=rw, height=band_h,
+                          has_uv1=spec.has_uv1, has_color=spec.has_color,
+                          analytic_derivs=False)
         bins = vis.pop("bins")
     if getattr(hooks, "after_geometry", None):
         vis = hooks.after_geometry(vis, ds)
     with span("render_frame/shade"):
         hdr_ch = shade_deferred_c(
-            vis, ds, width=rw, height=band_h, height_full=rh_full,
-            row_offset=row_offset, width_full=rw_full, col_offset=col_offset,
-            solid_env=solid_env, use_mips=use_mips, slot_mask=slot_mask,
-            has_nearest=has_nearest, ext=ext, debug_mode=debug_mode,
-            light_tiles=light_tiles)
+            vis, ds, spec.opaque_shade, width=rw, height=band_h,
+            height_full=rh_full, row_offset=row_offset, width_full=rw_full,
+            col_offset=col_offset)
     return hdr_ch, vis["tri_id"], vis["depth"], bins
 
 
-def _opaque_band_msaa(ds, opaque_mask, *, rw2: int, rh2: int, rw1: int,
-                      rh1: int, band1_h: int | None = None,
-                      row_offset1: int = 0, shift_rows: bool = False,
-                      needs_clip: bool, has_morphs: bool = False,
-                      skin_sets: int = 0, solid_env: bool,
-                      use_mips: bool, slot_mask, has_nearest: bool, ext,
-                      debug_mode: str, tile_cap: int | None = None,
-                      light_tiles: bool = False, hooks=None):
+def _opaque_band_msaa(ds, opaque_mask, spec: FrameSpec, *, rw2: int,
+                      rh2: int, rw1: int, rh1: int,
+                      band1_h: int | None = None, row_offset1: int = 0,
+                      shift_rows: bool = False, hooks=None):
     """MSAA-4x opaque stage: coverage and depth at 2x2 samples per display
     pixel (K9 over the vertex stage at twice the resolution, rw2 x rh2),
     shading once per display pixel at its top-left sample (K2 with
-    coord_scale 2), covered-tile compacted when the host cap tile_cap
-    bounds the covered (OPAQUE_TILE_ROWS, 128) units below the band. The
-    "edges" view skips shading: white where a pixel's 4 samples disagree,
-    dim grey on interior coverage, black on a miss. An after_geometry
-    hook gets the resolved planes of the shading samples, with depth, and
-    turns the compaction off (it sees full-frame planes); the sample
-    planes stay the raster's.
+    coord_scale 2), covered-tile compacted when the host cap
+    spec.opaque_tile_cap bounds the covered (OPAQUE_TILE_ROWS, 128) units
+    below the band. The "edges" view skips shading: white where a pixel's
+    4 samples disagree, dim grey on interior coverage, black on a miss.
+    An after_geometry hook gets the resolved planes of the shading
+    samples, with depth, and turns the compaction off (it sees full-frame
+    planes); the sample planes stay the raster's.
 
     band1_h (None: rh1, the whole frame) display rows starting at display
     row row_offset1: K9 rasterizes the band's 2 * band1_h sample rows;
     shift_rows puts the setup in the band's coordinates (the sharded
     frame), so K2 resolves at band-local rows. The compaction is the
-    whole frame's only (the sharded frame passes no tile_cap).
+    whole frame's only (the sharded frame's spec has no tile cap).
 
     Returns (hdr [r, g, b, a] (band1_h*rw1,) planes, samp = 4x (band1_h,
     rw1) sample-id planes [tl, tr, bl, br], depth1 (band1_h, rw1), K9's
@@ -347,10 +419,9 @@ def _opaque_band_msaa(ds, opaque_mask, *, rw2: int, rh2: int, rw1: int,
     band1_h = rh1 if band1_h is None else band1_h
     with span("render_frame/vertex"):
         srows = _run_vertex(
-            ds, opaque_mask, rw=rw2, rh_full=rh2, needs_clip=needs_clip,
-            has_morphs=has_morphs, skin_sets=skin_sets,
-            row_offset=2 * row_offset1, shift_rows=shift_rows,
-            band=(2 * band1_h, rw2), pad=True)
+            ds, opaque_mask, rw=rw2, rh_full=rh2, row_offset=2 * row_offset1,
+            shift_rows=shift_rows, band=(2 * band1_h, rw2), pad=True,
+            **spec.vertex)
     w_half = rw2 // 2
 
     def fit_cols(p, fill):
@@ -368,7 +439,7 @@ def _opaque_band_msaa(ds, opaque_mask, *, rw2: int, rh2: int, rw1: int,
     with span("render_frame/shade"):
         P = band1_h * rw1
         rep = samp[0].reshape(P)
-        if debug_mode == "edges":
+        if spec.debug_mode == "edges":
             edge = ((samp[1] != samp[0]) | (samp[2] != samp[0])
                     | (samp[3] != samp[0])).reshape(P)
             v = torch.where(edge, 1.0, torch.where(rep >= 0, 0.15, 0.0))
@@ -379,15 +450,13 @@ def _opaque_band_msaa(ds, opaque_mask, *, rw2: int, rh2: int, rw1: int,
         # texel-pool rows. rh1 and rw1 are TILE_H- and TILE_W-multiples (8,
         # 128), so the reference's layout conditions (frame.py:751-756)
         # reduce to this gate
-        if (tile_cap is not None and (solid_env or "env_pool_base" in ds)
+        tile_cap = spec.opaque_tile_cap
+        if (tile_cap is not None and (spec.solid_env or "env_pool_base" in ds)
                 and tile_cap * OPAQUE_TILE_ROWS * 128 < P
                 and not getattr(hooks, "after_geometry", None)):
             hdr_ch = shade_deferred_compact_c(
-                rep, srows, depth1.reshape(P), ds, width=rw1, height=rh1,
-                use_mips=use_mips, slot_mask=slot_mask,
-                solid_env=solid_env, has_nearest=has_nearest, ext=ext,
-                debug_mode=debug_mode, tile_cap=tile_cap,
-                light_tiles=light_tiles)
+                rep, srows, depth1.reshape(P), ds, spec.opaque_shade,
+                width=rw1, height=rh1, tile_cap=tile_cap)
             return hdr_ch, samp, depth1, bins
 
         vis = resolve_planes_fused(
@@ -399,10 +468,8 @@ def _opaque_band_msaa(ds, opaque_mask, *, rw2: int, rh2: int, rw1: int,
         vis = hooks.after_geometry(vis, ds)
     with span("render_frame/shade"):
         hdr_ch = shade_deferred_c(
-            vis, ds, width=rw1, height=band1_h, height_full=rh1,
-            row_offset=row_offset1, solid_env=solid_env, use_mips=use_mips,
-            slot_mask=slot_mask, has_nearest=has_nearest, ext=ext,
-            debug_mode=debug_mode, light_tiles=light_tiles)
+            vis, ds, spec.opaque_shade, width=rw1, height=band1_h,
+            height_full=rh1, row_offset=row_offset1)
     return hdr_ch, samp, depth1, bins
 
 
@@ -451,21 +518,14 @@ def _resolve_supersample(hdr_ch, tri_id, depth, *, width: int, height: int,
     return hdr_ch, tri_id, depth
 
 
-def _overlay_band(hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask, *,
-                  rw: int, band_h: int, rh_full: int, row_offset: int = 0,
-                  shift_rows: bool = False, rw_full: int | None = None,
-                  col_offset: int = 0, shift_cols: bool = False,
-                  needs_clip: bool,
-                  has_morphs: bool = False, skin_sets: int = 0,
-                  solid_env: bool, has_color: bool, has_uv1: bool,
-                  use_mips: bool, slot_mask, has_nearest: bool, ext,
-                  n_transparent_layers: int, ov_tri_idx,
-                  crop_y0: int | None = None, crop_h: int | None = None,
-                  tile_cap: int | None = None, light_tiles: bool = False,
-                  hooks=None):
+def _overlay_band(hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask,
+                  spec: FrameSpec, *, rw: int, band_h: int, rh_full: int,
+                  row_offset: int = 0, shift_rows: bool = False,
+                  rw_full: int | None = None, col_offset: int = 0,
+                  shift_cols: bool = False, ov_tri_idx=None, hooks=None):
     """Transparent forward peel + HUD over the shaded opaque band
-    (reference: frame.py _overlay_band). slot_mask / ext are the overlay
-    bucket's own; ov_tri_idx is the overlay's compacted triangle pool
+    (reference: frame.py _overlay_band), shaded with spec.overlay_shade.
+    ov_tri_idx is the overlay's compacted triangle pool
     (renderer._overlay_tri_idx), or None for the full combined pool (an
     overlay mesh is instanced, or the sharded frame). The band is
     (band_h, rw) at row_offset / col_offset of an rw_full x rh_full frame,
@@ -474,28 +534,24 @@ def _overlay_band(hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask, *,
     hud_mask None skip their pass. The before_transparent /
     after_transparent hooks run before and after the transparent pass on
     the (band_h, rw, 4) image. Returns (hdr_ch, tri_id)."""
+    shade = spec.overlay_shade
     # ---- row-band crop: the overlay runs only on the rows its geometry's
     # projected AABBs reach (renderer._overlay_crop); off with volume
     # refraction, which gathers the opaque image outside the band, and
     # with the overlay hooks, which see the whole image
+    crop_h = spec.overlay_crop_h
     if (crop_h is not None and not shift_rows and crop_h < band_h
-            and not ext[EXT_VOLUME]
+            and not shade.ext[EXT_VOLUME]
             and not (getattr(hooks, "before_transparent", None)
                      or getattr(hooks, "after_transparent", None))):
-        y0 = crop_y0
+        y0 = spec.overlay_crop_y0
         hdr_c = [c.reshape(band_h, rw)[y0:y0 + crop_h].reshape(-1)
                  for c in hdr_ch]
         hdr_c, tri_c = _overlay_band(
             hdr_c, tri_id[y0:y0 + crop_h], depth[y0:y0 + crop_h], ds,
-            transparent_mask, hud_mask, rw=rw, band_h=crop_h,
+            transparent_mask, hud_mask, spec, rw=rw, band_h=crop_h,
             rh_full=rh_full, row_offset=y0, shift_rows=True,
-            needs_clip=needs_clip, has_morphs=has_morphs,
-            skin_sets=skin_sets, solid_env=solid_env, has_color=has_color,
-            has_uv1=has_uv1, use_mips=use_mips, slot_mask=slot_mask,
-            has_nearest=has_nearest, ext=ext,
-            n_transparent_layers=n_transparent_layers,
-            ov_tri_idx=ov_tri_idx, tile_cap=tile_cap,
-            light_tiles=light_tiles)
+            ov_tri_idx=ov_tri_idx)
         out = []
         for full, band in zip(hdr_ch, hdr_c):
             full = full.reshape(band_h, rw).clone()
@@ -507,27 +563,24 @@ def _overlay_band(hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask, *,
 
     if ov_tri_idx is not None and shift_cols:
         raise ValueError("compacted overlay pools are 1-D only")
-    anim = dict(has_morphs=has_morphs, skin_sets=skin_sets)
 
     def run_vertex(mask):
         if ov_tri_idx is not None:
             return _run_vertex_compact(ds, mask, ov_tri_idx, rw=rw,
-                                       rh_full=rh_full, needs_clip=needs_clip,
-                                       row_offset=row_offset,
-                                       shift_rows=shift_rows, **anim)
+                                       rh_full=rh_full, row_offset=row_offset,
+                                       shift_rows=shift_rows, **spec.vertex)
         return _run_vertex(ds, mask, rw=rw_full or rw, rh_full=rh_full,
-                           needs_clip=needs_clip, row_offset=row_offset,
-                           shift_rows=shift_rows, col_offset=col_offset,
-                           shift_cols=shift_cols, band=(band_h, rw),
-                           pad=True, **anim)
+                           row_offset=row_offset, shift_rows=shift_rows,
+                           col_offset=col_offset, shift_cols=shift_cols,
+                           band=(band_h, rw), pad=True, **spec.vertex)
 
     # the compacted peel's shade takes row bands only (the sharded frame
     # passes no tile_cap)
     cols_kw = dict(width_full=rw_full, col_offset=col_offset)
-    shade_kw = dict(height_full=rh_full, row_offset=row_offset,
-                    use_mips=use_mips, slot_mask=slot_mask,
-                    solid_env=solid_env, has_nearest=has_nearest, ext=ext,
-                    light_tiles=light_tiles)
+    rows_kw = dict(height_full=rh_full, row_offset=row_offset)
+    planes_kw = dict(has_uv1=spec.has_uv1, has_color=spec.has_color)
+    K = spec.n_transparent_layers
+    tile_cap = spec.overlay_tile_cap
 
     def stack(ch):
         return torch.stack(ch, dim=-1).reshape(band_h, rw, 4)
@@ -547,26 +600,24 @@ def _overlay_band(hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask, *,
         # covered-tile compaction of the whole peel + shade when the host
         # cap bounds the transparent tiles below the band (not with volume
         # refraction, which gathers the opaque image at arbitrary pixels)
-        if (tile_cap is not None and not ext[EXT_VOLUME]
+        if (tile_cap is not None and not shade.ext[EXT_VOLUME]
                 and min(tile_cap, n_t32) * BT_H * BT_W < band_h * rw):
             layers_c, t_idx, ntx32 = rasterize_layers_compact(
-                t_rows, depth, width=rw, height=band_h,
-                n_layers=n_transparent_layers, tile_cap32=tile_cap,
-                has_uv1=has_uv1, has_color=has_color)
+                t_rows, depth, width=rw, height=band_h, n_layers=K,
+                tile_cap32=tile_cap, **planes_kw)
             hdr_ch = shade_transparent_compact32(
-                layers_c, t_idx, hdr_ch, ds, width=rw, height=band_h,
-                n_tx=ntx32, n_layers=n_transparent_layers, **shade_kw)
+                layers_c, t_idx, hdr_ch, ds, shade, width=rw, height=band_h,
+                n_tx=ntx32, n_layers=K, **rows_kw)
         else:
             # analytic uv derivatives here too, as the compacted peel: the
             # tile cap can toggle with camera motion, and screen
             # differencing here would make mip selection pop
             layers = rasterize_layers_rows(
-                t_rows, depth, width=rw, height=band_h,
-                n_layers=n_transparent_layers, has_uv1=has_uv1,
-                has_color=has_color, analytic_derivs=True)
+                t_rows, depth, width=rw, height=band_h, n_layers=K,
+                analytic_derivs=True, **planes_kw)
             hdr_ch = shade_transparent_layers_c(
-                layers, hdr_ch, ds, width=rw, height=band_h,
-                n_layers=n_transparent_layers, **cols_kw, **shade_kw)
+                layers, hdr_ch, ds, shade, width=rw, height=band_h,
+                n_layers=K, **cols_kw, **rows_kw)
 
     if getattr(hooks, "after_transparent", None):
         hdr_ch = unstack(hooks.after_transparent(stack(hdr_ch), ds))
@@ -579,18 +630,17 @@ def _overlay_band(hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask, *,
             # invariant, so the HUD takes K7, which reads the ids from
             # S_ORIG_ID
             h_vis = rasterize(h_rows, width=rw, height=band_h,
-                              has_uv1=has_uv1, has_color=has_color,
-                              analytic_derivs=False)
+                              analytic_derivs=False, **planes_kw)
         else:
             # the full pool keeps it: K1 + K2, as the opaque pass
             h_vis = rasterize16(h_rows, width=rw, height=band_h,
-                                has_uv1=has_uv1, has_color=has_color,
-                                analytic_derivs=False)
+                                analytic_derivs=False, **planes_kw)
             del h_vis["bins"]
         P = rw * band_h
         h_planes = {k: v.reshape(P) for k, v in h_vis.items()}
         h_color, h_alpha, h_valid = shade_surface(
-            h_planes, ds, width=rw, height=band_h, **cols_kw, **shade_kw)
+            h_planes, ds, shade, width=rw, height=band_h, **cols_kw,
+            **rows_kw)
         a = torch.where(h_valid, h_alpha, torch.zeros_like(h_alpha))
         out = [torch.where(h_valid, h_color[c] * a + hdr_ch[c] * (1 - a),
                            hdr_ch[c]) for c in range(3)]
@@ -601,33 +651,31 @@ def _overlay_band(hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask, *,
     return hdr_ch, tri_id
 
 
-def _finish_frame(hdr_ch, tri_id, depth, ds, *, rw: int, rh: int,
-                  width: int, height: int, tonemap: ToneMapping,
-                  bloom: bool = False, dof: bool = False, smaa: bool = False,
-                  dof_rings=None, hooks=None):
+def _finish_frame(hdr_ch, tri_id, depth, ds, spec: FrameSpec, *, rw: int,
+                  rh: int, hooks=None):
     """Crop the padding, then the effects chain at display resolution on
-    channel planes: bloom, depth of field (dof_rings: the host-proven
-    active ring subset, () = the identity), the tonemap + sRGB display
-    pass, SMAA on the display image; stack to (H, W, 4); the last_pass
-    hook; tri_id to picking ids in triangle-pool space (clipping doubles
-    the rows)."""
+    channel planes: bloom, depth of field (over spec.dof_rings), the
+    tonemap + sRGB display pass, SMAA on the display image; stack to (H,
+    W, 4); the last_pass hook; tri_id to picking ids in triangle-pool
+    space (clipping doubles the rows)."""
+    width, height, dof_rings = spec.width, spec.height, spec.dof_rings
     with span("render_frame/display"):
         hdr_ch = [c.reshape(rh, rw)[:height, :width] for c in hdr_ch]
         tri_id = tri_id[:height, :width]
         depth = depth[:height, :width]
     rgb = hdr_ch[:3]
-    dof = dof and dof_rings != ()
-    if bloom or dof:
+    dof = spec.dof and dof_rings != ()
+    if spec.bloom or dof:
         with span("render_frame/effects"):
-            if bloom:
+            if spec.bloom:
                 rgb = bloom_c(rgb)
             if dof:
                 rgb = depth_of_field_c(
                     rgb, depth, ds["camera"],
                     rings=DOF_RING_SCALES if dof_rings is None else dof_rings)
     with span("render_frame/display"):
-        ldr_ch = display_pass_c(list(rgb) + hdr_ch[3:], tonemap)
-    if smaa:
+        ldr_ch = display_pass_c(list(rgb) + hdr_ch[3:], spec.tonemap)
+    if spec.smaa:
         with span("render_frame/effects"):
             ldr_ch = smaa_c(ldr_ch[:3]) + ldr_ch[3:]
     with span("render_frame/display"):
@@ -639,151 +687,104 @@ def _finish_frame(hdr_ch, tri_id, depth, ds, *, rw: int, rh: int,
     return ldr, tri_id, depth
 
 
-def _frame_band(ds, opaque_mask, transparent_mask, hud_mask, *, rw: int,
-                band_h: int, rh_full: int, row_offset: int = 0,
-                shift_rows: bool = False, rw_full: int | None = None,
-                col_offset: int = 0, shift_cols: bool = False,
-                n_transparent_layers: int, debug_mode: str, **common):
+def _frame_band(ds, opaque_mask, transparent_mask, hud_mask,
+                spec: FrameSpec, *, rw: int, band_h: int, rh_full: int,
+                row_offset: int = 0, shift_rows: bool = False,
+                rw_full: int | None = None, col_offset: int = 0,
+                shift_cols: bool = False):
     """Single-scale band pipeline (reference: frame.py _frame_band): the
     opaque stage and the overlay at the same resolution over one (band_h,
-    rw) band (or screen tile) of the padded frame. `common`: the
-    specialization keywords _opaque_band and _overlay_band share. Returns
-    (hdr_ch planes, tri_id, depth (band_h, rw)); the overlay runs over the
-    full combined pool."""
+    rw) band (or screen tile) of the padded frame. Returns (hdr_ch
+    planes, tri_id, depth (band_h, rw)); the overlay runs over the full
+    combined pool."""
     band = dict(rw=rw, band_h=band_h, rh_full=rh_full, row_offset=row_offset,
                 shift_rows=shift_rows, rw_full=rw_full, col_offset=col_offset,
                 shift_cols=shift_cols)
-    hdr_ch, tri_id, depth, _bins = _opaque_band(
-        ds, opaque_mask, debug_mode=debug_mode, **band, **common)
-    hdr_ch, tri_id = _overlay_band(
-        hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask,
-        n_transparent_layers=n_transparent_layers, ov_tri_idx=None, **band,
-        **common)
+    hdr_ch, tri_id, depth, _bins = _opaque_band(ds, opaque_mask, spec,
+                                                **band)
+    hdr_ch, tri_id = _overlay_band(hdr_ch, tri_id, depth, ds,
+                                   transparent_mask, hud_mask, spec, **band)
     return hdr_ch, tri_id, depth
 
 
-def _runs_overlay(transparent_mask, hud_mask, hooks) -> bool:
-    """The overlay stage runs when a bucket has content or an overlay
-    hook is set (the hooks fire on a frame without overlay content)."""
-    return (transparent_mask is not None or hud_mask is not None
-            or bool(getattr(hooks, "before_transparent", None))
-            or bool(getattr(hooks, "after_transparent", None)))
+def _frame_tail(hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask,
+                spec: FrameSpec, *, rw: int, rh: int, overlay_tri_idx,
+                hooks):
+    """The overlay over the padded rw x rh frame, when it runs (a bucket
+    has content or an overlay hook is set: the hooks fire on a frame
+    without overlay content), then _finish_frame -> (ldr, tri_id,
+    depth)."""
+    if (transparent_mask is not None or hud_mask is not None
+            or getattr(hooks, "before_transparent", None)
+            or getattr(hooks, "after_transparent", None)):
+        with span("render_frame/overlay"):
+            hdr_ch, tri_id = _overlay_band(
+                hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask, spec,
+                rw=rw, band_h=rh, rh_full=rh, ov_tri_idx=overlay_tri_idx,
+                hooks=hooks)
+    return _finish_frame(hdr_ch, tri_id, depth, ds, spec, rw=rw, rh=rh,
+                         hooks=hooks)
 
 
 def render_frame(ds, opaque_mask, transparent_mask=None, hud_mask=None, *,
-                 width: int, height: int, tonemap: ToneMapping,
-                 supersample: bool = False, msaa: bool = False,
-                 needs_clip: bool = True, has_morphs: bool = False,
-                 skin_sets: int = 0, solid_env: bool = False,
-                 has_color: bool = True, has_uv1: bool = False,
-                 use_mips: bool = True, slot_mask=NO_SLOTS,
-                 has_nearest: bool = True, ext=NO_EXT,
-                 debug_mode: str = "none", n_transparent_layers: int = 4,
-                 overlay_slot_mask=None, overlay_ext=None,
-                 overlay_crop_y0: int | None = None,
-                 overlay_crop_h: int | None = None, overlay_tri_idx=None,
-                 overlay_tile_cap: int | None = None,
-                 opaque_tile_cap: int | None = None, bloom: bool = False,
-                 dof: bool = False, smaa: bool = False, dof_rings=None,
-                 light_tiles: bool = False, hooks=None):
+                 spec: FrameSpec, overlay_tri_idx=None, hooks=None):
     """Returns (display rgba (H, W, 4) f32 in [0, 1], tri_id (H, W) int32
     in triangle-pool space (-1 = miss), depth (H, W) f32, raster bins).
 
     transparent_mask / hud_mask: (M,) bool device masks of the overlay
-    buckets, or None when a bucket is empty; the overlay_* and
-    opaque_tile_cap arguments are the host's per-frame specialization
-    (renderer.py). The overlay runs over its compacted triangle pool,
-    overlay_tri_idx, or over the full combined pool when it is None (an
-    overlay mesh is instanced). has_morphs / skin_sets: the scene's
-    animation specialization (the vertex stage's morph and skin
-    branches, split to ds["anim_tri_idx"] when the renderer ships it).
-    msaa: the
-    opaque stage at 2x2 samples per pixel (K9), shaded once per pixel and
-    edge-blended; supersample: the opaque stage at twice the resolution
-    (K1), box-resolved before the overlay. The overlay always runs at
-    display resolution over the resolved depth. light_tiles: every shade
-    takes the tiled light lists. hooks: a RenderHooks whose in-frame
-    callbacks run here (pre_render / post_render are the renderer's)."""
-    if supersample and msaa:
+    buckets, or None when a bucket is empty; spec: the frame's
+    specialization (FrameSpec). The overlay runs over its compacted
+    triangle pool, overlay_tri_idx, or over the full combined pool when
+    it is None (an overlay mesh is instanced). With spec.msaa the opaque
+    stage runs at 2x2 samples per pixel (K9), shaded once per pixel and
+    edge-blended; with spec.supersample at twice the resolution (K1),
+    box-resolved before the overlay. The overlay always runs at display
+    resolution over the resolved depth. hooks: a RenderHooks whose
+    in-frame callbacks run here (pre_render / post_render are the
+    renderer's)."""
+    if spec.supersample and spec.msaa:
         raise ValueError("pick one AA mode: supersample or msaa")
     ds = _first_pass(ds, hooks)
+    width, height = spec.width, spec.height
     rw1 = _pad_to(width, TILE_W)
     rh1 = _pad_to(height, TILE_H)
-    if msaa:
+    if spec.msaa:
         hdr_ch, samp, depth, bins = _opaque_band_msaa(
-            ds, opaque_mask, rw2=_pad_to(width * 2, TILE_W), rh2=2 * rh1,
-            rw1=rw1, rh1=rh1, needs_clip=needs_clip, has_morphs=has_morphs,
-            skin_sets=skin_sets, solid_env=solid_env, use_mips=use_mips,
-            slot_mask=slot_mask, has_nearest=has_nearest, ext=ext,
-            debug_mode=debug_mode, tile_cap=opaque_tile_cap,
-            light_tiles=light_tiles, hooks=hooks)
-        if debug_mode != "edges":         # keep the edge view crisp
+            ds, opaque_mask, spec, rw2=_pad_to(width * 2, TILE_W),
+            rh2=2 * rh1, rw1=rw1, rh1=rh1, hooks=hooks)
+        if spec.debug_mode != "edges":    # keep the edge view crisp
             with span("render_frame/resolve"):
                 hdr_ch = _msaa_edge_blend(hdr_ch, samp, rh1, rw1)
         tri_id = samp[0]
     else:
-        scale = 2 if supersample else 1
+        scale = 2 if spec.supersample else 1
         rw2 = _pad_to(width * scale, TILE_W)
         rh2 = _pad_to(height * scale, TILE_H)
         hdr_ch, tri_id, depth, bins = _opaque_band(
-            ds, opaque_mask, rw=rw2, band_h=rh2, rh_full=rh2,
-            needs_clip=needs_clip, has_morphs=has_morphs,
-            skin_sets=skin_sets, solid_env=solid_env, has_color=has_color,
-            has_uv1=has_uv1, use_mips=use_mips, slot_mask=slot_mask,
-            has_nearest=has_nearest, ext=ext, debug_mode=debug_mode,
-            light_tiles=light_tiles, hooks=hooks)
-        if supersample:
+            ds, opaque_mask, spec, rw=rw2, band_h=rh2, rh_full=rh2,
+            hooks=hooks)
+        if spec.supersample:
             # resolve BEFORE the overlay: the peel and HUD then run at
             # display resolution, over the resolved depth
             with span("render_frame/resolve"):
                 hdr_ch, tri_id, depth = _resolve_supersample(
                     hdr_ch, tri_id, depth, width=width, height=height,
                     rw2=rw2, rw1=rw1, rh1=rh1)
-    if _runs_overlay(transparent_mask, hud_mask, hooks):
-        with span("render_frame/overlay"):
-            hdr_ch, tri_id = _overlay_band(
-                hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask,
-                rw=rw1, band_h=rh1, rh_full=rh1, needs_clip=needs_clip,
-                has_morphs=has_morphs, skin_sets=skin_sets,
-                solid_env=solid_env, has_color=has_color, has_uv1=has_uv1,
-                use_mips=use_mips,
-                slot_mask=(slot_mask if overlay_slot_mask is None
-                           else overlay_slot_mask),
-                has_nearest=has_nearest,
-                ext=ext if overlay_ext is None else overlay_ext,
-                n_transparent_layers=n_transparent_layers,
-                crop_y0=overlay_crop_y0, crop_h=overlay_crop_h,
-                ov_tri_idx=overlay_tri_idx, tile_cap=overlay_tile_cap,
-                light_tiles=light_tiles, hooks=hooks)
-    ldr, tri_id, depth = _finish_frame(
-        hdr_ch, tri_id, depth, ds, rw=rw1, rh=rh1, width=width,
-        height=height, tonemap=tonemap, bloom=bloom, dof=dof, smaa=smaa,
-        dof_rings=dof_rings, hooks=hooks)
+    ldr, tri_id, depth = _frame_tail(
+        hdr_ch, tri_id, depth, ds, transparent_mask, hud_mask, spec, rw=rw1,
+        rh=rh1, overlay_tri_idx=overlay_tri_idx, hooks=hooks)
     return ldr, tri_id, depth, bins
 
 
 def render_frame_temporal(ds, opaque_mask, transparent_mask, hud_mask, hist,
-                          age, *, width: int, height: int,
-                          tonemap: ToneMapping, shade_cap: int, alpha: float,
-                          needs_clip: bool = True, has_morphs: bool = False,
-                          skin_sets: int = 0, solid_env: bool = False,
-                          has_color: bool = True, has_uv1: bool = False,
-                          use_mips: bool = True, slot_mask=NO_SLOTS,
-                          has_nearest: bool = True, ext=NO_EXT,
-                          n_transparent_layers: int = 4,
-                          overlay_slot_mask=None, overlay_ext=None,
-                          overlay_crop_y0: int | None = None,
-                          overlay_crop_h: int | None = None,
-                          overlay_tri_idx=None,
-                          overlay_tile_cap: int | None = None,
-                          bloom: bool = False, dof: bool = False,
-                          smaa: bool = False, dof_rings=None,
-                          light_tiles: bool = False, hooks=None):
+                          age, *, spec: FrameSpec, overlay_tri_idx=None,
+                          hooks=None):
     """Temporal-reuse frame (TAA; reference: frame.py
     render_frame_temporal): shade only what the previous frame cannot
     answer for. hist (5, rh1, rw1) f32 history [r, g, b, tid bits,
     depth]; age (n_units,) int32 frames since each (8, 128) unit shaded;
-    shade_cap the host's unit budget C. Per frame:
+    spec.shade_cap the host's unit budget C, spec.alpha the history
+    blend. Per frame:
 
       1. K1 at display resolution with the jittered camera (ids + depth);
       2. reprojection offsets through the unjittered current and previous
@@ -797,22 +798,23 @@ def render_frame_temporal(ds, opaque_mask, transparent_mask, hud_mask, hist,
 
     C comes from the host, so no step reads a device value on the host.
     hooks: the overlay hooks and last_pass run as in render_frame; the
-    opaque-stage hooks (first_pass, after_geometry) are refused, and the
-    renderer sends such a frame to render_frame.
+    opaque-stage hooks (first_pass, after_geometry) and the debug views
+    are refused, and the renderer sends such a frame to render_frame.
     Returns (ldr, tri_id, depth, new_hist, new_age)."""
     if (getattr(hooks, "first_pass", None)
             or getattr(hooks, "after_geometry", None)):
         raise ValueError("the temporal frame takes no opaque-stage hooks")
-    rw1 = _pad_to(width, TILE_W)
-    rh1 = _pad_to(height, TILE_H)
+    if spec.debug_mode != "none":
+        raise ValueError("the temporal frame takes no debug view")
+    rw1 = _pad_to(spec.width, TILE_W)
+    rh1 = _pad_to(spec.height, TILE_H)
     U = OPAQUE_TILE_ROWS * 128
     n_units = (rh1 // OPAQUE_TILE_ROWS) * (rw1 // 128)
 
     # ---- 1. slim geometry (jittered camera) -------------------------------
     with span("render_frame/vertex"):
-        srows = _run_vertex(
-            ds, opaque_mask, rw=rw1, rh_full=rh1, needs_clip=needs_clip,
-            has_morphs=has_morphs, skin_sets=skin_sets, pad=True)
+        srows = _run_vertex(ds, opaque_mask, rw=rw1, rh_full=rh1, pad=True,
+                            **spec.vertex)
     with span("render_frame/raster"):
         col, depth, _bins = rasterize16_slim(srows, width=rw1, height=rh1)
 
@@ -826,17 +828,15 @@ def render_frame_temporal(ds, opaque_mask, transparent_mask, hud_mask, hist,
     # ---- 3. shade the budgeted unit set ------------------------------------
     with span("render_frame/shade"):
         idx, shaded_unit = select_units(valid, age, width=rw1, height=rh1,
-                                        shade_cap=shade_cap)
+                                        shade_cap=spec.shade_cap)
         C = idx.shape[0]
         tid_c = _tile_swizzle(col, rh1, rw1).index_select(0, idx).reshape(
             C * U)
         dep_c = _tile_swizzle(depth, rh1, rw1).index_select(0, idx).reshape(
             C * U)
         out_c, _valid_c = shade_units_c(
-            tid_c, dep_c, idx, srows, ds, width=rw1, height=rh1,
-            coord_scale=1, use_mips=use_mips, slot_mask=slot_mask,
-            solid_env=solid_env, has_nearest=has_nearest, ext=ext,
-            debug_mode="none", light_tiles=light_tiles)
+            tid_c, dep_c, idx, srows, ds, spec.opaque_shade, width=rw1,
+            height=rh1, coord_scale=1)
         new_ch = [_tile_unswizzle(
             torch.zeros((n_units, U), device=col.device).index_copy(
                 0, idx, out_c[c].reshape(C, U)), rh1, rw1) for c in range(3)]
@@ -847,31 +847,12 @@ def render_frame_temporal(ds, opaque_mask, transparent_mask, hud_mask, hist,
     with span("render_frame/resolve"):
         merged, new_hist, cov = temporal_merge(
             new_ch, shaded_px, [rep_r, rep_g, rep_b], valid, blendable, hist,
-            col, depth, width=rw1, height=rh1, alpha=alpha)
+            col, depth, width=rw1, height=rh1, alpha=spec.alpha)
         new_age = torch.where(shaded_unit, 0, age + 1)
 
     # ---- 5. overlay + effects + display (as render_frame) ------------------
-    hdr_ch = merged + [cov]
-    tri_id = col.reshape(rh1, rw1)
-    depth2 = depth.reshape(rh1, rw1)
-    if _runs_overlay(transparent_mask, hud_mask, hooks):
-        with span("render_frame/overlay"):
-            hdr_ch, tri_id = _overlay_band(
-                hdr_ch, tri_id, depth2, ds, transparent_mask, hud_mask,
-                rw=rw1, band_h=rh1, rh_full=rh1, needs_clip=needs_clip,
-                has_morphs=has_morphs, skin_sets=skin_sets,
-                solid_env=solid_env, has_color=has_color, has_uv1=has_uv1,
-                use_mips=use_mips,
-                slot_mask=(slot_mask if overlay_slot_mask is None
-                           else overlay_slot_mask),
-                has_nearest=has_nearest,
-                ext=ext if overlay_ext is None else overlay_ext,
-                n_transparent_layers=n_transparent_layers,
-                crop_y0=overlay_crop_y0, crop_h=overlay_crop_h,
-                ov_tri_idx=overlay_tri_idx, tile_cap=overlay_tile_cap,
-                light_tiles=light_tiles, hooks=hooks)
-    ldr, tri_id, depth2 = _finish_frame(
-        hdr_ch, tri_id, depth2, ds, rw=rw1, rh=rh1, width=width,
-        height=height, tonemap=tonemap, bloom=bloom, dof=dof, smaa=smaa,
-        dof_rings=dof_rings, hooks=hooks)
+    ldr, tri_id, depth2 = _frame_tail(
+        merged + [cov], col.reshape(rh1, rw1), depth.reshape(rh1, rw1), ds,
+        transparent_mask, hud_mask, spec, rw=rw1, rh=rh1,
+        overlay_tri_idx=overlay_tri_idx, hooks=hooks)
     return ldr, tri_id, depth2, new_hist, new_age

@@ -51,7 +51,7 @@ from .ops.shade import OPAQUE_TILE_ROWS
 from .ops.raster import TILE_H, TILE_W
 from .ops.temporal import reset_history
 from .passes.frame import (
-    _inst_gids, _pad_to, render_frame, render_frame_temporal,
+    FrameSpec, _inst_gids, _pad_to, render_frame, render_frame_temporal,
 )
 from .utils.profiling import RenderTimings, active
 
@@ -118,9 +118,6 @@ class AwsmRendererTorch:
         self._mask_cache: Dict[str, tuple] = {}   # name -> (mask, tensor)
         self._last_debug_mode = "none"  # pick() replays the last frame's
         self._last_hooks = None        # debug mode and in-frame hooks
-        # the reference's legacy switch to the dense light loop (scripts
-        # that compare the two set it; config.light_tiles wins over it)
-        self._force_dense_lights = False
         self.last_bins = None          # raster bins of the last frame
         self._content_epoch = 0        # non-camera store flush counter
         self._temporal = None          # TAA state: hist/age/prev_vp/epoch
@@ -856,7 +853,42 @@ class AwsmRendererTorch:
             cfg if cfg is not None else self.config,
         )
 
-    def _log_retrace(self, frame_kw: dict, bucket_masks, ds) -> None:
+    def _frame_spec(self, prep, debug_mode: str = "none",
+                    shade_cap: Optional[int] = None,
+                    alpha: Optional[float] = None) -> FrameSpec:
+        """The frame's specialization (passes/frame.py FrameSpec): the
+        memoized prep's values and the ones read every frame, which the
+        prep key does not cover (the textures' and materials' flags).
+        shade_cap / alpha: the temporal frame's."""
+        cfg = self.config
+        aa, pp = cfg.anti_aliasing, cfg.post_processing
+        tx = self.textures
+        ov_crop = prep["ov_crop"] or (None, None)
+        return FrameSpec(
+            width=cfg.width, height=cfg.height, tonemap=pp.tonemapping,
+            supersample=aa.supersample, msaa=aa.msaa,
+            needs_clip=prep["masks"]["needs_clip"],
+            has_morphs=prep["has_morphs"], skin_sets=prep["skin_sets"],
+            solid_env=self.environment.is_solid,
+            has_color=self.meshes.uses_vertex_colors,
+            has_uv1=bool((self.materials.tex_slots[:, :, 1] == 1).any()),
+            use_mips=aa.mipmap, slot_mask=prep["slot_mask"],
+            has_nearest=bool((tx.descriptors[:, 5] == 0).any()
+                             and tx.descriptor_capacity > 0),
+            ext=prep["ext"], debug_mode=debug_mode,
+            n_transparent_layers=prep["n_layers"],
+            overlay_slot_mask=prep["ov_slot_mask"],
+            overlay_ext=prep["ov_ext"], overlay_crop_y0=ov_crop[0],
+            overlay_crop_h=ov_crop[1], overlay_tile_cap=prep["ov_tile_cap"],
+            opaque_tile_cap=prep["op_tile_cap"], bloom=pp.bloom, dof=pp.dof,
+            smaa=aa.smaa, dof_rings=prep["dof_rings"],
+            # tiled light lists above 8 lights unless config says
+            light_tiles=(cfg.light_tiles if cfg.light_tiles is not None
+                         else self.lights.count > 8),
+            shade_cap=shade_cap, alpha=alpha)
+
+    def _log_retrace(self, spec: FrameSpec, bucket_masks, ov_idx, hooks,
+                     ds) -> None:
         """Note 'retrace: <names>' in the timings when the frame's
         specialization changed from the last frame's: the names are the
         reference's, so a consumer of `timings` reads the same note. In
@@ -864,21 +896,22 @@ class AwsmRendererTorch:
         compile; the port compiles nothing per variant, so here it means
         the per-frame prep reran and the variant's first frame runs
         (first use of its kernels, the caching allocator grown to its
-        sizes). The specialization is every argument of render_frame /
-        render_frame_temporal but the tensors and the overlay band's
-        first row (a traced value in the reference), which buckets are
-        present, the overlay index's shape, the device dict's shapes and
-        the in-frame hooks (swapping only pre/post_render notes
-        nothing)."""
-        sig = {k: v for k, v in frame_kw.items()
-               if k not in ("overlay_tri_idx", "overlay_crop_y0", "hooks")}
+        sizes). The specialization is the fields of `spec` the frame's
+        kind takes (the reference's render_frame / render_frame_temporal
+        arguments) but the overlay band's first row (a traced value in
+        the reference), which buckets are present, the overlay index's
+        shape, the device dict's shapes and the in-frame hooks (swapping
+        only pre/post_render notes nothing)."""
+        skip = {"overlay_crop_y0"}
+        skip.update(("supersample", "msaa", "opaque_tile_cap", "debug_mode")
+                    if spec.shade_cap is not None else ("shade_cap", "alpha"))
+        sig = {f.name: getattr(spec, f.name)
+               for f in dataclasses.fields(spec) if f.name not in skip}
         sig["has_transparent"] = bucket_masks[1] is not None
         sig["has_hud"] = bucket_masks[2] is not None
-        ov_idx = frame_kw["overlay_tri_idx"]
         sig["overlay_tri_idx_shape"] = (None if ov_idx is None
                                         else tuple(ov_idx.shape))
         sig["ds_shapes"] = _shapes(ds)
-        hooks = frame_kw["hooks"]
         if hooks is not None:
             hooks = dataclasses.replace(hooks, pre_render=None,
                                         post_render=None)
@@ -968,7 +1001,7 @@ class AwsmRendererTorch:
                 self.materials.flags[:, MI_DEBUG_MASK] != 0).any():
             # a material's debug bitmask switches to the per-material view
             debug_mode = "material"
-        aa, pp = cfg.anti_aliasing, cfg.post_processing
+        aa = cfg.anti_aliasing
         # temporal reuse engages unless a debug view, another AA mode or an
         # opaque-stage hook reshapes the opaque stage; those fall back to
         # the ordinary frame. The history leaves self._temporal until this
@@ -988,40 +1021,14 @@ class AwsmRendererTorch:
                                     else self.camera.view_projection))
             else:
                 ds = self._flush()
-        # the prep memo, the frame's keywords and state: host work between
-        # the flush and the frame graph
+        # the prep memo, the frame's specialization and state: host work
+        # between the flush and the frame graph
         with self.timings.span("prepare"):
             prep_key = self._scene_signature(cfg)
             if self._prep is None or self._prep[0] != prep_key:
                 self.timings.count("prepare/rerun")
                 self._prep = (prep_key, self._prepare())
             prep = self._prep[1]
-            masks = prep["masks"]
-            tx = self.textures
-            ov_crop = prep["ov_crop"]
-            kw = dict(
-                width=cfg.width, height=cfg.height, tonemap=pp.tonemapping,
-                bloom=pp.bloom, dof=pp.dof, smaa=aa.smaa,
-                dof_rings=prep["dof_rings"], needs_clip=masks["needs_clip"],
-                solid_env=self.environment.is_solid,
-                has_color=self.meshes.uses_vertex_colors,
-                has_uv1=bool((self.materials.tex_slots[:, :, 1] == 1).any()),
-                use_mips=aa.mipmap, slot_mask=prep["slot_mask"],
-                has_nearest=bool((tx.descriptors[:, 5] == 0).any()
-                                 and tx.descriptor_capacity > 0),
-                ext=prep["ext"], n_transparent_layers=prep["n_layers"],
-                overlay_slot_mask=prep["ov_slot_mask"],
-                overlay_ext=prep["ov_ext"],
-                overlay_crop_y0=ov_crop[0] if ov_crop else None,
-                overlay_crop_h=ov_crop[1] if ov_crop else None,
-                overlay_tri_idx=prep["ov_idx"],
-                overlay_tile_cap=prep["ov_tile_cap"],
-                has_morphs=prep["has_morphs"], skin_sets=prep["skin_sets"],
-                # tiled light lists above 8 lights unless config says
-                light_tiles=(cfg.light_tiles if cfg.light_tiles is not None
-                             else (self.lights.count > 8
-                                   and not self._force_dense_lights)),
-                hooks=hooks)
             # the animated-subset split: ship the (cached) animated triangle
             # set while the scene has morphs or skins
             anim = (self._anim_tri_idx()
@@ -1033,6 +1040,7 @@ class AwsmRendererTorch:
                 ds.pop("anim_tri_n", None)
             bucket_masks = (prep["opaque_dev"], prep["transparent_dev"],
                             prep["hud_dev"])
+            temporal = {}
             if use_temporal:
                 rw1 = _pad_to(cfg.width, TILE_W)
                 rh1 = _pad_to(cfg.height, TILE_H)
@@ -1050,19 +1058,18 @@ class AwsmRendererTorch:
                     hist, age = st["hist"], st["age"]
                     cap = max(1, min(n_units, int(round(
                         cfg.temporal.cap_frac * n_units))))
-                mode_kw = dict(shade_cap=cap, alpha=cfg.temporal.alpha)
-            else:
-                mode_kw = dict(supersample=aa.supersample, msaa=aa.msaa,
-                               opaque_tile_cap=prep["op_tile_cap"],
-                               debug_mode=debug_mode)
-            self._log_retrace({**kw, **mode_kw}, bucket_masks, ds)
+                temporal = dict(shade_cap=cap, alpha=cfg.temporal.alpha)
+            spec = self._frame_spec(prep, debug_mode, **temporal)
+            self._log_retrace(spec, bucket_masks, prep["ov_idx"], hooks, ds)
+        frame_kw = dict(spec=spec, overlay_tri_idx=prep["ov_idx"],
+                        hooks=hooks)
         with self.timings.span("render_frame/dispatch"):
             if use_temporal:
                 ldr, tri_id, _depth, hist, age = render_frame_temporal(
-                    ds, *bucket_masks, hist, age, **mode_kw, **kw)
+                    ds, *bucket_masks, hist, age, **frame_kw)
             else:
                 ldr, tri_id, _depth, bins = render_frame(
-                    ds, *bucket_masks, **mode_kw, **kw)
+                    ds, *bucket_masks, **frame_kw)
         if use_temporal:
             self._temporal = dict(
                 hist=hist, age=age, prev_vp=self.camera.view_projection,

@@ -3276,10 +3276,10 @@ def record_lists(r, torch):
                       out))
         return out
 
-    def c32(layers, tile_idx, opaque_ch, ds, **kw):
+    def c32(layers, tile_idx, opaque_ch, ds, spec, **kw):
         ctx["tiles"] = (tile_idx, kw["n_tx"], kw["row_offset"])
         try:
-            return orig_c32(layers, tile_idx, opaque_ch, ds, **kw)
+            return orig_c32(layers, tile_idx, opaque_ch, ds, spec, **kw)
         finally:
             ctx.clear()
 
@@ -3299,6 +3299,8 @@ def phase_lights(P, np, torch, stress_syncs: int):
     the lists (lengths, overflowing units, the standalone cull_lights on
     the frame's depth plane), the tiled image against the dense one,
     N_FRAMES orbit frames each way, kernels a frame and host syncs."""
+    from dataclasses import replace
+
     from awsm_renderer_tpu_torch.passes.light_culling import (
         cull_lights, light_lists_from_bounds,
     )
@@ -3352,9 +3354,10 @@ def phase_lights(P, np, torch, stress_syncs: int):
 
     # ---- tiled against dense ----------------------------------------------
     tiled = r.render_device().clone()
-    r._force_dense_lights = True
+    auto = r.config
+    r.config = replace(auto, light_tiles=False)
     dense = r.render_device()
-    r._force_dense_lights = False
+    r.config = auto
     torch.cuda.synchronize()
     over_img = over_px[:-1].reshape(rh1, rw1)[:H, :W]
     err = (tiled - dense).abs().amax(dim=-1)
@@ -3374,7 +3377,7 @@ def phase_lights(P, np, torch, stress_syncs: int):
         orbit_camera(r, np, i)
 
     for label, dense_loop in (("tiled", False), ("dense", True)):
-        r._force_dense_lights = dense_loop
+        r.config = replace(auto, light_tiles=False) if dense_loop else auto
         log(f"  {label}: {N_FRAMES} orbit frames")
         img, med, wall, counts_ = orbit_frames(
             r, np, torch, cam, OPAQUE_PATH + ("rasterize_binned_compact",)
@@ -3386,7 +3389,7 @@ def phase_lights(P, np, torch, stress_syncs: int):
             f"{'not measured' if dev_ms is None else f'{dev_ms:.3f}'} ms a "
             f"frame (torch.profiler, 3 frames)")
         res[label] = (med, wall, n_k, dev_ms)
-    r._force_dense_lights = False
+    r.config = auto
     res["syncs"] = count_syncs(r, torch, "64-light tiled", cam, N_FRAMES + 2)
     check(res["syncs"] <= stress_syncs,
           f"64-light frame host syncs {res['syncs']} <= the stress frame's "
@@ -3981,39 +3984,37 @@ SHARD_TIMEOUT = 600      # s, the spawned ranks' join
 def shard_inputs(r):
     """Renderer r's current frame as the sharded functions take it: (ds,
     (opaque, transparent, hud) device masks, None where a bucket is empty,
-    render_frame_sharded's keywords). The renderer's own specialization,
-    with the overlay's slot and extension masks merged into the frame's
-    (the sharded frame has one set of each) and no overlay compaction,
-    crop or tile cap (it has none)."""
+    the frame's FrameSpec). The renderer's own specialization, with the
+    overlay's slot and extension masks merged into the frame's (the
+    sharded frame has one set of each) and no overlay compaction, crop,
+    tile cap or DoF ring set (it has none)."""
+    from dataclasses import replace
+
     ds = r._flush()
     prep = r._prepare()
-    cfg = r.config
-    aa, pp = cfg.anti_aliasing, cfg.post_processing
-    tx = r.textures
+    spec = r._frame_spec(prep)
 
     def merged(a, b):
         return a if b is None else tuple(x or y for x, y in zip(a, b))
 
-    kw = dict(
-        width=cfg.width, height=cfg.height, supersample=aa.supersample,
-        msaa=aa.msaa, tonemap=pp.tonemapping, bloom=pp.bloom, dof=pp.dof,
-        smaa=aa.smaa, use_mips=aa.mipmap, has_morphs=prep["has_morphs"],
-        skin_sets=prep["skin_sets"],
-        has_transparent=prep["transparent_dev"] is not None,
-        has_hud=prep["hud_dev"] is not None,
-        n_transparent_layers=prep["n_layers"],
-        slot_mask=merged(prep["slot_mask"], prep["ov_slot_mask"]),
-        solid_env=r.environment.is_solid,
-        has_nearest=bool((tx.descriptors[:, 5] == 0).any()
-                         and tx.descriptor_capacity > 0),
-        needs_clip=prep["masks"]["needs_clip"],
-        ext=merged(prep["ext"], prep["ov_ext"]),
-        has_uv1=bool((r.materials.tex_slots[:, :, 1] == 1).any()),
-        has_color=r.meshes.uses_vertex_colors,
-        light_tiles=(cfg.light_tiles if cfg.light_tiles is not None
-                     else r.lights.count > 8))
+    spec = replace(
+        spec, slot_mask=merged(spec.slot_mask, spec.overlay_slot_mask),
+        ext=merged(spec.ext, spec.overlay_ext), overlay_slot_mask=None,
+        overlay_ext=None, overlay_crop_y0=None, overlay_crop_h=None,
+        overlay_tile_cap=None, opaque_tile_cap=None, dof_rings=None)
     return ds, (prep["opaque_dev"], prep["transparent_dev"],
-                prep["hud_dev"]), kw
+                prep["hud_dev"]), spec
+
+
+def sharded_kw(fn, spec, masks) -> dict:
+    """The keywords of the public sharded function fn for spec's frame:
+    the fields it takes, and whether each overlay bucket has content."""
+    import inspect
+
+    params = inspect.signature(fn).parameters
+    kw = {k: getattr(spec, k) for k in params if hasattr(spec, k)}
+    return dict(kw, has_transparent=masks[1] is not None,
+                has_hud=masks[2] is not None)
 
 
 def record_band_calls(fn, names=SHARD_PATH):
@@ -4056,25 +4057,23 @@ def launches_of(kernels) -> dict:
     return {k: v for k, v in kernels.launch_counts.items() if v}
 
 
-def shard_diagnose(label, ds, masks, kw, tid_b, tid_1, d, dz, border,
+def shard_diagnose(label, ds, masks, spec, tid_b, tid_1, d, dz, border,
                    torch) -> None:
     """Where a band assembly's ldr departs from the whole frame's off the
     border rows: the pixels within 2 of a tri_id mismatch, those the
     transparent panes cover (K1 over the transparent bucket at 1x), the
     rest; depth where the ids agree."""
     from awsm_renderer_tpu_torch.ops.raster import rasterize16_slim
-    from awsm_renderer_tpu_torch.passes.frame import (
-        _pad_to, _run_vertex, prep_setup_rows,
-    )
+    from awsm_renderer_tpu_torch.passes.frame import _pad_to, _run_vertex
 
     h, w = tid_b.shape
     mis = (tid_b != tid_1).float()[None, None]
     near = torch.nn.functional.max_pool2d(mis, 5, 1, 2)[0, 0] > 0
     panes = torch.zeros_like(near)
     if masks[1] is not None:
-        rows = prep_setup_rows(_run_vertex(
-            ds, masks[1], rw=_pad_to(w, 128), rh_full=_pad_to(h, 8),
-            needs_clip=kw["needs_clip"]))
+        rows = _run_vertex(ds, masks[1], rw=_pad_to(w, 128),
+                           rh_full=_pad_to(h, 8), needs_clip=spec.needs_clip,
+                           pad=True)
         col, _dep, _b = rasterize16_slim(rows, width=_pad_to(w, 128),
                                          height=_pad_to(h, 8))
         panes = (col.reshape(_pad_to(h, 8), -1)[:h, :w] >= 0)
@@ -4180,16 +4179,14 @@ def hold_band_kernels(seg, torch, spent=None) -> dict:
     return bad
 
 
-def classify_band_ids(ds, masks, kw, tid_b, tid_1, torch):
+def classify_band_ids(ds, masks, spec, tid_b, tid_1, torch):
     """tri_id mismatches between a band assembly and the whole frame:
     classify_mismatches in its rounding mode (an edge value or the two z
     within 4 ulps of their terms: a band's setup constants c + k * offset
     round once more than the frame's) against the opaque setup at the
     raster's scale, then the HUD's at 1x. Returns (mismatch indices,
     counts)."""
-    from awsm_renderer_tpu_torch.passes.frame import (
-        _pad_to, _run_vertex, prep_setup_rows,
-    )
+    from awsm_renderer_tpu_torch.passes.frame import _pad_to, _run_vertex
 
     a, b = tid_b.reshape(-1), tid_1.reshape(-1)
     idx = (a != b).nonzero()[:, 0]
@@ -4197,14 +4194,14 @@ def classify_band_ids(ds, masks, kw, tid_b, tid_1, torch):
     if not idx.numel():
         return idx, counts
     h, w = tid_b.shape
-    scale = 2 if (kw["supersample"] or kw["msaa"]) else 1
+    scale = 2 if (spec.supersample or spec.msaa) else 1
     left = torch.ones(idx.numel(), dtype=torch.bool, device=idx.device)
     for mask, s in ((masks[0], scale), (masks[2], 1)):
         if mask is None or not bool(left.any()):
             continue
-        rows = prep_setup_rows(_run_vertex(
-            ds, mask, rw=_pad_to(w * s, 128), rh_full=_pad_to(h * s, 8),
-            needs_clip=kw["needs_clip"]))
+        rows = _run_vertex(ds, mask, rw=_pad_to(w * s, 128),
+                           rh_full=_pad_to(h * s, 8),
+                           needs_clip=spec.needs_clip, pad=True)
         px, py = pixel_centres(h, w, idx.device, torch, step=s)
         sel = idx[left]
         c = classify_mismatches(rows, a[sel], b[sel], px[sel], py[sel],
@@ -4229,7 +4226,7 @@ def border_mask(h: int, w: int, grid, rh: int, rw: int, device, torch):
 
 def hold_sharded(label, r, grid, torch, profile=False) -> dict:
     """The in-process band assembly of r's frame over `grid` against the
-    whole frame (render_frame with the same keywords): tri_id mismatches
+    whole frame (render_frame with the same FrameSpec): tri_id mismatches
     classified (0 unclassified), ldr's and depth's max |d| off and on the
     border rows, hand-kernel launches of the bands against the frame's,
     each band's kernels against their twins. Returns the assembly (on the
@@ -4239,26 +4236,23 @@ def hold_sharded(label, r, grid, torch, profile=False) -> dict:
     from awsm_renderer_tpu_torch.passes.frame import render_frame
 
     t0 = time.perf_counter()
-    ds, masks, kw = shard_inputs(r)
-    fkw = {k: v for k, v in kw.items()
-           if k not in ("has_transparent", "has_hud")}
+    ds, masks, spec = shard_inputs(r)
     n = grid[0] * grid[1]
     profiled = None
     if profile and DEVICE == "cuda":
         profiled = [device_kernels(f, torch) for f in (
-            lambda: _band_frame(*(ds,) + masks, bands=range(n), grid=grid,
-                                **fkw),
-            lambda: render_frame(*(ds,) + masks, **fkw))]
+            lambda: _band_frame(ds, *masks, spec, bands=range(n), grid=grid),
+            lambda: render_frame(ds, *masks, spec=spec))]
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     kernels.reset_launch_counts()
     out, segs = record_band_calls(lambda: _band_frame(
-        *(ds,) + masks, bands=range(n), grid=grid, **fkw))
+        ds, *masks, spec, bands=range(n), grid=grid))
     torch.cuda.synchronize()
     band_counts = launches_of(kernels)
     band_launches = sum(band_counts.values())
     kernels.reset_launch_counts()
-    whole = render_frame(*(ds,) + masks, **fkw)[:3]
+    whole = render_frame(ds, *masks, spec=spec)[:3]
     torch.cuda.synchronize()
     frame_counts = launches_of(kernels)
     frame_launches = sum(frame_counts.values())
@@ -4267,7 +4261,7 @@ def hold_sharded(label, r, grid, torch, profile=False) -> dict:
     check(bool(torch.isfinite(ldr_b).all()) and ldr_b.shape == ldr_1.shape,
           f"{label}: the assembled frame is finite, {tuple(ldr_b.shape)}")
     t2 = time.perf_counter()
-    idx, c = classify_band_ids(ds, masks, kw, tid_b, tid_1, torch)
+    idx, c = classify_band_ids(ds, masks, spec, tid_b, tid_1, torch)
     h, w = tid_b.shape
     border = border_mask(h, w, grid, -(-h // 8) * 8, -(-w // 128) * 128,
                          tid_b.device, torch)
@@ -4276,7 +4270,8 @@ def hold_sharded(label, r, grid, torch, profile=False) -> dict:
     dz = (dep_b - dep_1).abs()
     off_b = float(d[~border].max())
     on_b = float(d[border].max()) if bool(border.any()) else 0.0
-    shard_diagnose(label, ds, masks, kw, tid_b, tid_1, d, dz, border, torch)
+    shard_diagnose(label, ds, masks, spec, tid_b, tid_1, d, dz, border,
+                   torch)
     t3 = time.perf_counter()
     held, spent = {}, {}
     for seg in segs:
@@ -4385,12 +4380,10 @@ def shard_rank(rank: int, world: int, port: int, out_dir: str,
                 dist.all_gather(got, sums)
                 res[f"scene_equal_{int(effects)}"] = all(
                     torch.equal(g, got[0]) for g in got)
-            ds, masks, kw = scenes[effects]
+            ds, masks, spec = scenes[effects]
             fn = (S.render_frame_sharded if dims == 1
                   else S.render_frame_sharded_2d)
-            if dims == 2:
-                kw = {k: v for k, v in kw.items()
-                      if k not in ("supersample", "msaa")}
+            kw = sharded_kw(fn, spec, masks)
 
             def frame():
                 return fn(meshes[dims], ds, *masks, **kw)

@@ -8,15 +8,19 @@ load_gltf + populate_gltf and is animated by update_all, as in the cell.
   port's joint matrices and its vertex stage's morph and skin branches,
   after 1, 7 and a loop-wrapping number of update_all calls;
 - the cell's whole run (run.run_cell) correct, and not correct under the
-  stale frame and each planted animation fault;
+  stale frame and each planted animation fault, with the window's clock
+  stepped so that each run finishes the same two frames on any host;
 - the spans and counters of the animated path: update_all and its
   steps, write_gpu/animation, render_frame/vertex (the morph and skin
   branches run inside its launches, with no span of their own), and the
   counts animation/channels and skins/joints, with nothing recorded and
   a bit-equal image when timings are off."""
 
+import itertools
 import os
 import sys
+import time
+import types
 
 import numpy as np
 import pytest
@@ -34,6 +38,11 @@ from port_bench.reference import pose  # noqa: E402
 CELL = "avatar-room-msaa.animate"
 DT = 1.0 / 60.0
 J, CHANNELS = 65, 67
+# the whole run's window: run.py reads perf_counter once to open it and
+# three times a frame (start, host done, synchronized); at 1.25 s a read
+# the second frame finishes at 7.5 s after the open, inside the 8 s
+# window, and the third would start at 8.75 s, after it closes
+WINDOW_S, READ_S, WINDOW_FRAMES = 8.0, 1.25, 2
 
 
 def small(cfg, mix):
@@ -142,14 +151,20 @@ def test_pose_reference_matches_port_skins_and_vertex_stage(avatar_program,
 
 @pytest.mark.parametrize("wrap", [None, "stale", "players_paused",
                                   "face_paused", "body_late"])
-def test_cell_correct_and_faults_caught(wrap):
+def test_cell_correct_and_faults_caught(monkeypatch, wrap):
     """The whole run is correct; the stale frame and each animation fault
     (every player paused: the bind pose; the face players paused; the
-    body clips one frame behind) are not."""
+    body clips one frame behind) are not. run.py's window clock advances
+    READ_S a read (its set-up clock stays the wall clock), so the window
+    holds WINDOW_FRAMES frames however long a CPU frame takes."""
+    reads = itertools.count(1)
+    monkeypatch.setattr(run, "time", types.SimpleNamespace(
+        time=time.time, perf_counter=lambda: next(reads) * READ_S))
     fn = None if wrap is None else {**faults.WRAPS,
                                     **faults_animate.WRAPS}[wrap]
-    res = run.run_cell(CELL, 2 ** 31 + 5, 8.0, False, device="cpu",
+    res = run.run_cell(CELL, 2 ** 31 + 5, WINDOW_S, False, device="cpu",
                        edit_cfg=small, wrap=fn, log=lambda m: None)
+    assert res["attempted"] == WINDOW_FRAMES
     assert res["correct"] is (wrap is None), res["check"]
 
 

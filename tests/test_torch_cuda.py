@@ -39,6 +39,8 @@ tests/test_torch_vertex_fused.py's tolerance; each is one kernel a call
 with no wait on the device, one launch a call of its wrapper, and every
 frame above counts K15 once a vertex_stage call."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -62,9 +64,7 @@ def dev():
 def scene_rows(dev):
     """Setup rows of the clipped test scene and of the metal-rough
     spheres (tiles with hundreds of groups) on the card."""
-    from awsm_renderer_tpu_torch.passes.frame import (
-        _run_vertex, prep_setup_rows,
-    )
+    from awsm_renderer_tpu_torch.passes.frame import _run_vertex
     from test_torch_vertex import _renderers
 
     out = {}
@@ -72,9 +72,9 @@ def scene_rows(dev):
                     ("spheres", T.torch_renderer("metal-rough-spheres"))):
         ds = r._flush()
         m = r._mesh_masks()
-        rows = prep_setup_rows(_run_vertex(
+        rows = _run_vertex(
             ds, torch.as_tensor(m["opaque"]), rw=T.W, rh_full=T.H,
-            needs_clip=m["needs_clip"]))
+            needs_clip=m["needs_clip"], pad=True)
         out[name] = rows.to(dev)
     return out
 
@@ -891,7 +891,7 @@ def test_card_tiled_lights_frame(dev, monkeypatch):
         assert torch.equal(torch.where(cv, ci, -1), torch.where(gv, gi, -1))
     np.testing.assert_allclose(imgs["cuda"], imgs["cpu"], rtol=0, atol=1e-4)
     card = _scene(False, 12, device="cuda")
-    card._force_dense_lights = True
+    card.config = dataclasses.replace(card.config, light_tiles=False)
     np.testing.assert_allclose(card.render(), imgs["cuda"], rtol=0,
                                atol=1e-5)
 

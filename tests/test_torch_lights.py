@@ -24,6 +24,7 @@ tile cap) run side by side in threads; each logs the lists its shades
 built through a jax.debug.callback on light_lists_from_bounds, keyed by
 the scene's light count."""
 
+import dataclasses
 import importlib
 import threading
 
@@ -147,18 +148,16 @@ def _layers_inputs():
     opaque background, the shade specialization)."""
     from awsm_renderer_tpu_torch import device_scene_from_jax
     from awsm_renderer_tpu_torch.ops.raster import rasterize_layers_rows
-    from awsm_renderer_tpu_torch.passes.frame import (
-        _run_vertex, prep_setup_rows,
-    )
+    from awsm_renderer_tpu_torch.passes.frame import _run_vertex
 
     rj = _scene(True, LAYERS_LIGHTS, overlay="layers")
     dj = rj._flush()
     ds = device_scene_from_jax(T.to_numpy(dict(dj)), "cpu")
     masks = rj._mesh_masks()
     rows = rj._bucket_mat_rows(masks["transparent"])
-    t_rows = prep_setup_rows(_run_vertex(
+    t_rows = _run_vertex(
         ds, torch.as_tensor(masks["transparent"]), rw=T.W, rh_full=T.H,
-        needs_clip=masks["needs_clip"]))
+        needs_clip=masks["needs_clip"], pad=True)
     layers = rasterize_layers_rows(t_rows, torch.ones((T.H, T.W)),
                                    width=T.W, height=T.H, n_layers=2,
                                    has_uv1=False, has_color=False,
@@ -168,10 +167,24 @@ def _layers_inputs():
     rng = np.random.default_rng(4)
     opaque = [torch.as_tensor(rng.uniform(0, 1, T.H * T.W).astype(F))
               for _ in range(3)] + [torch.ones(T.H * T.W)]
-    spec = dict(width=T.W, height=T.H, use_mips=True,
-                slot_mask=rj._slot_mask(rows), solid_env=True,
-                has_nearest=False, ext=rj._ext_mask(rows), n_layers=2)
+    spec = dict(use_mips=True, slot_mask=rj._slot_mask(rows), solid_env=True,
+                has_nearest=False, ext=rj._ext_mask(rows))
     return dj, ds, layers, n_cov, opaque, spec
+
+
+LAYERS_GEOM = dict(width=T.W, height=T.H, n_layers=2)
+
+
+def _port_layers(inputs, tile_cap=None, light_tiles=False):
+    """The port's shade_transparent_layers_c on the "layers" inputs."""
+    from awsm_renderer_tpu_torch.ops.shade import (
+        ShadeSpec, shade_transparent_layers_c,
+    )
+
+    _dj, ds, layers, _n_cov, opaque, spec = inputs
+    return shade_transparent_layers_c(
+        layers, opaque, ds, ShadeSpec(**spec, light_tiles=light_tiles),
+        tile_cap=tile_cap, **LAYERS_GEOM)
 
 
 def _jax_layers(inputs):
@@ -186,7 +199,8 @@ def _jax_layers(inputs):
     args = ({k: jnp.asarray(v.numpy()) for k, v in layers.items()},
             [jnp.asarray(c.numpy()) for c in opaque], dj)
     return {cap: [np.asarray(c) for c in fn(*args, tile_cap=cap,
-                                            light_tiles=True, **spec)]
+                                            light_tiles=True, **spec,
+                                            **LAYERS_GEOM)]
             for cap in (None, n_cov)}
 
 
@@ -434,16 +448,13 @@ def test_lists_bit_equal_in_every_layout(jax_side, monkeypatch, name):
     and temporal shades, the 4-row groups of 32x32 blocks (compact32),
     the stacked layers of the band-wide peel and the (8, 128) tiles of
     the compacted one (layers)."""
-    from awsm_renderer_tpu_torch.ops.shade import shade_transparent_layers_c
-
     _frames, _shaded, inputs, lists = jax_side
     log = []
     if name == "layers":
-        _dj, ds, layers, n_cov, opaque, spec = inputs
+        n_cov = inputs[3]
         _log_port_lists(monkeypatch, log)
         for cap in (None, n_cov):
-            shade_transparent_layers_c(layers, opaque, ds, tile_cap=cap,
-                                       light_tiles=True, **spec)
+            _port_layers(inputs, tile_cap=cap, light_tiles=True)
     else:
         _port_frame(name, monkeypatch, log)
     _hold_lists(log, lists[name])
@@ -484,7 +495,7 @@ def test_tiled_equals_dense_in_the_port():
 
     r = _scene(False, 12)
     tiled = r.render()
-    r._force_dense_lights = True
+    r.config = dataclasses.replace(r.config, light_tiles=False)
     dense = r.render()
     np.testing.assert_allclose(tiled, dense, atol=1e-6)
     r.config = P.RendererConfig(width=T.W, height=T.H,
@@ -498,9 +509,8 @@ def test_tiled_equals_dense_in_the_port():
 
 
 def test_light_tiles_rule():
-    """Tiled above 8 lights; config.light_tiles overrides; the legacy
-    _force_dense_lights switch; light_tiles=True at 3 lights equals the
-    dense frame."""
+    """Tiled above 8 lights; config.light_tiles overrides, either way;
+    light_tiles=True at 3 lights equals the dense frame."""
     import awsm_renderer_tpu_torch as P
     from awsm_renderer_tpu_torch.passes import frame as TF
 
@@ -508,7 +518,7 @@ def test_light_tiles_rule():
     orig = TF.render_frame
 
     def spy(*a, **kw):
-        seen.append(kw["light_tiles"])
+        seen.append(kw["spec"].light_tiles)
         return orig(*a, **kw)
 
     with pytest.MonkeyPatch.context() as mp:
@@ -521,11 +531,10 @@ def test_light_tiles_rule():
         np.testing.assert_allclose(r.render(), dense, atol=1e-6)
         r9 = _scene(False, 9)
         r9.render()
-        r9._force_dense_lights = True
+        r9.config = dataclasses.replace(r9.config, light_tiles=False)
         r9.render()
         r9.config = P.RendererConfig(width=T.W, height=T.H,
                                      light_tiles=False)
-        r9._force_dense_lights = False
         r9.render()
     assert seen == [False, True, True, False, False]
 
@@ -539,20 +548,16 @@ def test_transparent_compact_matches_jax_and_band(jax_side):
     FMAs move a GGX specular peak by up to 4.7e-5 relative (3.6e-4 on a
     value of ~7.7 at 8 lights), as much as jitted JAX differs from eager
     JAX there; the port agrees with eager JAX to 2.4e-7."""
-    from awsm_renderer_tpu_torch.ops.shade import shade_transparent_layers_c
-
     _frames, shaded, inputs, _lists = jax_side
-    _dj, ds, layers, n_cov, opaque, spec = inputs
+    n_cov, opaque = inputs[3], inputs[4]
     assert 0 < n_cov < 8
-    band = shade_transparent_layers_c(layers, opaque, ds, **spec)
-    comp = shade_transparent_layers_c(layers, opaque, ds, tile_cap=n_cov,
-                                      **spec)
+    band = _port_layers(inputs)
+    comp = _port_layers(inputs, tile_cap=n_cov)
     for c in range(4):
         np.testing.assert_array_equal(comp[c].numpy(), band[c].numpy())
     assert float((band[0] - opaque[0]).abs().max()) > 0.05
     for cap in (None, n_cov):
-        got = shade_transparent_layers_c(layers, opaque, ds, tile_cap=cap,
-                                         light_tiles=True, **spec)
+        got = _port_layers(inputs, tile_cap=cap, light_tiles=True)
         for c in range(4):
             np.testing.assert_allclose(got[c].numpy(), shaded[cap][c],
                                        rtol=1e-4, atol=1e-5)

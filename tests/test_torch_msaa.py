@@ -93,16 +93,13 @@ def _forced_cap(monkeypatch, cls, cap):
 
 def _rows2x(r):
     """The port renderer's MSAA setup rows: the vertex stage at 2x."""
-    from awsm_renderer_tpu_torch.passes.frame import (
-        _pad_to, _run_vertex, prep_setup_rows,
-    )
+    from awsm_renderer_tpu_torch.passes.frame import _pad_to, _run_vertex
 
     ds = r._flush()
     m = r._mesh_masks()
     rw2, rh2 = _pad_to(2 * W, 128), 2 * _pad_to(H, 8)
-    rows = prep_setup_rows(_run_vertex(ds, r._tensor(m["opaque"]),
-                                       rw=rw2, rh_full=rh2,
-                                       needs_clip=m["needs_clip"]))
+    rows = _run_vertex(ds, r._tensor(m["opaque"]), rw=rw2, rh_full=rh2,
+                       needs_clip=m["needs_clip"], pad=True)
     return rows, rw2, rh2
 
 
@@ -287,19 +284,22 @@ def test_k2_msaa_entries_match_jax(raster_cases, entry):
 def _port_band(r, cap, debug_mode="none"):
     """The port's MSAA opaque stage of renderer `r` with opaque tile cap
     `cap` (None: the band-wide shade)."""
+    from awsm_renderer_tpu_torch.config import ToneMapping
     from awsm_renderer_tpu_torch.passes.frame import (
-        _opaque_band_msaa, _pad_to,
+        FrameSpec, _opaque_band_msaa, _pad_to,
     )
 
     ds = r._flush()
     m = r._mesh_masks()
     rows = r._bucket_mat_rows(m["opaque"])
-    return _opaque_band_msaa(
-        ds, torch.as_tensor(m["opaque"]), rw2=_pad_to(2 * W, 128),
-        rh2=2 * H, rw1=W, rh1=H, needs_clip=m["needs_clip"],
-        solid_env=r.environment.is_solid, use_mips=True,
-        slot_mask=r._slot_mask(rows), has_nearest=False,
-        ext=r._ext_mask(rows), debug_mode=debug_mode, tile_cap=cap)
+    spec = FrameSpec(
+        width=W, height=H, tonemap=ToneMapping.NONE, msaa=True,
+        needs_clip=m["needs_clip"], solid_env=r.environment.is_solid,
+        use_mips=True, slot_mask=r._slot_mask(rows), has_nearest=False,
+        ext=r._ext_mask(rows), debug_mode=debug_mode, opaque_tile_cap=cap)
+    return _opaque_band_msaa(ds, torch.as_tensor(m["opaque"]), spec,
+                             rw2=_pad_to(2 * W, 128), rh2=2 * H, rw1=W,
+                             rh1=H)
 
 
 @pytest.mark.parametrize("image_env, debug_mode", [

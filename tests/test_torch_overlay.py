@@ -270,21 +270,24 @@ def _compact_scene(jax_side: bool, pbr_glass: bool):
 
 def _port_frame(r, tile_cap):
     from awsm_renderer_tpu_torch.config import ToneMapping
-    from awsm_renderer_tpu_torch.passes.frame import render_frame
+    from awsm_renderer_tpu_torch.passes.frame import FrameSpec, render_frame
 
     ds = r._flush()
     masks = r._mesh_masks()
     ov_rows = r._bucket_mat_rows(masks["transparent"])
-    return render_frame(
-        ds, torch.as_tensor(masks["opaque"]),
-        torch.as_tensor(masks["transparent"]), None, width=256, height=64,
-        tonemap=ToneMapping.NONE, needs_clip=bool(masks["needs_clip"]),
-        solid_env=r.environment.is_solid, has_color=r.meshes.uses_vertex_colors,
+    spec = FrameSpec(
+        width=256, height=64, tonemap=ToneMapping.NONE,
+        needs_clip=bool(masks["needs_clip"]),
+        solid_env=r.environment.is_solid,
+        has_color=r.meshes.uses_vertex_colors,
         has_uv1=bool((r.materials.tex_slots[:, :, 1] == 1).any()),
         slot_mask=r._slot_mask(r._bucket_mat_rows(masks["opaque"])),
         overlay_slot_mask=r._slot_mask(ov_rows),
-        overlay_ext=r._ext_mask(ov_rows),
-        overlay_tri_idx=r._overlay_tri_idx(masks), overlay_tile_cap=tile_cap)
+        overlay_ext=r._ext_mask(ov_rows), overlay_tile_cap=tile_cap)
+    return render_frame(
+        ds, torch.as_tensor(masks["opaque"]),
+        torch.as_tensor(masks["transparent"]), None, spec=spec,
+        overlay_tri_idx=r._overlay_tri_idx(masks))
 
 
 @pytest.mark.parametrize("pbr_glass", [False, True], ids=["unlit", "pbr"])
@@ -314,16 +317,14 @@ def test_tile_cap_bounds_the_covered_tiles():
     the 1080p pane ring (where the cap engages): the host cap covers
     every 32x32 tile layer 0 touches."""
     from awsm_renderer_tpu_torch.ops.raster import rasterize_layers_rows
-    from awsm_renderer_tpu_torch.passes.frame import (
-        _run_vertex, prep_setup_rows,
-    )
+    from awsm_renderer_tpu_torch.passes.frame import _run_vertex
 
     r = _ring_scene(False)
     masks = r._mesh_masks()
     cap = r._bucket_tile_cap(masks, "transparent", tile_h=32, tile_w=32)
-    rows = prep_setup_rows(_run_vertex(
+    rows = _run_vertex(
         r._flush(), torch.as_tensor(masks["transparent"]), rw=1920,
-        rh_full=1080, needs_clip=bool(masks["needs_clip"])))
+        rh_full=1080, needs_clip=bool(masks["needs_clip"]), pad=True)
     layers = rasterize_layers_rows(rows, torch.ones(1080, 1920), width=1920,
                                    height=1080, n_layers=1)
     tid0 = torch.nn.functional.pad(layers["tri_id"][0].reshape(1080, 1920),

@@ -57,9 +57,7 @@ def _case_rows(case):
         tri = [[10, 2], [110, 2], [60, 30]]
         s = make_setup([{"xy": tri, "z": [0.5] * 3}] * 2)
         return np.asarray(s).T.copy(), RW, RH
-    from awsm_renderer_tpu_torch.passes.frame import (
-        _run_vertex, prep_setup_rows,
-    )
+    from awsm_renderer_tpu_torch.passes.frame import _run_vertex
     if case == "shared_edge":
         r = _box_renderer()
     else:                                  # clip: 2T rows
@@ -68,9 +66,8 @@ def _case_rows(case):
         r = _renderers("clip")[1]
     ds = r._flush()
     m = r._mesh_masks()
-    rows = prep_setup_rows(_run_vertex(ds, torch.as_tensor(m["opaque"]),
-                                       rw=T.W, rh_full=T.H,
-                                       needs_clip=m["needs_clip"]))
+    rows = _run_vertex(ds, torch.as_tensor(m["opaque"]), rw=T.W,
+                       rh_full=T.H, needs_clip=m["needs_clip"], pad=True)
     return rows.numpy(), T.W, T.H
 
 

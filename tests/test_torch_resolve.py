@@ -27,9 +27,7 @@ DERIVS = ("du0_dx", "dv0_dx", "du0_dy", "dv0_dy")
 def _case(case, rng):
     """(setup rows (T', 64), winner ids (P,), width, row_offset)."""
     from awsm_renderer_tpu.ops import raster as JR
-    from awsm_renderer_tpu_torch.passes.frame import (
-        _run_vertex, prep_setup_rows,
-    )
+    from awsm_renderer_tpu_torch.passes.frame import _run_vertex
 
     if case == "clip":
         from test_torch_vertex import _renderers
@@ -39,9 +37,9 @@ def _case(case, rng):
         r = T.torch_renderer("box" if case == "random" else case)
     ds = r._flush()
     m = r._mesh_masks()
-    rows = prep_setup_rows(_run_vertex(ds, torch.as_tensor(m["opaque"]),
-                                       rw=T.W, rh_full=T.H,
-                                       needs_clip=m["needs_clip"])).numpy()
+    rows = _run_vertex(ds, torch.as_tensor(m["opaque"]), rw=T.W,
+                       rh_full=T.H, needs_clip=m["needs_clip"],
+                       pad=True).numpy()
     if case == "random":
         # arbitrary winners over valid rows, misses mixed in, evaluated
         # in a band starting at row 8 (row_offset)

@@ -27,7 +27,9 @@ import _torch_port as T
 from awsm_renderer_tpu_torch.config import ToneMapping
 from awsm_renderer_tpu_torch.ops import brdf as TB
 from awsm_renderer_tpu_torch.core.materials import MI_DEBUG_MASK
-from awsm_renderer_tpu_torch.ops.shade import env_brdf_approx, shade_deferred_c
+from awsm_renderer_tpu_torch.ops.shade import (
+    ShadeSpec, env_brdf_approx, shade_deferred_c,
+)
 from awsm_renderer_tpu_torch.ops.tonemap import display_pass_c
 
 NO_SLOTS = (False,) * 20
@@ -175,9 +177,7 @@ def shaded():
     from awsm_renderer_tpu.ops.shade import shade_deferred_c as jax_shade
     from awsm_renderer_tpu_torch import device_scene_from_jax
     from awsm_renderer_tpu_torch.ops.raster import rasterize16
-    from awsm_renderer_tpu_torch.passes.frame import (
-        _run_vertex, prep_setup_rows,
-    )
+    from awsm_renderer_tpu_torch.passes.frame import _run_vertex
 
     out = {}
     for scene, image_env in SCENES.items():
@@ -186,14 +186,14 @@ def shaded():
         ds = device_scene_from_jax(T.to_numpy(dict(dj)), "cpu")
         masks = rj._mesh_masks()
         has_color = rj.meshes.uses_vertex_colors
-        srows = prep_setup_rows(_run_vertex(
+        srows = _run_vertex(
             ds, torch.as_tensor(masks["opaque"]), rw=T.W, rh_full=T.H,
-            needs_clip=masks["needs_clip"]))
+            needs_clip=masks["needs_clip"], pad=True)
         vis = rasterize16(srows, width=T.W, height=T.H, has_color=has_color,
                           analytic_derivs=False)
         vis.pop("bins")
-        got = shade_deferred_c(vis, ds, width=T.W, height=T.H,
-                               solid_env=not image_env)
+        got = shade_deferred_c(vis, ds, ShadeSpec(solid_env=not image_env),
+                               width=T.W, height=T.H)
         want = jax_shade(
             {k: jnp.asarray(v.numpy()) for k, v in vis.items()}, dj,
             width=T.W, height=T.H, use_mips=True, slot_mask=NO_SLOTS,
@@ -247,9 +247,7 @@ def shaded_tex():
     from awsm_renderer_tpu.ops.shade import shade_deferred_c as jax_shade
     from awsm_renderer_tpu_torch import device_scene_from_jax
     from awsm_renderer_tpu_torch.ops.raster import rasterize16
-    from awsm_renderer_tpu_torch.passes.frame import (
-        _run_vertex, prep_setup_rows,
-    )
+    from awsm_renderer_tpu_torch.passes.frame import _run_vertex
 
     out = {}
     for case, (scene, image_env, debug) in TEX_CASES.items():
@@ -271,14 +269,15 @@ def shaded_tex():
             has_nearest=bool((rj.textures.descriptors[:, 5] == 0).any()),
             debug_mode=debug)
         has_uv1 = bool((rj.materials.tex_slots[:, :, 1] == 1).any())
-        srows = prep_setup_rows(_run_vertex(
+        srows = _run_vertex(
             ds, torch.as_tensor(masks["opaque"]), rw=T.W, rh_full=T.H,
-            needs_clip=masks["needs_clip"]))
+            needs_clip=masks["needs_clip"], pad=True)
         vis = rasterize16(srows, width=T.W, height=T.H, has_uv1=has_uv1,
                           has_color=rj.meshes.uses_vertex_colors,
                           analytic_derivs=False)
         vis.pop("bins")
-        got = shade_deferred_c(vis, ds, width=T.W, height=T.H, **spec)
+        got = shade_deferred_c(vis, ds, ShadeSpec(**spec), width=T.W,
+                               height=T.H)
         want = jax_shade({k: jnp.asarray(v.numpy()) for k, v in vis.items()},
                          dj, width=T.W, height=T.H, **spec)
         out[case] = ([c.numpy() for c in got], [np.asarray(c) for c in want],

@@ -21,6 +21,7 @@ parameter block are held to the Python side here too; the kernel itself
 runs only on the card (tests/test_torch_cuda.py)."""
 
 import ctypes
+import dataclasses
 import os
 import re
 
@@ -225,14 +226,14 @@ def test_twin_equals_chain(scenes, monkeypatch, case):
     planes = _planes(rows, P, seed=len(CASES) + CASES.index(case),
                      color="color" in extra, uv1="uv1" in extra,
                      ndc=geom == "ndc", derivs="derivs" in extra)
-    kw = dict(kw, solid_env=env == "solid", slot_mask=_mask(MASKS[mask]),
-              use_mips="nomips" not in extra, has_nearest=True,
-              ext=S.NO_EXT,
-              debug_mode="normals" if "normals" in extra else "none",
-              light_tiles=False)
-    twin = S.shade_surface(planes, ds, **kw)
+    spec = S.ShadeSpec(
+        solid_env=env == "solid", slot_mask=_mask(MASKS[mask]),
+        use_mips="nomips" not in extra, has_nearest=True, ext=S.NO_EXT,
+        debug_mode="normals" if "normals" in extra else "none",
+        light_tiles=False)
+    twin = S.shade_surface(planes, ds, spec, **kw)
     monkeypatch.setattr(S, "_in_k14_scope", lambda *a: False)
-    chain = S.shade_surface(planes, ds, **kw)
+    chain = S.shade_surface(planes, ds, spec, **kw)
     assert len(chain) == len(twin)
     for c in range(3):
         _same(twin[0][c], chain[0][c], f"rgb[{c}]")
@@ -258,6 +259,7 @@ def _spy(monkeypatch):
     return calls
 
 
+SPEC_FIELDS = {f.name for f in dataclasses.fields(S.ShadeSpec)}
 ROUTES = {
     "none": ({}, True), "normals": (dict(debug_mode="normals"), True),
     **{f"ext{e}": (dict(ext=tuple(i == e for i in range(6))), False)
@@ -281,13 +283,14 @@ def test_routing(scenes, monkeypatch, route):
     extra, fused = ROUTES[route]
     planes = _planes(rows, W * H, seed=7)
     t = RenderTimings(enabled=True)
-    kw = dict(width=W, height=H, solid_env=False,
-              slot_mask=_mask(HELMET5), want_sky=True)
-    kw.update(extra)
+    kw = dict(width=W, height=H, want_sky=True)
+    spec = dict(solid_env=False, slot_mask=_mask(HELMET5))
+    for k, v in extra.items():
+        (spec if k in SPEC_FIELDS else kw)[k] = v
     if kw.get("transparent_pass"):
         kw.pop("want_sky")
     with active(t):
-        out = S.shade_surface(planes, ds, **kw)
+        out = S.shade_surface(planes, ds, S.ShadeSpec(**spec), **kw)
     assert len(calls) == int(fused)
     assert t.counts.get("shade/chain", 0) == int(not fused)
     assert len(out) == (5 if kw.get("transparent_pass") else 3)
@@ -299,8 +302,9 @@ def test_cpu_takes_the_twin_and_launches_nothing(scenes):
     ds, rows = scenes[("solid", 1)]
     kernels.reset_launch_counts()
     planes = _planes(rows, W * H, seed=9)
-    S.shade_surface(planes, ds, width=W, height=H, solid_env=True,
-                    slot_mask=_mask(HELMET5), want_sky=True)
+    S.shade_surface(planes, ds, S.ShadeSpec(solid_env=True,
+                                            slot_mask=_mask(HELMET5)),
+                    width=W, height=H, want_sky=True)
     assert all(n == 0 for n in kernels.launch_counts.values())
 
 

@@ -178,7 +178,7 @@ def port_frame(r, grid=None, **kw):
     reference sharded frame's defaults (every slot and extension, uv1 and
     colour planes, clipping) -> (ldr, tri_id, depth) numpy."""
     from awsm_renderer_tpu_torch.parallel.sharding import _band_frame, _bucket
-    from awsm_renderer_tpu_torch.passes.frame import render_frame
+    from awsm_renderer_tpu_torch.passes.frame import FrameSpec, render_frame
 
     kw = _frame_kw(r, kw)
     ds = r._flush()
@@ -187,16 +187,13 @@ def port_frame(r, grid=None, **kw):
     tm = _bucket(r._tensor(m["transparent"]), kw.pop("has_transparent",
                                                      False), om)
     hm = _bucket(r._tensor(m["hud"]), kw.pop("has_hud", False), om)
-    common = dict(use_mips=True, has_morphs=False, skin_sets=0,
-                  has_nearest=True, light_tiles=False,
-                  **{k: kw.pop(k) for k in ("slot_mask", "solid_env", "ext",
-                                            "needs_clip", "has_uv1",
-                                            "has_color")})
+    spec = FrameSpec(use_mips=True, has_morphs=False, skin_sets=0,
+                     has_nearest=True, light_tiles=False, **kw)
     if grid is None:
-        out = render_frame(ds, om, tm, hm, **kw, **common)[:3]
+        out = render_frame(ds, om, tm, hm, spec=spec)[:3]
     else:
-        out = _band_frame(ds, om, tm, hm, bands=range(grid[0] * grid[1]),
-                          grid=grid, **kw, **common)
+        out = _band_frame(ds, om, tm, hm, spec,
+                          bands=range(grid[0] * grid[1]), grid=grid)
     return tuple(x.numpy() for x in out)
 
 
@@ -568,7 +565,7 @@ class _Mesh:
                                    "2d-misaligned-cols", "compacted-2d"])
 def test_sharded_refusals(fault):
     from awsm_renderer_tpu_torch.parallel import sharding as S
-    from awsm_renderer_tpu_torch.passes.frame import _overlay_band
+    from awsm_renderer_tpu_torch.passes.frame import FrameSpec, _overlay_band
 
     r = full_scene(False)
     ds = r._flush()
@@ -591,15 +588,17 @@ def test_sharded_refusals(fault):
         elif fault == "2d-misaligned-cols":  # 128 columns: one TILE_W
             S.render_frame_sharded_2d(_Mesh(2, 2), *args, **kw)
         else:
+            spec = FrameSpec(
+                width=256, height=32, tonemap=kw["tonemap"], needs_clip=True,
+                solid_env=True, has_color=True, has_uv1=True, use_mips=True,
+                slot_mask=S.ALL_SLOTS, has_nearest=True, ext=S.ALL_EXT,
+                n_transparent_layers=2)
             _overlay_band([torch.zeros(8 * 128)] * 4,
                           torch.full((8, 128), -1, dtype=torch.int32),
-                          torch.ones(8, 128), ds, None, m["hud"], rw=128,
-                          band_h=8, rh_full=32, row_offset=8,
+                          torch.ones(8, 128), ds, None, m["hud"], spec,
+                          rw=128, band_h=8, rh_full=32, row_offset=8,
                           shift_rows=True, rw_full=256, col_offset=128,
-                          shift_cols=True, needs_clip=True, solid_env=True,
-                          has_color=True, has_uv1=True, use_mips=True,
-                          slot_mask=S.ALL_SLOTS, has_nearest=True,
-                          ext=S.ALL_EXT, n_transparent_layers=2,
+                          shift_cols=True,
                           ov_tri_idx=torch.zeros(16, dtype=torch.int32))
     msg = {"misaligned-rows": "TILE_H(8)-aligned bands across 8",
            "misaligned-display": "for the 1x overlay pass",

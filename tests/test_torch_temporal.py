@@ -237,9 +237,7 @@ def _units_inputs(scene):
     from awsm_renderer_tpu_torch import device_scene_from_jax
     from awsm_renderer_tpu_torch.ops.raster import rasterize16_slim
     from awsm_renderer_tpu_torch.ops.shade import _tile_swizzle
-    from awsm_renderer_tpu_torch.passes.frame import (
-        _run_vertex, prep_setup_rows,
-    )
+    from awsm_renderer_tpu_torch.passes.frame import _run_vertex
 
     rj = T.jax_renderer(scene)
     dj = rj._flush()
@@ -250,9 +248,8 @@ def _units_inputs(scene):
                 solid_env=rj.environment.is_solid,
                 ext=rj._ext_mask(op_rows), has_nearest=False,
                 debug_mode="none")
-    srows = prep_setup_rows(_run_vertex(ds, torch.as_tensor(masks["opaque"]),
-                                        rw=T.W, rh_full=T.H,
-                                        needs_clip=masks["needs_clip"]))
+    srows = _run_vertex(ds, torch.as_tensor(masks["opaque"]), rw=T.W,
+                        rh_full=T.H, needs_clip=masks["needs_clip"], pad=True)
     col, depth, _ = rasterize16_slim(srows, width=T.W, height=T.H)
     idx = torch.tensor([3, 0, 4, 2, 5, 7])
     n = idx.shape[0] * 1024
@@ -436,12 +433,13 @@ def test_temporal_merge_matches_jax():
 def test_shade_units_coord_scale_1_matches_jax(jax_side):
     """shade_units_c at display resolution (the temporal frame's) on
     identical winner / depth planes and scene state (a textured box)."""
-    from awsm_renderer_tpu_torch.ops.shade import shade_units_c
+    from awsm_renderer_tpu_torch.ops.shade import ShadeSpec, shade_units_c
 
     want, wvalid = jax_side("units")
     _dj, ds, spec, srows, tid_c, dep_c, idx = _units_inputs(UNITS_SCENE)
-    got, gvalid = shade_units_c(tid_c, dep_c, idx, srows, ds, width=T.W,
-                                height=T.H, coord_scale=1, **spec)
+    got, gvalid = shade_units_c(tid_c, dep_c, idx, srows, ds,
+                                ShadeSpec(**spec), width=T.W, height=T.H,
+                                coord_scale=1)
     np.testing.assert_array_equal(gvalid.numpy(), wvalid)
     assert gvalid.numpy().sum() > 300 and (~gvalid.numpy()).sum() > 300
     assert any(spec["slot_mask"])
