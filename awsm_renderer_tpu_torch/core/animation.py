@@ -11,12 +11,13 @@ applied to transform keys and mesh morph weights.
 from __future__ import annotations
 
 import enum
+from collections import Counter
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Union
 
 import numpy as np
 
-from ..errors import AnimationError
+from ..errors import AllocatorError, AnimationError
 from ..utils import math3d as m3
 from ..utils.profiling import count
 
@@ -211,19 +212,27 @@ class Animations:
 
     def _build_native_tables(self):
         """Flatten LINEAR/STEP channels of all players into the concatenated
-        arrays the C++ sampler consumes. Cubic-spline channels stay python."""
-        entries = []  # (player, channel, mode, D)
+        arrays the C++ sampler consumes. Cubic-spline channels stay python.
+        Each entry also keeps its player's index and its (player, channel)
+        insertion order."""
+        players = list(self._players.values())
+        entries = []  # (player, channel, D)
+        ent_player, ent_order = [], []
+        cubic = []  # (player index, channel index, channel)
         times_parts, values_parts = [], []
         t_off, t_len, v_off, dim, mode, out_off = [], [], [], [], [], []
         to_cur = vo_cur = oo_cur = 0
-        for player in self._players.values():
-            for ch in player.clip.channels:
+        for pi, player in enumerate(players):
+            for ci, ch in enumerate(player.clip.channels):
                 if ch.sampler.interpolation == Interpolation.CUBIC_SPLINE:
+                    cubic.append((pi, ci, ch))
                     continue
                 vals = ch.sampler.values.reshape(len(ch.sampler.times), -1)
                 D = vals.shape[1]
                 is_rot = ch.path == TargetPath.ROTATION
                 entries.append((player, ch, D))
+                ent_player.append(pi)
+                ent_order.append((pi, ci))
                 times_parts.append(ch.sampler.times)
                 values_parts.append(vals.reshape(-1))
                 t_off.append(to_cur)
@@ -236,22 +245,92 @@ class Animations:
                 to_cur += len(ch.sampler.times)
                 vo_cur += vals.size
                 oo_cur += D
-        import numpy as _np
 
         self._native_tables = {
+            "players": players,
             "entries": entries,
-            "times": _np.concatenate(times_parts).astype(_np.float32)
-            if times_parts else _np.zeros(0, _np.float32),
-            "values": _np.concatenate(values_parts).astype(_np.float32)
-            if values_parts else _np.zeros(0, _np.float32),
-            "t_off": _np.asarray(t_off, _np.int64),
-            "t_len": _np.asarray(t_len, _np.int32),
-            "v_off": _np.asarray(v_off, _np.int64),
-            "dim": _np.asarray(dim, _np.int32),
-            "mode": _np.asarray(mode, _np.int32),
-            "out_off": _np.asarray(out_off, _np.int64),
+            "player": np.asarray(ent_player, np.int64),
+            "order": ent_order,
+            "cubic": cubic,
+            "times": np.concatenate(times_parts).astype(np.float32)
+            if times_parts else np.zeros(0, np.float32),
+            "values": np.concatenate(values_parts).astype(np.float32)
+            if values_parts else np.zeros(0, np.float32),
+            "t_off": np.asarray(t_off, np.int64),
+            "t_len": np.asarray(t_len, np.int32),
+            "v_off": np.asarray(v_off, np.int64),
+            "dim": np.asarray(dim, np.int32),
+            "mode": np.asarray(mode, np.int32),
+            "out_off": np.asarray(out_off, np.int64),
             "out_size": oo_cur,
+            "rows": None,   # the row table, see _row_table
         }
+
+    def _row_table(self, nt, transforms, meshes):
+        """Where each sampled channel's values go, for the channels that
+        need no more than a write: the row table. A channel is in it when
+        it is LINEAR or STEP (it is in the sampler's tables), no other
+        channel of any player drives its target and path, and its target
+        is live in its store; the rest keep the per-channel path. Built
+        with the sampler's tables, and again when the transforms' or the
+        meshes' rows change."""
+        version = (transforms.rows_version, meshes.rows_version)
+        rt = nt["rows"]
+        if rt is not None and rt["version"] == version:
+            return rt
+        writers = Counter(_target(ch) for p in nt["players"]
+                          for ch in p.clip.channels)
+        table = np.zeros(len(nt["entries"]), bool)
+        t_rows, t_cols, t_src, t_ent, rot_src = [], [], [], [], []
+        w_rows, w_rows_ent = [], []
+        w_er, w_ec, w_src, w_ent = [], [], [], []
+        for e, ((_, ch, D), oo) in enumerate(
+                zip(nt["entries"], nt["out_off"].tolist())):
+            if writers[_target(ch)] != 1:
+                continue
+            if ch.path == TargetPath.WEIGHTS:
+                if ch.mesh_key is None or D == 0:
+                    continue
+                try:
+                    row = meshes.row_of(ch.mesh_key)
+                except AllocatorError:
+                    continue
+                meshes._ensure_morph_width(D)
+                w_rows.append(row)
+                w_rows_ent.append(e)
+                w_er += [row] * D
+                w_ec += range(D)
+                w_src += range(oo, oo + D)
+                w_ent += [e] * D
+            else:
+                col, width = _TRS_COLUMNS[ch.path]
+                if ch.transform_key is None or D != width:
+                    continue
+                try:
+                    row = transforms.row_of(ch.transform_key)
+                except AllocatorError:
+                    continue
+                if ch.path == TargetPath.ROTATION:
+                    rot_src.append(range(oo, oo + 4))
+                t_rows += [row] * D
+                t_cols += range(col, col + D)
+                t_src += range(oo, oo + D)
+                t_ent += [e] * D
+            table[e] = True
+
+        def ix(a):
+            return np.asarray(a, np.int64)
+
+        rt = nt["rows"] = {
+            "version": version, "table": table, "size": int(table.sum()),
+            "rest": np.nonzero(~table)[0].tolist(),
+            "t_rows": ix(t_rows), "t_cols": ix(t_cols), "t_src": ix(t_src),
+            "t_ent": ix(t_ent), "rot_src": ix(rot_src).reshape(-1, 4),
+            "w_rows": ix(w_rows), "w_rows_ent": ix(w_rows_ent),
+            "w_er": ix(w_er), "w_ec": ix(w_ec), "w_src": ix(w_src),
+            "w_ent": ix(w_ent),
+        }
+        return rt
 
     def crossfade(self, from_key: int, to_key: int, duration: float) -> None:
         """Blend playback from one clip to another over `duration`
@@ -302,14 +381,10 @@ class Animations:
         out = acc.astype(np.float32)
         return m3.quat_normalize(out) if is_rotation else out
 
-    def update(self, dt: float, transforms, meshes) -> None:
-        """Sample all playing clips and apply to targets
-        (reference: animations.rs:84 update_animations). Values from
-        several playing clips that target the same node/path blend by
-        player weight (crossfade support); the common one-clip-per-
-        target case applies directly, exactly as before."""
-        from ..utils import native
-
+    def _advance(self, dt: float):
+        """Step the crossfades and the players by dt. Returns the
+        (index, player) pairs that were active before the step, in
+        insertion order."""
         # advance crossfades first: they ramp player weights/playing
         for fade in list(self._fades):
             fade[2] += dt
@@ -335,17 +410,70 @@ class Animations:
                     dst.weight = 1.0
                 self._fades.remove(fade)
 
-        active_players = [p for p in self._players.values()
-                          if p.playing or p.time != 0.0]
-        if not active_players:
-            return
-        for player in active_players:
+        active = [(pi, p) for pi, p in enumerate(self._players.values())
+                  if p.playing or p.time != 0.0]
+        for _, player in active:
             player.advance(dt)
+        return active
 
-        if self._native_tables is None:
-            self._build_native_tables()
-        nt = self._native_tables
-        used_native = False
+    def _sample(self, nt):
+        """The LINEAR/STEP channels sampled at their players' times by the
+        native sampler, or None when the native library is unavailable
+        (or there are no such channels)."""
+        from ..utils import native
+
+        if not nt["entries"]:
+            return None
+        times = np.fromiter((p.time for p in nt["players"]), np.float32,
+                            len(nt["players"]))
+        out = np.zeros(nt["out_size"], np.float32)
+        if not native.sample_channels(
+                nt["times"], nt["values"], nt["t_off"], nt["t_len"],
+                nt["v_off"], nt["dim"], nt["mode"], times[nt["player"]],
+                nt["out_off"], out):
+            return None
+        return out
+
+    @staticmethod
+    def _apply_table(nt, rt, out, transforms, meshes) -> int:
+        """Write the row table's channels of the players that are active
+        after their step (playing, or stopped away from time 0): their
+        rows of the local TRS and morph-weight tables, one scatter each.
+        Returns the number of channels written."""
+        live = np.fromiter((p.playing or p.time != 0.0 for p in nt["players"]),
+                           bool, len(nt["players"]))
+        on = rt["table"] & live[nt["player"]]
+        n = int(np.count_nonzero(on))
+        if n == 0:
+            return 0
+
+        def elements(ent):
+            # every table channel writes (the common case): no selection
+            return slice(None) if n == rt["size"] else on[rt[ent]]
+
+        vals = out
+        if len(rt["rot_src"]):
+            vals = out.copy()
+            vals[rt["rot_src"]] = m3.quat_normalize_rows(out[rt["rot_src"]])
+        m = elements("t_ent")
+        transforms.write_local_elements(
+            rt["t_rows"][m], rt["t_cols"][m], vals[rt["t_src"][m]])
+        m = elements("w_ent")
+        src = rt["w_src"][m]
+        if src.size:
+            meshes.write_morph_weights(rt["w_rows"][elements("w_rows_ent")],
+                                       rt["w_er"][m], rt["w_ec"][m], out[src])
+        return n
+
+    def _apply_channels(self, nt, out, entries, active, transforms,
+                        meshes) -> int:
+        """The per-channel path: sampled values stashed by target, then
+        applied one target at a time — directly, by last writer, or
+        blended. `entries` are the indices of the sampler's entries to
+        take from `out` (None: all of them); without `out`, every channel
+        of the active players is sampled here instead. Cubic-spline
+        channels are always sampled here. Returns the number of values
+        stashed."""
         # sampled contributions keyed by target: blended before applying.
         # Each entry carries its (player insertion index, channel index)
         # so the full-weight "last writer wins" tie-break follows player
@@ -355,56 +483,86 @@ class Animations:
         # (cubic-spline) sampling path (r4 advisor finding: stash order
         # was native-first, so a cubic clip always won the tie).
         contrib: Dict[tuple, list] = {}
-        _order = {}
-        for pi, p in enumerate(self._players.values()):
-            for ci, c in enumerate(p.clip.channels):
-                _order[(id(p), id(c))] = (pi, ci)
 
-        def _stash(player, ch, v):
-            if ch.path == TargetPath.WEIGHTS:
-                key = ("w", ch.mesh_key, ch.path)
-            else:
-                key = ("t", ch.transform_key, ch.path)
-            contrib.setdefault(key, []).append(
-                (ch, v, player.weight, _order[(id(player), id(ch))]))
+        def _stash(order, player, ch, v):
+            contrib.setdefault(_target(ch), []).append(
+                (ch, v, player.weight, order))
 
-        if nt["entries"]:
-            t = np.asarray([p.time for p, _, _ in nt["entries"]], np.float32)
-            out = np.zeros(nt["out_size"], np.float32)
-            used_native = native.sample_channels(
-                nt["times"], nt["values"], nt["t_off"], nt["t_len"],
-                nt["v_off"], nt["dim"], nt["mode"], t, nt["out_off"], out)
-            if used_native:
-                for (player, ch, D), oo in zip(nt["entries"], nt["out_off"]):
-                    if not player.playing and player.time == 0.0:
-                        continue
-                    _stash(player, ch, out[oo : oo + D])
+        if out is not None:
+            ents, offs = nt["entries"], nt["out_off"]
+            for e in range(len(ents)) if entries is None else entries:
+                player, ch, D = ents[e]
+                if not player.playing and player.time == 0.0:
+                    continue
+                oo = offs[e]
+                _stash(nt["order"][e], player, ch, out[oo : oo + D])
 
         # python path: cubic-spline channels always; everything when the
         # native library is unavailable
-        for player in active_players:
-            for ch in player.clip.channels:
-                cubic = ch.sampler.interpolation == Interpolation.CUBIC_SPLINE
-                if used_native and not cubic:
-                    continue
-                v = ch.sampler.sample(
-                    player.time, is_rotation=(ch.path == TargetPath.ROTATION))
-                _stash(player, ch, v)
+        if out is None:
+            python = [(pi, ci, player, ch) for pi, player in active
+                      for ci, ch in enumerate(player.clip.channels)]
+        else:
+            players = dict(active)
+            python = [(pi, ci, players[pi], ch) for pi, ci, ch in nt["cubic"]
+                      if pi in players]
+        for pi, ci, player, ch in python:
+            v = ch.sampler.sample(
+                player.time, is_rotation=(ch.path == TargetPath.ROTATION))
+            _stash((pi, ci), player, ch, v)
 
-        count("animation/channels", sum(len(e) for e in contrib.values()))
-        for key, entries in contrib.items():
-            ch = entries[0][0]
-            if len(entries) == 1:
-                self._apply(ch, entries[0][1], transforms, meshes)
-            elif all(w == 1.0 for _, _, w, _ in entries):
+        for key, items in contrib.items():
+            ch = items[0][0]
+            if len(items) == 1:
+                self._apply(ch, items[0][1], transforms, meshes)
+            elif all(w == 1.0 for _, _, w, _ in items):
                 # several full-weight clips on one target: sequential
                 # overwrite, last writer wins BY PLAYER/CHANNEL
                 # INSERTION ORDER — the reference applies channels in
                 # order (animations.rs update_animations), so this is
                 # exact parity outside a crossfade
-                last = max(entries, key=lambda e: e[3])
+                last = max(items, key=lambda e: e[3])
                 self._apply(last[0], last[1], transforms, meshes)
             else:
-                v = self._blend([(v, w) for _, v, w, _ in entries],
+                v = self._blend([(v, w) for _, v, w, _ in items],
                                 is_rotation=(ch.path == TargetPath.ROTATION))
                 self._apply(ch, v, transforms, meshes)
+        return sum(len(e) for e in contrib.values())
+
+    def update(self, dt: float, transforms, meshes) -> None:
+        """Sample all playing clips and apply to targets
+        (reference: animations.rs:84 update_animations). Values from
+        several playing clips that target the same node/path blend by
+        player weight (crossfade support); the common one-clip-per-
+        target case applies directly, exactly as before.
+
+        With the native sampler and no crossfade running, the channels
+        of the row table (_row_table) are written in one scatter a
+        store; the others take the per-channel path."""
+        active = self._advance(dt)
+        if not active:
+            return
+        if self._native_tables is None:
+            self._build_native_tables()
+        nt = self._native_tables
+        out = self._sample(nt)
+        n_table, rest = 0, None
+        if out is not None and not self._fades:
+            rt = self._row_table(nt, transforms, meshes)
+            n_table = self._apply_table(nt, rt, out, transforms, meshes)
+            rest = rt["rest"]
+        n = self._apply_channels(nt, out, rest, active, transforms, meshes)
+        count("animation/channels", n_table + n)
+        count("animation/table_channels", n_table)
+
+
+# a transform path's columns in the local TRS table: (first, count)
+_TRS_COLUMNS = {TargetPath.TRANSLATION: (0, 3), TargetPath.ROTATION: (3, 4),
+                TargetPath.SCALE: (7, 3)}
+
+
+def _target(ch: AnimationChannel) -> tuple:
+    """What a channel drives: channels with the same one collide."""
+    if ch.path == TargetPath.WEIGHTS:
+        return ("w", ch.mesh_key, ch.path)
+    return ("t", ch.transform_key, ch.path)

@@ -638,6 +638,24 @@ class Meshes:
         self.morph_weights[row] = w
         self.gpu_dirty = True
 
+    def write_morph_weights(self, rows: np.ndarray, elem_rows: np.ndarray,
+                            elem_cols: np.ndarray, values: np.ndarray) -> None:
+        """Many rows of the weights table at once: each of `rows` zeroed,
+        then element i of `values` to (elem_rows[i], elem_cols[i]) — an
+        update_morph_weights per row, in one scatter. The columns lie
+        inside the table's width (the animation table widens it when it
+        is built)."""
+        mw = self.morph_weights
+        mw[rows] = 0.0
+        mw[elem_rows, elem_cols] = values
+        self.gpu_dirty = True
+
+    @property
+    def rows_version(self) -> int:
+        """Changes whenever a mesh key gains or loses its row: tables of
+        rows built from keys hold while it does."""
+        return self._mesh_alloc.version
+
     def items(self):
         return self._meshes.items()
 

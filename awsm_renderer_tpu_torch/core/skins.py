@@ -27,6 +27,17 @@ class _Skin:
     joint_keys: List[int]          # transform keys of the joints
     inverse_bind: np.ndarray       # (J, 4, 4)
     base: int                      # first row in the joint pool
+    # the joints' rows in the transform store, and the store's
+    # rows_version they were read at
+    joint_rows: Optional[np.ndarray] = None
+    rows_version: Optional[int] = None
+
+    def rows(self, transforms) -> np.ndarray:
+        if self.rows_version != transforms.rows_version:
+            self.joint_rows = np.array(
+                [transforms.row_of(k) for k in self.joint_keys], np.int64)
+            self.rows_version = transforms.rows_version
+        return self.joint_rows
 
 
 class Skins:
@@ -35,6 +46,7 @@ class Skins:
         self.joint_matrices = np.tile(np.eye(4, dtype=F), (self._alloc.capacity, 1, 1))
         self._skins: Dict[int, _Skin] = {}
         self._pending: Set[int] = set()   # inserted, matrices not yet computed
+        self._key_table = None   # every skin's joint keys; see _joint_keys
         self._next_key = 1
         self.gpu_dirty = True
         self.capacity_changed = False
@@ -51,6 +63,7 @@ class Skins:
         key = self._next_key
         self._next_key += 1
         self._skins[key] = _Skin(list(joint_transform_keys), ibm, base)
+        self._key_table = None
         # joint matrices can't be computed here (no transform graph in
         # scope): mark pending so the next flush_pending/update_transforms
         # initializes them from the CURRENT pose — without this, a skin
@@ -64,6 +77,7 @@ class Skins:
     def remove(self, key: int) -> None:
         skin = self._skins.pop(key)
         self._alloc.free(skin.base)
+        self._key_table = None
 
     def joint_rows(self, key: int) -> np.ndarray:
         try:
@@ -87,16 +101,35 @@ class Skins:
         if self._pending:
             self.update_transforms(transforms, set())
 
+    def _joint_keys(self):
+        """Every skin's joint keys in one array, in the order of
+        self._skins, and each skin's [start, stop) in it."""
+        if self._key_table is None:
+            sizes = np.array([len(s.joint_keys) for s in self._skins.values()],
+                             np.int64)
+            stops = np.cumsum(sizes)
+            keys = np.fromiter(
+                (k for s in self._skins.values() for k in s.joint_keys),
+                np.int64, int(sizes.sum()))
+            self._key_table = (keys, stops - sizes, stops)
+        return self._key_table
+
     def update_transforms(self, transforms, changed_keys: Optional[Set[int]] = None) -> None:
         """Recompute joint matrices for skins touched by `changed_keys`
         (all skins when None); pending (newly inserted) skins always
         recompute. Reference: skins.rs update_transforms."""
-        for key, skin in self._skins.items():
-            if (changed_keys is not None and key not in self._pending
-                    and not any(k in changed_keys for k in skin.joint_keys)):
+        moved = None
+        if changed_keys is not None:
+            keys, starts, stops = self._joint_keys()
+            hit = np.isin(keys, np.fromiter(changed_keys, np.int64,
+                                            len(changed_keys)))
+            total = np.concatenate(([0], np.cumsum(hit)))
+            moved = total[stops] > total[starts]
+        for i, (key, skin) in enumerate(self._skins.items()):
+            if moved is not None and not moved[i] and key not in self._pending:
                 continue
             J = len(skin.joint_keys)
-            worlds = np.stack([transforms.world_of(k) for k in skin.joint_keys])
+            worlds = transforms.world[skin.rows(transforms)]
             self.joint_matrices[skin.base : skin.base + J] = worlds @ skin.inverse_bind
             self.gpu_dirty = True
             count("skins/joints", J)

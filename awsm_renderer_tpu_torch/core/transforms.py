@@ -55,7 +55,6 @@ class Transforms:
     def __init__(self, initial_capacity: int = 64):
         self._alloc = SlotAllocator(initial_capacity)
         self._resize(initial_capacity)
-        self._local: Dict[int, Transform] = {}
         self._parent: Dict[int, Optional[int]] = {}
         self._children: Dict[int, List[int]] = {}
         self._dirty: np.ndarray = np.zeros(initial_capacity, dtype=np.uint8)
@@ -110,13 +109,12 @@ class Transforms:
             self._grow()
         t = transform or Transform()
         row = self._alloc.row_of(key)
-        self._local[key] = t
         self._parent[key] = parent
         self._children[key] = []
         self._parent_row[row] = self._alloc.row_of(parent) if parent is not None else -1
         if parent is not None:
             self._children[parent].append(key)
-        self._write_local(key, t)
+        self._write_columns(key, 0, t.to_row())
         self._topo_dirty = True
         return key
 
@@ -127,7 +125,6 @@ class Transforms:
         if parent is not None and parent in self._children:
             self._children[parent].remove(key)
         self._children.pop(key, None)
-        self._local.pop(key, None)
         row = self._alloc.row_of(key)
         self._dirty[row] = 0
         self._local_dirty[row] = False
@@ -135,33 +132,41 @@ class Transforms:
         self._alloc.remove(key)
         self._topo_dirty = True
 
-    def _write_local(self, key: int, t: Transform) -> None:
+    def _write_columns(self, key: int, col: int, values: np.ndarray) -> None:
+        """Columns col: of key's row in the local TRS table; the row's
+        other columns keep what they hold."""
         row = self._alloc.row_of(key)
-        self._local_trs[row] = t.to_row()
+        self._local_trs[row, col : col + len(values)] = values
         self._local_dirty[row] = True
         self._dirty[row] = 1
 
+    def write_local_elements(self, rows: np.ndarray, cols: np.ndarray,
+                             values: np.ndarray) -> None:
+        """Many local TRS entries at once: element i of `values` to
+        (rows[i], cols[i]), and those rows marked for the next
+        update_world. The animation table's write; a set_translation /
+        set_rotation / set_scale per element, in one scatter."""
+        self._local_trs[rows, cols] = values
+        self._local_dirty[rows] = True
+        self._dirty[rows] = 1
+
     def set_local(self, key: int, transform: Transform) -> None:
-        self._local[key] = transform
-        self._write_local(key, transform)
+        self._write_columns(key, 0, transform.to_row())
 
     def get_local(self, key: int) -> Transform:
-        return self._local[key]
+        """The local TRS as the table holds it (a copy: edit it, then
+        set_local)."""
+        row = self._local_trs[self._alloc.row_of(key)]
+        return Transform(row[0:3].copy(), row[3:7].copy(), row[7:10].copy())
 
     def set_translation(self, key: int, t) -> None:
-        tr = self._local[key]
-        tr.translation = np.asarray(t, dtype=F)
-        self._write_local(key, tr)
+        self._write_columns(key, 0, np.asarray(t, F).reshape(3))
 
     def set_rotation(self, key: int, q) -> None:
-        tr = self._local[key]
-        tr.rotation = np.asarray(q, dtype=F)
-        self._write_local(key, tr)
+        self._write_columns(key, 3, np.asarray(q, F).reshape(4))
 
     def set_scale(self, key: int, s) -> None:
-        tr = self._local[key]
-        tr.scale = np.asarray(s, dtype=F)
-        self._write_local(key, tr)
+        self._write_columns(key, 7, np.asarray(s, F).reshape(3))
 
     def set_parent(self, key: int, parent: Optional[int]) -> None:
         old = self._parent.get(key)
@@ -177,6 +182,12 @@ class Transforms:
 
     def row_of(self, key: int) -> int:
         return self._alloc.row_of(key)
+
+    @property
+    def rows_version(self) -> int:
+        """Changes whenever a key gains or loses its row: tables of
+        rows built from keys hold while it does."""
+        return self._alloc.version
 
     @property
     def capacity(self) -> int:

@@ -22,11 +22,16 @@ Growth returns a "needs resize" signal, the analog of the reference's
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 
 from ..errors import AllocatorError  # typed hierarchy (errors.py)
+
+# one sequence for every SlotAllocator: no two live allocators share a
+# version, so a table keyed on a version knows the allocator as well
+_VERSIONS = itertools.count(1)
 
 
 @dataclass
@@ -52,6 +57,9 @@ class SlotAllocator:
         self._needs_resize = False
         self._dirty: List[Tuple[int, int]] = []  # (start_row, end_row) half-open
         self._high_water = 0  # rows ever used (for dense-upload decisions)
+        # changes whenever a key gains or loses its row (insert, remove):
+        # tables of rows built from keys are valid while it holds
+        self.version = next(_VERSIONS)
 
     @property
     def capacity(self) -> int:
@@ -77,6 +85,7 @@ class SlotAllocator:
         self._next_key += 1
         self._slots[key] = row
         self._high_water = max(self._high_water, row + 1)
+        self.version = next(_VERSIONS)
         self.mark_dirty(key)
         return key
 
@@ -94,6 +103,7 @@ class SlotAllocator:
         row = self.row_of(key)
         del self._slots[key]
         self._free.append(row)
+        self.version = next(_VERSIONS)
         return row
 
     def mark_dirty(self, key: int) -> None:

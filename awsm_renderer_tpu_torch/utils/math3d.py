@@ -29,6 +29,18 @@ def quat_normalize(q: np.ndarray) -> np.ndarray:
     return (q / n).astype(F)
 
 
+def quat_normalize_rows(q: np.ndarray) -> np.ndarray:
+    """quat_normalize on each row of a float32 (N, 4) array, to the bit:
+    the squared norm through the same float32 dot (a row times itself,
+    which matmul takes to the dot that linalg.norm uses), then the same
+    division; the identity where the norm is 0."""
+    n = np.sqrt(np.matmul(q[:, None, :], q[:, :, None])[:, 0, 0])
+    zero = n == 0
+    out = (q / np.where(zero, F(1), n)[:, None]).astype(F)
+    out[zero] = quat_identity()
+    return out
+
+
 def quat_mul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     ax, ay, az, aw = a
     bx, by, bz, bw = b
